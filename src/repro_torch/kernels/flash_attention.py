@@ -1,0 +1,115 @@
+"""Flash attention for Hopper: the CUDA kernel's wrapper and its plain version.
+
+Counterpart of ``repro.kernels.flash_attention`` (``flash_attention_pallas``).
+The kernel is ``csrc/flash_attention.cu``: one thread block per (64-row q
+tile, head, batch), a loop over 64-row K/V tiles staged through shared memory,
+``mma.sync`` bf16 products with fp32 accumulation. It takes bf16 and head_dim
+64 or 128; its source note gives its bound on the H100 and the design.
+
+``flash_attention_cuda`` routes by where the tensors lie: on the CPU it runs
+the plain version (the torch twin of ``ref.mha_chunked``); on a CUDA tensor it
+launches the kernel or raises. It never falls back from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build, ref
+
+BLOCK_Q = 64
+BLOCK_K = 64
+HEAD_DIMS = (64, 128)
+
+
+def smem_bytes(block_q: int = BLOCK_Q, block_k: int = BLOCK_K, d: int = 128,
+               dtype_bytes: int = 2, stages: int = 2, pad: int = 8) -> int:
+    """Shared memory of one block (counterpart of ``vmem_bytes``).
+
+    The Q tile plus ``stages`` K and V tiles, each row padded by ``pad``
+    elements against bank conflicts. Must stay within the 227 KB a block
+    may use on Hopper.
+    """
+    return (block_q + 2 * stages * block_k) * (d + pad) * dtype_bytes
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_fwd_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                             f, i, i, f, i, i, p]
+    lib.flash_attention_fwd_bf16.restype = i
+    lib.flash_attention_smem_bytes.argtypes = [i]
+    lib.flash_attention_smem_bytes.restype = i
+    return lib
+
+
+def check_inputs(q, k, v) -> None:
+    """Raise ``ValueError`` for what the kernel does not take."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("expected q (B,Sq,H,D) and k, v (B,Sk,KVH,D)")
+    B, _, H, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
+        raise ValueError(f"shapes do not match: q {tuple(q.shape)}, "
+                         f"k/v {tuple(k.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} is not supported; the kernel takes "
+                         f"{HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name} is {t.dtype}; the kernel takes bfloat16")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
+                          scale=None, q_offset=0, kv_valid=None):
+    """The kernel's function in plain torch (fp32 inside, q's dtype out)."""
+    kv_len = None if kv_valid is None else min(int(kv_valid), k.shape[1])
+    return ref.mha_chunked(q, k, v, causal=causal, window=window,
+                           logit_softcap=softcap, scale=scale,
+                           q_offset=q_offset, kv_len=kv_len)
+
+
+def flash_attention_cuda(q, k, v, *, causal=True, window=0, softcap=0.0,
+                         scale=None, q_offset=0, kv_valid=None):
+    """q: (B, Sq, H, D); k, v: (B, Sk, KVH, D) -> (B, Sq, H, D).
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel on the
+    current stream; ``flash_attention_cuda.launches`` counts the launches.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale,
+                                     q_offset=q_offset, kv_valid=kv_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    check_inputs(q, k, v)
+    B, Sq, H, D = q.shape
+    _, Sk, KVH, _ = k.shape
+    scale = D ** -0.5 if scale is None else float(scale)
+    kv_valid = Sk if kv_valid is None else min(int(kv_valid), Sk)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().flash_attention_fwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, Sq, Sk, H, KVH, D, scale, int(causal), int(window),
+            float(softcap), int(q_offset), kv_valid, stream)
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed "
+                           f"(cudaError_t {err})")
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0

@@ -1,0 +1,71 @@
+"""Kernel entry points with device dispatch.
+
+Counterpart of ``repro.kernels.ops``. ``flash_attention`` goes to the
+hand-written kernel's wrapper, which runs the CUDA kernel on a CUDA tensor and
+its plain version on a CPU tensor. ``decode_attention``
+is plain torch on every device: it is a GEMV in the reference too, not a
+Pallas kernel (a split-KV decode kernel is queued in ROADMAP.md).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from .flash_attention import flash_attention_cuda
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
+                    scale=None, q_offset=0, kv_len=None):
+    """Multi-head GQA attention; see ``ref.mha_naive`` for semantics.
+
+    kv_len: None or a python int, the number of valid cache entries.
+    """
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                softcap=logit_softcap, scale=scale,
+                                q_offset=q_offset, kv_valid=kv_len)
+
+
+def decode_attention(q, k, v, *, window=0, logit_softcap=0.0, scale=None,
+                     q_offset, kv_len, bf16_kv: bool = True):
+    """Single-token (Sq small) attention over a cache; plain torch GEMV path.
+
+    q_offset/kv_len may be ints or tensors (dynamic decode position).
+
+    bf16_kv mirrors the reference's mixed precision: scores of the stored K
+    in fp32 (the reference's ``preferred_element_type``), softmax in fp32,
+    and P rounded to V's dtype before the PV product, accumulated in fp32.
+    A product of two bf16 values is exact in fp32, so contracting fp32
+    copies gives those fp32 sums; an einsum on the bf16 tensors themselves
+    would round the scores to bf16.
+    """
+    B, Sq, H, D = q.shape
+    _, Sk, KVH, _ = k.shape
+    g = H // KVH
+    dev = q.device
+    scale = scale if scale is not None else D ** -0.5
+    if bf16_kv:
+        qf = q.float().reshape(B, Sq, KVH, g, D)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    else:
+        qf = (q.float() * scale).reshape(B, Sq, KVH, g, D)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
+    if logit_softcap:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    # python ints stay kernel arguments: a host-to-card copy of a scalar
+    # would wait for the stream on every layer of every decode step
+    if isinstance(q_offset, torch.Tensor):
+        q_offset = q_offset.to(dev)[..., None]
+    if isinstance(kv_len, torch.Tensor):
+        kv_len = torch.broadcast_to(kv_len.to(dev), (B,))[:, None, None]
+    q_pos = torch.broadcast_to(q_offset + torch.arange(Sq, device=dev), (B, Sq))
+    k_pos = torch.arange(Sk, device=dev)
+    m = k_pos[None, None, :] <= q_pos[..., None]
+    m &= k_pos[None, None, :] < kv_len
+    if window:
+        m &= q_pos[..., None] - k_pos[None, None, :] < window
+    s = torch.where(m[:, None, None], s, ref.NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    if bf16_kv:
+        p = p.to(v.dtype)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.float(), v.float())
+    return o.reshape(B, Sq, H, D).to(q.dtype)

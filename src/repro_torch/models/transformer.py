@@ -1,0 +1,243 @@
+"""Decoder stack: layer plans, a loop over stacked layers, caches.
+
+Counterpart of ``repro.models.transformer`` for the dense family. Every
+architecture is a *layer plan*, a tuple of ``GroupDesc`` entries; each group's
+parameters are stacked per layer (leading ``layers`` axis, the reference's
+layout), and the group runs as a Python loop that indexes layer ``i`` of the
+stacked tensors in place of ``jax.lax.scan``.
+
+Modes: ``train`` (no cache), ``prefill`` (flash attention + cache write at 0),
+``decode`` (single-token step over the cache). The MoE, SSM, hybrid,
+encoder-decoder and VLM families raise ``NotImplementedError`` naming the
+ROADMAP.md item that ports them.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .attention import apply_attention, attention_specs
+from .common import (ParamSpec, apply_norm, dtype_of, norm_spec, softcap,
+                     stack_specs)
+from .ffn import apply_ffn, ffn_specs
+
+_NOT_PORTED = {
+    "moe": "the MoE family (ROADMAP.md A8)",
+    "ssm": "the SSM and hybrid families (ROADMAP.md A9)",
+    "hybrid": "the SSM and hybrid families (ROADMAP.md A9)",
+    "shared_attn": "the hybrid family (ROADMAP.md A9)",
+    "encdec": "the encoder-decoder family (ROADMAP.md A5)",
+    "cross_attn": "the encoder-decoder and VLM families (ROADMAP.md A5, A7)",
+    "vlm": "the VLM family (ROADMAP.md A7)",
+}
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what!r} is not ported yet: it comes with "
+                               f"{_NOT_PORTED[what]}")
+
+
+@dataclass(frozen=True)
+class BlockDesc:
+    kind: str            # attn | ffn | parallel (dense); others not ported yet
+    window: int = 0
+    d_ff: int = 0        # ffn width override (0 -> cfg.d_ff)
+    causal: bool = True
+
+
+@dataclass(frozen=True)
+class GroupDesc:
+    repeat: int
+    blocks: tuple[BlockDesc, ...]
+
+
+A, F = BlockDesc("attn"), BlockDesc("ffn")
+
+
+def layer_plan(cfg) -> tuple[GroupDesc, ...]:
+    if cfg.family in _NOT_PORTED:
+        raise _not_ported(cfg.family)
+    if cfg.parallel_block:
+        return (GroupDesc(cfg.n_layers, (BlockDesc("parallel"),)),)
+    if cfg.alt_local_global:
+        assert cfg.n_layers % 2 == 0
+        return (GroupDesc(cfg.n_layers // 2,
+                          (BlockDesc("attn", window=cfg.sliding_window), F,
+                           A, F)),)
+    # plain dense decoder
+    w = cfg.sliding_window
+    attn = BlockDesc("attn", window=w) if w else A
+    return (GroupDesc(cfg.n_layers, (attn, F)),)
+
+
+# ---------------------------------------------------------------------------
+# Specs
+# ---------------------------------------------------------------------------
+
+
+def _block_specs(cfg, b: BlockDesc) -> dict:
+    spec: dict = {"norm": norm_spec(cfg)}
+    if cfg.post_block_norm:
+        spec["post_norm"] = norm_spec(cfg)
+    if b.kind == "attn":
+        spec["attn"] = attention_specs(cfg)
+    elif b.kind == "ffn":
+        spec["ffn"] = ffn_specs(cfg, d_ff=b.d_ff or cfg.d_ff)
+    elif b.kind == "parallel":
+        spec["attn"] = attention_specs(cfg)
+        spec["ffn"] = ffn_specs(cfg)
+    elif b.kind in _NOT_PORTED:
+        raise _not_ported(b.kind)
+    else:
+        raise ValueError(b.kind)
+    return spec
+
+
+def _group_specs(cfg, gd: GroupDesc) -> dict:
+    blocks = {f"b{i}": _block_specs(cfg, b) for i, b in enumerate(gd.blocks)}
+    return stack_specs(blocks, gd.repeat)
+
+
+def lm_specs(cfg) -> dict:
+    spec: dict = {
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                           init="embed", scale=0.02),
+        "final_norm": norm_spec(cfg),
+        "groups": {f"g{i}": _group_specs(cfg, gd)
+                   for i, gd in enumerate(layer_plan(cfg))},
+    }
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
+                                    ("embed", "vocab"))
+    return spec
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg, batch: int, max_len: int, *, device,
+               kv_dtype=torch.bfloat16) -> dict:
+    """Decode cache mirroring the layer plan: per attention block, k/v of
+    (repeat, batch, max_len, kv_heads, head_dim). Cross-attention caches
+    (``enc_len``) come with the encoder-decoder and VLM families."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+    groups = {}
+    for i, gd in enumerate(layer_plan(cfg)):
+        blocks = {}
+        for j, b in enumerate(gd.blocks):
+            if b.kind in ("attn", "parallel"):
+                blocks[f"b{j}"] = {
+                    "k": torch.zeros((gd.repeat, *shape), dtype=kv_dtype,
+                                     device=device),
+                    "v": torch.zeros((gd.repeat, *shape), dtype=kv_dtype,
+                                     device=device)}
+        groups[f"g{i}"] = blocks
+    return {"groups": groups}
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a tree of stacked tensors (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _apply_block(bp, x, b: BlockDesc, *, cfg, mode, cache, cache_index,
+                 positions):
+    """One residual block. Returns (x, new_cache|None).
+
+    Dense blocks add no auxiliary loss; the reference's ``aux`` return comes
+    back with the MoE family."""
+    new_cache = None
+
+    def maybe_post(out, p):
+        return apply_norm(p["post_norm"], out, cfg) if cfg.post_block_norm else out
+
+    if b.kind == "attn":
+        h = apply_norm(bp["norm"], x, cfg)
+        out, new_cache = apply_attention(
+            bp["attn"], h, cfg=cfg, window=b.window, positions=positions,
+            cache=cache, cache_index=cache_index, causal=b.causal, mode=mode)
+        x = x + maybe_post(out, bp)
+    elif b.kind == "parallel":  # command-r: one norm, attn || ffn
+        h = apply_norm(bp["norm"], x, cfg)
+        out_a, new_cache = apply_attention(
+            bp["attn"], h, cfg=cfg, window=b.window, positions=positions,
+            cache=cache, cache_index=cache_index, mode=mode)
+        out_f = apply_ffn(bp["ffn"], h, cfg=cfg)
+        x = x + out_a + out_f
+    elif b.kind == "ffn":
+        h = apply_norm(bp["norm"], x, cfg)
+        x = x + maybe_post(apply_ffn(bp["ffn"], h, cfg=cfg), bp)
+    elif b.kind in _NOT_PORTED:
+        raise _not_ported(b.kind)
+    else:
+        raise ValueError(b.kind)
+    return x, new_cache
+
+
+def _apply_group(gp, x, gd: GroupDesc, *, cfg, mode, cache, cache_index,
+                 positions):
+    """Run the group's ``repeat`` stacked layers in order.
+
+    The cache is written in place, so the group's new cache is ``cache``.
+    """
+    for i in range(gd.repeat):
+        bp_all = _layer(gp, i)
+        bc_all = None if cache is None else _layer(cache, i)
+        for j, b in enumerate(gd.blocks):
+            key = f"b{j}"
+            bc = None if bc_all is None else bc_all.get(key)
+            x, _ = _apply_block(
+                bp_all[key], x, b, cfg=cfg, mode=mode, cache=bc,
+                cache_index=cache_index, positions=positions)
+    return x, cache
+
+
+def forward(params, inputs, *, cfg, mode="train", cache=None,
+            cache_index=None):
+    """Run the model.
+
+    inputs: {'tokens': (B, S) int}. Returns (logits fp32, new_cache|None,
+    aux_loss, zero for the dense family).
+    """
+    if cfg.family in _NOT_PORTED:
+        raise _not_ported(cfg.family)
+    tokens = inputs["tokens"]
+    B, Sq = tokens.shape
+    dev = tokens.device
+    x = params["embed"][tokens].to(dtype_of(cfg.activ_dtype))
+    if cfg.embed_scale:   # the scale rounded to x's dtype, as the reference does
+        x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
+
+    if cache_index is None:
+        positions = torch.arange(Sq, device=dev)[None, :]
+        cache_index = 0 if cache is not None else None
+    else:
+        positions = int(cache_index) + torch.arange(Sq, device=dev)[None, :]
+
+    new_groups = {}
+    for i, gd in enumerate(layer_plan(cfg)):
+        gcache = None if cache is None else cache["groups"].get(f"g{i}")
+        x, ncache = _apply_group(
+            params["groups"][f"g{i}"], x, gd, cfg=cfg, mode=mode,
+            cache=gcache, cache_index=cache_index, positions=positions)
+        if ncache is not None:
+            new_groups[f"g{i}"] = ncache
+
+    x = apply_norm(params["final_norm"], x, cfg)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].T
+    else:
+        logits = x @ params["lm_head"]
+    logits = softcap(logits.float(), cfg.final_logit_softcap)
+    new_cache = {"groups": new_groups} if cache is not None else None
+    return logits, new_cache, torch.zeros((), dtype=torch.float32, device=dev)

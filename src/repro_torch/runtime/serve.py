@@ -1,0 +1,97 @@
+"""Serving steps: prefill, decode over the KV cache, sampling, batching.
+
+Counterpart of the local (``mesh=None``) path of ``repro.runtime.serve``.
+PyTorch runs eagerly, so the steps are plain functions; ``ServeSession`` is
+the real-execution path (batched prefill, then a decode loop).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .._bridge import resolve_device
+from ..models.common import dtype_of
+from ..models.model_zoo import Model
+
+
+@dataclass(frozen=True)
+class ServeOptions:
+    kv_dtype: str = "bfloat16"
+    temperature: float = 0.0      # 0 = greedy
+
+
+def _next_token(last, opts: ServeOptions, generator=None):
+    """(B, V) fp32 logits -> (B, 1) tokens: argmax (first maximum, as
+    ``jnp.argmax``), or a draw from ``generator`` when temperature > 0."""
+    if opts.temperature > 0 and generator is not None:
+        probs = torch.softmax(last / opts.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)
+    return torch.argmax(last, dim=-1)[:, None]
+
+
+def build_prefill_step(model: Model, opts: ServeOptions):
+    del opts  # no prefill option yet; kept for the reference's signature
+
+    def prefill(params, inputs, cache):
+        logits, cache, _ = model.apply(params, inputs, mode="prefill",
+                                       cache=cache, cache_index=0)
+        return logits[:, -1], cache
+
+    return prefill
+
+
+def build_decode_step(model: Model, opts: ServeOptions):
+
+    def decode(params, cache, tokens, index, generator=None):
+        """tokens: (B, 1); index: int position. -> (next, last, cache)."""
+        logits, cache, _ = model.apply(params, {"tokens": tokens},
+                                       mode="decode", cache=cache,
+                                       cache_index=index)
+        last = logits[:, -1]
+        return _next_token(last, opts, generator), last, cache
+
+    return decode
+
+
+class ServeSession:
+    """Batched request serving against a locally-materialized model.
+
+    ``device`` defaults to ``cuda`` and raises when no card is present;
+    ``params`` must already live there. Sampling (temperature > 0) draws
+    from the session's generator, seeded with ``seed``.
+    """
+
+    def __init__(self, model: Model, params, opts: ServeOptions = ServeOptions(),
+                 *, device=None, seed: int = 0):
+        self.device = resolve_device(device)
+        where = params["embed"].device
+        if where.type != self.device.type:
+            raise ValueError(f"params are on {where}, the session on "
+                             f"{self.device}")
+        self.model, self.params, self.opts = model, params, opts
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self._prefill = build_prefill_step(model, opts)
+        self._decode = build_decode_step(model, opts)
+
+    @torch.inference_mode()
+    def generate(self, prompts, max_new_tokens: int = 32):
+        """prompts: (B, S) int tensor -> (B, max_new_tokens) int64.
+
+        Modality inputs (the reference's ``extras``) come with the
+        encoder-decoder and VLM families."""
+        prompts = torch.as_tensor(prompts, device=self.device)
+        B, S = prompts.shape
+        cache = self.model.init_cache(B, S + max_new_tokens,
+                                      device=self.device,
+                                      kv_dtype=dtype_of(self.opts.kv_dtype))
+        last_logits, cache = self._prefill(self.params, {"tokens": prompts},
+                                           cache)
+        tok = _next_token(last_logits, self.opts, self.generator)
+        out = [tok]
+        for idx in range(S, S + max_new_tokens - 1):
+            tok, _, cache = self._decode(self.params, cache, tok, idx,
+                                         self.generator)
+            out.append(tok)
+        return torch.cat(out, dim=1)

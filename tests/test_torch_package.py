@@ -1,0 +1,162 @@
+"""Hygiene of the PyTorch/CUDA port: what it imports, where it runs, what
+crosses the bridge, and the on-card script's behaviour without a card."""
+import dataclasses
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import ml_dtypes  # noqa: E402
+
+from repro.configs import deepseek_7b as jax_deepseek  # noqa: E402
+from repro.configs.base import ModelConfig as JaxModelConfig  # noqa: E402
+from repro_torch import _bridge  # noqa: E402
+from repro_torch.configs import deepseek_7b  # noqa: E402
+from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models.model_zoo import build_model  # noqa: E402
+from repro_torch.runtime import serve  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "src" / "repro_torch"
+
+_IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+sys.path[:0] = [{src!r}, {root!r}]
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps(bad))
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = _IMPORT_ALL.format(src=str(ROOT / "src"), root=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("path", sorted(
+    p.relative_to(ROOT).as_posix()
+    for p in [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py"]))
+def test_source_names_no_jax_or_repro_import(path):
+    for line in (ROOT / path).read_text().splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]) and len(words) > 1:
+            top = words[1].split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), line
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _reduced():
+    model = build_model(get_config("deepseek-7b", reduced=True))
+    return model, model.init(torch.Generator().manual_seed(0))
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    model, params = _reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.ServeSession(model, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main(["--reduced", "--requests", "1", "--batch", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _bridge.params_from_numpy({"x": np.zeros(2, np.float32)})
+    assert _bridge.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_attention_never_builds_the_kernel(no_cuda, monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"tried to build {name}")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 16, 2, 64),
+                                                    np.float32)).bfloat16()
+               for _ in range(3))
+    out = ops.flash_attention(q, k, v)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    model, params = _reduced()
+    sess = serve.ServeSession(model, params, device="cpu")
+    assert sess.generate(torch.zeros(1, 4, dtype=torch.long), 2).shape == (1, 2)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, ml_dtypes.bfloat16])
+def test_bridge_round_trip(dtype):
+    rng = np.random.default_rng(0)
+    tree = {"a": rng.standard_normal((3, 4)).astype(dtype),
+            "g": {"b": rng.standard_normal((2,)).astype(dtype)}}
+    tensors = _bridge.params_from_numpy(tree, "cpu")
+    assert tensors["g"]["b"].shape == (2,)
+    back = _bridge.params_to_numpy(tensors)
+    for got, want in ((back["a"], tree["a"]), (back["g"]["b"], tree["g"]["b"])):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+
+
+def test_bridge_bf16_keeps_values():
+    a = np.array([1.0, -2.5, 3.140625], dtype=ml_dtypes.bfloat16)
+    t = _bridge.params_from_numpy({"x": a}, "cpu")["x"]
+    assert t.dtype == torch.bfloat16
+    assert t.float().tolist() == [1.0, -2.5, 3.140625]
+
+
+def test_configs_are_copies_of_the_reference():
+    assert [f.name for f in dataclasses.fields(ModelConfig)] == \
+        [f.name for f in dataclasses.fields(JaxModelConfig)]
+    for port, ref_cfg in ((deepseek_7b.CONFIG, jax_deepseek.CONFIG),
+                          (deepseek_7b.REDUCED, jax_deepseek.REDUCED)):
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref_cfg)
+    assert ARCH_IDS == ("deepseek-7b",)
+    assert get_config("deepseek-7b").n_layers == 30
+    with pytest.raises(KeyError):
+        get_config("mamba2-370m")
+
+
+def test_full_width_size():
+    """deepseek-7b at full width: ~6.9e9 parameters, ~13.8 GB in bf16."""
+    n = build_model(get_config("deepseek-7b")).param_count()
+    assert 6.8e9 < n < 7.0e9
+
+
+@pytest.fixture
+def chip_smoke(monkeypatch):
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+    return chip_smoke
+
+
+def test_chip_smoke_fails_without_a_card(chip_smoke, no_cuda, capsys):
+    assert chip_smoke.main() != 0
+    assert capsys.readouterr().out == ""
+
+
+def test_chip_smoke_counts_the_work_the_masks_leave(chip_smoke):
+    for kw in ({}, {"window": 5}, {"q_offset": 9, "kv_valid": 10},
+               {"causal": False}):
+        Sq, Sk = (1, 16) if "q_offset" in kw else (12, 12)
+        kv_len = torch.tensor([kw["kv_valid"]]) if "kv_valid" in kw else None
+        mask = ref._mask(torch.arange(Sq)[None] + kw.get("q_offset", 0),
+                         torch.arange(Sk)[None], causal=kw.get("causal", True),
+                         window=kw.get("window", 0), kv_len=kv_len)
+        assert chip_smoke.attended_pairs(Sq, Sk, **kw) == int(mask.sum())
+    ms, by = chip_smoke.attention_bound_ms(4, 2048, 2048, 32, 32, 128, {})
+    assert by == "operations" and abs(ms - 0.139) < 0.001

@@ -1,0 +1,119 @@
+"""Port vs reference: ``ServeSession.generate`` and the serving launcher.
+
+Greedy tokens must equal the JAX session's wherever the reference's top-2
+logit margin exceeds the tolerance: a bf16 near-tie may flip an argmax, and
+after a flip the two sequences rightly go apart.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.registry import get_config as jax_get_config  # noqa: E402
+from repro.models.model_zoo import build_model as jax_build_model  # noqa: E402
+from repro.runtime import serve as jserve  # noqa: E402
+from repro_torch._bridge import params_from_numpy  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models.model_zoo import build_model  # noqa: E402
+from repro_torch.runtime import serve  # noqa: E402
+
+TOL = {"float32": 1e-4, "bfloat16": 6e-2}
+B, S, N = 2, 8, 8
+
+
+def _pair(dtype, **overrides):
+    kw = dict(overrides, param_dtype=dtype, activ_dtype=dtype)
+    jm = jax_build_model(jax_get_config("deepseek-7b", reduced=True).replace(**kw))
+    tm = build_model(get_config("deepseek-7b", reduced=True).replace(**kw))
+    jp = jm.init(jax.random.PRNGKey(0))
+    return jm, jp, tm, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def _prompts(seed=4, vocab=256):
+    return np.random.default_rng(seed).integers(0, vocab, (B, S)).astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype,overrides", [
+    ("bfloat16", {}), ("bfloat16", {"n_kv_heads": 2}), ("float32", {})])
+def test_generate_matches_reference(dtype, overrides):
+    jm, jp, tm, tp = _pair(dtype, **overrides)
+    prompts = _prompts()
+    want = np.asarray(jserve.ServeSession(jm, jp).generate(
+        jnp.asarray(prompts), max_new_tokens=N))
+    got = serve.ServeSession(tm, tp, device="cpu").generate(
+        torch.from_numpy(prompts), max_new_tokens=N).numpy()
+    assert got.shape == want.shape == (B, N)
+
+    # the reference's logits at each step of its own greedy path
+    seq = np.concatenate([prompts, want[:, :-1]], axis=1)
+    logits, _, _ = jm.apply(jp, {"tokens": jnp.asarray(seq)}, mode="train")
+    top2 = np.sort(np.asarray(logits[:, S - 1:], np.float32), axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    for b in range(B):
+        for i in range(N):
+            if got[b, i] != want[b, i]:
+                assert margin[b, i] <= TOL[dtype], (b, i, margin[b, i])
+                break
+
+
+def test_sampling_is_seeded_and_in_range():
+    _, _, tm, tp = _pair("float32")
+    prompts = torch.from_numpy(_prompts())
+    opts = serve.ServeOptions(temperature=1.0)
+
+    def draw(seed):
+        sess = serve.ServeSession(tm, tp, opts, device="cpu", seed=seed)
+        return sess.generate(prompts, max_new_tokens=N)
+
+    a, b, c = draw(3), draw(3), draw(4)
+    assert a.shape == (B, N)
+    assert bool(((a >= 0) & (a < tm.cfg.vocab_size)).all())
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c)
+
+
+def test_greedy_next_token_takes_the_first_maximum():
+    last = torch.tensor([[0.0, 2.0, 2.0, 1.0], [3.0, 3.0, 3.0, 3.0]])
+    assert serve._next_token(last, serve.ServeOptions()).tolist() == [[1], [0]]
+
+
+def test_prefill_and_decode_steps_shapes():
+    _, _, tm, tp = _pair("float32")
+    prompts = torch.from_numpy(_prompts()).long()
+    cache = tm.init_cache(B, S + 1, device="cpu")
+    last, cache = serve.build_prefill_step(tm, serve.ServeOptions())(
+        tp, {"tokens": prompts}, cache)
+    assert last.shape == (B, tm.cfg.vocab_size) and last.dtype == torch.float32
+    k = cache["groups"]["g0"]["b0"]["k"]
+    assert k.shape == (tm.cfg.n_layers, B, S + 1, tm.cfg.n_kv_heads,
+                       tm.cfg.head_dim_)
+    assert bool(k[:, :, S:].eq(0).all()) and not bool(k[:, :, :S].eq(0).all())
+    nxt, last, cache = serve.build_decode_step(tm, serve.ServeOptions())(
+        tp, cache, last.argmax(-1)[:, None], S)
+    assert nxt.shape == (B, 1) and not bool(k[:, :, S].eq(0).all())
+
+
+def test_launcher_runs_reduced_on_cpu(capsys):
+    out = launch_serve.main(["--reduced", "--device", "cpu", "--requests", "3",
+                             "--batch", "2", "--prompt-len", "8",
+                             "--max-new", "4"])
+    assert out["batches"] == 2 and out["tok_per_s"] > 0
+    assert "[serve] deepseek-7b on cpu" in capsys.readouterr().out
+
+
+def test_launcher_defaults_to_full_width(monkeypatch):
+    """--reduced is off unless asked for (the JAX launcher cannot turn it off)."""
+    seen = {}
+
+    def fake_config(arch, reduced=False):
+        seen["reduced"] = reduced
+        raise SystemExit(0)
+
+    monkeypatch.setattr(launch_serve, "get_config", fake_config)
+    with pytest.raises(SystemExit):
+        launch_serve.main(["--device", "cpu"])
+    assert seen == {"reduced": False}
