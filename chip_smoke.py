@@ -4,40 +4,60 @@
     python3 chip_smoke.py
 
 Needs one CUDA card; exits non-zero, printing no result, without one or
-outside a checkout of the repository. Phases, each printed as one JSON line:
+outside a checkout of the repository. Phases, each printed as JSON lines:
 
 1. card:    the card's name and power limit, and the kernel build time
-            (``nvcc`` builds ``src/repro_torch/csrc/*.cu`` at first use).
+            (``nvcc`` builds every ``src/repro_torch/csrc/*.cu`` at once).
 2. kernel:  the flash-attention kernel against its plain PyTorch version on
-            the card, bf16, on the kernel-test grid and on the serving shape
-            (B=4, S=2048, H=KVH=32, D=128, causal): elementwise within 2e-2,
-            and the worst row and the whole output within relative-norm
-            limits that two injected faults (the last K/V tile dropped or
-            stale) are shown to exceed. At the serving shape, kernel and
-            plain version against an fp32-output reference (what rounding P
-            to bf16 adds), and medians of CUDA-event timings of the kernel,
-            the plain version and ``F.scaled_dot_product_attention`` (a
-            yardstick the port never calls).
-3. serve:   the main path: ``ServeSession.generate`` on deepseek-7b at full
-            width (30 layers, d_model 4096) with random bf16 weights from a
-            seeded generator, two batches of 4 prompts of 2048 tokens, 64 new
-            greedy tokens each. The kernel's launch count is reset just before
-            and read just after; every prefill must launch it once per layer.
-4. agree:   one full-width prefill through the kernel and the same prefill
-            through the plain attention: logits at every prompt position
-            within a stated multiple of the network's own bf16 noise floor,
-            argmax equal wherever the top-2 margin exceeds that limit, and a
-            prefill with an injected fault shown to exceed it.
-5. trace:   torch.profiler over one prefill and a few decode steps: device
-            busy time, idle share and the kernels that take the most time.
+            the card, bf16, on the kernel-test grid, on deepseek-7b's serving
+            shape (B=4, S=2048, H=KVH=32, D=128, causal) and on zamba2-7b's
+            (the same at D=112): elementwise within 2e-2, and the worst row
+            and the whole output within relative-norm limits that two
+            injected faults (the last K/V tile dropped or stale) are shown to
+            exceed. At the serving shapes, kernel and plain version against
+            an fp32-output reference (what rounding P to bf16 adds), and
+            medians of CUDA-event timings of the kernel, the plain version
+            and ``F.scaled_dot_product_attention`` (a yardstick the port
+            never calls).
+   ssd:     the SSD-scan kernel against its plain version: the kernel-test
+            grid in fp32 within 1e-4 on y and on the state, and the prefill
+            shapes of zamba2-7b and mamba2-370m (B=4, L=2048, chunk 256) in
+            bf16, within an elementwise limit on y and relative-norm limits
+            on y and the fp32 state that two injected faults (the carried
+            state dropped in the last chunk; one 64-step tile of the last
+            chunk dropped) are shown to exceed; timings of the kernel and
+            the plain version there.
+3. serve:   the main paths: ``ServeSession.generate`` at full width, random
+            bf16 weights from a seeded generator, two batches of 4 prompts of
+            2048 tokens, 64 new greedy tokens each, on deepseek-7b (30
+            layers, d_model 4096), zamba2-7b (81 SSM layers and 13 shared
+            attention blocks, d_model 3584) and mamba2-370m (48 layers,
+            d_model 1024). The kernels' launch counts are reset just before
+            each path and read just after it; every prefill must launch the
+            flash kernel once per attention block and the SSD kernel once per
+            SSM layer.
+4. agree:   deepseek-7b and zamba2-7b: one full-width prefill through the
+            kernels and the same prefill through their plain versions: logits
+            at every prompt position within a stated multiple of the
+            network's own bf16 noise floor, argmax equal wherever the top-2
+            margin exceeds that limit, and a prefill with an injected fault
+            shown to exceed it. For zamba2-7b also 8 decode steps from each
+            prefill's cache, held the same way, with a dropped SSM-state
+            handoff shown to exceed the limit.
+5. trace:   torch.profiler over one prefill and a few decode steps of
+            deepseek-7b and of zamba2-7b: device busy time, idle share and
+            the kernels that take the most time.
 
-Then a ``kernels`` line (one entry per kernel of the path), the card's
+Then a ``kernels`` line (one entry per kernel of the paths), the card's
 ``nvidia-smi`` name and power limit, and last the device line. Any failure
 raises, so the script never prints the last line after a failed phase.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -52,7 +72,12 @@ ROW_RTOL = 2e-2            # worst (b, q, h) row: |kernel - plain| / |plain|, 2-
 NORM_RTOL = 5e-3           # whole output: |kernel - plain| / |plain|, 2-norms
 FLOOR_MULT = 3.0           # full-width logits: limit = FLOOR_MULT x the noise floor (phase 4)
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
+PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 peak outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
+SSD_GRID_TOL = 1e-4        # fp32 grid, y and state (tests/test_kernels.py TestSSDScan)
+SSD_Y_TOL = 2e-2           # bf16 y at the model shapes, elementwise
+SSD_Y_RTOL = 1e-3          # bf16 y at the model shapes, whole-tensor relative norm
+SSD_STATE_RTOL = 1e-4      # fp32 state at the model shapes, relative norm
 
 # (name, B, Sq, Sk, H, KVH, D, options): the TestFlashAttention grid of
 # tests/test_kernels.py at head_dim 64 and 128 (the kernel's), one non-causal
@@ -69,8 +94,24 @@ GRID = [
     ("noncausal_cross_70x130", 1, 70, 130, 4, 2, 128, {"causal": False}),
 ]
 SERVE_SHAPE = ("serve_prefill", 4, 2048, 2048, 32, 32, 128, {})
+ZAMBA_SHAPE = ("zamba2_prefill", 4, 2048, 2048, 32, 32, 112, {})
 KV_TILE = 64               # the kernel's K/V tile (BLOCK_K), the unit of the injected faults
 SERVE_BATCHES, SERVE_BATCH, PROMPT_LEN, MAX_NEW = 2, 4, 2048, 64
+# (name, B, L, H, P, N, G, chunk, dtype): the TestSSDScan grid of
+# tests/test_kernels.py in fp32, and the models' prefill shapes in bf16
+SSD_GRID = [
+    ("grid_64", 1, 64, 2, 16, 16, 1, 16, "float32"),
+    ("grid_128_g2", 2, 128, 4, 32, 16, 2, 32, "float32"),
+    ("grid_96", 1, 96, 2, 16, 32, 1, 32, "float32"),
+]
+SSD_MODEL_SHAPES = [
+    ("zamba2-7b", 4, 2048, 112, 64, 64, 2, 256, "bfloat16"),
+    ("mamba2-370m", 4, 2048, 32, 64, 128, 1, 256, "bfloat16"),
+]
+SSD_TILE = 64              # the SSD kernel's (t, s) tile, the unit of a fault
+# the main paths in order, each with the decode steps its agreement phase
+# holds (None: no agreement and trace phases)
+SERVE_PATHS = (("deepseek-7b", 0), ("zamba2-7b", 8), ("mamba2-370m", None))
 
 
 def emit(obj) -> None:
@@ -127,22 +168,33 @@ def attention_bound_ms(B, Sq, Sk, H, KVH, D, opts) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+KERNEL_SOURCES = ("flash_attention", "ssd_scan")
+
+
 def phase_card():
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
 
     t0 = time.perf_counter()
-    _build.build("flash_attention")
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(_build.build, KERNEL_SOURCES))   # one nvcc per source
     build_s = time.perf_counter() - t0
     lib = fa._lib()
     for d in fa.HEAD_DIMS:
         if lib.flash_attention_smem_bytes(d) != fa.smem_bytes(d=d):
             raise AssertionError(f"smem_bytes({d}) disagrees with the kernel")
+    for n in (16, 32, 64, 128):
+        if ss._lib().ssd_scan_smem_bytes(n) != ss.smem_bytes(n):
+            raise AssertionError(f"ssd smem_bytes({n}) disagrees with the kernel")
     emit({"phase": "card", "card": card_line(),
           "kind": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "smem_bytes_d128": fa.smem_bytes(d=128)})
+          "build_s": build_s, "smem_bytes_d128": fa.smem_bytes(d=128),
+          "smem_bytes_d112": fa.smem_bytes(d=112),
+          "ssd_smem_bytes_n64": ss.smem_bytes(64),
+          "ssd_smem_bytes_n128": ss.smem_bytes(128)})
 
 
 def rel_errors(got, want) -> tuple[float, float]:
@@ -175,8 +227,9 @@ def phase_kernel():
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    worst, failures, timing = 0.0, [], None
-    for name, B, Sq, Sk, H, KVH, D, opts in GRID + [SERVE_SHAPE]:
+    worst, failures, timings = 0.0, [], {}
+    serving = (SERVE_SHAPE[0], ZAMBA_SHAPE[0])
+    for name, B, Sq, Sk, H, KVH, D, opts in GRID + [SERVE_SHAPE, ZAMBA_SHAPE]:
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device="cuda",
                                dtype=torch.float32).to(torch.bfloat16)
@@ -199,7 +252,7 @@ def phase_kernel():
                 "max_abs_err": err, "tol": KERNEL_TOL,
                 "row_rel_err": row_rel, "row_rtol": ROW_RTOL,
                 "norm_rel_err": norm_rel, "norm_rtol": NORM_RTOL}
-        if name == SERVE_SHAPE[0]:
+        if name in serving:
             # the checks must have the power to see a one-tile fault
             line["faults"] = {}
             for fault, out in injected_faults(q, k, v, kw).items():
@@ -220,10 +273,10 @@ def phase_kernel():
         emit({**line, "ok": ok})
         if not ok:
             failures.append(name)
-        if name == SERVE_SHAPE[0] and ok:
+        if name in serving and ok:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             bound_ms, bound_by = attention_bound_ms(B, Sq, Sk, H, KVH, D, opts)
-            timing = {
+            timing = timings[name] = {
                 "ms": cuda_ms(lambda: flash_attention_cuda(q, k, v, **kw)),
                 "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, **kw),
                                     warmup=1, iters=5),
@@ -236,7 +289,140 @@ def phase_kernel():
         del q, k, v, got, want
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
-    return worst, timing
+    return worst, timings
+
+
+def ssd_bound_ms(B, L, H, P, N, G, chunk, dtype) -> tuple[float, str]:
+    """Least time on the card for one SSD scan: the causal half of C.B^T and
+    of W.u (Q^2 (N + P)) plus the state term and update (4 Q N P) per (b, h,
+    chunk), at the peak for the inputs' type; against x and y, dt (fp32), b
+    and c, a_log and d_skip (fp32) read or written once and the fp32 state."""
+    esize = 2 if dtype == "bfloat16" else 4
+    flops = B * H * (L // chunk) * (chunk ** 2 * (N + P) + 4 * chunk * N * P)
+    nbytes = (2 * B * L * H * P * esize + B * L * H * 4
+              + 2 * B * L * G * N * esize + 2 * H * 4 + B * H * P * N * 4)
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def ssd_inputs(gen, B, L, H, P, N, G, dtype):
+    """Inputs of one SSD scan on the card. dt and A follow Mamba2's own
+    initialisation (dt log-uniform in [1e-3, 1e-1], the configs' dt_min and
+    dt_max; A in [1, 16]), so some heads keep their state across chunks and
+    a fault in the state handoff shows."""
+    import torch
+    dt_ = getattr(torch, dtype)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def uni(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device="cuda")
+
+    x = rnd(B, L, H, P, scale=0.5).to(dt_)
+    dt = torch.exp(uni(math.log(1e-3), math.log(1e-1), B, L, H))
+    a_log = torch.log(uni(1.0, 16.0, H))
+    b = rnd(B, L, G, N, scale=0.3).to(dt_)
+    c = rnd(B, L, G, N, scale=0.3).to(dt_)
+    return x, dt, a_log, b, c, rnd(H)
+
+
+def ssd_faults(args, chunk):
+    """The plain version's (y, state) under three faults a chunked kernel can
+    have; ``None`` where a fault leaves that output as it is:
+
+    - the carried state dropped in the last chunk (it is scanned from zero);
+    - one 64-step tile of the last chunk dropped (its b zeroed, so it enters
+      neither y nor the state);
+    - the final state not decayed at the last chunk boundary
+      (S = S_prev + s_loc instead of e^{tot} S_prev + s_loc).
+    """
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    x, dt, a_log, b, c, d_skip = args
+    y, state = ssd_scan_plain(*args, chunk=chunk)
+    y_last, s_loc = ssd_scan_plain(x[:, -chunk:], dt[:, -chunk:], a_log,
+                                   b[:, -chunk:], c[:, -chunk:], d_skip,
+                                   chunk=chunk)
+    y[:, -chunk:] = y_last
+    _, s_prev = ssd_scan_plain(x[:, :-chunk], dt[:, :-chunk], a_log,
+                               b[:, :-chunk], c[:, :-chunk], d_skip,
+                               chunk=chunk)
+    tot = (dt[:, -chunk:].float() * -torch.exp(a_log.float())).sum(1)
+    undecayed = state + (1 - torch.exp(tot))[..., None, None] * s_prev
+    return {"last_chunk_state_dropped": (y, s_loc),
+            "last_chunk_tile_dropped": dropped_tile_ssd(*args, chunk=chunk),
+            "last_boundary_not_decayed": (None, undecayed)}
+
+
+def phase_ssd():
+    """The SSD kernel against its plain version (see the module docstring)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+
+    def norm_rel(got, want):
+        return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    worst, failures, timings = 0.0, [], {}
+    for name, B, L, H, P, N, G, chunk, dtype in SSD_GRID + SSD_MODEL_SHAPES:
+        args = ssd_inputs(gen, B, L, H, P, N, G, dtype)
+        y, state = ssd_scan_cuda(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        y_p, state_p = ssd_scan_plain(*args, chunk=chunk)
+        y_err = (y.float() - y_p.float()).abs().max().item()
+        s_err = (state - state_p).abs().max().item()
+        line = {"phase": "ssd", "shape": name, "dtype": dtype,
+                "B_L_H_P_N_G_chunk": [B, L, H, P, N, G, chunk],
+                "y_max_abs_err": y_err, "state_max_abs_err": s_err,
+                "y_norm_rel_err": norm_rel(y, y_p),
+                "state_norm_rel_err": norm_rel(state, state_p)}
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(state).all())
+        if dtype == "float32":
+            tol = SSD_GRID_TOL
+            ok = finite and torch.allclose(y, y_p, atol=tol, rtol=tol) and \
+                torch.allclose(state, state_p, atol=tol, rtol=tol)
+            line["tol"] = tol
+        else:
+            ok = finite and torch.allclose(
+                y.float(), y_p.float(), atol=SSD_Y_TOL, rtol=SSD_Y_TOL) and \
+                line["y_norm_rel_err"] <= SSD_Y_RTOL and \
+                line["state_norm_rel_err"] <= SSD_STATE_RTOL
+            line.update(y_tol=SSD_Y_TOL, y_rtol=SSD_Y_RTOL,
+                        state_rtol=SSD_STATE_RTOL, faults={})
+            # the limits must have the power to see a one-chunk fault: the
+            # y limit each fault that moves y, the state limit the state's
+            # own handoff fault
+            for fault, (fy, fs) in ssd_faults(args, chunk).items():
+                f_y = None if fy is None else norm_rel(fy, y_p)
+                f_s = norm_rel(fs, state_p)
+                line["faults"][fault] = {"y_norm_rel_err": f_y,
+                                         "state_norm_rel_err": f_s}
+                if f_y is not None and f_y <= SSD_Y_RTOL:
+                    failures.append(f"{name}: y limit misses {fault}")
+                if f_y is None and f_s <= SSD_STATE_RTOL:
+                    failures.append(f"{name}: state limit misses {fault}")
+        worst = max(worst, y_err)
+        emit({**line, "ok": ok})
+        if not ok:
+            failures.append(name)
+        if dtype == "bfloat16" and ok:
+            bound_ms, bound_by = ssd_bound_ms(B, L, H, P, N, G, chunk, dtype)
+            timings[name] = {
+                "ms": cuda_ms(lambda: ssd_scan_cuda(*args, chunk=chunk)),
+                "plain_ms": cuda_ms(lambda: ssd_scan_plain(*args, chunk=chunk),
+                                    warmup=1, iters=5),
+                "library_ms": None,     # no one PyTorch call computes the SSD
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+            }
+            emit({"phase": "ssd_timing", "shape": name, **timings[name]})
+        del args, y, state, y_p, state_p
+    if failures:
+        raise AssertionError(f"ssd kernel checks failed: {failures}")
+    return worst, timings
 
 
 def _sync_s(fn):
@@ -248,16 +434,37 @@ def _sync_s(fn):
     return out, time.perf_counter() - t0
 
 
-def phase_serve():
-    """The main path: returns the model pieces phase 4 reuses and the launches."""
+def expected_launches(cfg) -> dict:
+    """Launches of each kernel that one prefill of ``cfg`` must make: one
+    flash launch per attention block, one SSD launch per SSM layer."""
+    from repro_torch.models.transformer import layer_plan
+    count = {"flash_attention": 0, "ssd_scan": 0}
+    for gd in layer_plan(cfg):
+        for b in gd.blocks:
+            if b.kind in ("attn", "parallel", "shared_attn"):
+                count["flash_attention"] += gd.repeat
+            elif b.kind == "ssm":
+                count["ssd_scan"] += gd.repeat
+    return count
+
+
+def launch_counters():
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    return {"flash_attention": flash_attention_cuda,
+            "ssd_scan": ssd_scan_cuda}
+
+
+def phase_serve(arch):
+    """One main path: returns the model pieces phases 4 and 5 reuse and the
+    launches of each kernel in this path's run."""
     import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.models.model_zoo import build_model
     from repro_torch.runtime.serve import ServeOptions, ServeSession, \
         build_prefill_step
 
-    cfg = get_config("deepseek-7b")
+    cfg = get_config(arch)
     model = build_model(cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -268,22 +475,26 @@ def phase_serve():
                for _ in range(SERVE_BATCHES)]
     torch.cuda.reset_peak_memory_stats()
 
-    flash_attention_cuda.launches = 0
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
     outs, gen_s = [], []
     for p in prompts:
         out, s = _sync_s(lambda: sess.generate(p, max_new_tokens=MAX_NEW))
         outs.append(out)
         gen_s.append(s)
-    launches = flash_attention_cuda.launches
+    launches = {name: fn.launches for name, fn in counters.items()}
 
     peak = torch.cuda.max_memory_allocated()
     for out in outs:
         if out.shape != (SERVE_BATCH, MAX_NEW) or bool(
                 ((out < 0) | (out >= cfg.vocab_size)).any()):
             raise AssertionError(f"bad generate output {tuple(out.shape)}")
-    if launches < cfg.n_layers * SERVE_BATCHES:
-        raise AssertionError(f"flash-attention kernel launched {launches} "
-                             f"times; expected >= {cfg.n_layers} per batch")
+    for name, per_prefill in expected_launches(cfg).items():
+        if launches[name] < per_prefill * SERVE_BATCHES:
+            raise AssertionError(f"{name} kernel launched {launches[name]} "
+                                 f"times on {arch}; expected >= "
+                                 f"{per_prefill} per batch")
 
     # prefill alone, same entry point the session uses, for the split
     prefill = build_prefill_step(model, ServeOptions())
@@ -303,90 +514,166 @@ def phase_serve():
           "init_s": init_s, "generate_s": gen_s, "prefill_ms": prefill_ms,
           "decode_ms_per_token": decode_ms,
           "tok_per_s": SERVE_BATCHES * SERVE_BATCH * MAX_NEW / sum(gen_s),
-          "max_memory_allocated": peak, "flash_attention_launches": launches})
+          "max_memory_allocated": peak,
+          **{f"{name}_launches": n for name, n in launches.items()}})
     return model, params, prompts[0], launches
 
 
-def phase_agree(model, params, prompts):
-    """Full-width prefill logits, at every prompt position, through the
-    kernel vs the plain attention.
+def plain_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
+                    scale=None, q_offset=0, kv_len=None):
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 softcap=logit_softcap, scale=scale,
+                                 q_offset=q_offset, kv_valid=kv_len)
 
-    Each of the 30 layers rounds activations to bf16, and random weights
-    pass any rounding difference on from layer to layer, so no fixed
-    tolerance fits. The limit is FLOOR_MULT times a noise floor measured in
-    this run against the same plain prefill: the larger of two attentions
-    that differ from it only in rounding, the naive oracle (fp32 summation
-    order) and a plain attention that rounds P to bf16 before the PV
-    product as the kernel does. A prefill whose attention drops the last
-    K/V tile in every layer must exceed the max-abs limit, or the check
-    could not see such a fault. The whole-tensor norm bounds faults that
-    move every position; a fault in the last 64 of 2048 positions stays
-    below the network's own noise in it.
+
+def naive_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
+                    scale=None, q_offset=0, kv_len=None):
+    from repro_torch.kernels import ref
+    return ref.mha_naive(q, k, v, causal=causal, window=window,
+                         logit_softcap=logit_softcap, scale=scale,
+                         q_offset=q_offset, kv_len=kv_len)
+
+
+def p_bf16_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
+                     scale=None, q_offset=0, kv_len=None):
+    """Full scores in fp32, the row sum of fp32 P, PV from bf16 P."""
+    import torch
+    from repro_torch.kernels import ref
+    if not causal or window or logit_softcap or q_offset or kv_len:
+        raise NotImplementedError("causal self-attention only")
+    B, S, H, D = q.shape
+    KVH = k.shape[2]
+    scale = D ** -0.5 if scale is None else scale
+    keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    out = torch.empty_like(q)
+    for b in range(B):      # one batch row at a time bounds the scores
+        qb = q[b].float().reshape(S, KVH, H // KVH, D)
+        s = torch.einsum("qhgd,khd->hgqk", qb, k[b].float()) * scale
+        s = s.masked_fill(~keep, ref.NEG_INF)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        o = torch.einsum("hgqk,khd->qhgd", p.to(v.dtype).float(), v[b].float())
+        out[b] = (o / p.sum(-1).permute(2, 0, 1)[..., None]).reshape(S, H, D)
+    return out
+
+
+def dropped_tile_attention(q, k, v, **kw):
+    return plain_attention(q, k, v, **{**kw, "kv_len": k.shape[1] - KV_TILE})
+
+
+def plain_ssd(x, dt, a_log, b, c, d_skip, *, chunk=128):
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    return ssd_scan_plain(x, dt, a_log, b, c, d_skip, chunk=chunk)
+
+
+def half_chunk_ssd(x, dt, a_log, b, c, d_skip, *, chunk=128):
+    """The plain SSD in chunks of half the size: the same sums, in another
+    order."""
+    return plain_ssd(x, dt, a_log, b, c, d_skip, chunk=chunk // 2)
+
+
+def dropped_tile_ssd(x, dt, a_log, b, c, d_skip, *, chunk=128):
+    """The plain SSD with one 64-step tile of the last chunk dropped."""
+    b = b.clone()
+    start = b.shape[1] - chunk
+    b[:, start:start + SSD_TILE] = 0
+    return plain_ssd(x, dt, a_log, b, c, d_skip, chunk=chunk)
+
+
+def phase_agree(model, params, prompts, *, decode_steps=0):
+    """Full-width prefill logits, at every prompt position, through the
+    kernels vs their plain versions; with ``decode_steps``, also the decode
+    logits of that many steps from each prefill's cache.
+
+    Each layer rounds activations to bf16, and random weights pass any
+    rounding difference on from layer to layer, so no fixed tolerance fits.
+    The limit is FLOOR_MULT times a noise floor measured in this run against
+    the same plain prefill: the largest difference among runs that differ
+    from it only in rounding: the naive attention oracle (fp32 summation
+    order), a plain attention that rounds P to bf16 before the PV product as
+    the flash kernel does, and (with SSM layers) the plain SSD in half-size
+    chunks. A prefill whose kernel drops a tile in every layer (the last
+    K/V tile of attention; with SSM layers instead one 64-step tile of the
+    SSD's last chunk) must exceed the max-abs limit, or the check could not
+    see such a fault. The whole-tensor norm bounds faults that move every
+    position; a fault in 64 of 2048 positions stays below the network's own
+    noise in it. Decode steps are held to limits from the same floor runs,
+    and a decode from a cache whose SSM states were dropped after the
+    prefill (no handoff) must exceed the decode max-abs limit.
     """
     import torch
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
+    from repro_torch.kernels import ops
 
-    def plain_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
-                        scale=None, q_offset=0, kv_len=None):
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=logit_softcap, scale=scale,
-                                     q_offset=q_offset, kv_valid=kv_len)
-
-    def naive_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
-                        scale=None, q_offset=0, kv_len=None):
-        return ref.mha_naive(q, k, v, causal=causal, window=window,
-                             logit_softcap=logit_softcap, scale=scale,
-                             q_offset=q_offset, kv_len=kv_len)
-
-    def p_bf16_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
-                         scale=None, q_offset=0, kv_len=None):
-        """Full scores in fp32, the row sum of fp32 P, PV from bf16 P."""
-        if not causal or window or logit_softcap or q_offset or kv_len:
-            raise NotImplementedError("causal self-attention only")
-        B, S, H, D = q.shape
-        KVH = k.shape[2]
-        scale = D ** -0.5 if scale is None else scale
-        keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-        out = torch.empty_like(q)
-        for b in range(B):      # one batch row at a time bounds the scores
-            qb = q[b].float().reshape(S, KVH, H // KVH, D)
-            s = torch.einsum("qhgd,khd->hgqk", qb, k[b].float()) * scale
-            s = s.masked_fill(~keep, ref.NEG_INF)
-            p = torch.exp(s - s.amax(-1, keepdim=True))
-            o = torch.einsum("hgqk,khd->qhgd", p.to(v.dtype).float(), v[b].float())
-            out[b] = (o / p.sum(-1).permute(2, 0, 1)[..., None]).reshape(S, H, D)
-        return out
-
-    def dropped_tile_attention(q, k, v, **kw):
-        return plain_attention(q, k, v, **{**kw, "kv_len": k.shape[1] - KV_TILE})
-
+    cfg = model.cfg
+    has_ssm = expected_launches(cfg)["ssd_scan"] > 0
+    counters = launch_counters()
     B, S = prompts.shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    dec_tokens = torch.randint(0, cfg.vocab_size, (B, decode_steps),
+                               generator=gen, device="cuda")
 
-    def run(attention=None):
-        """(B, S, vocab) fp32 logits of one prefill, as the session's step."""
-        cache = model.init_cache(B, S, device="cuda")
-        with torch.inference_mode(), mock.patch.object(
-                ops, "flash_attention", attention or ops.flash_attention):
-            return model.apply(params, {"tokens": prompts}, mode="prefill",
-                               cache=cache, cache_index=0)[0]
+    def run(attention=None, ssd=None, drop_handoff=False):
+        """fp32 logits of one prefill (B, S, vocab) and of the decode steps
+        after it (B, decode_steps, vocab), through the session's path."""
+        cache = model.init_cache(B, S + decode_steps, device="cuda")
+        with torch.inference_mode(), \
+                mock.patch.object(ops, "flash_attention",
+                                  attention or ops.flash_attention), \
+                mock.patch.object(ops, "ssd_scan", ssd or ops.ssd_scan):
+            logits = model.apply(params, {"tokens": prompts}, mode="prefill",
+                                 cache=cache, cache_index=0)[0]
+            if drop_handoff:
+                for blocks in cache["groups"].values():
+                    for bc in blocks.values():
+                        if "ssm" in bc:
+                            bc["ssm"].zero_()
+                            bc["conv"].zero_()
+            dec = [model.apply(params, {"tokens": dec_tokens[:, i:i + 1]},
+                               mode="decode", cache=cache,
+                               cache_index=S + i)[0][:, -1]
+                   for i in range(decode_steps)]
+        return logits, torch.stack(dec, 1) if dec else None
 
     def diffs(got, want):
+        if got is None:
+            return 0.0, 0.0
         d = got - want
         return d.abs().max().item(), (d.norm() / want.norm()).item()
 
-    with_kernel = run()
-    before = flash_attention_cuda.launches
-    with_plain = run(plain_attention)
-    order_abs, order_rel = diffs(run(naive_attention), with_plain)
-    p_abs, p_rel = diffs(run(p_bf16_attention), with_plain)
-    floor_abs, floor_rel = max(order_abs, p_abs), max(order_rel, p_rel)
-    fault_abs, fault_rel = diffs(run(dropped_tile_attention), with_plain)
-    if flash_attention_cuda.launches != before:
-        raise AssertionError("a plain run launched the kernel")
+    with_kernel, dec_kernel = run()
+    before = {name: fn.launches for name, fn in counters.items()}
+    with_plain, dec_plain = run(plain_attention, plain_ssd)
+    floors = {"floor_fp32_order": (naive_attention, plain_ssd),
+              "floor_p_bf16": (p_bf16_attention, plain_ssd)}
+    if has_ssm:
+        floors["floor_ssd_half_chunk"] = (plain_attention, half_chunk_ssd)
+    line = {"phase": "agree", "arch": cfg.name, "positions": B * S}
+    floor = [0.0, 0.0, 0.0, 0.0]        # prefill abs, rel; decode abs, rel
+    for name, (attention, ssd) in floors.items():
+        got, dec = run(attention, ssd)
+        p_abs, p_rel = diffs(got, with_plain)
+        d_abs, d_rel = diffs(dec, dec_plain)
+        floor = [max(a, b) for a, b in zip(floor, (p_abs, p_rel, d_abs, d_rel))]
+        line[name] = {"max_abs": p_abs, "norm_rel": p_rel}
+        if decode_steps:
+            line[name].update(decode_max_abs=d_abs, decode_norm_rel=d_rel)
+        del got, dec
+    fault = "fault_ssd_tile_dropped" if has_ssm else "fault_last_tile_dropped"
+    got, _ = (run(plain_attention, dropped_tile_ssd) if has_ssm
+              else run(dropped_tile_attention, plain_ssd))
+    fault_abs, fault_rel = diffs(got, with_plain)
+    del got
+    handoff_abs = handoff_rel = 0.0
+    if decode_steps:
+        _, dec = run(plain_attention, plain_ssd, drop_handoff=True)
+        handoff_abs, handoff_rel = diffs(dec, dec_plain)
+        del dec
+    if any(fn.launches != before[name] for name, fn in counters.items()):
+        raise AssertionError("a plain run launched a kernel")
+
     diff_abs, diff_rel = diffs(with_kernel, with_plain)
-    tol_abs, tol_rel = FLOOR_MULT * floor_abs, FLOOR_MULT * floor_rel
+    tol_abs, tol_rel = FLOOR_MULT * floor[0], FLOOR_MULT * floor[1]
     top2 = with_plain.topk(2, dim=-1).values
     decided = (top2[..., 0] - top2[..., 1]) > tol_abs
     same = with_kernel.argmax(-1) == with_plain.argmax(-1)
@@ -394,21 +681,32 @@ def phase_agree(model, params, prompts):
     ok = bool(torch.isfinite(with_kernel).all()) and diff_abs <= tol_abs \
         and diff_rel <= tol_rel and n_same == n_decided
     power = fault_abs > tol_abs
-    emit({"phase": "agree", "positions": B * S,
-          "max_abs_logit_diff": diff_abs, "norm_rel_logit_diff": diff_rel,
-          "floor_fp32_order": {"max_abs": order_abs, "norm_rel": order_rel},
-          "floor_p_bf16": {"max_abs": p_abs, "norm_rel": p_rel},
-          "floor_mult": FLOOR_MULT, "tol_abs": tol_abs, "tol_rel": tol_rel,
-          "fault_last_tile_dropped": {"max_abs": fault_abs,
-                                      "norm_rel": fault_rel},
-          "logit_absmax": with_plain.abs().max().item(),
-          "argmax_decided": n_decided, "argmax_equal_where_decided": n_same,
-          "argmax_equal_all": int(same.sum()), "ok": ok, "power": power})
+    line.update({
+        "max_abs_logit_diff": diff_abs, "norm_rel_logit_diff": diff_rel,
+        "floor_mult": FLOOR_MULT, "tol_abs": tol_abs, "tol_rel": tol_rel,
+        fault: {"max_abs": fault_abs, "norm_rel": fault_rel},
+        "logit_absmax": with_plain.abs().max().item(),
+        "argmax_decided": n_decided, "argmax_equal_where_decided": n_same,
+        "argmax_equal_all": int(same.sum())})
+    if decode_steps:
+        dtol_abs, dtol_rel = FLOOR_MULT * floor[2], FLOOR_MULT * floor[3]
+        dec_abs, dec_rel = diffs(dec_kernel, dec_plain)
+        ok = ok and bool(torch.isfinite(dec_kernel).all()) \
+            and dec_abs <= dtol_abs and dec_rel <= dtol_rel
+        power = power and handoff_abs > dtol_abs
+        line.update({
+            "decode_steps": decode_steps, "decode_max_abs_diff": dec_abs,
+            "decode_norm_rel_diff": dec_rel, "decode_tol_abs": dtol_abs,
+            "decode_tol_rel": dtol_rel,
+            "fault_handoff_dropped": {"decode_max_abs": handoff_abs,
+                                      "decode_norm_rel": handoff_rel}})
+    emit({**line, "ok": ok, "power": power})
     if not ok:
-        raise AssertionError("full-width logits disagree between the kernel "
-                             "and the plain attention")
+        raise AssertionError(f"{cfg.name}: full-width logits disagree "
+                             "between the kernels and their plain versions")
     if not power:
-        raise AssertionError("the logit limit does not catch a dropped tile")
+        raise AssertionError(f"{cfg.name}: the logit limits do not catch "
+                             "an injected fault")
 
 
 TRACE_DECODE_STEPS = 8
@@ -422,6 +720,7 @@ def _self_device_us(event) -> float:
 
 
 def phase_trace(model, params, prompts):
+    # one full-width prefill and TRACE_DECODE_STEPS decode steps of one arch
     """Where the time goes: torch.profiler over one full-width prefill and
     TRACE_DECODE_STEPS decode steps after it, off the main path's count.
 
@@ -465,8 +764,9 @@ def phase_trace(model, params, prompts):
                        for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA]
             busy_ms = sum(ms for _, ms, _ in kernels)
-            top = sorted(kernels, key=lambda k: -k[1])[:8]
-            emit({"phase": "trace", "window": name, "steps": steps,
+            top = sorted(kernels, key=lambda k: -k[1])[:10]
+            emit({"phase": "trace", "arch": model.cfg.name,
+                  "window": name, "steps": steps,
                   "wall_ms_per_step": wall_ms,
                   "device_busy_ms_per_step": busy_ms if busy_ms else "not measured",
                   "idle_share": 1 - busy_ms / wall_ms if busy_ms else "not measured",
@@ -485,24 +785,39 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     phase_card()
-    worst_err, timing = phase_kernel()
-    model, params, prompts, launches = phase_serve()
-    phase_agree(model, params, prompts)
-    phase_trace(model, params, prompts)
-    emit({"kernels": [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:82",
-        "launches": launches,
-        "max_abs_err": worst_err,
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-        "shape": "B=4 S=2048 H=KVH=32 D=128 causal bf16",
-    }]})
+    flash_err, flash_t = phase_kernel()
+    ssd_err, ssd_t = phase_ssd()
+    launches = {}
+    for arch, decode_steps in SERVE_PATHS:
+        model, params, prompts, launches[arch] = phase_serve(arch)
+        if decode_steps is not None:
+            phase_agree(model, params, prompts, decode_steps=decode_steps)
+            phase_trace(model, params, prompts)
+        del model, params, prompts
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def entry(name, source, replaces, err, timing, shape, **more):
+        by_path = {arch: n[name] for arch, n in launches.items()}
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "max_abs_err": err, **timing, "shape": shape,
+                "launches_by_path": by_path, **more}
+
+    emit({"kernels": [
+        entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:82", flash_err,
+              flash_t[SERVE_SHAPE[0]], "B=4 S=2048 H=KVH=32 D=128 causal bf16",
+              at_d112={**flash_t[ZAMBA_SHAPE[0]],
+                       "shape": "B=4 S=2048 H=KVH=32 D=112 causal bf16"}),
+        entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+              "src/repro/kernels/ssd_scan.py:70", ssd_err,
+              ssd_t["zamba2-7b"],
+              "B=4 L=2048 H=112 P=64 N=64 G=2 chunk=256 bf16 (zamba2-7b)",
+              at_mamba2={**ssd_t["mamba2-370m"],
+                         "shape": "B=4 L=2048 H=32 P=64 N=128 G=1 chunk=256 "
+                                  "bf16 (mamba2-370m)"}),
+    ]})
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,13 @@ others join as their slices land (ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
-from . import deepseek_7b
+from . import deepseek_7b, mamba2_370m, zamba2_7b
 from .base import ModelConfig
 
 _MODULES = {
     "deepseek-7b": deepseek_7b,
+    "mamba2-370m": mamba2_370m,
+    "zamba2-7b": zamba2_7b,
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -27,8 +27,11 @@
 //   * GQA reads kv head h / (H / KVH) by index arithmetic; K/V are never
 //     repeated.
 // Shared-memory rows carry 8 bf16 of padding so that fragment loads and
-// ldmatrix are free of bank conflicts. wgmma, TMA and warp specialisation are
-// the next steps for this kernel.
+// ldmatrix are free of bank conflicts. Head dims 64, 112 and 128 are built:
+// each is a multiple of 16 (the mma k-step and the ldmatrix.trans n-step),
+// its 16-byte row chunks divide among the 128 threads, and its padded shared
+// row (D + 8) * 2 bytes stays a multiple of 16 for cp.async and ldmatrix.
+// wgmma, TMA and warp specialisation are the next steps for this kernel.
 //
 // Plain C interface for ctypes: every pointer and the stream are void*; the
 // launch returns cudaGetLastError() so the caller can raise.
@@ -303,6 +306,7 @@ extern "C" {
 // Dynamic shared memory one block uses at head_dim D (0 if D is not built).
 int flash_attention_smem_bytes(int D) {
   if (D == 64) return Layout<64>::BYTES;
+  if (D == 112) return Layout<112>::BYTES;
   if (D == 128) return Layout<128>::BYTES;
   return 0;
 }
@@ -317,6 +321,9 @@ int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* 
   if (D == 64)
     return launch<64>(q, k, v, o, B, Sq, Sk, H, KVH, scale, causal, window,
                       softcap, q_offset, kv_valid, s);
+  if (D == 112)   // zamba2-7b: 3584 / 32 heads
+    return launch<112>(q, k, v, o, B, Sq, Sk, H, KVH, scale, causal, window,
+                       softcap, q_offset, kv_valid, s);
   if (D == 128)
     return launch<128>(q, k, v, o, B, Sq, Sk, H, KVH, scale, causal, window,
                        softcap, q_offset, kv_valid, s);

@@ -4,7 +4,8 @@ Counterpart of ``repro.kernels.flash_attention`` (``flash_attention_pallas``).
 The kernel is ``csrc/flash_attention.cu``: one thread block per (64-row q
 tile, head, batch), a loop over 64-row K/V tiles staged through shared memory,
 ``mma.sync`` bf16 products with fp32 accumulation. It takes bf16 and head_dim
-64 or 128; its source note gives its bound on the H100 and the design.
+64, 112 (zamba2-7b) or 128; its source note gives its bound on the H100 and
+the design.
 
 ``flash_attention_cuda`` routes by where the tensors lie: on the CPU it runs
 the plain version (the torch twin of ``ref.mha_chunked``); on a CUDA tensor it
@@ -21,7 +22,7 @@ from . import _build, ref
 
 BLOCK_Q = 64
 BLOCK_K = 64
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 
 
 def smem_bytes(block_q: int = BLOCK_Q, block_k: int = BLOCK_K, d: int = 128,

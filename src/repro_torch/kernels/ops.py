@@ -1,10 +1,11 @@
 """Kernel entry points with device dispatch.
 
-Counterpart of ``repro.kernels.ops``. ``flash_attention`` goes to the
-hand-written kernel's wrapper, which runs the CUDA kernel on a CUDA tensor and
-its plain version on a CPU tensor. ``decode_attention``
-is plain torch on every device: it is a GEMV in the reference too, not a
-Pallas kernel (a split-KV decode kernel is queued in ROADMAP.md).
+Counterpart of ``repro.kernels.ops``. ``flash_attention`` and ``ssd_scan``
+go to the hand-written kernels' wrappers, which run the CUDA kernel on a CUDA
+tensor and its plain version on a CPU tensor. ``decode_attention`` and
+``ssd_decode_step`` are plain torch on every device: they are a GEMV and a
+recurrent update in the reference too, not Pallas kernels (a split-KV decode
+kernel is queued in ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention_cuda
+from .ssd_scan import ssd_scan_cuda
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
@@ -69,3 +71,12 @@ def decode_attention(q, k, v, *, window=0, logit_softcap=0.0, scale=None,
         p = p.to(v.dtype)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p.float(), v.float())
     return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def ssd_scan(x, dt, a_log, b, c, d_skip, *, chunk=128):
+    """Chunked Mamba2 SSD; see ``ref.ssd_naive`` for semantics."""
+    return ssd_scan_cuda(x, dt, a_log, b, c, d_skip, chunk=chunk)
+
+
+def ssd_decode_step(state, x_t, dt_t, a_log, b_t, c_t, d_skip):
+    return ref.ssd_decode_step(state, x_t, dt_t, a_log, b_t, c_t, d_skip)

@@ -1,14 +1,20 @@
-"""Plain-torch reference oracles for the attention kernels.
+"""Plain-torch reference oracles for the attention and SSD kernels.
 
-The torch twin of the attention half of ``repro.kernels.ref``:
+The torch twin of the attention and SSD parts of ``repro.kernels.ref``:
 
-- ``mha_naive``   : materializes the full scores. The ground-truth oracle.
-- ``mha_chunked`` : online softmax over kv blocks (a Python loop in place of
-                    ``jax.lax.scan``). Numerically equal to the naive tier
-                    with O(block) intermediates; the plain version of the
-                    flash-attention kernel and the CPU execution path.
+- ``mha_naive``       : materializes the full scores. The ground-truth oracle.
+- ``mha_chunked``     : online softmax over kv blocks (a Python loop in place
+                        of ``jax.lax.scan``). Numerically equal to the naive
+                        tier with O(block) intermediates; the plain version of
+                        the flash-attention kernel and the CPU execution path.
+- ``ssd_naive``       : quadratic-time Mamba2 SSD, the scan's oracle.
+- ``ssd_chunked``     : dense intra-chunk products and a sequential
+                        inter-chunk recurrence; the plain version of the SSD
+                        kernel.
+- ``ssd_decode_step`` : the single-token recurrent update.
 
-Both compute in fp32 whatever the input dtype and return q's dtype.
+All compute in fp32 whatever the input dtype and return the input's dtype
+(the SSD states are fp32).
 """
 from __future__ import annotations
 
@@ -117,3 +123,100 @@ def mha_chunked(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
     o = acc / torch.clamp(l_run, min=1e-30)[..., None]
     o = o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
     return o.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 / SSD
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(x, dt, a_log, b, c):
+    """fp32 u = x * dt, dt * A, and b, c repeated from groups to heads."""
+    rep = x.shape[2] // b.shape[2]
+    A = -torch.exp(a_log.float())                                 # (H,)
+    dtf = dt.float()
+    u = x.float() * dtf[..., None]                                # (B,L,H,P)
+    bh = b.repeat_interleave(rep, dim=2).float()                  # (B,L,H,N)
+    ch = c.repeat_interleave(rep, dim=2).float()
+    return u, dtf * A, bh, ch
+
+
+def ssd_naive(x, dt, a_log, b, c, d_skip, *, chunk_size=None):
+    """Quadratic-time SSD reference.
+
+    x:  (B, L, H, P) inputs        dt: (B, L, H) softplus'd step sizes
+    a_log: (H,) (A = -exp(a_log))  b, c: (B, L, G, N) input/output projections
+    d_skip: (H,) skip connection.  Heads map to groups h -> h // (H // G).
+    y_t = sum_{s<=t} exp(sum_{r=s+1..t} dt_r*A) (C_t.B_s) dt_s x_s + D x_t
+    Returns y (B, L, H, P) and final state (B, H, P, N) fp32.
+    """
+    del chunk_size
+    L = x.shape[1]
+    u, log_a, bh, ch = _ssd_inputs(x, dt, a_log, b, c)
+    cum = torch.cumsum(log_a, dim=1).transpose(1, 2)              # (B,H,L)
+    cb = torch.einsum("bthn,bshn->bhts", ch, bh)                  # (B,H,L,L)
+    causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+    # select before exp: above the diagonal cum_t - cum_s > 0 may overflow
+    diff = torch.where(causal, cum[..., :, None] - cum[..., None, :], 0.0)
+    w = torch.where(causal, cb * torch.exp(diff), 0.0)
+    y = torch.einsum("bhts,bshp->bthp", w, u)
+    y = y + x.float() * d_skip.float()[None, None, :, None]
+    # final state: S = sum_s exp(cum_L - cum_s) u_s b_s^T
+    w_end = torch.exp(cum[..., -1:] - cum)                        # (B,H,L)
+    state = torch.einsum("bhs,bshp,bshn->bhpn", w_end, u, bh)
+    return y.to(x.dtype), state
+
+
+def ssd_chunked(x, dt, a_log, b, c, d_skip, *, chunk_size=128):
+    """Chunked SSD: dense intra-chunk + sequential inter-chunk recurrence.
+
+    Mathematical twin of the SSD kernel (a Python loop over chunks in place
+    of ``jax.lax.scan``). Same returns as :func:`ssd_naive`.
+    """
+    B, L, H, P = x.shape
+    N = b.shape[3]
+    Q = min(chunk_size, L)
+    if L % Q:
+        raise ValueError(f"L={L} must be a multiple of the chunk {Q}")
+    u, log_a, bh, ch = _ssd_inputs(x, dt, a_log, b, c)
+    causal = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    state = torch.zeros(B, H, P, N, dtype=torch.float32, device=x.device)
+    ys = []
+    for start in range(0, L, Q):
+        u_, b_, c_ = (t[:, start:start + Q] for t in (u, bh, ch))
+        cum = torch.cumsum(log_a[:, start:start + Q], dim=1)      # (B,Q,H)
+        cum_t = cum.transpose(1, 2)                               # (B,H,Q)
+        cb = torch.einsum("bthn,bshn->bhts", c_, b_)
+        diff = torch.where(causal, cum_t[..., :, None] - cum_t[..., None, :],
+                           0.0)
+        w = torch.where(causal, cb * torch.exp(diff), 0.0)
+        y = torch.einsum("bhts,bshp->bthp", w, u_)
+        # contribution of the carried state
+        y = y + torch.einsum("bthn,bhpn->bthp", c_, state) * \
+            torch.exp(cum)[..., None]
+        ys.append(y)
+        # state update
+        tot = cum_t[..., -1]                                      # (B,H)
+        w_end = torch.exp(tot[..., None] - cum_t)                 # (B,H,Q)
+        s_loc = torch.einsum("bhs,bshp,bshn->bhpn", w_end, u_, b_)
+        state = state * torch.exp(tot)[..., None, None] + s_loc
+    y = torch.cat(ys, dim=1) + x.float() * d_skip.float()[None, None, :, None]
+    return y.to(x.dtype), state
+
+
+def ssd_decode_step(state, x_t, dt_t, a_log, b_t, c_t, d_skip):
+    """Single-token recurrent update.
+
+    state: (B,H,P,N) fp32; x_t: (B,H,P); dt_t: (B,H); b_t, c_t: (B,G,N).
+    Returns y_t (B,H,P) in x_t's dtype and the new state.
+    """
+    rep = x_t.shape[1] // b_t.shape[1]
+    A = -torch.exp(a_log.float())
+    a = torch.exp(dt_t.float() * A[None])                         # (B,H)
+    u = x_t.float() * dt_t.float()[..., None]
+    bh = b_t.repeat_interleave(rep, dim=1).float()                # (B,H,N)
+    ch = c_t.repeat_interleave(rep, dim=1).float()
+    state = state * a[..., None, None] + u[..., None] * bh[..., None, :]
+    y = torch.einsum("bhpn,bhn->bhp", state, ch)
+    y = y + x_t.float() * d_skip.float()[None, :, None]
+    return y.to(x_t.dtype), state

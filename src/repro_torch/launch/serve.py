@@ -6,8 +6,11 @@ launcher drives. Full width on the card by default; ``--reduced`` takes the
 small test config and ``--device cpu`` runs on the CPU. Reports throughput
 and the median batch latency.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --requests 8 --batch 4 --prompt-len 2048 --max-new 64
+
+``--arch`` takes deepseek-7b, mamba2-370m and zamba2-7b. As in the
+reference, ``generate`` is greedy whatever ``--temperature`` says.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ def main(argv=None) -> dict:
     params = model.init(gen)
     sess = ServeSession(model, params,
                         ServeOptions(temperature=args.temperature),
-                        device=device, seed=args.seed)
+                        device=device)
 
     rng = np.random.default_rng(args.seed)
     queue = [rng.integers(0, cfg.vocab_size, (args.prompt_len,), dtype=np.int64)

@@ -1,15 +1,15 @@
 """Decoder stack: layer plans, a loop over stacked layers, caches.
 
-Counterpart of ``repro.models.transformer`` for the dense family. Every
-architecture is a *layer plan*, a tuple of ``GroupDesc`` entries; each group's
-parameters are stacked per layer (leading ``layers`` axis, the reference's
-layout), and the group runs as a Python loop that indexes layer ``i`` of the
-stacked tensors in place of ``jax.lax.scan``.
+Counterpart of ``repro.models.transformer`` for the dense, SSM and hybrid
+families. Every architecture is a *layer plan*, a tuple of ``GroupDesc``
+entries; each group's parameters are stacked per layer (leading ``layers``
+axis, the reference's layout), and the group runs as a Python loop that
+indexes layer ``i`` of the stacked tensors in place of ``jax.lax.scan``.
 
-Modes: ``train`` (no cache), ``prefill`` (flash attention + cache write at 0),
-``decode`` (single-token step over the cache). The MoE, SSM, hybrid,
-encoder-decoder and VLM families raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.
+Modes: ``train`` (no cache), ``prefill`` (flash attention or the SSD scan +
+cache write at 0), ``decode`` (single-token step over the KV cache and SSM
+state). The MoE, encoder-decoder and VLM families raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -21,12 +21,10 @@ from .attention import apply_attention, attention_specs
 from .common import (ParamSpec, apply_norm, dtype_of, norm_spec, softcap,
                      stack_specs)
 from .ffn import apply_ffn, ffn_specs
+from .ssm import apply_ssm, apply_ssm_decode, init_ssm_state, ssm_specs
 
 _NOT_PORTED = {
     "moe": "the MoE family (ROADMAP.md A8)",
-    "ssm": "the SSM and hybrid families (ROADMAP.md A9)",
-    "hybrid": "the SSM and hybrid families (ROADMAP.md A9)",
-    "shared_attn": "the hybrid family (ROADMAP.md A9)",
     "encdec": "the encoder-decoder family (ROADMAP.md A5)",
     "cross_attn": "the encoder-decoder and VLM families (ROADMAP.md A5, A7)",
     "vlm": "the VLM family (ROADMAP.md A7)",
@@ -40,7 +38,7 @@ def _not_ported(what: str):
 
 @dataclass(frozen=True)
 class BlockDesc:
-    kind: str            # attn | ffn | parallel (dense); others not ported yet
+    kind: str            # attn | ffn | parallel | ssm | shared_attn
     window: int = 0
     d_ff: int = 0        # ffn width override (0 -> cfg.d_ff)
     causal: bool = True
@@ -52,12 +50,21 @@ class GroupDesc:
     blocks: tuple[BlockDesc, ...]
 
 
-A, F = BlockDesc("attn"), BlockDesc("ffn")
+A, F, S = BlockDesc("attn"), BlockDesc("ffn"), BlockDesc("ssm")
 
 
 def layer_plan(cfg) -> tuple[GroupDesc, ...]:
     if cfg.family in _NOT_PORTED:
         raise _not_ported(cfg.family)
+    if cfg.family == "ssm":
+        return (GroupDesc(cfg.n_layers, (S,)),)
+    if cfg.family == "hybrid":
+        per, n = cfg.shared_attn_every, cfg.n_layers
+        full, rest = divmod(n, per)
+        groups = [GroupDesc(full, tuple([S] * per) + (BlockDesc("shared_attn"),))]
+        if rest:
+            groups.append(GroupDesc(rest, (S,)))
+        return tuple(groups)
     if cfg.parallel_block:
         return (GroupDesc(cfg.n_layers, (BlockDesc("parallel"),)),)
     if cfg.alt_local_global:
@@ -77,6 +84,8 @@ def layer_plan(cfg) -> tuple[GroupDesc, ...]:
 
 
 def _block_specs(cfg, b: BlockDesc) -> dict:
+    if b.kind == "shared_attn":
+        return {}  # parameters live at the top level (tied across repeats)
     spec: dict = {"norm": norm_spec(cfg)}
     if cfg.post_block_norm:
         spec["post_norm"] = norm_spec(cfg)
@@ -84,6 +93,8 @@ def _block_specs(cfg, b: BlockDesc) -> dict:
         spec["attn"] = attention_specs(cfg)
     elif b.kind == "ffn":
         spec["ffn"] = ffn_specs(cfg, d_ff=b.d_ff or cfg.d_ff)
+    elif b.kind == "ssm":
+        spec["ssm"] = ssm_specs(cfg)
     elif b.kind == "parallel":
         spec["attn"] = attention_specs(cfg)
         spec["ffn"] = ffn_specs(cfg)
@@ -110,6 +121,13 @@ def lm_specs(cfg) -> dict:
     if not cfg.tie_embeddings:
         spec["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
                                     ("embed", "vocab"))
+    if cfg.family == "hybrid":
+        spec["shared"] = {
+            "norm": norm_spec(cfg),
+            "attn": attention_specs(cfg),
+            "ffn": ffn_specs(cfg),
+            "ffn_norm": norm_spec(cfg),
+        }
     return spec
 
 
@@ -120,20 +138,25 @@ def lm_specs(cfg) -> dict:
 
 def init_cache(cfg, batch: int, max_len: int, *, device,
                kv_dtype=torch.bfloat16) -> dict:
-    """Decode cache mirroring the layer plan: per attention block, k/v of
-    (repeat, batch, max_len, kv_heads, head_dim). Cross-attention caches
-    (``enc_len``) come with the encoder-decoder and VLM families."""
+    """Decode cache mirroring the layer plan: per attention block (a shared
+    one too: each repeat has its own), k/v of (repeat, batch, max_len,
+    kv_heads, head_dim); per SSM block, the fp32 conv buffer and state of
+    ``init_ssm_state``. Cross-attention caches (``enc_len``) come with the
+    encoder-decoder and VLM families."""
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
     groups = {}
     for i, gd in enumerate(layer_plan(cfg)):
         blocks = {}
         for j, b in enumerate(gd.blocks):
-            if b.kind in ("attn", "parallel"):
+            if b.kind in ("attn", "parallel", "shared_attn"):
                 blocks[f"b{j}"] = {
                     "k": torch.zeros((gd.repeat, *shape), dtype=kv_dtype,
                                      device=device),
                     "v": torch.zeros((gd.repeat, *shape), dtype=kv_dtype,
                                      device=device)}
+            elif b.kind == "ssm":
+                blocks[f"b{j}"] = init_ssm_state(cfg, batch, gd.repeat,
+                                                 device=device)
         groups[f"g{i}"] = blocks
     return {"groups": groups}
 
@@ -151,22 +174,27 @@ def _layer(tree, i: int):
 
 
 def _apply_block(bp, x, b: BlockDesc, *, cfg, mode, cache, cache_index,
-                 positions):
+                 shared_params, positions):
     """One residual block. Returns (x, new_cache|None).
 
-    Dense blocks add no auxiliary loss; the reference's ``aux`` return comes
-    back with the MoE family."""
+    Caches are written in place (attention and SSM alike). These blocks add
+    no auxiliary loss; the reference's ``aux`` return comes back with the
+    MoE family."""
     new_cache = None
 
     def maybe_post(out, p):
         return apply_norm(p["post_norm"], out, cfg) if cfg.post_block_norm else out
 
-    if b.kind == "attn":
-        h = apply_norm(bp["norm"], x, cfg)
+    if b.kind in ("attn", "shared_attn"):
+        p = shared_params if b.kind == "shared_attn" else bp
+        h = apply_norm(p["norm"], x, cfg)
         out, new_cache = apply_attention(
-            bp["attn"], h, cfg=cfg, window=b.window, positions=positions,
+            p["attn"], h, cfg=cfg, window=b.window, positions=positions,
             cache=cache, cache_index=cache_index, causal=b.causal, mode=mode)
-        x = x + maybe_post(out, bp)
+        x = x + maybe_post(out, p)
+        if b.kind == "shared_attn":  # zamba2 shared block = attn + mlp
+            h = apply_norm(p["ffn_norm"], x, cfg)
+            x = x + apply_ffn(p["ffn"], h, cfg=cfg)
     elif b.kind == "parallel":  # command-r: one norm, attn || ffn
         h = apply_norm(bp["norm"], x, cfg)
         out_a, new_cache = apply_attention(
@@ -177,6 +205,13 @@ def _apply_block(bp, x, b: BlockDesc, *, cfg, mode, cache, cache_index,
     elif b.kind == "ffn":
         h = apply_norm(bp["norm"], x, cfg)
         x = x + maybe_post(apply_ffn(bp["ffn"], h, cfg=cfg), bp)
+    elif b.kind == "ssm":
+        h = apply_norm(bp["norm"], x, cfg)
+        if mode == "decode":
+            out, new_cache = apply_ssm_decode(bp["ssm"], h, cache, cfg=cfg)
+        else:
+            out, new_cache = apply_ssm(bp["ssm"], h, cfg=cfg, state=cache)
+        x = x + maybe_post(out, bp)
     elif b.kind in _NOT_PORTED:
         raise _not_ported(b.kind)
     else:
@@ -185,10 +220,12 @@ def _apply_block(bp, x, b: BlockDesc, *, cfg, mode, cache, cache_index,
 
 
 def _apply_group(gp, x, gd: GroupDesc, *, cfg, mode, cache, cache_index,
-                 positions):
+                 shared_params, positions):
     """Run the group's ``repeat`` stacked layers in order.
 
-    The cache is written in place, so the group's new cache is ``cache``.
+    Every block writes its slice of the cache in place (the KV cache and the
+    SSM conv buffer and state alike), so the blocks' returned caches are
+    discarded and the group's new cache is ``cache``.
     """
     for i in range(gd.repeat):
         bp_all = _layer(gp, i)
@@ -197,8 +234,9 @@ def _apply_group(gp, x, gd: GroupDesc, *, cfg, mode, cache, cache_index,
             key = f"b{j}"
             bc = None if bc_all is None else bc_all.get(key)
             x, _ = _apply_block(
-                bp_all[key], x, b, cfg=cfg, mode=mode, cache=bc,
-                cache_index=cache_index, positions=positions)
+                bp_all.get(key), x, b, cfg=cfg, mode=mode, cache=bc,
+                cache_index=cache_index, shared_params=shared_params,
+                positions=positions)
     return x, cache
 
 
@@ -207,7 +245,7 @@ def forward(params, inputs, *, cfg, mode="train", cache=None,
     """Run the model.
 
     inputs: {'tokens': (B, S) int}. Returns (logits fp32, new_cache|None,
-    aux_loss, zero for the dense family).
+    aux_loss, zero for the families ported so far).
     """
     if cfg.family in _NOT_PORTED:
         raise _not_ported(cfg.family)
@@ -224,12 +262,14 @@ def forward(params, inputs, *, cfg, mode="train", cache=None,
     else:
         positions = int(cache_index) + torch.arange(Sq, device=dev)[None, :]
 
+    shared_params = params.get("shared")
     new_groups = {}
     for i, gd in enumerate(layer_plan(cfg)):
         gcache = None if cache is None else cache["groups"].get(f"g{i}")
         x, ncache = _apply_group(
             params["groups"][f"g{i}"], x, gd, cfg=cfg, mode=mode,
-            cache=gcache, cache_index=cache_index, positions=positions)
+            cache=gcache, cache_index=cache_index,
+            shared_params=shared_params, positions=positions)
         if ncache is not None:
             new_groups[f"g{i}"] = ncache
 

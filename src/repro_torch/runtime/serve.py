@@ -1,4 +1,4 @@
-"""Serving steps: prefill, decode over the KV cache, sampling, batching.
+"""Serving steps: prefill, decode (KV cache / SSM state), sampling, batching.
 
 Counterpart of the local (``mesh=None``) path of ``repro.runtime.serve``.
 PyTorch runs eagerly, so the steps are plain functions; ``ServeSession`` is
@@ -44,7 +44,10 @@ def build_prefill_step(model: Model, opts: ServeOptions):
 def build_decode_step(model: Model, opts: ServeOptions):
 
     def decode(params, cache, tokens, index, generator=None):
-        """tokens: (B, 1); index: int position. -> (next, last, cache)."""
+        """tokens: (B, 1); index: int position. -> (next, last, cache).
+
+        Samples from ``generator`` when temperature > 0 and one is given (the
+        reference samples when given a key); otherwise greedy."""
         logits, cache, _ = model.apply(params, {"tokens": tokens},
                                        mode="decode", cache=cache,
                                        cache_index=index)
@@ -58,20 +61,20 @@ class ServeSession:
     """Batched request serving against a locally-materialized model.
 
     ``device`` defaults to ``cuda`` and raises when no card is present;
-    ``params`` must already live there. Sampling (temperature > 0) draws
-    from the session's generator, seeded with ``seed``.
+    ``params`` must already live there. ``generate`` decodes greedily at any
+    temperature, token for token as the reference's session does (it passes
+    its decode step no key); sampling is the decode step's, given a
+    generator.
     """
 
     def __init__(self, model: Model, params, opts: ServeOptions = ServeOptions(),
-                 *, device=None, seed: int = 0):
+                 *, device=None):
         self.device = resolve_device(device)
         where = params["embed"].device
         if where.type != self.device.type:
             raise ValueError(f"params are on {where}, the session on "
                              f"{self.device}")
         self.model, self.params, self.opts = model, params, opts
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
         self._prefill = build_prefill_step(model, opts)
         self._decode = build_decode_step(model, opts)
 
@@ -88,10 +91,9 @@ class ServeSession:
                                       kv_dtype=dtype_of(self.opts.kv_dtype))
         last_logits, cache = self._prefill(self.params, {"tokens": prompts},
                                            cache)
-        tok = _next_token(last_logits, self.opts, self.generator)
+        tok = torch.argmax(last_logits, dim=-1)[:, None]
         out = [tok]
         for idx in range(S, S + max_new_tokens - 1):
-            tok, _, cache = self._decode(self.params, cache, tok, idx,
-                                         self.generator)
+            tok, _, cache = self._decode(self.params, cache, tok, idx)
             out.append(tok)
         return torch.cat(out, dim=1)

@@ -12,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 
 
 @pytest.fixture
@@ -49,3 +50,40 @@ def test_flash_attention_kernel_rejects_fp32(cuda):
     q, k, v = (t.float() for t in _qkv(9, 1, 64, 64, 2, 2, 64, cuda))
     with pytest.raises(ValueError, match="bfloat16"):
         fa.flash_attention_cuda(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("L,chunk", [(256, 64), (200, 100), (21, 7)])
+def test_ssd_scan_kernel_vs_plain(cuda, dtype, tol, L, chunk):
+    rng = np.random.default_rng(10)
+    B, H, P, N, G = 2, 4, 32, 64, 2
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(a.astype(np.float32)).to(cuda, dt)
+
+    x = t(rng.standard_normal((B, L, H, P)) * 0.5, dtype)
+    dt = t(rng.uniform(1e-3, 1e-1, (B, L, H)))
+    a_log = t(np.log(rng.uniform(1, 16, H)))
+    b, c = (t(rng.standard_normal((B, L, G, N)) * 0.3, dtype) for _ in range(2))
+    d_skip = t(rng.standard_normal(H))
+    before = ss.ssd_scan_cuda.launches
+    y, state = ss.ssd_scan_cuda(x, dt, a_log, b, c, d_skip, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ss.ssd_scan_cuda.launches == before + 1
+    y_p, state_p = ss.ssd_scan_plain(x, dt, a_log, b, c, d_skip, chunk=chunk)
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               y_p.float().cpu().numpy(), atol=tol, rtol=tol)
+    np.testing.assert_allclose(state.cpu().numpy(), state_p.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_rejects_fp16(cuda):
+    x = torch.zeros(1, 16, 2, 16, device=cuda, dtype=torch.float16)
+    b = torch.zeros(1, 16, 1, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="kernel takes"):
+        ss.ssd_scan_cuda(x, torch.zeros(1, 16, 2, device=cuda),
+                         torch.zeros(2, device=cuda), b, b,
+                         torch.zeros(2, device=cuda), chunk=16)

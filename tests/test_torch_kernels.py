@@ -1,5 +1,6 @@
-"""Port vs reference: attention oracles, the flash-attention module and the
-decode GEMV, on the same seeded numpy inputs through JAX and torch.
+"""Port vs reference: attention and SSD oracles, the flash-attention and
+SSD-scan modules and the decode steps, on the same seeded numpy inputs
+through JAX and torch.
 
 The JAX side runs the Pallas kernel in interpret mode (as tests/test_kernels.py
 does) and its pure-jnp oracle; the port's CUDA kernel runs only on a card
@@ -16,8 +17,10 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
+from repro.kernels.ssd_scan import ssd_scan_pallas  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -187,15 +190,153 @@ def test_check_inputs_rejects_what_the_kernel_does_not_take(case):
 
 
 def test_smem_budget():
-    """The kernel's shared memory fits a Hopper block at both head dims."""
+    """The kernel's shared memory fits a Hopper block at every head dim."""
     assert fa.smem_bytes(d=128) == (64 + 4 * 64) * 136 * 2 == 87040
+    assert fa.smem_bytes(d=112) == (64 + 4 * 64) * 120 * 2 == 76800
     assert fa.smem_bytes(d=64) == 46080
     assert all(fa.smem_bytes(d=d) <= 232448 for d in fa.HEAD_DIMS)
 
 
-def test_nvcc_command_targets_sm90a():
-    cmd = _build.nvcc_command("flash_attention", _build.BUILD_DIR / "x.so")
+@pytest.mark.parametrize("name", ["flash_attention", "ssd_scan"])
+def test_nvcc_command_targets_sm90a(name):
+    cmd = _build.nvcc_command(name, _build.BUILD_DIR / "x.so")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
-    assert cmd[-1].endswith("csrc/flash_attention.cu")
-    lib = _build.library_path("flash_attention")
+    assert cmd[-1].endswith(f"csrc/{name}.cu")
+    lib = _build.library_path(name)
     assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+
+SSD_GRID = [                    # tests/test_kernels.py TestSSDScan
+    (1, 64, 2, 16, 16, 1, 16),
+    (2, 128, 4, 32, 16, 2, 32),
+    (1, 96, 2, 16, 32, 1, 32),
+]
+SSD_TOL = 1e-4
+
+
+def _ssd_inputs(seed, B, L, H, P, N, G):
+    """x, dt, a_log, b, c, d_skip as the JAX kernel test draws them."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, L, H, P)).astype(np.float32) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((B, L, H)))).astype(np.float32)
+    a_log = np.full(H, 0.5, np.float32)
+    b = rng.standard_normal((B, L, G, N)).astype(np.float32) * 0.3
+    c = rng.standard_normal((B, L, G, N)).astype(np.float32) * 0.3
+    d_skip = rng.standard_normal(H).astype(np.float32)
+    return x, dt, a_log, b, c, d_skip
+
+
+def _ssd_both(seed, *shape):
+    arrays = _ssd_inputs(seed, *shape)
+    return ([jnp.asarray(a) for a in arrays],
+            [torch.from_numpy(a) for a in arrays])
+
+
+@pytest.mark.parametrize("B,L,H,P,N,G,chunk", SSD_GRID)
+def test_ssd_vs_pallas_and_reference(B, L, H, P, N, G, chunk):
+    j, t = _ssd_both(0, B, L, H, P, N, G)
+    y_p, st_p = ssd_scan_pallas(*j, chunk=chunk, interpret=True)
+    y_r, st_r = jref.ssd_chunked(*j, chunk_size=chunk)
+    for y, st in (ref.ssd_naive(*t), ref.ssd_chunked(*t, chunk_size=chunk),
+                  ops.ssd_scan(*t, chunk=chunk)):
+        assert y.shape == (B, L, H, P) and st.shape == (B, H, P, N)
+        assert st.dtype == torch.float32
+        for want_y, want_st in ((y_p, st_p), (y_r, st_r)):
+            _close(y, want_y, SSD_TOL)
+            _close(st, want_st, SSD_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunked_and_naive_vs_reference_in_dtype(dtype):
+    """x, b, c in the model's dtype: y comes back in it, the state in fp32."""
+    arrays = _ssd_inputs(1, 2, 64, 4, 16, 16, 2)
+    j = [jnp.asarray(a) for a in arrays]
+    t = [torch.from_numpy(a) for a in arrays]
+    for i in (0, 3, 4):
+        j[i], t[i] = j[i].astype(JDT[dtype]), t[i].to(TDT[dtype])
+    for name, kw in (("ssd_naive", {}), ("ssd_chunked", {"chunk_size": 16})):
+        y_w, st_w = getattr(jref, name)(*j, **kw)
+        y, st = getattr(ref, name)(*t, **kw)
+        assert y.dtype == TDT[dtype] and st.dtype == torch.float32
+        _close(y, y_w, TOL[dtype])
+        _close(st, st_w, SSD_TOL)
+
+
+def test_ssd_decode_step_matches_scan():
+    """Stepwise recurrent decode == chunked scan on the same sequence, and
+    each step == the reference's step."""
+    B, L, H, P, N, G = 1, 32, 2, 16, 16, 1
+    j, t = _ssd_both(7, B, L, H, P, N, G)
+    x, dt, a_log, b, c, d_skip = t
+    y_scan, st_scan = ref.ssd_chunked(*t, chunk_size=16)
+    state, j_state, ys = torch.zeros(B, H, P, N), jnp.zeros((B, H, P, N)), []
+    for i in range(L):
+        y_t, state = ops.ssd_decode_step(state, x[:, i], dt[:, i], a_log,
+                                         b[:, i], c[:, i], d_skip)
+        jy_t, j_state = jref.ssd_decode_step(
+            j_state, j[0][:, i], j[1][:, i], j[2], j[3][:, i], j[4][:, i], j[5])
+        _close(y_t, jy_t, SSD_TOL)
+        ys.append(y_t)
+    _close(torch.stack(ys, 1), y_scan, SSD_TOL)
+    _close(state, st_scan, SSD_TOL)
+    _close(state, j_state, SSD_TOL)
+
+
+def test_ssd_chunked_requires_whole_chunks():
+    _, t = _ssd_both(2, 1, 48, 2, 16, 16, 1)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ref.ssd_chunked(*t, chunk_size=32)
+
+
+def test_ssd_cpu_wrapper_takes_plain_version_without_counting(monkeypatch):
+    monkeypatch.setattr(_build, "load", _refuse_build)
+    before = ss.ssd_scan_cuda.launches
+    _, t = _ssd_both(3, 1, 64, 2, 16, 16, 1)
+    y, st = ss.ssd_scan_cuda(*t, chunk=16)
+    y_w, st_w = ss.ssd_scan_plain(*t, chunk=16)
+    _close(y, y_w, 0.0)
+    _close(st, st_w, 0.0)
+    assert ss.ssd_scan_cuda.launches == before
+
+
+@pytest.mark.parametrize("case", ["dtype", "mixed_dtype", "dt_dtype", "head_dim",
+                                  "d_state", "chunk", "contiguous", "groups"])
+def test_ssd_check_inputs_rejects_what_the_kernel_does_not_take(case):
+    B, L, H, P, N, G = 1, 64, 4, 32, 16, 2
+    x = torch.zeros(B, L, H, P, dtype=torch.bfloat16)
+    dt = torch.zeros(B, L, H)
+    b = torch.zeros(B, L, G, N, dtype=torch.bfloat16)
+    c = b.clone()
+    vec = torch.zeros(H)
+    chunk = 32
+    ss.check_inputs(x, dt, vec, b, c, vec, chunk)    # the accepted form
+    if case == "dtype":
+        x, b, c = x.half(), b.half(), c.half()
+    elif case == "mixed_dtype":
+        b = b.float()
+    elif case == "dt_dtype":
+        dt = dt.bfloat16()
+    elif case == "head_dim":
+        x = torch.zeros(B, L, H, 24, dtype=torch.bfloat16)
+    elif case == "d_state":
+        b = c = torch.zeros(B, L, G, 256, dtype=torch.bfloat16)
+    elif case == "chunk":
+        chunk = 24
+    elif case == "contiguous":
+        x = torch.zeros(B, H, L, P, dtype=torch.bfloat16).transpose(1, 2)
+    else:
+        b = c = torch.zeros(B, L, 3, N, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        ss.check_inputs(x, dt, vec, b, c, vec, chunk)
+
+
+def test_ssd_smem_budget():
+    """The SSD kernel's shared memory at each state width the models use:
+    two blocks of the widest (mamba2-370m, N=128) fit one SM's 228 KB."""
+    assert ss.smem_bytes(128) == 112128
+    assert ss.smem_bytes(64) == 71168
+    assert 2 * (ss.smem_bytes(128) + 1024) <= 233472

@@ -14,9 +14,11 @@ torch = pytest.importorskip("torch")
 import ml_dtypes  # noqa: E402
 
 from repro.configs import deepseek_7b as jax_deepseek  # noqa: E402
+from repro.configs import mamba2_370m as jax_mamba2  # noqa: E402
+from repro.configs import zamba2_7b as jax_zamba2  # noqa: E402
 from repro.configs.base import ModelConfig as JaxModelConfig  # noqa: E402
 from repro_torch import _bridge  # noqa: E402
-from repro_torch.configs import deepseek_7b  # noqa: E402
+from repro_torch.configs import deepseek_7b, mamba2_370m, zamba2_7b  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -82,6 +84,26 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     assert _bridge.resolve_device("cpu") == torch.device("cpu")
 
 
+def test_cpu_ssd_scan_never_builds_the_kernel(no_cuda, monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"tried to build {name}")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((1, 32, 2, 16), np.float32))
+    dt = torch.from_numpy(rng.uniform(0.01, 0.1, (1, 32, 2)).astype(np.float32))
+    b, c = (torch.from_numpy(rng.standard_normal((1, 32, 1, 16), np.float32))
+            for _ in range(2))
+    y, state = ops.ssd_scan(x.bfloat16(), dt, torch.zeros(2), b.bfloat16(),
+                            c.bfloat16(), torch.ones(2), chunk=16)
+    assert y.dtype == torch.bfloat16 and state.shape == (1, 2, 16, 16)
+    model = build_model(get_config("zamba2-7b", reduced=True))
+    params = model.init(torch.Generator().manual_seed(0))
+    sess = serve.ServeSession(model, params, device="cpu")
+    assert sess.generate(torch.zeros(1, 4, dtype=torch.long), 2).shape == (1, 2)
+
+
 def test_cpu_attention_never_builds_the_kernel(no_cuda, monkeypatch):
     def refuse(name):
         raise AssertionError(f"tried to build {name}")
@@ -122,19 +144,30 @@ def test_bridge_bf16_keeps_values():
 def test_configs_are_copies_of_the_reference():
     assert [f.name for f in dataclasses.fields(ModelConfig)] == \
         [f.name for f in dataclasses.fields(JaxModelConfig)]
-    for port, ref_cfg in ((deepseek_7b.CONFIG, jax_deepseek.CONFIG),
-                          (deepseek_7b.REDUCED, jax_deepseek.REDUCED)):
-        assert dataclasses.asdict(port) == dataclasses.asdict(ref_cfg)
-    assert ARCH_IDS == ("deepseek-7b",)
+    for port, ref_mod in ((deepseek_7b, jax_deepseek), (mamba2_370m, jax_mamba2),
+                          (zamba2_7b, jax_zamba2)):
+        for name in ("CONFIG", "REDUCED"):
+            assert dataclasses.asdict(getattr(port, name)) == \
+                dataclasses.asdict(getattr(ref_mod, name))
+    assert ARCH_IDS == ("deepseek-7b", "mamba2-370m", "zamba2-7b")
     assert get_config("deepseek-7b").n_layers == 30
+    assert get_config("zamba2-7b").n_layers == 81
     with pytest.raises(KeyError):
-        get_config("mamba2-370m")
+        get_config("deepseek-moe-16b")
 
 
 def test_full_width_size():
     """deepseek-7b at full width: ~6.9e9 parameters, ~13.8 GB in bf16."""
     n = build_model(get_config("deepseek-7b")).param_count()
     assert 6.8e9 < n < 7.0e9
+
+
+@pytest.mark.parametrize("arch,low,high", [("zamba2-7b", 6.6e9, 6.7e9),
+                                           ("mamba2-370m", 3.6e8, 3.8e8)])
+def test_ssm_full_width_sizes(arch, low, high):
+    """zamba2-7b ~6.67e9 parameters (13.3 GB in bf16, one card holds it);
+    mamba2-370m ~3.7e8."""
+    assert low < build_model(get_config(arch)).param_count() < high
 
 
 @pytest.fixture
@@ -160,3 +193,25 @@ def test_chip_smoke_counts_the_work_the_masks_leave(chip_smoke):
         assert chip_smoke.attended_pairs(Sq, Sk, **kw) == int(mask.sum())
     ms, by = chip_smoke.attention_bound_ms(4, 2048, 2048, 32, 32, 128, {})
     assert by == "operations" and abs(ms - 0.139) < 0.001
+
+
+def test_chip_smoke_expects_a_launch_per_block(chip_smoke):
+    """Per prefill: one flash launch per attention block, one SSD launch per
+    SSM layer."""
+    want = {"deepseek-7b": {"flash_attention": 30, "ssd_scan": 0},
+            "zamba2-7b": {"flash_attention": 13, "ssd_scan": 81},
+            "mamba2-370m": {"flash_attention": 0, "ssd_scan": 48}}
+    for arch, count in want.items():
+        assert chip_smoke.expected_launches(get_config(arch)) == count
+    assert [a for a, _ in chip_smoke.SERVE_PATHS] == list(want)
+
+
+def test_chip_smoke_ssd_bound(chip_smoke):
+    """The SSD bound at the prefill shapes, B=4, L=2048, chunk 256: zamba2-7b
+    4.5e10 FLOPs over 250 MB, by bytes; mamba2-370m 2.2e10 over 77 MB."""
+    ms, by = chip_smoke.ssd_bound_ms(4, 2048, 112, 64, 64, 2, 256, "bfloat16")
+    assert by == "bytes" and abs(ms - 0.0747) < 0.001
+    ms, by = chip_smoke.ssd_bound_ms(4, 2048, 32, 64, 128, 1, 256, "bfloat16")
+    assert by == "bytes" and abs(ms - 0.0228) < 0.001
+    ms, by = chip_smoke.attention_bound_ms(4, 2048, 2048, 32, 32, 112, {})
+    assert by == "operations" and abs(ms - 0.122) < 0.001

@@ -25,10 +25,10 @@ TOL = {"float32": 1e-4, "bfloat16": 6e-2}
 B, S, N = 2, 8, 8
 
 
-def _pair(dtype, **overrides):
+def _pair(dtype, arch="deepseek-7b", **overrides):
     kw = dict(overrides, param_dtype=dtype, activ_dtype=dtype)
-    jm = jax_build_model(jax_get_config("deepseek-7b", reduced=True).replace(**kw))
-    tm = build_model(get_config("deepseek-7b", reduced=True).replace(**kw))
+    jm = jax_build_model(jax_get_config(arch, reduced=True).replace(**kw))
+    tm = build_model(get_config(arch, reduced=True).replace(**kw))
     jp = jm.init(jax.random.PRNGKey(0))
     return jm, jp, tm, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
 
@@ -37,17 +37,10 @@ def _prompts(seed=4, vocab=256):
     return np.random.default_rng(seed).integers(0, vocab, (B, S)).astype(np.int32)
 
 
-@pytest.mark.parametrize("dtype,overrides", [
-    ("bfloat16", {}), ("bfloat16", {"n_kv_heads": 2}), ("float32", {})])
-def test_generate_matches_reference(dtype, overrides):
-    jm, jp, tm, tp = _pair(dtype, **overrides)
-    prompts = _prompts()
-    want = np.asarray(jserve.ServeSession(jm, jp).generate(
-        jnp.asarray(prompts), max_new_tokens=N))
-    got = serve.ServeSession(tm, tp, device="cpu").generate(
-        torch.from_numpy(prompts), max_new_tokens=N).numpy()
+def _assert_tokens_match(jm, jp, prompts, got, want, tol):
+    """Equal tokens up to the first step whose reference top-2 margin is
+    within ``tol`` (a near-tie may flip there, and the paths go apart)."""
     assert got.shape == want.shape == (B, N)
-
     # the reference's logits at each step of its own greedy path
     seq = np.concatenate([prompts, want[:, :-1]], axis=1)
     logits, _, _ = jm.apply(jp, {"tokens": jnp.asarray(seq)}, mode="train")
@@ -56,18 +49,59 @@ def test_generate_matches_reference(dtype, overrides):
     for b in range(B):
         for i in range(N):
             if got[b, i] != want[b, i]:
-                assert margin[b, i] <= TOL[dtype], (b, i, margin[b, i])
+                assert margin[b, i] <= tol, (b, i, margin[b, i])
                 break
 
 
+def _generate_both(dtype, arch="deepseek-7b", opts=None, **overrides):
+    jm, jp, tm, tp = _pair(dtype, arch, **overrides)
+    prompts = _prompts()
+    want = np.asarray(jserve.ServeSession(
+        jm, jp, opts=jserve.ServeOptions(**(opts or {}))).generate(
+            jnp.asarray(prompts), max_new_tokens=N))
+    got = serve.ServeSession(tm, tp, serve.ServeOptions(**(opts or {})),
+                             device="cpu").generate(
+        torch.from_numpy(prompts), max_new_tokens=N).numpy()
+    _assert_tokens_match(jm, jp, prompts, got, want, TOL[dtype])
+    return got, want
+
+
+@pytest.mark.parametrize("dtype,overrides", [
+    ("bfloat16", {}), ("bfloat16", {"n_kv_heads": 2}), ("float32", {})])
+def test_generate_matches_reference(dtype, overrides):
+    _generate_both(dtype, **overrides)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssm_generate_matches_reference(arch, dtype):
+    _generate_both(dtype, arch)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "zamba2-7b"])
+def test_generate_ignores_temperature_as_the_reference_does(arch):
+    """The reference's generate decodes greedily whatever the temperature
+    (it gives its decode step no key); the port's session does the same."""
+    got, want = _generate_both("float32", arch, opts={"temperature": 0.7})
+    greedy, _ = _generate_both("float32", arch)
+    assert np.array_equal(got, greedy)
+
+
 def test_sampling_is_seeded_and_in_range():
+    """The decode step samples when given a generator and temperature > 0
+    (as the reference's samples when given a key)."""
     _, _, tm, tp = _pair("float32")
-    prompts = torch.from_numpy(_prompts())
-    opts = serve.ServeOptions(temperature=1.0)
+    prompts = torch.from_numpy(_prompts()).long()
+    cache = tm.init_cache(B, S + 1, device="cpu")
+    last, cache = serve.build_prefill_step(tm, serve.ServeOptions())(
+        tp, {"tokens": prompts}, cache)
+    decode = serve.build_decode_step(tm, serve.ServeOptions(temperature=1.0))
+    tok = last.argmax(-1)[:, None]
 
     def draw(seed):
-        sess = serve.ServeSession(tm, tp, opts, device="cpu", seed=seed)
-        return sess.generate(prompts, max_new_tokens=N)
+        gen = torch.Generator().manual_seed(seed)
+        return torch.cat([decode(tp, cache, tok, S, gen)[0]
+                          for _ in range(N)], dim=1)
 
     a, b, c = draw(3), draw(3), draw(4)
     assert a.shape == (B, N)
@@ -97,12 +131,13 @@ def test_prefill_and_decode_steps_shapes():
     assert nxt.shape == (B, 1) and not bool(k[:, :, S].eq(0).all())
 
 
-def test_launcher_runs_reduced_on_cpu(capsys):
-    out = launch_serve.main(["--reduced", "--device", "cpu", "--requests", "3",
-                             "--batch", "2", "--prompt-len", "8",
-                             "--max-new", "4"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-370m", "zamba2-7b"])
+def test_launcher_runs_reduced_on_cpu(arch, capsys):
+    out = launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                             "--requests", "3", "--batch", "2",
+                             "--prompt-len", "8", "--max-new", "4"])
     assert out["batches"] == 2 and out["tok_per_s"] > 0
-    assert "[serve] deepseek-7b on cpu" in capsys.readouterr().out
+    assert f"[serve] {arch} on cpu" in capsys.readouterr().out
 
 
 def test_launcher_defaults_to_full_width(monkeypatch):
