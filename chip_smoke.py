@@ -27,26 +27,37 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             state dropped in the last chunk; one 64-step tile of the last
             chunk dropped) are shown to exceed; timings of the kernel and
             the plain version there.
+   gmm:     the grouped-GEMM kernel against its plain version: the kernel-test
+            grid in fp32 and bf16 within TOL * sqrt(d), two ragged shapes,
+            and deepseek-moe-16b's expert products in bf16 (prefill gate/up
+            and down at capacity 968, decode gate/up at capacity 8) within an
+            elementwise limit and a relative-norm limit that two injected
+            faults (the last 32-deep step of d dropped; the ragged last
+            C-tile of one expert left unwritten) are shown to exceed; timings
+            of the kernel, the plain version and ``torch.bmm`` (a yardstick
+            the port never calls) there.
 3. serve:   the main paths: ``ServeSession.generate`` at full width, random
             bf16 weights from a seeded generator, two batches of 4 prompts of
             2048 tokens, 64 new greedy tokens each, on deepseek-7b (30
             layers, d_model 4096), zamba2-7b (81 SSM layers and 13 shared
-            attention blocks, d_model 3584) and mamba2-370m (48 layers,
-            d_model 1024). The kernels' launch counts are reset just before
-            each path and read just after it; every prefill must launch the
-            flash kernel once per attention block and the SSD kernel once per
-            SSM layer.
-4. agree:   deepseek-7b and zamba2-7b: one full-width prefill through the
-            kernels and the same prefill through their plain versions: logits
-            at every prompt position within a stated multiple of the
-            network's own bf16 noise floor, argmax equal wherever the top-2
-            margin exceeds that limit, and a prefill with an injected fault
-            shown to exceed it. For zamba2-7b also 8 decode steps from each
-            prefill's cache, held the same way, with a dropped SSM-state
-            handoff shown to exceed the limit.
-5. trace:   torch.profiler over one prefill and a few decode steps of
-            deepseek-7b and of zamba2-7b: device busy time, idle share and
-            the kernels that take the most time.
+            attention blocks, d_model 3584), mamba2-370m (48 layers, d_model
+            1024) and deepseek-moe-16b (28 layers, d_model 2048, 27 MoE
+            layers of 64 routed experts, top 6). The kernels' launch counts
+            are reset just before each path and read just after it; every
+            prefill must launch the flash kernel once per attention block,
+            the SSD kernel once per SSM layer and the grouped GEMM three
+            times per MoE layer.
+4. agree:   deepseek-7b, zamba2-7b and deepseek-moe-16b: one full-width
+            prefill through the kernels and the same prefill through their
+            plain versions: logits at every prompt position within a stated
+            multiple of the network's own bf16 noise floor, argmax equal
+            wherever the top-2 margin exceeds that limit, and a prefill with
+            an injected fault shown to exceed it. For zamba2-7b also 8 decode
+            steps from each prefill's cache, held the same way, with a
+            dropped SSM-state handoff shown to exceed the limit.
+5. trace:   torch.profiler over one prefill and a few decode steps of each
+            of those three: device busy time, idle share and the kernels that
+            take the most time.
 
 Then a ``kernels`` line (one entry per kernel of the paths), the card's
 ``nvidia-smi`` name and power limit, and last the device line. Any failure
@@ -55,6 +66,7 @@ raises, so the script never prints the last line after a failed phase.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import gc
 import json
 import math
@@ -78,6 +90,10 @@ SSD_GRID_TOL = 1e-4        # fp32 grid, y and state (tests/test_kernels.py TestS
 SSD_Y_TOL = 2e-2           # bf16 y at the model shapes, elementwise
 SSD_Y_RTOL = 1e-3          # bf16 y at the model shapes, whole-tensor relative norm
 SSD_STATE_RTOL = 1e-4      # fp32 state at the model shapes, relative norm
+GMM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # x sqrt(d): tests/test_kernels.py TestGMM
+GMM_NORM_RTOL = 1e-3       # bf16 model shapes, whole output, relative norm
+GMM_STEP = 32              # the gmm kernel's d step (BLOCK_D), the unit of a fault
+GMM_TILE = 128             # the gmm kernel's C tile (BLOCK_C), the unit of a fault
 
 # (name, B, Sq, Sk, H, KVH, D, options): the TestFlashAttention grid of
 # tests/test_kernels.py at head_dim 64 and 128 (the kernel's), one non-causal
@@ -109,9 +125,25 @@ SSD_MODEL_SHAPES = [
     ("mamba2-370m", 4, 2048, 32, 64, 128, 1, 256, "bfloat16"),
 ]
 SSD_TILE = 64              # the SSD kernel's (t, s) tile, the unit of a fault
+# (name, E, C, d, f, dtype): the TestGMM grid of tests/test_kernels.py in
+# fp32 and bf16, two ragged shapes (the second not a multiple of 8 in d or
+# f: element-wise loads), and deepseek-moe-16b's expert products: 64
+# experts, d_model 2048, expert width 1408, capacity 968 for a prefill of
+# 4 x 2048 tokens (top 6, factor 1.25) and 8 for a decode step of 4
+GMM_GRID = [(f"grid_{E}x{C}x{d}x{f}", E, C, d, f, dt)
+            for dt in ("float32", "bfloat16")
+            for E, C, d, f in ((2, 16, 32, 64), (8, 64, 128, 64),
+                               (4, 8, 256, 128), (3, 100, 72, 200),
+                               (2, 37, 30, 50))]
+GMM_MODEL_SHAPES = [
+    ("prefill_gate_up", 64, 968, 2048, 1408, "bfloat16"),
+    ("prefill_down", 64, 968, 1408, 2048, "bfloat16"),
+    ("decode_gate_up", 64, 8, 2048, 1408, "bfloat16"),
+]
 # the main paths in order, each with the decode steps its agreement phase
 # holds (None: no agreement and trace phases)
-SERVE_PATHS = (("deepseek-7b", 0), ("zamba2-7b", 8), ("mamba2-370m", None))
+SERVE_PATHS = (("deepseek-7b", 0), ("zamba2-7b", 8), ("mamba2-370m", None),
+               ("deepseek-moe-16b", 0))
 
 
 def emit(obj) -> None:
@@ -168,13 +200,14 @@ def attention_bound_ms(B, Sq, Sk, H, KVH, D, opts) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-KERNEL_SOURCES = ("flash_attention", "ssd_scan")
+KERNEL_SOURCES = ("flash_attention", "moe_gmm", "ssd_scan")
 
 
 def phase_card():
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
     from repro_torch.kernels import ssd_scan as ss
 
     t0 = time.perf_counter()
@@ -188,13 +221,17 @@ def phase_card():
     for n in (16, 32, 64, 128):
         if ss._lib().ssd_scan_smem_bytes(n) != ss.smem_bytes(n):
             raise AssertionError(f"ssd smem_bytes({n}) disagrees with the kernel")
+    for dtype, code in mg.DTYPES.items():
+        if mg._lib().moe_gmm_smem_bytes(code) != mg.smem_bytes(dtype):
+            raise AssertionError(f"gmm smem_bytes({dtype}) disagrees with the kernel")
     emit({"phase": "card", "card": card_line(),
           "kind": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "smem_bytes_d128": fa.smem_bytes(d=128),
           "smem_bytes_d112": fa.smem_bytes(d=112),
           "ssd_smem_bytes_n64": ss.smem_bytes(64),
-          "ssd_smem_bytes_n128": ss.smem_bytes(128)})
+          "ssd_smem_bytes_n128": ss.smem_bytes(128),
+          "gmm_smem_bytes_bf16": mg.smem_bytes(torch.bfloat16)})
 
 
 def rel_errors(got, want) -> tuple[float, float]:
@@ -425,6 +462,93 @@ def phase_ssd():
     return worst, timings
 
 
+def gmm_bound_ms(E, C, d, f, dtype) -> tuple[float, str]:
+    """Least time on the card for one grouped matmul: 2 E C d f operations
+    at the peak for the inputs' type, against x, w and the output read or
+    written once."""
+    esize = 2 if dtype == "bfloat16" else 4
+    flops = 2 * E * C * d * f
+    nbytes = esize * (E * C * d + E * d * f + E * C * f)
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def gmm_faults(x, w):
+    """The plain version's output under two faults a tiled grouped GEMM can
+    have: the last GMM_STEP-deep step of the contraction dropped, and the
+    last (ragged) C-tile of the last expert left unwritten (zero here)."""
+    unwritten = plain_gmm(x, w)
+    unwritten[-1, (x.shape[1] - 1) // GMM_TILE * GMM_TILE:] = 0
+    return {"last_d_step_dropped": dropped_step_gmm(x, w),
+            "last_c_tile_unwritten": unwritten}
+
+
+def phase_gmm():
+    """The grouped-GEMM kernel against its plain version (module docstring)."""
+    import torch
+    from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
+
+    def norm_rel(got, want):
+        return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    worst, failures, timings = 0.0, [], {}
+    for name, E, C, d, f, dtype in GMM_GRID + GMM_MODEL_SHAPES:
+        model = name in {s[0] for s in GMM_MODEL_SHAPES}
+        dt_ = getattr(torch, dtype)
+        # the grid draws both factors N(0, 1) as TestGMM does; the model
+        # shapes scale w by d^-1/2 so that outputs are O(1)
+        x = torch.randn(E, C, d, generator=gen, device="cuda").to(dt_)
+        w = (torch.randn(E, d, f, generator=gen, device="cuda")
+             * (d ** -0.5 if model else 1.0)).to(dt_)
+        got = gmm_cuda(x, w)
+        torch.cuda.synchronize()
+        want = gmm_plain(x, w)
+        err = (got.float() - want.float()).abs().max().item()
+        line = {"phase": "gmm", "shape": name, "dtype": dtype,
+                "E_C_d_f": [E, C, d, f], "max_abs_err": err,
+                "norm_rel_err": norm_rel(got, want)}
+        finite = bool(torch.isfinite(got).all())
+        if model:
+            ok = finite and torch.allclose(got.float(), want.float(),
+                                           atol=KERNEL_TOL, rtol=KERNEL_TOL) \
+                and line["norm_rel_err"] <= GMM_NORM_RTOL
+            line.update(tol=KERNEL_TOL, norm_rtol=GMM_NORM_RTOL, faults={})
+            # the norm limit must have the power to see a one-step fault
+            # and a one-tile fault
+            for fault, out in gmm_faults(x, w).items():
+                f_norm = norm_rel(out, want)
+                line["faults"][fault] = {"norm_rel_err": f_norm}
+                if f_norm <= GMM_NORM_RTOL:
+                    failures.append(f"{name}: norm limit misses {fault}")
+                del out
+        else:
+            tol = GMM_TOL[dtype]
+            ok = finite and torch.allclose(got.float(), want.float(),
+                                           atol=tol * d ** 0.5, rtol=tol)
+            line.update(atol=tol * d ** 0.5, rtol=tol)
+        worst = max(worst, err)
+        emit({**line, "ok": ok})
+        if not ok:
+            failures.append(name)
+        if model and ok:
+            bound_ms, bound_by = gmm_bound_ms(E, C, d, f, dtype)
+            timings[name] = {
+                "ms": cuda_ms(lambda: gmm_cuda(x, w)),
+                "plain_ms": cuda_ms(lambda: gmm_plain(x, w), warmup=1, iters=5),
+                "library_ms": cuda_ms(lambda: torch.bmm(x, w)),
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+            }
+            emit({"phase": "gmm_timing", "shape": name, **timings[name]})
+        del x, w, got, want
+    if failures:
+        raise AssertionError(f"gmm kernel checks failed: {failures}")
+    return worst, timings
+
+
 def _sync_s(fn):
     import torch
     torch.cuda.synchronize()
@@ -436,22 +560,26 @@ def _sync_s(fn):
 
 def expected_launches(cfg) -> dict:
     """Launches of each kernel that one prefill of ``cfg`` must make: one
-    flash launch per attention block, one SSD launch per SSM layer."""
+    flash launch per attention block, one SSD launch per SSM layer, three
+    grouped-GEMM launches (gate, up, down) per MoE layer."""
     from repro_torch.models.transformer import layer_plan
-    count = {"flash_attention": 0, "ssd_scan": 0}
+    count = {"flash_attention": 0, "gmm": 0, "ssd_scan": 0}
     for gd in layer_plan(cfg):
         for b in gd.blocks:
             if b.kind in ("attn", "parallel", "shared_attn"):
                 count["flash_attention"] += gd.repeat
             elif b.kind == "ssm":
                 count["ssd_scan"] += gd.repeat
+            elif b.kind == "moe":
+                count["gmm"] += 3 * gd.repeat
     return count
 
 
 def launch_counters():
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.moe_gmm import gmm_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
-    return {"flash_attention": flash_attention_cuda,
+    return {"flash_attention": flash_attention_cuda, "gmm": gmm_cuda,
             "ssd_scan": ssd_scan_cuda}
 
 
@@ -469,6 +597,7 @@ def phase_serve(arch):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params, init_s = _sync_s(lambda: model.init(gen))
+    scale_routed_experts(model, params)
     sess = ServeSession(model, params, ServeOptions(), device="cuda")
     prompts = [torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT_LEN),
                              generator=gen, device="cuda")
@@ -517,6 +646,27 @@ def phase_serve(arch):
           "max_memory_allocated": peak,
           **{f"{name}_launches": n for name, n in launches.items()}})
     return model, params, prompts[0], launches
+
+
+def scale_routed_experts(model, params) -> None:
+    """Draw the routed experts at one expert's fan-in, in place.
+
+    The reference's init (kept by the port) counts the experts axis in the
+    fan-in, so each routed expert matrix is drawn sqrt(E) times narrower than
+    a dense one: with E = 64 a routed expert's output is 1/512 of a shared
+    expert's, and no check of the logits could see the routed experts at
+    all. Multiplying by sqrt(E) (8, exact in bf16) draws each at the fan-in
+    of a dense FFN of its width. Other architectures are left as drawn."""
+    import torch
+    if model.cfg.family != "moe":
+        return
+    scale = math.sqrt(model.cfg.moe.num_experts)
+    with torch.no_grad():
+        for group in params["groups"].values():
+            for block in group.values():
+                if "moe" in block:
+                    for name in ("w_gate", "w_up", "w_down"):
+                        block["moe"][name].mul_(scale)
 
 
 def plain_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
@@ -580,6 +730,74 @@ def dropped_tile_ssd(x, dt, a_log, b, c, d_skip, *, chunk=128):
     return plain_ssd(x, dt, a_log, b, c, d_skip, chunk=chunk)
 
 
+def plain_gmm(x, w):
+    from repro_torch.kernels.moe_gmm import gmm_plain
+    return gmm_plain(x, w)
+
+
+def split_d_gmm(x, w):
+    """The plain grouped matmul as two fp32 half-depth products summed: the
+    same sums, in another order."""
+    import torch
+    h = x.shape[2] // 2
+    xf, wf = x.float(), w.float()
+    return (torch.bmm(xf[..., :h], wf[:, :h])
+            + torch.bmm(xf[..., h:], wf[:, h:])).to(x.dtype)
+
+
+def dropped_step_gmm(x, w):
+    """The plain grouped matmul with the last GMM_STEP-deep step of d dropped."""
+    d = x.shape[2]
+    return plain_gmm(x[..., :d - GMM_STEP].contiguous(),
+                     w[:, :d - GMM_STEP].contiguous())
+
+
+class RoutingReplay:
+    """Each MoE layer's top-k expert ids, recorded in one run and given back
+    in the same order in later runs.
+
+    Recording, ``route`` is ``moe._route``. Replaying, it returns the
+    recorded ids with each token's weights taken from this run's router
+    probabilities at those ids and normalised as ``_route`` does (the aux
+    loss, which serving discards, is 0)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self._moe, self._route = moe, moe._route
+        self.ids, self.next = [], None
+
+    @contextlib.contextmanager
+    def patch(self):
+        if self.ids:
+            self.next = 0
+        with mock.patch.object(self._moe, "_route", self.route):
+            yield
+        if self.next is not None and self.next != len(self.ids):
+            raise AssertionError(f"replayed {self.next} of {len(self.ids)} "
+                                 "routings")
+
+    def route(self, x2d, router_w, cfg):
+        import torch
+        if self.next is None:
+            idx, w, aux = self._route(x2d, router_w, cfg)
+            self.ids.append(idx)
+            return idx, w, aux
+        idx = self.ids[self.next]
+        self.next += 1
+        p = torch.softmax(x2d.float() @ router_w, dim=-1).gather(1, idx)
+        w = p / p.sum(-1, keepdim=True).clamp_min(1e-9)
+        return idx, w.to(x2d.dtype), torch.zeros((), device=x2d.device)
+
+    def count(self) -> int:
+        """(layer, token) routings recorded."""
+        return sum(idx.shape[0] for idx in self.ids)
+
+    def differing(self, other) -> int:
+        """(layer, token) routings whose expert sets differ from ``other``'s."""
+        return sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                   for a, b in zip(self.ids, other.ids))
+
+
 def phase_agree(model, params, prompts, *, decode_steps=0):
     """Full-width prefill logits, at every prompt position, through the
     kernels vs their plain versions; with ``decode_steps``, also the decode
@@ -591,21 +809,32 @@ def phase_agree(model, params, prompts, *, decode_steps=0):
     the same plain prefill: the largest difference among runs that differ
     from it only in rounding: the naive attention oracle (fp32 summation
     order), a plain attention that rounds P to bf16 before the PV product as
-    the flash kernel does, and (with SSM layers) the plain SSD in half-size
-    chunks. A prefill whose kernel drops a tile in every layer (the last
-    K/V tile of attention; with SSM layers instead one 64-step tile of the
-    SSD's last chunk) must exceed the max-abs limit, or the check could not
-    see such a fault. The whole-tensor norm bounds faults that move every
-    position; a fault in 64 of 2048 positions stays below the network's own
-    noise in it. Decode steps are held to limits from the same floor runs,
-    and a decode from a cache whose SSM states were dropped after the
-    prefill (no handoff) must exceed the decode max-abs limit.
+    the flash kernel does, with SSM layers the plain SSD in half-size
+    chunks, and with MoE layers the plain grouped matmul summed in two halves
+    of d. A prefill whose kernel drops a tile in every layer (the last K/V
+    tile of attention; with SSM layers instead one 64-step tile of the SSD's
+    last chunk; with MoE layers instead the last 32-deep step of every expert
+    product) must exceed the max-abs limit, or the check could not see such
+    a fault. The whole-tensor norm bounds faults that move every position; a
+    fault in 64 of 2048 positions stays below the network's own noise in it.
+    Decode steps are held to limits from the same floor runs, and a decode
+    from a cache whose SSM states were dropped after the prefill (no
+    handoff) must exceed the decode max-abs limit.
+
+    With MoE layers the routers' top-k choices of the plain run are replayed
+    in every other run (``RoutingReplay``): a rounding difference that flips
+    a near-tie sends a token to another expert, and over 27 layers such
+    flips move the logits by about a fifth in norm, in the rounding-only
+    runs as in the kernel run, more than a fault within a kernel does. The
+    kernel run with free routing is reported beside it, with the number of
+    (layer, token) routings that differ.
     """
     import torch
     from repro_torch.kernels import ops
 
     cfg = model.cfg
     has_ssm = expected_launches(cfg)["ssd_scan"] > 0
+    has_moe = expected_launches(cfg)["gmm"] > 0
     counters = launch_counters()
     B, S = prompts.shape
     gen = torch.Generator(device="cuda")
@@ -613,14 +842,18 @@ def phase_agree(model, params, prompts, *, decode_steps=0):
     dec_tokens = torch.randint(0, cfg.vocab_size, (B, decode_steps),
                                generator=gen, device="cuda")
 
-    def run(attention=None, ssd=None, drop_handoff=False):
+    def run(attention=None, ssd=None, gmm=None, drop_handoff=False,
+            routing=None):
         """fp32 logits of one prefill (B, S, vocab) and of the decode steps
-        after it (B, decode_steps, vocab), through the session's path."""
+        after it (B, decode_steps, vocab), through the session's path; with
+        ``routing``, the MoE layers route through it."""
         cache = model.init_cache(B, S + decode_steps, device="cuda")
         with torch.inference_mode(), \
                 mock.patch.object(ops, "flash_attention",
                                   attention or ops.flash_attention), \
-                mock.patch.object(ops, "ssd_scan", ssd or ops.ssd_scan):
+                mock.patch.object(ops, "ssd_scan", ssd or ops.ssd_scan), \
+                mock.patch.object(ops, "gmm", gmm or ops.gmm), \
+                (routing.patch() if routing else contextlib.nullcontext()):
             logits = model.apply(params, {"tokens": prompts}, mode="prefill",
                                  cache=cache, cache_index=0)[0]
             if drop_handoff:
@@ -641,17 +874,31 @@ def phase_agree(model, params, prompts, *, decode_steps=0):
         d = got - want
         return d.abs().max().item(), (d.norm() / want.norm()).item()
 
-    with_kernel, dec_kernel = run()
-    before = {name: fn.launches for name, fn in counters.items()}
-    with_plain, dec_plain = run(plain_attention, plain_ssd)
-    floors = {"floor_fp32_order": (naive_attention, plain_ssd),
-              "floor_p_bf16": (p_bf16_attention, plain_ssd)}
-    if has_ssm:
-        floors["floor_ssd_half_chunk"] = (plain_attention, half_chunk_ssd)
+    replay = RoutingReplay() if has_moe else None
+    with_plain, dec_plain = run(plain_attention, plain_ssd, plain_gmm,
+                                routing=replay)    # records the routing
+    with_kernel, dec_kernel = run(routing=replay)
     line = {"phase": "agree", "arch": cfg.name, "positions": B * S}
+    if has_moe:
+        free = RoutingReplay()
+        got, _ = run(routing=free)
+        f_abs, f_rel = diffs(got, with_plain)
+        line["routing"] = "replayed from the plain run"
+        line["free_routing"] = {"max_abs": f_abs, "norm_rel": f_rel,
+                                "rerouted": free.differing(replay),
+                                "routings": free.count()}
+        del got
+    before = {name: fn.launches for name, fn in counters.items()}
+    floors = {"floor_fp32_order": (naive_attention, plain_ssd, plain_gmm),
+              "floor_p_bf16": (p_bf16_attention, plain_ssd, plain_gmm)}
+    if has_ssm:
+        floors["floor_ssd_half_chunk"] = (plain_attention, half_chunk_ssd,
+                                          plain_gmm)
+    if has_moe:
+        floors["floor_gmm_split_d"] = (plain_attention, plain_ssd, split_d_gmm)
     floor = [0.0, 0.0, 0.0, 0.0]        # prefill abs, rel; decode abs, rel
-    for name, (attention, ssd) in floors.items():
-        got, dec = run(attention, ssd)
+    for name, (attention, ssd, gmm) in floors.items():
+        got, dec = run(attention, ssd, gmm, routing=replay)
         p_abs, p_rel = diffs(got, with_plain)
         d_abs, d_rel = diffs(dec, dec_plain)
         floor = [max(a, b) for a, b in zip(floor, (p_abs, p_rel, d_abs, d_rel))]
@@ -659,14 +906,21 @@ def phase_agree(model, params, prompts, *, decode_steps=0):
         if decode_steps:
             line[name].update(decode_max_abs=d_abs, decode_norm_rel=d_rel)
         del got, dec
-    fault = "fault_ssd_tile_dropped" if has_ssm else "fault_last_tile_dropped"
-    got, _ = (run(plain_attention, dropped_tile_ssd) if has_ssm
-              else run(dropped_tile_attention, plain_ssd))
+    if has_ssm:
+        fault = "fault_ssd_tile_dropped"
+        got, _ = run(plain_attention, dropped_tile_ssd, plain_gmm)
+    elif has_moe:
+        fault = "fault_gmm_d_step_dropped"
+        got, _ = run(plain_attention, plain_ssd, dropped_step_gmm,
+                     routing=replay)
+    else:
+        fault = "fault_last_tile_dropped"
+        got, _ = run(dropped_tile_attention, plain_ssd, plain_gmm)
     fault_abs, fault_rel = diffs(got, with_plain)
     del got
     handoff_abs = handoff_rel = 0.0
     if decode_steps:
-        _, dec = run(plain_attention, plain_ssd, drop_handoff=True)
+        _, dec = run(plain_attention, plain_ssd, plain_gmm, drop_handoff=True)
         handoff_abs, handoff_rel = diffs(dec, dec_plain)
         del dec
     if any(fn.launches != before[name] for name, fn in counters.items()):
@@ -787,6 +1041,7 @@ def main() -> int:
     phase_card()
     flash_err, flash_t = phase_kernel()
     ssd_err, ssd_t = phase_ssd()
+    gmm_err, gmm_t = phase_gmm()
     launches = {}
     for arch, decode_steps in SERVE_PATHS:
         model, params, prompts, launches[arch] = phase_serve(arch)
@@ -817,6 +1072,15 @@ def main() -> int:
               at_mamba2={**ssd_t["mamba2-370m"],
                          "shape": "B=4 L=2048 H=32 P=64 N=128 G=1 chunk=256 "
                                   "bf16 (mamba2-370m)"}),
+        entry("gmm", "src/repro_torch/csrc/moe_gmm.cu",
+              "src/repro/kernels/moe_gmm.py:47", gmm_err,
+              gmm_t["prefill_gate_up"],
+              "E=64 C=968 d=2048 f=1408 bf16 (deepseek-moe-16b prefill "
+              "gate/up)",
+              at_prefill_down={**gmm_t["prefill_down"],
+                               "shape": "E=64 C=968 d=1408 f=2048 bf16"},
+              at_decode={**gmm_t["decode_gate_up"],
+                         "shape": "E=64 C=8 d=2048 f=1408 bf16"}),
     ]})
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
 """Kernel entry points with device dispatch.
 
-Counterpart of ``repro.kernels.ops``. ``flash_attention`` and ``ssd_scan``
-go to the hand-written kernels' wrappers, which run the CUDA kernel on a CUDA
-tensor and its plain version on a CPU tensor. ``decode_attention`` and
-``ssd_decode_step`` are plain torch on every device: they are a GEMV and a
-recurrent update in the reference too, not Pallas kernels (a split-KV decode
-kernel is queued in ROADMAP.md).
+Counterpart of ``repro.kernels.ops``. ``flash_attention``, ``ssd_scan`` and
+``gmm`` go to the hand-written kernels' wrappers, which run the CUDA kernel
+on a CUDA tensor and its plain version on a CPU tensor. ``decode_attention``
+and ``ssd_decode_step`` are plain torch on every device: they are a GEMV and
+a recurrent update in the reference too, not Pallas kernels (a split-KV
+decode kernel is queued in ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention_cuda
+from .moe_gmm import gmm_cuda
 from .ssd_scan import ssd_scan_cuda
 
 
@@ -80,3 +81,8 @@ def ssd_scan(x, dt, a_log, b, c, d_skip, *, chunk=128):
 
 def ssd_decode_step(state, x_t, dt_t, a_log, b_t, c_t, d_skip):
     return ref.ssd_decode_step(state, x_t, dt_t, a_log, b_t, c_t, d_skip)
+
+
+def gmm(x, w):
+    """Grouped per-expert matmul: (E, C, d) @ (E, d, f) -> (E, C, f)."""
+    return gmm_cuda(x, w)

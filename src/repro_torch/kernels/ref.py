@@ -1,6 +1,7 @@
-"""Plain-torch reference oracles for the attention and SSD kernels.
+"""Plain-torch reference oracles for the attention, SSD and grouped-GEMM
+kernels.
 
-The torch twin of the attention and SSD parts of ``repro.kernels.ref``:
+The torch twin of ``repro.kernels.ref``:
 
 - ``mha_naive``       : materializes the full scores. The ground-truth oracle.
 - ``mha_chunked``     : online softmax over kv blocks (a Python loop in place
@@ -12,6 +13,8 @@ The torch twin of the attention and SSD parts of ``repro.kernels.ref``:
                         inter-chunk recurrence; the plain version of the SSD
                         kernel.
 - ``ssd_decode_step`` : the single-token recurrent update.
+- ``gmm_naive``       : the per-expert matmul bank; the plain version of the
+                        grouped-GEMM kernel.
 
 All compute in fp32 whatever the input dtype and return the input's dtype
 (the SSD states are fp32).
@@ -220,3 +223,18 @@ def ssd_decode_step(state, x_t, dt_t, a_log, b_t, c_t, d_skip):
     y = torch.einsum("bhpn,bhn->bhp", state, ch)
     y = y + x_t.float() * d_skip.float()[None, :, None]
     return y.to(x_t.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# Grouped (per-expert) matmul
+# ---------------------------------------------------------------------------
+
+
+def gmm_naive(x, w):
+    """x: (E, C, d), w: (E, d, f) -> (E, C, f) with fp32 accumulation.
+
+    A product of two bf16 values is exact in fp32, so upcasting before the
+    product gives the reference's ``preferred_element_type=float32`` sums;
+    the result is rounded to x's dtype once.
+    """
+    return torch.bmm(x.float(), w.float()).to(x.dtype)

@@ -9,7 +9,8 @@ and the median batch latency.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --requests 8 --batch 4 --prompt-len 2048 --max-new 64
 
-``--arch`` takes deepseek-7b, mamba2-370m and zamba2-7b. As in the
+``--arch`` takes deepseek-7b, deepseek-moe-16b, kimi-k2-1t-a32b (reduced
+only: at full width no card holds it), mamba2-370m and zamba2-7b. As in the
 reference, ``generate`` is greedy whatever ``--temperature`` says.
 """
 from __future__ import annotations

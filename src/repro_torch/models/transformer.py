@@ -1,15 +1,18 @@
 """Decoder stack: layer plans, a loop over stacked layers, caches.
 
-Counterpart of ``repro.models.transformer`` for the dense, SSM and hybrid
-families. Every architecture is a *layer plan*, a tuple of ``GroupDesc``
-entries; each group's parameters are stacked per layer (leading ``layers``
-axis, the reference's layout), and the group runs as a Python loop that
-indexes layer ``i`` of the stacked tensors in place of ``jax.lax.scan``.
+Counterpart of ``repro.models.transformer`` for the dense, MoE, SSM and
+hybrid families. Every architecture is a *layer plan*, a tuple of
+``GroupDesc`` entries; each group's parameters are stacked per layer (leading
+``layers`` axis, the reference's layout), and the group runs as a Python loop
+that indexes layer ``i`` of the stacked tensors in place of
+``jax.lax.scan``.
 
 Modes: ``train`` (no cache), ``prefill`` (flash attention or the SSD scan +
 cache write at 0), ``decode`` (single-token step over the KV cache and SSM
-state). The MoE, encoder-decoder and VLM families raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+state). MoE blocks (the local path of ``models/moe.py``) return the router's
+load-balance loss, which ``forward`` sums over the blocks as the reference
+does. The encoder-decoder and VLM families raise ``NotImplementedError``
+naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -21,10 +24,10 @@ from .attention import apply_attention, attention_specs
 from .common import (ParamSpec, apply_norm, dtype_of, norm_spec, softcap,
                      stack_specs)
 from .ffn import apply_ffn, ffn_specs
+from .moe import apply_moe, moe_specs
 from .ssm import apply_ssm, apply_ssm_decode, init_ssm_state, ssm_specs
 
 _NOT_PORTED = {
-    "moe": "the MoE family (ROADMAP.md A8)",
     "encdec": "the encoder-decoder family (ROADMAP.md A5)",
     "cross_attn": "the encoder-decoder and VLM families (ROADMAP.md A5, A7)",
     "vlm": "the VLM family (ROADMAP.md A7)",
@@ -38,7 +41,7 @@ def _not_ported(what: str):
 
 @dataclass(frozen=True)
 class BlockDesc:
-    kind: str            # attn | ffn | parallel | ssm | shared_attn
+    kind: str            # attn | ffn | moe | parallel | ssm | shared_attn
     window: int = 0
     d_ff: int = 0        # ffn width override (0 -> cfg.d_ff)
     causal: bool = True
@@ -72,6 +75,15 @@ def layer_plan(cfg) -> tuple[GroupDesc, ...]:
         return (GroupDesc(cfg.n_layers // 2,
                           (BlockDesc("attn", window=cfg.sliding_window), F,
                            A, F)),)
+    if cfg.family == "moe":
+        m = cfg.moe
+        groups = []
+        if m.first_k_dense:
+            groups.append(GroupDesc(
+                m.first_k_dense, (A, BlockDesc("ffn", d_ff=m.d_ff_dense))))
+        groups.append(GroupDesc(cfg.n_layers - m.first_k_dense,
+                                (A, BlockDesc("moe"))))
+        return tuple(groups)
     # plain dense decoder
     w = cfg.sliding_window
     attn = BlockDesc("attn", window=w) if w else A
@@ -93,6 +105,8 @@ def _block_specs(cfg, b: BlockDesc) -> dict:
         spec["attn"] = attention_specs(cfg)
     elif b.kind == "ffn":
         spec["ffn"] = ffn_specs(cfg, d_ff=b.d_ff or cfg.d_ff)
+    elif b.kind == "moe":
+        spec["moe"] = moe_specs(cfg)
     elif b.kind == "ssm":
         spec["ssm"] = ssm_specs(cfg)
     elif b.kind == "parallel":
@@ -175,12 +189,12 @@ def _layer(tree, i: int):
 
 def _apply_block(bp, x, b: BlockDesc, *, cfg, mode, cache, cache_index,
                  shared_params, positions):
-    """One residual block. Returns (x, new_cache|None).
+    """One residual block. Returns (x, new_cache|None, aux).
 
-    Caches are written in place (attention and SSM alike). These blocks add
-    no auxiliary loss; the reference's ``aux`` return comes back with the
-    MoE family."""
-    new_cache = None
+    Caches are written in place (attention and SSM alike). ``aux`` is the
+    MoE router's load-balance loss; other blocks return None where the
+    reference adds 0.0 (exact, and one launch fewer per block)."""
+    new_cache, aux = None, None
 
     def maybe_post(out, p):
         return apply_norm(p["post_norm"], out, cfg) if cfg.post_block_norm else out
@@ -205,6 +219,10 @@ def _apply_block(bp, x, b: BlockDesc, *, cfg, mode, cache, cache_index,
     elif b.kind == "ffn":
         h = apply_norm(bp["norm"], x, cfg)
         x = x + maybe_post(apply_ffn(bp["ffn"], h, cfg=cfg), bp)
+    elif b.kind == "moe":
+        h = apply_norm(bp["norm"], x, cfg)
+        out, aux = apply_moe(bp["moe"], h, cfg=cfg)
+        x = x + maybe_post(out, bp)
     elif b.kind == "ssm":
         h = apply_norm(bp["norm"], x, cfg)
         if mode == "decode":
@@ -216,28 +234,33 @@ def _apply_block(bp, x, b: BlockDesc, *, cfg, mode, cache, cache_index,
         raise _not_ported(b.kind)
     else:
         raise ValueError(b.kind)
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def _apply_group(gp, x, gd: GroupDesc, *, cfg, mode, cache, cache_index,
                  shared_params, positions):
-    """Run the group's ``repeat`` stacked layers in order.
+    """Run the group's ``repeat`` stacked layers in order. Returns (x, aux,
+    cache): aux is the blocks' auxiliary losses summed in layer order from an
+    fp32 zero, as the reference's scan carries it.
 
     Every block writes its slice of the cache in place (the KV cache and the
     SSM conv buffer and state alike), so the blocks' returned caches are
     discarded and the group's new cache is ``cache``.
     """
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(gd.repeat):
         bp_all = _layer(gp, i)
         bc_all = None if cache is None else _layer(cache, i)
         for j, b in enumerate(gd.blocks):
             key = f"b{j}"
             bc = None if bc_all is None else bc_all.get(key)
-            x, _ = _apply_block(
+            x, _, aux_j = _apply_block(
                 bp_all.get(key), x, b, cfg=cfg, mode=mode, cache=bc,
                 cache_index=cache_index, shared_params=shared_params,
                 positions=positions)
-    return x, cache
+            if aux_j is not None:
+                aux = aux + aux_j
+    return x, aux, cache
 
 
 def forward(params, inputs, *, cfg, mode="train", cache=None,
@@ -245,7 +268,7 @@ def forward(params, inputs, *, cfg, mode="train", cache=None,
     """Run the model.
 
     inputs: {'tokens': (B, S) int}. Returns (logits fp32, new_cache|None,
-    aux_loss, zero for the families ported so far).
+    aux_loss fp32: the MoE blocks' load-balance losses, zero without them).
     """
     if cfg.family in _NOT_PORTED:
         raise _not_ported(cfg.family)
@@ -263,13 +286,15 @@ def forward(params, inputs, *, cfg, mode="train", cache=None,
         positions = int(cache_index) + torch.arange(Sq, device=dev)[None, :]
 
     shared_params = params.get("shared")
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     new_groups = {}
     for i, gd in enumerate(layer_plan(cfg)):
         gcache = None if cache is None else cache["groups"].get(f"g{i}")
-        x, ncache = _apply_group(
+        x, aux_g, ncache = _apply_group(
             params["groups"][f"g{i}"], x, gd, cfg=cfg, mode=mode,
             cache=gcache, cache_index=cache_index,
             shared_params=shared_params, positions=positions)
+        aux = aux + aux_g
         if ncache is not None:
             new_groups[f"g{i}"] = ncache
 
@@ -280,4 +305,4 @@ def forward(params, inputs, *, cfg, mode="train", cache=None,
         logits = x @ params["lm_head"]
     logits = softcap(logits.float(), cfg.final_logit_softcap)
     new_cache = {"groups": new_groups} if cache is not None else None
-    return logits, new_cache, torch.zeros((), dtype=torch.float32, device=dev)
+    return logits, new_cache, aux

@@ -12,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_gmm as mg  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 
 
@@ -87,3 +88,35 @@ def test_ssd_scan_kernel_rejects_fp16(cuda):
         ss.ssd_scan_cuda(x, torch.zeros(1, 16, 2, device=cuda),
                          torch.zeros(2, device=cuda), b, b,
                          torch.zeros(2, device=cuda), chunk=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("E,C,d,f", [(2, 16, 32, 64), (8, 64, 128, 64),
+                                     (4, 8, 256, 128), (3, 200, 72, 136),
+                                     (2, 37, 30, 50)])
+def test_gmm_kernel_vs_plain(cuda, dtype, tol, E, C, d, f):
+    """TestGMM's grid, a shape ragged in C and f (masked 16-byte loads) and
+    one that is not a multiple of 8 in d or f (element-wise loads), at
+    TOL * sqrt(d) as TestGMM holds the Pallas kernel."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((E, C, d), np.float32)).to(cuda, dtype)
+    w = torch.from_numpy(rng.standard_normal((E, d, f), np.float32)).to(cuda, dtype)
+    before = mg.gmm_cuda.launches
+    got = mg.gmm_cuda(x, w)
+    torch.cuda.synchronize()
+    assert mg.gmm_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (E, C, f)
+    want = mg.gmm_plain(x, w)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=tol * d ** 0.5, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_gmm_kernel_rejects_fp16(cuda):
+    x = torch.zeros(2, 8, 16, device=cuda, dtype=torch.float16)
+    w = torch.zeros(2, 16, 8, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="kernel takes"):
+        mg.gmm_cuda(x, w)

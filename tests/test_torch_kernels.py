@@ -1,6 +1,6 @@
-"""Port vs reference: attention and SSD oracles, the flash-attention and
-SSD-scan modules and the decode steps, on the same seeded numpy inputs
-through JAX and torch.
+"""Port vs reference: attention, SSD and grouped-matmul oracles, the
+flash-attention, SSD-scan and grouped-GEMM modules and the decode steps, on
+the same seeded numpy inputs through JAX and torch.
 
 The JAX side runs the Pallas kernel in interpret mode (as tests/test_kernels.py
 does) and its pure-jnp oracle; the port's CUDA kernel runs only on a card
@@ -17,9 +17,11 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
+from repro.kernels.moe_gmm import gmm_pallas  # noqa: E402
 from repro.kernels.ssd_scan import ssd_scan_pallas  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_gmm as mg  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -197,7 +199,7 @@ def test_smem_budget():
     assert all(fa.smem_bytes(d=d) <= 232448 for d in fa.HEAD_DIMS)
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "ssd_scan"])
+@pytest.mark.parametrize("name", ["flash_attention", "moe_gmm", "ssd_scan"])
 def test_nvcc_command_targets_sm90a(name):
     cmd = _build.nvcc_command(name, _build.BUILD_DIR / "x.so")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
@@ -340,3 +342,87 @@ def test_ssd_smem_budget():
     assert ss.smem_bytes(128) == 112128
     assert ss.smem_bytes(64) == 71168
     assert 2 * (ss.smem_bytes(128) + 1024) <= 233472
+
+
+# ---------------------------------------------------------------------------
+# Grouped (per-expert) matmul
+# ---------------------------------------------------------------------------
+
+GMM_GRID = [(2, 16, 32, 64), (8, 64, 128, 64), (4, 8, 256, 128)]   # TestGMM
+# ragged C, d and f: the Pallas wrapper pads them to its blocks, the port's
+# kernel masks them; the plain version must agree with both
+GMM_RAGGED = [(3, 100, 72, 200), (2, 37, 30, 50)]
+
+
+def _gmm_both(seed, E, C, d, f, dtype):
+    rng = np.random.default_rng(seed)
+    return _both((rng.standard_normal((E, C, d), np.float32),
+                  rng.standard_normal((E, d, f), np.float32)), dtype)
+
+
+@pytest.mark.parametrize("E,C,d,f", GMM_GRID + GMM_RAGGED)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_vs_pallas_and_reference(E, C, d, f, dtype):
+    """ref.gmm_naive, the plain version and ops.gmm against gmm_pallas in
+    interpret mode and the reference's gmm_naive, at TOL * sqrt(d) as
+    TestGMM holds the Pallas kernel."""
+    (jx, jw), (tx, tw) = _gmm_both(0, E, C, d, f, dtype)
+    pallas = gmm_pallas(jx, jw, interpret=True)
+    oracle = jref.gmm_naive(jx, jw)
+    for got in (ref.gmm_naive(tx, tw), mg.gmm_plain(tx, tw), ops.gmm(tx, tw)):
+        assert got.dtype == TDT[dtype] and got.shape == (E, C, f)
+        for want in (pallas, oracle):
+            np.testing.assert_allclose(_np(got), _np(want),
+                                       atol=TOL[dtype] * d ** 0.5,
+                                       rtol=TOL[dtype])
+
+
+def test_gmm_plain_rounds_once_from_fp32_sums():
+    """bf16 in, bf16 out: the product of fp32 sums rounded once equals the
+    reference's einsum with an fp32 accumulator, bit for bit here."""
+    (jx, jw), (tx, tw) = _gmm_both(1, 4, 24, 64, 40, "bfloat16")
+    got = mg.gmm_plain(tx, tw)
+    want = jref.gmm_naive(jx, jw)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def test_gmm_cpu_wrapper_takes_plain_version_without_counting(monkeypatch):
+    monkeypatch.setattr(_build, "load", _refuse_build)
+    before = mg.gmm_cuda.launches
+    _, (tx, tw) = _gmm_both(2, 2, 16, 32, 64, "bfloat16")
+    _close(mg.gmm_cuda(tx, tw), mg.gmm_plain(tx, tw), 0.0)
+    assert mg.gmm_cuda.launches == before
+
+
+@pytest.mark.parametrize("case", ["dtype", "mixed_dtype", "rank", "experts",
+                                  "depth", "empty", "contiguous"])
+def test_gmm_check_inputs_rejects_what_the_kernel_does_not_take(case):
+    x = torch.zeros(4, 8, 32, dtype=torch.bfloat16)
+    w = torch.zeros(4, 32, 16, dtype=torch.bfloat16)
+    mg.check_inputs(x, w)           # the accepted form
+    mg.check_inputs(x.float(), w.float())
+    if case == "dtype":
+        x, w = x.half(), w.half()
+    elif case == "mixed_dtype":
+        w = w.float()
+    elif case == "rank":
+        x = x[0]
+    elif case == "experts":
+        w = w[:3]
+    elif case == "depth":
+        w = torch.zeros(4, 16, 16, dtype=torch.bfloat16)
+    elif case == "empty":
+        x = torch.zeros(4, 0, 32, dtype=torch.bfloat16)
+    else:
+        w = torch.zeros(4, 16, 32, dtype=torch.bfloat16).transpose(1, 2)
+    with pytest.raises(ValueError):
+        mg.check_inputs(x, w)
+
+
+def test_gmm_smem_budget():
+    """Two stages of a (128 x 32) x tile and a (32 x 128) w tile in bf16
+    with 8 elements of row padding: within the 48 KB of static shared
+    memory a block may use, so the launch needs no attribute."""
+    assert mg.smem_bytes(torch.bfloat16) == 2 * (128 * 40 + 32 * 136) * 2 == 37888
+    assert mg.smem_bytes(torch.float32) == 16448
+    assert max(mg.smem_bytes(t) for t in mg.DTYPES) <= 48 * 1024

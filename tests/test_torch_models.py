@@ -1,10 +1,13 @@
-"""Port vs reference: norms, RoPE, the gated FFN, the Mamba2 block, the dense
-decoder and the SSM and hybrid models.
+"""Port vs reference: norms, RoPE, the gated FFN, the Mamba2 block, the MoE
+layer (routing, dispatch, experts), the dense decoder and the MoE, SSM and
+hybrid models.
 
 The JAX model's parameters cross to the port through ``repro_torch._bridge``;
 inputs are seeded numpy. Each variant is checked in fp32 (tolerance 1e-4)
 and in bf16 (``DECODE_TOL`` of tests/test_models.py).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -16,12 +19,14 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs.registry import get_config as jax_get_config  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
 from repro.models import ffn as jffn  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
+from repro.models import transformer as jtransformer  # noqa: E402
 from repro.models.model_zoo import build_model as jax_build_model  # noqa: E402
 from repro.runtime import serve as jserve  # noqa: E402
 from repro_torch._bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
-from repro_torch.models import common, ffn, ssm, transformer  # noqa: E402
+from repro_torch.models import common, ffn, moe, ssm, transformer  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.runtime import serve  # noqa: E402
 
@@ -221,11 +226,17 @@ def test_init_fan_in_scaling():
     assert abs(params["embed"].float().std().item() - 0.02) < 0.002
 
 
-@pytest.mark.parametrize("family", ["moe", "encdec", "vlm"])
+@pytest.mark.parametrize("family", ["encdec", "vlm"])
 def test_unported_families_name_their_roadmap_item(family):
     cfg = get_config("deepseek-7b", reduced=True).replace(family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A"):
         transformer.layer_plan(cfg)
+
+
+def test_unported_block_kind_names_its_roadmap_item():
+    cfg = get_config("deepseek-7b", reduced=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A5, A7"):
+        transformer._block_specs(cfg, transformer.BlockDesc("cross_attn"))
 
 
 # ---------------------------------------------------------------------------
@@ -404,3 +415,251 @@ def test_layer_plans_and_caches_of_the_ssm_families():
         1, 8, device="cpu")
     assert all(set(b) == {"conv", "ssm"}
                for b in mcache["groups"]["g0"].values())
+
+
+# ---------------------------------------------------------------------------
+# MoE: routing, dispatch, the local layer, deepseek-moe-16b and kimi-k2
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("deepseek-moe-16b", "kimi-k2-1t-a32b")
+MOE_CASES = [(a, d) for a in MOE_ARCHS for d in ("float32", "bfloat16")]
+# aux is an fp32 reduction over the router's probabilities: in fp32 the two
+# packages differ only in summation order; in bf16 the hidden states that
+# feed the routers differ by each layer's rounding
+AUX_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def _with_capacity(cfg, factor):
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=factor))
+
+
+def _moe_layer(T, dtype="float32", factor=None, seed=0, arch="deepseek-moe-16b",
+               hot_last=False):
+    """The reduced config's MoE layer: reference params from its own init
+    (fp32 router, experts in ``dtype``), bridged to the port; x seeded.
+    ``hot_last``: every token's router prefers the last expert (x[:, 0] = 3
+    and router[0, E-1] = 2), so that it overflows its capacity."""
+    jcfg = jax_get_config(arch, reduced=True)
+    cfg = get_config(arch, reduced=True)
+    if factor is not None:
+        jcfg, cfg = _with_capacity(jcfg, factor), _with_capacity(cfg, factor)
+    jp = jcommon.init_params(jmoe.moe_specs(jcfg), jax.random.PRNGKey(seed),
+                             jnp.dtype(dtype))
+    if hot_last:
+        jp["router"] = jp["router"].at[0, -1].set(2.0)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    x = np.random.default_rng(seed + 1).standard_normal(
+        (T, cfg.d_model)).astype(np.float32)
+    if hot_last:
+        x[:, 0] = 3.0
+    jx = jnp.asarray(x).astype(jnp.dtype(dtype))
+    return jcfg, cfg, jp, tp, jx, torch.from_numpy(x).to(TDT[dtype])
+
+
+def test_moe_specs_keep_the_router_in_fp32():
+    cfg = get_config("deepseek-moe-16b", reduced=True)
+    params = common.init_params(moe.moe_specs(cfg),
+                                torch.Generator().manual_seed(0))
+    assert params["router"].dtype == torch.float32
+    assert params["w_gate"].dtype == torch.bfloat16
+    assert set(params["shared"]) == {"w_gate", "w_up", "w_down"}
+
+
+@pytest.mark.parametrize("T", [1, 4, 17, 64, 8192])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_capacity_matches_reference(T, arch):
+    for factor in (None, 1.25):
+        jcfg, cfg = jax_get_config(arch), get_config(arch)
+        if factor is not None:
+            jcfg, cfg = _with_capacity(jcfg, factor), _with_capacity(cfg, factor)
+        assert moe._capacity(T, cfg) == jmoe._capacity(T, jcfg)
+    # deepseek-moe-16b's serving shapes: a prefill of 4 x 2048 tokens, a
+    # decode step of 4
+    if arch == "deepseek-moe-16b":
+        assert moe._capacity(8192, get_config(arch)) == 968
+        assert moe._capacity(4, get_config(arch)) == 8
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_matches_reference(dtype):
+    """Expert ids exactly, weights in x's dtype, and the aux loss."""
+    jcfg, cfg, jp, tp, jx, tx = _moe_layer(64, dtype)
+    j_idx, j_w, j_aux = jmoe._route(jx, jp["router"], jcfg)
+    idx, w, aux = moe._route(tx, tp["router"], cfg)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+    assert w.dtype == TDT[dtype]
+    # fp32: the router's sums in another order move a weight by an ulp
+    _close(w, j_w, {"float32": 1e-6, "bfloat16": 2 ** -8}[dtype])
+    np.testing.assert_allclose(float(aux), float(j_aux), rtol=1e-6)
+
+
+def test_route_breaks_ties_as_top_k():
+    """Equal probabilities: the lower expert id comes first, as in
+    ``jax.lax.top_k``."""
+    jcfg, cfg, jp, tp, jx, tx = _moe_layer(16)
+    r = np.asarray(jp["router"]).copy()
+    r[:, 5] = r[:, 2]               # experts 2 and 5 always tie
+    r[:, 7] = r[:, 2] + 1.0         # and 7 is above both
+    j_idx, j_w, _ = jmoe._route(jx, jnp.asarray(r), jcfg)
+    idx, w, _ = moe._route(tx, torch.from_numpy(r), cfg)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+    _close(w, j_w, 1e-6)
+
+
+def _skewed_topk(T, k, E, hot, seed=0):
+    """topk ids with distinct experts per token, ``hot`` in every row."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(T):
+        rest = [e for e in rng.permutation(E) if e not in hot]
+        rows.append(np.array(list(hot) + rest[:k - len(hot)])[rng.permutation(k)])
+    return np.stack(rows).astype(np.int32)
+
+
+DISPATCH_CASES = {
+    # name: (T, k, E, C, experts every token picks)
+    "no_drops": (64, 2, 8, 40, ()),
+    "last_expert_overflows": (64, 2, 8, 24, (7,)),
+    "last_expert_exactly_full": (24, 2, 8, 24, (7,)),
+    "other_experts_overflow": (64, 2, 8, 24, (0, 3)),
+    "full_width_last_expert_overflows": (8192, 6, 64, 968, (63,)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DISPATCH_CASES))
+def test_dispatch_indices_equal_reference_exactly(case):
+    """Every slot and inverse entry equal, with the reference's scatter
+    collision at (E-1, C-1) where expert E-1 overflows."""
+    T, k, E, C, hot = DISPATCH_CASES[case]
+    topk = _skewed_topk(T, k, E, hot)
+    counts = np.bincount(topk.reshape(-1), minlength=E)
+    assert (counts[E - 1] > C) == (case.endswith("last_expert_overflows"))
+    j_gather, j_inv = jmoe._dispatch_indices(jnp.asarray(topk), E, C)
+    gather, inv = moe._dispatch_indices(torch.from_numpy(topk).long(), E, C)
+    np.testing.assert_array_equal(gather.numpy(), np.asarray(j_gather))
+    np.testing.assert_array_equal(inv.numpy(), np.asarray(j_inv))
+    if counts[E - 1] > C:           # the kept assignment in that slot is lost
+        assert int(gather[E - 1, C - 1]) == T
+        assert int((inv == (E - 1) * C + C - 1).sum()) == 1
+
+
+@pytest.mark.parametrize("factor", [1.25, 64.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_local_matches_reference(factor, dtype):
+    """The local layer at the configs' default capacity factor, with a
+    router that overflows the last expert (assignments dropped, and the
+    reference's collision at slot (E-1, C-1)), and at the reduced configs'
+    drop-free 64."""
+    jcfg, cfg, jp, tp, jx, tx = _moe_layer(64, dtype, factor, hot_last=True)
+    j_out, j_aux = jmoe._moe_local(jx, jp, jcfg)
+    out, aux = moe._moe_local(tx, tp, cfg)
+    assert out.dtype == TDT[dtype] and out.shape == tx.shape
+    _close(out, j_out, TOL[dtype])
+    np.testing.assert_allclose(float(aux), float(j_aux), rtol=1e-6)
+    idx, _, _ = moe._route(tx, tp["router"], cfg)
+    C = moe._capacity(64, cfg)
+    gather, inv = moe._dispatch_indices(idx, cfg.moe.num_experts, C)
+    dropped = int((inv == cfg.moe.num_experts * C).sum())
+    assert (dropped > 0) == (factor == 1.25)
+    # at 1.25 the last expert overflows: the reference's collision at its
+    # last slot, which the outputs above held
+    overflow = np.bincount(idx.reshape(-1).numpy(),
+                           minlength=cfg.moe.num_experts)[-1] > C
+    assert overflow == (factor == 1.25)
+    assert not overflow or int(gather[-1, -1]) == 64
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_apply_moe_with_shared_experts_matches_reference(act):
+    jcfg, cfg, jp, tp, jx, tx = _moe_layer(2 * 9, factor=1.25, seed=3)
+    jcfg, cfg = jcfg.replace(mlp_act=act), cfg.replace(mlp_act=act)
+    j_out, j_aux = jmoe.apply_moe(jp, jx.reshape(2, 9, -1), cfg=jcfg)
+    out, aux = moe.apply_moe(tp, tx.reshape(2, 9, -1), cfg=cfg)
+    assert out.shape == (2, 9, cfg.d_model)
+    _close(out, j_out, 1e-5)
+    np.testing.assert_allclose(float(aux), float(j_aux), rtol=1e-6)
+
+
+_moe_pair = _ssm_pair   # the same pair: reduced config, JAX init, bridged weights
+
+
+@pytest.mark.parametrize("arch,dtype", MOE_CASES)
+def test_moe_train_logits_and_aux_match(arch, dtype):
+    jm, jp, tm, tp = _moe_pair(arch, dtype)
+    toks = _tokens()
+    want, _, j_aux = jm.apply(jp, {"tokens": jnp.asarray(toks)}, mode="train")
+    got, cache, aux = tm.apply(tp, {"tokens": torch.from_numpy(toks)},
+                               mode="train")
+    assert got.dtype == torch.float32 and cache is None
+    assert aux.dtype == torch.float32 and float(aux) > 0
+    _close(got, want, TOL[dtype])
+    np.testing.assert_allclose(float(aux), float(j_aux), rtol=AUX_RTOL[dtype])
+
+
+@pytest.mark.parametrize("arch,dtype", MOE_CASES)
+def test_moe_prefill_cache_and_decode_match(arch, dtype):
+    """Prefill logits, the KV cache, then the next token's decode logits,
+    against the reference."""
+    jm, jp, tm, tp = _moe_pair(arch, dtype)
+    toks = _tokens()
+    jcache = jm.init_cache(B, S + 2)
+    want, jcache = jserve.build_prefill_step(jm, jserve.ServeOptions())(
+        jp, {"tokens": jnp.asarray(toks[:, :S - 1])}, jcache)
+    tcache = tm.init_cache(B, S + 2, device="cpu")
+    got, tcache = serve.build_prefill_step(tm, serve.ServeOptions())(
+        tp, {"tokens": torch.from_numpy(toks[:, :S - 1])}, tcache)
+    _close(got, want, TOL[dtype])
+    want_leaves, got_leaves = dict(_flat(jcache)), dict(_flat(tcache))
+    assert set(got_leaves) == set(want_leaves)
+    for path, leaf in want_leaves.items():
+        assert got_leaves[path].dtype == torch.bfloat16, path
+        _close(got_leaves[path], leaf, max(TOL[dtype], 2 ** -7))
+    _, want, _ = jserve.build_decode_step(jm, jserve.ServeOptions())(
+        jp, jcache, jnp.asarray(toks[:, S - 1:]), jnp.asarray(S - 1, jnp.int32))
+    nxt, got, _ = serve.build_decode_step(tm, serve.ServeOptions())(
+        tp, tcache, torch.from_numpy(toks[:, S - 1:]), S - 1)
+    assert nxt.shape == (B, 1)
+    _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_equals_forward(arch):
+    """Prefill(S-1) + decode(1) == full forward at the last position, on the
+    port alone (the reduced configs' capacity drops nothing)."""
+    tm = build_model(get_config(arch, reduced=True))
+    params = tm.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_tokens(seed=2)).long()
+    full, _, _ = tm.apply(params, {"tokens": toks}, mode="train")
+    cache = tm.init_cache(B, S + 1, device="cpu")
+    _, cache = serve.build_prefill_step(tm, serve.ServeOptions())(
+        params, {"tokens": toks[:, :S - 1]}, cache)
+    _, last, _ = serve.build_decode_step(tm, serve.ServeOptions())(
+        params, cache, toks[:, S - 1:], S - 1)
+    _close(last, full[:, -1], DECODE_TOL)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_param_tree_matches_reference(arch):
+    """Same paths, shapes and dtypes (the router in fp32) as the reference."""
+    jm, jp, tm, _ = _moe_pair(arch, "bfloat16")
+    flat = jax.tree_util.tree_flatten_with_path(jp)[0]
+    want = {tuple(k.key for k in path): (leaf.shape, str(leaf.dtype))
+            for path, leaf in flat}
+    got = {path: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+           for path, t in _leaves(tm.init(torch.Generator().manual_seed(0)))}
+    assert got == want
+    assert got[("groups", "g1", "b1", "moe", "router")][1] == "float32"
+    assert tm.param_count() == jm.param_count()
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("reduced", [True, False])
+def test_moe_layer_plan_matches_reference(arch, reduced):
+    """first_k_dense groups of (attn, ffn at d_ff_dense), then (attn, moe)."""
+    def plan(mod, cfg):
+        return [(g.repeat, [(b.kind, b.window, b.d_ff, b.causal)
+                            for b in g.blocks]) for g in mod.layer_plan(cfg)]
+
+    want = plan(jtransformer, jax_get_config(arch, reduced=reduced))
+    assert plan(transformer, get_config(arch, reduced=reduced)) == want
+    assert [kinds[-1][0] for _, kinds in want] == ["ffn", "moe"]

@@ -14,11 +14,14 @@ torch = pytest.importorskip("torch")
 import ml_dtypes  # noqa: E402
 
 from repro.configs import deepseek_7b as jax_deepseek  # noqa: E402
+from repro.configs import deepseek_moe_16b as jax_deepseek_moe  # noqa: E402
+from repro.configs import kimi_k2_1t as jax_kimi  # noqa: E402
 from repro.configs import mamba2_370m as jax_mamba2  # noqa: E402
 from repro.configs import zamba2_7b as jax_zamba2  # noqa: E402
 from repro.configs.base import ModelConfig as JaxModelConfig  # noqa: E402
 from repro_torch import _bridge  # noqa: E402
-from repro_torch.configs import deepseek_7b, mamba2_370m, zamba2_7b  # noqa: E402
+from repro_torch.configs import (deepseek_7b, deepseek_moe_16b,  # noqa: E402
+                                  kimi_k2_1t, mamba2_370m, zamba2_7b)
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -104,6 +107,23 @@ def test_cpu_ssd_scan_never_builds_the_kernel(no_cuda, monkeypatch):
     assert sess.generate(torch.zeros(1, 4, dtype=torch.long), 2).shape == (1, 2)
 
 
+def test_cpu_gmm_never_builds_the_kernel(no_cuda, monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"tried to build {name}")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 32), np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, 32, 16), np.float32))
+    out = ops.gmm(x.bfloat16(), w.bfloat16())
+    assert out.shape == (2, 8, 16) and out.dtype == torch.bfloat16
+    model = build_model(get_config("deepseek-moe-16b", reduced=True))
+    params = model.init(torch.Generator().manual_seed(0))
+    sess = serve.ServeSession(model, params, device="cpu")
+    assert sess.generate(torch.zeros(1, 4, dtype=torch.long), 2).shape == (1, 2)
+
+
 def test_cpu_attention_never_builds_the_kernel(no_cuda, monkeypatch):
     def refuse(name):
         raise AssertionError(f"tried to build {name}")
@@ -145,21 +165,36 @@ def test_configs_are_copies_of_the_reference():
     assert [f.name for f in dataclasses.fields(ModelConfig)] == \
         [f.name for f in dataclasses.fields(JaxModelConfig)]
     for port, ref_mod in ((deepseek_7b, jax_deepseek), (mamba2_370m, jax_mamba2),
-                          (zamba2_7b, jax_zamba2)):
+                          (zamba2_7b, jax_zamba2),
+                          (deepseek_moe_16b, jax_deepseek_moe),
+                          (kimi_k2_1t, jax_kimi)):
         for name in ("CONFIG", "REDUCED"):
             assert dataclasses.asdict(getattr(port, name)) == \
                 dataclasses.asdict(getattr(ref_mod, name))
-    assert ARCH_IDS == ("deepseek-7b", "mamba2-370m", "zamba2-7b")
+    assert ARCH_IDS == ("deepseek-7b", "deepseek-moe-16b", "kimi-k2-1t-a32b",
+                        "mamba2-370m", "zamba2-7b")
     assert get_config("deepseek-7b").n_layers == 30
     assert get_config("zamba2-7b").n_layers == 81
+    assert get_config("deepseek-moe-16b").n_layers == 28
     with pytest.raises(KeyError):
-        get_config("deepseek-moe-16b")
+        get_config("gemma2-9b")
 
 
 def test_full_width_size():
     """deepseek-7b at full width: ~6.9e9 parameters, ~13.8 GB in bf16."""
     n = build_model(get_config("deepseek-7b")).param_count()
     assert 6.8e9 < n < 7.0e9
+
+
+def test_moe_full_width_size():
+    """deepseek-moe-16b at full width: ~16.4e9 parameters (~32.8 GB in
+    bf16, one card holds it), 14.9e9 of them in the 27 x 64 routed experts."""
+    cfg = get_config("deepseek-moe-16b")
+    assert 16.3e9 < build_model(cfg).param_count() < 16.5e9
+    m = cfg.moe
+    experts = (cfg.n_layers - m.first_k_dense) * m.num_experts * 3 * \
+        cfg.d_model * m.d_ff_expert
+    assert 14.9e9 < experts < 15.0e9
 
 
 @pytest.mark.parametrize("arch,low,high", [("zamba2-7b", 6.6e9, 6.7e9),
@@ -197,10 +232,12 @@ def test_chip_smoke_counts_the_work_the_masks_leave(chip_smoke):
 
 def test_chip_smoke_expects_a_launch_per_block(chip_smoke):
     """Per prefill: one flash launch per attention block, one SSD launch per
-    SSM layer."""
-    want = {"deepseek-7b": {"flash_attention": 30, "ssd_scan": 0},
-            "zamba2-7b": {"flash_attention": 13, "ssd_scan": 81},
-            "mamba2-370m": {"flash_attention": 0, "ssd_scan": 48}}
+    SSM layer, three grouped-GEMM launches per MoE layer."""
+    want = {"deepseek-7b": {"flash_attention": 30, "gmm": 0, "ssd_scan": 0},
+            "zamba2-7b": {"flash_attention": 13, "gmm": 0, "ssd_scan": 81},
+            "mamba2-370m": {"flash_attention": 0, "gmm": 0, "ssd_scan": 48},
+            "deepseek-moe-16b": {"flash_attention": 28, "gmm": 81,
+                                 "ssd_scan": 0}}
     for arch, count in want.items():
         assert chip_smoke.expected_launches(get_config(arch)) == count
     assert [a for a, _ in chip_smoke.SERVE_PATHS] == list(want)
@@ -215,3 +252,68 @@ def test_chip_smoke_ssd_bound(chip_smoke):
     assert by == "bytes" and abs(ms - 0.0228) < 0.001
     ms, by = chip_smoke.attention_bound_ms(4, 2048, 2048, 32, 32, 112, {})
     assert by == "operations" and abs(ms - 0.122) < 0.001
+
+
+def test_chip_smoke_gmm_bound(chip_smoke):
+    """deepseek-moe-16b's expert products: the prefill gate/up (E=64,
+    C=968, d=2048, f=1408) is 3.57e11 FLOPs over 0.80 GB, bound by
+    operations; the decode gate/up at C=8 moves 373 MB (369 MB of them the
+    weights), bound by bytes."""
+    ms, by = chip_smoke.gmm_bound_ms(64, 968, 2048, 1408, "bfloat16")
+    assert by == "operations" and abs(ms - 0.361) < 0.001
+    ms, by = chip_smoke.gmm_bound_ms(64, 8, 2048, 1408, "bfloat16")
+    assert by == "bytes" and abs(ms - 0.111) < 0.001
+    ms, by = chip_smoke.gmm_bound_ms(64, 968, 1408, 2048, "bfloat16")
+    assert by == "operations" and abs(ms - 0.361) < 0.001
+
+
+def test_chip_smoke_gmm_faults_move_what_they_name(chip_smoke):
+    """The step fault drops the last 32 of d; the tile fault zeroes the last
+    expert's ragged last C-tile (rows 896-967 of 968) and nothing else."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 200, 64), np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, 64, 8), np.float32))
+    faults = chip_smoke.gmm_faults(x, w)
+    want = torch.bmm(x[..., :32], w[:, :32])
+    torch.testing.assert_close(faults["last_d_step_dropped"], want)
+    full = torch.bmm(x, w)
+    unwritten = faults["last_c_tile_unwritten"]
+    assert bool(unwritten[-1, 128:].eq(0).all())
+    torch.testing.assert_close(unwritten[-1, :128], full[-1, :128])
+    torch.testing.assert_close(unwritten[0], full[0])
+    torch.testing.assert_close(chip_smoke.split_d_gmm(x, w), full)
+
+
+def test_chip_smoke_routing_replay_pins_the_experts(chip_smoke):
+    """Recording, RoutingReplay routes as ``moe._route``; replaying, it
+    gives every layer the recorded experts (weights renormalised from the
+    current router), so the same weights reproduce the recorded run and
+    other routers still get the recorded experts."""
+    cfg = get_config("deepseek-moe-16b", reduced=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = {"tokens": torch.from_numpy(
+        np.random.default_rng(0).integers(0, 256, (2, 9)))}
+    free = model.apply(params, toks)[0]
+    replay = chip_smoke.RoutingReplay()
+    with replay.patch():
+        recorded = model.apply(params, toks)[0]
+    assert replay.count() == 2 * 18               # 2 MoE layers x 18 tokens
+    torch.testing.assert_close(recorded, free, rtol=0, atol=0)
+    with replay.patch():
+        replayed = model.apply(params, toks)[0]
+    torch.testing.assert_close(replayed, recorded, rtol=0, atol=0)
+
+    x2d = torch.randn(18, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    router = params["groups"]["g1"]["b1"]["moe"]["router"][0]
+    other = chip_smoke.RoutingReplay()
+    with other.patch():
+        other.route(x2d, -router, cfg)
+    replay.next = 0
+    idx, w, aux = replay.route(x2d, -router, cfg)
+    assert torch.equal(idx, replay.ids[0])
+    assert not torch.equal(other.ids[0], idx)     # free, it routes otherwise
+    assert replay.differing(replay) == 0 and other.differing(other) == 0
+    torch.testing.assert_close(w.float().sum(-1), torch.ones(18), atol=1e-2,
+                               rtol=0)
+    assert float(aux) == 0.0

@@ -78,6 +78,12 @@ def test_ssm_generate_matches_reference(arch, dtype):
     _generate_both(dtype, arch)
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "kimi-k2-1t-a32b"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_moe_generate_matches_reference(arch, dtype):
+    _generate_both(dtype, arch)
+
+
 @pytest.mark.parametrize("arch", ["deepseek-7b", "zamba2-7b"])
 def test_generate_ignores_temperature_as_the_reference_does(arch):
     """The reference's generate decodes greedily whatever the temperature
@@ -131,7 +137,8 @@ def test_prefill_and_decode_steps_shapes():
     assert nxt.shape == (B, 1) and not bool(k[:, :, S].eq(0).all())
 
 
-@pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-370m", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "deepseek-moe-16b",
+                                  "kimi-k2-1t-a32b", "mamba2-370m", "zamba2-7b"])
 def test_launcher_runs_reduced_on_cpu(arch, capsys):
     out = launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                              "--requests", "3", "--batch", "2",
