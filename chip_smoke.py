@@ -7,7 +7,11 @@ Needs one CUDA card; exits non-zero, printing no result, without one or
 outside a checkout of the repository. Phases, each printed as JSON lines:
 
 1. card:    the card's name and power limit, and the kernel build time
-            (``nvcc`` builds every ``src/repro_torch/csrc/*.cu`` at once).
+            (``nvcc`` builds every ``src/repro_torch/csrc/*.cu`` at once);
+            per library its SASS census (``HGMMA`` wgmma, ``UTMALDG`` TMA
+            loads, ``HMMA`` mma.sync; the flash and gmm libraries must hold
+            both of the first two) and ptxas's registers and spills per
+            kernel; the host cost of encoding the gmm's tensor maps.
 2. kernel:  the flash-attention kernel against its plain PyTorch version on
             the card, bf16, on the kernel-test grid, on deepseek-7b's serving
             shape (B=4, S=2048, H=KVH=32, D=128, causal) and on zamba2-7b's
@@ -46,7 +50,8 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             are reset just before each path and read just after it; every
             prefill must launch the flash kernel once per attention block,
             the SSD kernel once per SSM layer and the grouped GEMM three
-            times per MoE layer.
+            times per MoE layer, and every grouped-GEMM launch must take its
+            wgmma variant.
 4. agree:   deepseek-7b, zamba2-7b and deepseek-moe-16b: one full-width
             prefill through the kernels and the same prefill through their
             plain versions: logits at every prompt position within a stated
@@ -70,6 +75,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -92,8 +98,8 @@ SSD_Y_RTOL = 1e-3          # bf16 y at the model shapes, whole-tensor relative n
 SSD_STATE_RTOL = 1e-4      # fp32 state at the model shapes, relative norm
 GMM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # x sqrt(d): tests/test_kernels.py TestGMM
 GMM_NORM_RTOL = 1e-3       # bf16 model shapes, whole output, relative norm
-GMM_STEP = 32              # the gmm kernel's d step (BLOCK_D), the unit of a fault
-GMM_TILE = 128             # the gmm kernel's C tile (BLOCK_C), the unit of a fault
+GMM_STEP = 32              # half the wgmma gmm's 64-deep stage (two k16 slices), a fault's unit
+GMM_TILE = 128             # the gmm's prefill C tile, the unit of a fault
 
 # (name, B, Sq, Sk, H, KVH, D, options): the TestFlashAttention grid of
 # tests/test_kernels.py at head_dim 64 and 128 (the kernel's), one non-causal
@@ -111,7 +117,7 @@ GRID = [
 ]
 SERVE_SHAPE = ("serve_prefill", 4, 2048, 2048, 32, 32, 128, {})
 ZAMBA_SHAPE = ("zamba2_prefill", 4, 2048, 2048, 32, 32, 112, {})
-KV_TILE = 64               # the kernel's K/V tile (BLOCK_K), the unit of the injected faults
+KV_TILE = 64               # keys of an injected fault: fewer than the flash kernel's 96-row K/V tile
 SERVE_BATCHES, SERVE_BATCH, PROMPT_LEN, MAX_NEW = 2, 4, 2048, 64
 # (name, B, L, H, P, N, G, chunk, dtype): the TestSSDScan grid of
 # tests/test_kernels.py in fp32, and the models' prefill shapes in bf16
@@ -203,6 +209,22 @@ def attention_bound_ms(B, Sq, Sk, H, KVH, D, opts) -> tuple[float, str]:
 KERNEL_SOURCES = ("flash_attention", "moe_gmm", "ssd_scan")
 
 
+def ptxas_kernels(report: str) -> list[dict]:
+    """Registers and spill bytes of each kernel in one ptxas report."""
+    out = []
+    for chunk in report.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        out.append({"kernel": chunk.split("'", 1)[0][:90],
+                    "registers": int(regs.group(1)) if regs else None,
+                    "spill_store_bytes": int(spill.group(1)) if spill else None})
+    return out
+
+
+# the libraries whose kernels must be built from wgmma fed by TMA
+HOPPER_LIBRARIES = ("flash_attention", "moe_gmm")
+
+
 def phase_card():
     import torch
     from repro_torch.kernels import _build
@@ -212,8 +234,19 @@ def phase_card():
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        list(pool.map(_build.build, KERNEL_SOURCES))   # one nvcc per source
+        libs = dict(zip(KERNEL_SOURCES, pool.map(_build.build, KERNEL_SOURCES)))
     build_s = time.perf_counter() - t0
+    # what each library was compiled to: wgmma (HGMMA), TMA loads (UTMALDG),
+    # mma.sync (HMMA); registers and spills from ptxas
+    census = {}
+    for name, lib in libs.items():
+        census[name] = _build.sass_census(lib)
+        emit({"phase": "sass", "library": name, **census[name],
+              "ptxas": ptxas_kernels(_build.ptxas_report(lib).read_text())})
+    for name in HOPPER_LIBRARIES:
+        if not (census[name]["HGMMA"] and census[name]["UTMALDG"]):
+            raise AssertionError(f"{name}: no HGMMA or no UTMALDG in its SASS "
+                                 f"({census[name]})")
     lib = fa._lib()
     for d in fa.HEAD_DIMS:
         if lib.flash_attention_smem_bytes(d) != fa.smem_bytes(d=d):
@@ -224,6 +257,19 @@ def phase_card():
     for dtype, code in mg.DTYPES.items():
         if mg._lib().moe_gmm_smem_bytes(code) != mg.smem_bytes(dtype):
             raise AssertionError(f"gmm smem_bytes({dtype}) disagrees with the kernel")
+    for block_c in mg.WGMMA_TILES:
+        if mg._lib().moe_gmm_wgmma_smem_bytes(block_c // 64) != \
+                mg.wgmma_smem_bytes(block_c):
+            raise AssertionError(f"gmm wgmma_smem_bytes({block_c}) disagrees "
+                                 "with the kernel")
+    # the host cost of the wgmma path's two tensor maps, at decode's shape
+    x = torch.empty(64, 8, 2048, dtype=torch.bfloat16, device="cuda")
+    w = torch.empty(64, 2048, 1408, dtype=torch.bfloat16, device="cuda")
+    encode_ns = mg._lib().moe_gmm_encode_ns(x.data_ptr(), w.data_ptr(),
+                                            64, 8, 2048, 1408, 10000)
+    if encode_ns < 0:
+        raise AssertionError("cuTensorMapEncodeTiled refused the gmm tensor maps")
+    del x, w
     emit({"phase": "card", "card": card_line(),
           "kind": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -231,7 +277,10 @@ def phase_card():
           "smem_bytes_d112": fa.smem_bytes(d=112),
           "ssd_smem_bytes_n64": ss.smem_bytes(64),
           "ssd_smem_bytes_n128": ss.smem_bytes(128),
-          "gmm_smem_bytes_bf16": mg.smem_bytes(torch.bfloat16)})
+          "gmm_smem_bytes_mma": mg.smem_bytes(torch.bfloat16),
+          "gmm_smem_bytes_wgmma": {c: mg.wgmma_smem_bytes(c) for c in mg.WGMMA_TILES},
+          "gmm_tensor_map_encode_ns_per_call": encode_ns})
+    return census
 
 
 def rel_errors(got, want) -> tuple[float, float]:
@@ -487,7 +536,7 @@ def gmm_faults(x, w):
 def phase_gmm():
     """The grouped-GEMM kernel against its plain version (module docstring)."""
     import torch
-    from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
+    from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain, gmm_variant
 
     def norm_rel(got, want):
         return ((got.float() - want.float()).norm() / want.float().norm()).item()
@@ -508,7 +557,8 @@ def phase_gmm():
         want = gmm_plain(x, w)
         err = (got.float() - want.float()).abs().max().item()
         line = {"phase": "gmm", "shape": name, "dtype": dtype,
-                "E_C_d_f": [E, C, d, f], "max_abs_err": err,
+                "E_C_d_f": [E, C, d, f], "variant": gmm_variant(x, w),
+                "max_abs_err": err,
                 "norm_rel_err": norm_rel(got, want)}
         finite = bool(torch.isfinite(got).all())
         if model:
@@ -607,12 +657,15 @@ def phase_serve(arch):
     counters = launch_counters()
     for fn in counters.values():
         fn.launches = 0
+    gmm = counters["gmm"]
+    gmm.variant_launches = dict.fromkeys(gmm.variant_launches, 0)
     outs, gen_s = [], []
     for p in prompts:
         out, s = _sync_s(lambda: sess.generate(p, max_new_tokens=MAX_NEW))
         outs.append(out)
         gen_s.append(s)
     launches = {name: fn.launches for name, fn in counters.items()}
+    gmm_variants = dict(gmm.variant_launches)
 
     peak = torch.cuda.max_memory_allocated()
     for out in outs:
@@ -624,6 +677,11 @@ def phase_serve(arch):
             raise AssertionError(f"{name} kernel launched {launches[name]} "
                                  f"times on {arch}; expected >= "
                                  f"{per_prefill} per batch")
+    # every expert product of the model shapes (prefill and decode) must
+    # take the TMA + wgmma kernel
+    if gmm_variants["wgmma"] != launches["gmm"]:
+        raise AssertionError(f"{arch}: gmm launches by variant {gmm_variants}; "
+                             f"all {launches['gmm']} must be wgmma")
 
     # prefill alone, same entry point the session uses, for the split
     prefill = build_prefill_step(model, ServeOptions())
@@ -644,8 +702,9 @@ def phase_serve(arch):
           "decode_ms_per_token": decode_ms,
           "tok_per_s": SERVE_BATCHES * SERVE_BATCH * MAX_NEW / sum(gen_s),
           "max_memory_allocated": peak,
-          **{f"{name}_launches": n for name, n in launches.items()}})
-    return model, params, prompts[0], launches
+          **{f"{name}_launches": n for name, n in launches.items()},
+          "gmm_launches_by_variant": gmm_variants})
+    return model, params, prompts[0], {**launches, "gmm_by_variant": gmm_variants}
 
 
 def scale_routed_experts(model, params) -> None:
@@ -1038,7 +1097,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_card()
+    census = phase_card()
     flash_err, flash_t = phase_kernel()
     ssd_err, ssd_t = phase_ssd()
     gmm_err, gmm_t = phase_gmm()
@@ -1052,23 +1111,30 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-    def entry(name, source, replaces, err, timing, shape, **more):
+    def entry(name, source, replaces, err, timing, shape, variant, **more):
         by_path = {arch: n[name] for arch, n in launches.items()}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "max_abs_err": err, **timing, "shape": shape,
-                "launches_by_path": by_path, **more}
+                "variant": variant, "launches_by_path": by_path,
+                "sass": census[Path(source).stem], **more}
+
+    gmm_by_variant = {v: sum(n["gmm_by_variant"][v] for n in launches.values())
+                      for v in launches[SERVE_PATHS[0][0]]["gmm_by_variant"]}
 
     emit({"kernels": [
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:82", flash_err,
               flash_t[SERVE_SHAPE[0]], "B=4 S=2048 H=KVH=32 D=128 causal bf16",
+              "TMA + wgmma: 128-row q tiles over 96-row K/V tiles, a producer "
+              "warpgroup and two consumer warpgroups",
               at_d112={**flash_t[ZAMBA_SHAPE[0]],
                        "shape": "B=4 S=2048 H=KVH=32 D=112 causal bf16"}),
         entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
               "src/repro/kernels/ssd_scan.py:70", ssd_err,
               ssd_t["zamba2-7b"],
               "B=4 L=2048 H=112 P=64 N=64 G=2 chunk=256 bf16 (zamba2-7b)",
+              "fp32 FMA",
               at_mamba2={**ssd_t["mamba2-370m"],
                          "shape": "B=4 L=2048 H=32 P=64 N=128 G=1 chunk=256 "
                                   "bf16 (mamba2-370m)"}),
@@ -1077,6 +1143,10 @@ def main() -> int:
               gmm_t["prefill_gate_up"],
               "E=64 C=968 d=2048 f=1408 bf16 (deepseek-moe-16b prefill "
               "gate/up)",
+              "wgmma (TMA + wgmma: 128 x 256 tiles in clusters of 2 sharing w "
+              "by multicast where C > 64, 64 x 64 tiles where C <= 64); mma "
+              "(mma.sync) for bf16 shapes TMA cannot address; fma for fp32",
+              launches_by_variant=gmm_by_variant,
               at_prefill_down={**gmm_t["prefill_down"],
                                "shape": "E=64 C=968 d=1408 f=2048 bf16"},
               at_decode={**gmm_t["decode_gate_up"],

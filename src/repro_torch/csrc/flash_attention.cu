@@ -6,32 +6,60 @@
 // a kv_valid length mask. Masked scores take the finite value -1e30, as in the
 // Pallas kernel: with -inf a tile whose every entry is masked would give
 // inf - inf = NaN in the running-max correction; with -1e30 such a tile is
-// cancelled exactly (factor exp(-1e30 - m) = 0) by the first later valid tile.
+// cancelled exactly (factor 2^(-1e30 - m) = 0) by the first later valid tile.
 //
 // Bound on the H100. Work: 4*B*H*Sq*Sk*D FLOPs (x1/2 when causal) at the
 // 989 TFLOP/s bf16 tensor-core peak, against the bytes of q, k, v and o at
-// 3.35 TB/s. At the serving shape (B=4, S=2048, H=KVH=32, D=128, causal) that is
-// 1.37e11 FLOPs = 0.139 ms against 268 MB = 0.080 ms: the kernel is bound by
-// operations, so the design is about keeping the tensor cores fed:
-//   * one thread block per (64-row q tile, head, batch); four warps, each owning
-//     16 q rows whose Q fragments stay in registers for the whole kv loop;
-//   * a loop over 64-row K/V tiles replaces the TPU's sequential fourth grid
-//     axis; the tiles are staged through shared memory with cp.async, two
-//     stages deep, so the next tile loads while the current one is multiplied;
-//   * both products use mma.sync m16n8k16 (bf16 x bf16 -> fp32); P stays in
-//     registers (the S accumulator layout is the A-operand layout) and V
-//     fragments come through ldmatrix.trans;
-//   * tiles that the causal, window or kv_valid masks empty entirely are never
-//     visited, which halves the causal work; ragged tails are masked in the
-//     kernel (zero-filled loads, masked scores, guarded stores), never padded;
-//   * GQA reads kv head h / (H / KVH) by index arithmetic; K/V are never
-//     repeated.
-// Shared-memory rows carry 8 bf16 of padding so that fragment loads and
-// ldmatrix are free of bank conflicts. Head dims 64, 112 and 128 are built:
-// each is a multiple of 16 (the mma k-step and the ldmatrix.trans n-step),
-// its 16-byte row chunks divide among the 128 threads, and its padded shared
-// row (D + 8) * 2 bytes stays a multiple of 16 for cp.async and ldmatrix.
-// wgmma, TMA and warp specialisation are the next steps for this kernel.
+// 3.35 TB/s. At deepseek-7b's serving shape (B=4, S=2048, H=KVH=32, D=128,
+// causal) that is 1.37e11 FLOPs = 0.139 ms against 268 MB = 0.080 ms; at
+// zamba2-7b's (D=112) 0.122 ms: bound by operations, so the design is about
+// keeping the tensor cores fed. It is FlashAttention-3's forward structure
+// with its intra-warpgroup overlap, without its inter-warpgroup ping-pong:
+//   * one block per (128-row q tile, head, batch), longest causal rows first;
+//     three warpgroups, setmaxnreg moving registers from the producer (24)
+//     to the two consumers (240);
+//   * the producer's one thread loads Q once and K/V tiles of 96 rows by TMA
+//     into a ring of 2 stages; K and V each complete on their own full
+//     mbarrier and are released on their own empty one, so the next K can
+//     load as soon as its stage's S is computed;
+//   * consumer warpgroup w owns q rows 64w..64w+63. S_t = Q K_t^T is a
+//     wgmma m64n96k16 chain with both operands in shared memory (K
+//     K-major); O += P V is a wgmma with P from registers (P rounded to bf16;
+//     the accumulator layout is the A-fragment layout) and V read MN-major
+//     through the transpose bit. Step t issues S_t, then P_{t-1} V_{t-1},
+//     waits for S_t only, and runs the online softmax of tile t (fp32, base
+//     2, ex2.approx; masks only on tiles a mask reaches into) while the
+//     tensor cores finish P_{t-1} V_{t-1}; then O is rescaled and P_t packed.
+//     Stages go back to the producer by one mbarrier arrival per warp; the
+//     loop has no __syncthreads;
+//   * tiles that the causal, window or kv_valid masks empty for the whole
+//     block are never loaded; a tile empty for one warpgroup only is passed
+//     over by it (it waits for the stage and releases it). Ragged Sq and Sk
+//     are zero-filled by TMA past the tensor maps' edges, and the stores are
+//     guarded; GQA reads kv head h / (H / KVH) by the map coordinate.
+// Tiles are 128-byte swizzled boxes of 64 columns (hopper.cuh), the widest the
+// swizzle takes, so D is loaded in 64-column boxes over 4-D maps
+// (D, heads, S, B). At D=112 the second box reads columns 112-127 past the
+// edge as zeros: both products run at D=128 and the pad columns are never
+// stored. That costs 16/112 = 14% more tensor-core work at D=112 than the
+// head needs; shared memory (132 224 B a block) is the same as at D=128.
+// Why 96-row K/V tiles: ptxas allocates registers against the launch's cap
+// of 168 a thread (384 threads), not the 240 that setmaxnreg gives the
+// consumers, and with 128-row tiles S (64), P (32) and O (64) did not fit:
+// it spilled and serialized every wgmma ("insufficient register
+// resources"). 96-row tiles (S 48, P 24) fit with no spill and no
+// serialization, and ran faster. The warpgroup index is broadcast by a
+// shuffle (hopper::warpgroup_index) for the same reason: on threadIdx.x the
+// compiler took every branch on it as divergent and serialized the wgmma
+// there too. FA3's inter-warpgroup ping-pong, tried, ran slower here and
+// serialized the wgmma again; it is not used.
+//
+// Measured (chip_smoke.py, H100 80GB HBM3 at 700 W): 0.378 ms at the serving
+// shape, 2.7x the bound and 1.3x scaled_dot_product_attention (0.285 ms);
+// ptxas: 168 registers, no spills, no serialization. What still holds it
+// back: the two consumer warpgroups' softmax overlaps only their own P V
+// (no ping-pong), and S, P and O must share 168 registers, which caps the
+// K/V tile at 96 rows.
 //
 // Plain C interface for ctypes: every pointer and the stream are void*; the
 // launch returns cudaGetLastError() so the caller can raise.
@@ -40,201 +68,106 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BQ = 64;              // q rows per block
-constexpr int BK = 64;              // kv rows per tile
-constexpr int WARPS = BQ / 16;      // each warp owns 16 q rows
-constexpr int THREADS = WARPS * 32;
-constexpr int PAD = 8;              // bf16 of padding per shared-memory row
+constexpr int BQ = 128;             // q rows per block: two consumer warpgroups of 64
+constexpr int BK = 96;              // kv rows per tile
+constexpr int STAGES = 2;           // K/V tiles in the ring
+constexpr int THREADS = 384;        // warpgroups 0, 1 consume; 2 produces
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
+// Head dim D in 64-column boxes; D = 112 is read as 128 (the second box's
+// last 16 columns are zeros past the edge of the tensor map).
 template <int D>
 struct Layout {
-  static constexpr int LD = D + PAD;        // shared row stride, elements
-  static constexpr int TILE = BK * LD;      // one K or V tile, elements
-  // Q[BQ][LD], then K[2][BK][LD], then V[2][BK][LD]
-  static constexpr int BYTES = (BQ * LD + 4 * TILE) * 2;
+  static constexpr int NB = (D + hopper::BOX - 1) / hopper::BOX;
+  static constexpr int DP = NB * hopper::BOX;                  // padded head dim
+  static constexpr int Q_BOX = BQ * hopper::BOX_ROW_BYTES;     // bytes of one Q box
+  static constexpr int KV_BOX = BK * hopper::BOX_ROW_BYTES;    // one K or V box
+  static constexpr int Q_BYTES = NB * Q_BOX;
+  static constexpr int KV_BYTES = NB * KV_BOX;                 // one K or V tile
+  // Q, then K[STAGES], then V[STAGES], then the barriers; + alignment slack
+  static constexpr int BARRIER_OFFSET = Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int BYTES = BARRIER_OFFSET + 128 + 1024;
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;            // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (lo) in the low half
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+// 2^x by the special-function unit (ex2.approx: relative error ~2^-22, far
+// below the bf16 rounding P goes through).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// c += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// The online softmax of one warpgroup's rows over one BK-key tile, in base
+// 2: the scores are scaled (and softcapped), masked where a mask reaches
+// into the tile, and replaced by p = 2^(x - m) with m the new running max;
+// corr is the factor that the earlier sums are rescaled by. A masked score
+// is -1e30 exactly, so a row with no key yet gives x - m = 0, as the Pallas
+// kernel does.
+struct Softmax {
+  float scale, softcap;
+  int causal, window, kv_valid, q_lo, qpos, t4;
 
-// Stage rows [row0, row0 + 64) of one head into shared memory; rows at or past
-// `limit` are zero-filled, so neither a ragged tail nor unwritten cache memory
-// reaches the products.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* smem, const bf16* g, int row0,
-                                          int limit, int row_stride) {
-  constexpr int CH = D / 8;         // 16-byte chunks per row
-  constexpr int LD = Layout<D>::LD;
-  static_assert(BK * CH % THREADS == 0, "tile chunks divide among threads");
+  __device__ __forceinline__ void update(float (&sc)[BK / 2], int kstart,
+                                         float (&m_run)[2], float (&l_run)[2],
+                                         float (&corr)[2]) const {
+    if (softcap > 0.f) {
 #pragma unroll
-  for (int i = 0; i < BK * CH / THREADS; ++i) {
-    int c = threadIdx.x + i * THREADS;
-    int r = c / CH, col = (c % CH) * 8;
-    bool ok = row0 + r < limit;
-    const bf16* src = ok ? g + (size_t)(row0 + r) * row_stride + col : g;
-    cp_async16(smem + r * LD + col, src, ok);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 int Sq, int Sk, int H, int KVH, float scale, int causal,
-                 int window, float softcap, int q_offset, int kv_valid) {
-  constexpr int LD = Layout<D>::LD;
-  constexpr int TILE = Layout<D>::TILE;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + BQ * LD;
-  bf16* sV = sK + 2 * TILE;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;    // longest causal rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KVH);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;       // mma fragment row / column pair
-  const int q0 = qt * BQ;
-
-  const bf16* qg = q + ((size_t)b * Sq * H + h) * D;
-  const bf16* kg = k + ((size_t)b * Sk * KVH + kvh) * D;
-  const bf16* vg = v + ((size_t)b * Sk * KVH + kvh) * D;
-
-  // The kv tiles that hold at least one key some row of this tile may see.
-  int kv_end = kv_valid;
-  if (causal) kv_end = min(kv_end, q_offset + q0 + BQ);
-  int kv_begin = window ? max(0, q_offset + q0 - window + 1) : 0;
-  const int t_begin = kv_begin / BK;
-  const int t_end = (kv_end + BK - 1) / BK;
-
-  load_tile<D>(sQ, qg, q0, Sq, H * D);
-  cp_async_commit();
-  if (t_begin < t_end) {
-    load_tile<D>(sK, kg, t_begin * BK, kv_valid, KVH * D);
-    load_tile<D>(sV, vg, t_begin * BK, kv_valid, KVH * D);
-  }
-  cp_async_commit();
-  cp_async_wait<1>();                           // Q has landed
-  __syncthreads();
-
-  uint32_t qf[D / 16][4];                       // A fragments of this warp's Q rows
-  const bf16* sQw = sQ + warp * 16 * LD;
+      for (int i = 0; i < BK / 2; ++i) sc[i] = softcap * tanhf(sc[i] * scale / softcap) * LOG2E;
+    } else {
+      const float scale_log2 = scale * LOG2E;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    int c = kk * 16 + t4 * 2;
-    qf[kk][0] = ld32(sQw + g * LD + c);
-    qf[kk][1] = ld32(sQw + (g + 8) * LD + c);
-    qf[kk][2] = ld32(sQw + g * LD + c + 8);
-    qf[kk][3] = ld32(sQw + (g + 8) * LD + c + 8);
-  }
-
-  float acc[D / 8][4];                          // O rows g, g+8; n-tile j = cols 8j..8j+7
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
-  const int qpos = q_offset + q0 + warp * 16 + g;   // row g; row g + 8 is qpos + 8
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int stage = (t - t_begin) & 1;
-    if (t + 1 < t_end) {                        // prefetch the next tile
-      load_tile<D>(sK + (stage ^ 1) * TILE, kg, (t + 1) * BK, kv_valid, KVH * D);
-      load_tile<D>(sV + (stage ^ 1) * TILE, vg, (t + 1) * BK, kv_valid, KVH * D);
+      for (int i = 0; i < BK / 2; ++i) sc[i] *= scale_log2;
     }
-    cp_async_commit();
-    cp_async_wait<1>();                         // tile t has landed
-    __syncthreads();
-    const bf16* sKs = sK + stage * TILE;
-    const bf16* sVs = sV + stage * TILE;
-
-    // S = Q K^T for 16 rows x 64 keys per warp
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    const bool need_mask = kstart + BK > kv_valid || (causal && kstart + BK - 1 > q_lo) ||
+                           (window && q_lo + 63 - kstart >= window);
+    if (need_mask) {
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
-        const bf16* kr = sKs + (j * 8 + g) * LD + kk * 16 + t4 * 2;
-        mma16816(s[j], qf[kk], ld32(kr), ld32(kr + 8));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qp = qpos + (e >= 2 ? 8 : 0);   // rows g and g + 8
+          const int kp = kstart + 8 * j + 2 * t4 + (e & 1);
+          bool ok = kp < kv_valid;
+          if (causal) ok = ok && kp <= qp;
+          if (window) ok = ok && qp - kp < window;
+          if (!ok) sc[4 * j + e] = NEG_INF;
+        }
       }
     }
-
-    // scale, softcap, mask; then the online-softmax update
-    const int kbase = t * BK;
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        int qp = qpos + (e >= 2 ? 8 : 0);
-        int kp = kbase + j * 8 + t4 * 2 + (e & 1);
-        bool ok = kp < kv_valid;
-        if (causal) ok = ok && kp <= qp;
-        if (window) ok = ok && qp - kp < window;
-        x = ok ? x : NEG_INF;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
+      mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
-    float rs[2] = {0.f, 0.f}, corr[2];
+    float rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {               // the 4 threads of a quad share a row
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = __expf(m_run[r] - mx[r]);
+      corr[r] = fast_exp2(m_run[r] - mx[r]);
       m_run[r] = mx[r];
     }
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[j][e] = __expf(s[j][e] - mx[e >> 1]);
-        rs[e >> 1] += s[j][e];
+        sc[4 * j + e] = fast_exp2(sc[4 * j + e] - mx[e >> 1]);
+        rs[e >> 1] += sc[4 * j + e];
       }
     }
 #pragma unroll
@@ -243,44 +176,227 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
       l_run[r] = l_run[r] * corr[r] + rs[r];
     }
+  }
+};
+
+// P rounded to bf16 pairs: n8 blocks 2s and 2s + 1 of the accumulator are the
+// A fragment of the k16 slice s (hopper.cuh: the layouts agree).
+__device__ __forceinline__ void to_bf16_fragments(const float (&sc)[BK / 2],
+                                                  uint32_t (&p)[BK / 16][4]) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= corr[0]; acc[j][1] *= corr[0];
-      acc[j][2] *= corr[1]; acc[j][3] *= corr[1];
+  for (int j = 0; j < BK / 8; ++j) {
+    p[j / 2][(j % 2) * 2] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+    p[j / 2][(j % 2) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(__grid_constant__ const CUtensorMap qmap,
+                 __grid_constant__ const CUtensorMap kmap,
+                 __grid_constant__ const CUtensorMap vmap, bf16* __restrict__ o,
+                 int Sq, int H, int KVH, float scale, int causal, int window,
+                 float softcap, int q_offset, int kv_valid) {
+  using L = Layout<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sQ = base;
+  unsigned char* sK = base + L::Q_BYTES;
+  unsigned char* sV = sK + STAGES * L::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + L::BARRIER_OFFSET);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* k_empty = v_full + STAGES;
+  uint64_t* v_empty = k_empty + STAGES;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;    // longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KVH);
+  const int q0 = qt * BQ;
+  const int wgi = hopper::warpgroup_index();
+
+  // The kv tiles that hold at least one key some row of this block may see.
+  int kv_end = kv_valid;
+  if (causal) kv_end = min(kv_end, q_offset + q0 + BQ);
+  const int kv_begin = window ? max(0, q_offset + q0 - window + 1) : 0;
+  const int t_begin = kv_begin / BK;
+  const int t_end = (kv_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&k_empty[s], 8);        // one arrival per consumer warp
+      hopper::mbar_init(&v_empty[s], 8);
     }
 
-    // O += P V; P (bf16) goes from the S accumulators straight into A fragments
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wgi == 2) {                               // producer warpgroup
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      hopper::tma_prefetch_map(&qmap);
+      hopper::tma_prefetch_map(&kmap);
+      hopper::tma_prefetch_map(&vmap);
+      hopper::mbar_expect_tx(q_full, L::Q_BYTES);
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      for (int nb = 0; nb < L::NB; ++nb)
+        hopper::tma_load_4d(sQ + nb * L::Q_BOX, &qmap, q_full, nb * hopper::BOX, h, q0, b);
+      for (int t = t_begin; t < t_end; ++t) {
+        const int i = t - t_begin, s = i % STAGES;
+        const uint32_t free_parity = ((i / STAGES) & 1) ^ 1;
+        unsigned char* k_s = sK + s * L::KV_BYTES;
+        unsigned char* v_s = sV + s * L::KV_BYTES;
+        hopper::mbar_wait(&k_empty[s], free_parity);
+        hopper::mbar_expect_tx(&k_full[s], L::KV_BYTES);
 #pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, sVs + (kk * 16 + (lane & 15)) * LD + n * 16 + (lane >> 4) * 8);
-        mma16816(acc[2 * n], a, bv[0], bv[1]);
-        mma16816(acc[2 * n + 1], a, bv[2], bv[3]);
+        for (int nb = 0; nb < L::NB; ++nb)
+          hopper::tma_load_4d(k_s + nb * L::KV_BOX, &kmap, &k_full[s], nb * hopper::BOX,
+                              kvh, t * BK, b);
+        hopper::mbar_wait(&v_empty[s], free_parity);
+        hopper::mbar_expect_tx(&v_full[s], L::KV_BYTES);
+#pragma unroll
+        for (int nb = 0; nb < L::NB; ++nb)
+          hopper::tma_load_4d(v_s + nb * L::KV_BOX, &vmap, &v_full[s], nb * hopper::BOX,
+                              kvh, t * BK, b);
       }
     }
-    __syncthreads();                            // stage is free for the prefetch after next
-  }
-
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const float inv0 = 1.f / fmaxf(l_run[0], 1e-30f);
-  const float inv1 = 1.f / fmaxf(l_run[1], 1e-30f);
-  bf16* o0 = o + (((size_t)b * Sq + row0) * H + h) * D;
-  bf16* o1 = o + (((size_t)b * Sq + row1) * H + h) * D;
+  } else {                                      // consumer warpgroups
+    // consumer warpgroup wgi: q rows q0 + 64 wgi .. + 63
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int q_lo = q_offset + q0 + wgi * 64;    // first q position of this warpgroup
+    const Softmax sm{scale, softcap, causal, window, kv_valid, q_lo,
+                     q_lo + warp * 16 + g, t4};
+    // this warpgroup's own kv tiles [lo, hi); the block's others it passes on
+    int my_end = kv_valid;
+    if (causal) my_end = min(my_end, q_lo + 64);
+    const int lo = min(t_end, max(t_begin, window ? max(0, q_lo - window + 1) / BK : 0));
+    const int hi = max(lo, min(t_end, (my_end + BK - 1) / BK));
+    const unsigned char* sQw = sQ + wgi * 64 * hopper::BOX_ROW_BYTES;
+    auto stage = [&](int t) { return (t - t_begin) % STAGES; };
+    auto parity = [&](int t) { return (uint32_t)(((t - t_begin) / STAGES) & 1); };
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(bar);
+    };
+    auto pass = [&](int t) {                      // every key masked for these rows
+      hopper::mbar_wait(&k_full[stage(t)], parity(t));
+      release(&k_empty[stage(t)]);
+      hopper::mbar_wait(&v_full[stage(t)], parity(t));
+      release(&v_empty[stage(t)]);
+    };
+    // S = Q K_t^T: 64 rows x 96 keys, both operands K-major in shared memory
+    auto issue_s = [&](float (&sc)[BK / 2], int t) {
+      const unsigned char* k_s = sK + stage(t) * L::KV_BYTES;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    int col = j * 8 + t4 * 2;
-    if (row0 < Sq)
-      *reinterpret_cast<uint32_t*>(o0 + col) = pack_bf16(acc[j][0] * inv0, acc[j][1] * inv0);
-    if (row1 < Sq)
-      *reinterpret_cast<uint32_t*>(o1 + col) = pack_bf16(acc[j][2] * inv1, acc[j][3] * inv1);
+      for (int kk = 0; kk < L::DP / 16; ++kk) {
+        const int box = kk / 4, off = (kk % 4) * 32;
+        hopper::wgmma_ss<0, 0>(sc, hopper::desc_kmajor(sQw + box * L::Q_BOX + off),
+                               hopper::desc_kmajor(k_s + box * L::KV_BOX + off), kk > 0);
+      }
+      hopper::wgmma_commit();
+    };
+    // O += P V_t: P from registers, V MN-major in shared memory (transpose bit)
+    auto issue_pv = [&](float (&acc)[L::DP / 2], uint32_t (&p)[BK / 16][4], int t) {
+      const unsigned char* v_s = sV + stage(t) * L::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        hopper::wgmma_rs<1>(acc, p[kk], hopper::desc_mnmajor(v_s + 2048 * kk, L::KV_BOX), 1);
+      hopper::wgmma_commit();
+    };
+
+    float acc[L::DP / 2];                         // O: 64 rows x DP, fp32
+#pragma unroll
+    for (int i = 0; i < L::DP / 2; ++i) acc[i] = 0.f;
+    float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f}, corr[2];
+    float sc[BK / 2];
+    uint32_t p[BK / 16][4];                       // P in bf16: the A fragments of P V
+
+    hopper::mbar_wait(q_full, 0);
+    for (int t = t_begin; t < lo; ++t) pass(t);
+    if (lo < hi) {
+      hopper::mbar_wait(&k_full[stage(lo)], parity(lo));
+      hopper::fence_regs(sc);
+      hopper::wgmma_fence();
+      issue_s(sc, lo);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      release(&k_empty[stage(lo)]);
+      sm.update(sc, lo * BK, m_run, l_run, corr);
+      to_bf16_fragments(sc, p);
+      // In step t the tensor cores run S_t, then P_{t-1} V_{t-1}; the softmax
+      // of S_t overlaps the second. O is rescaled once P_{t-1} V_{t-1} is in.
+      for (int t = lo + 1; t < hi; ++t) {
+        hopper::mbar_wait(&k_full[stage(t)], parity(t));
+        hopper::mbar_wait(&v_full[stage(t - 1)], parity(t - 1));
+        hopper::fence_regs(sc);
+        hopper::fence_regs(acc);
+        hopper::fence_regs(p);
+        hopper::wgmma_fence();
+        issue_s(sc, t);
+        issue_pv(acc, p, t - 1);
+        hopper::wgmma_wait<1>();                // S_t is in
+        hopper::fence_regs(sc);
+        release(&k_empty[stage(t)]);
+        sm.update(sc, t * BK, m_run, l_run, corr);
+        hopper::wgmma_wait<0>();                // P_{t-1} V_{t-1} is in
+        hopper::fence_regs(acc);
+        hopper::fence_regs(p);
+        release(&v_empty[stage(t - 1)]);
+#pragma unroll
+        for (int j = 0; j < L::DP / 8; ++j) {
+          acc[4 * j] *= corr[0];
+          acc[4 * j + 1] *= corr[0];
+          acc[4 * j + 2] *= corr[1];
+          acc[4 * j + 3] *= corr[1];
+        }
+        to_bf16_fragments(sc, p);
+      }
+      hopper::mbar_wait(&v_full[stage(hi - 1)], parity(hi - 1));
+      hopper::fence_regs(acc);
+      hopper::fence_regs(p);
+      hopper::wgmma_fence();
+      issue_pv(acc, p, hi - 1);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      release(&v_empty[stage(hi - 1)]);
+    }
+    for (int t = hi; t < t_end; ++t) pass(t);
+
+    // rows g and g + 8 of this warp's 16; columns 8j + 2t, + 1; pad columns
+    // (D = 112) are never stored
+    const int row0 = q0 + wgi * 64 + warp * 16 + g, row1 = row0 + 8;
+    const float inv0 = 1.f / fmaxf(l_run[0], 1e-30f);
+    const float inv1 = 1.f / fmaxf(l_run[1], 1e-30f);
+    bf16* o0 = o + (((size_t)b * Sq + row0) * H + h) * D;
+    bf16* o1 = o + (((size_t)b * Sq + row1) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < L::DP / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col >= D) continue;
+      if (row0 < Sq)
+        *reinterpret_cast<uint32_t*>(o0 + col) = pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+      if (row1 < Sq)
+        *reinterpret_cast<uint32_t*>(o1 + col) = pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+    }
   }
+}
+
+// q (B, Sq, H, D) and k, v (B, Sk, KVH, D) as 4-D maps, dims innermost first
+// (D, heads, S, B), read in boxes of 64 columns x 1 head x rows x 1 batch.
+bool encode_map(CUtensorMap* map, const void* p, int B, int S, int heads, int D,
+                int rows) {
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)heads, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)D * 2, (uint64_t)heads * D * 2,
+                               (uint64_t)S * heads * D * 2};
+  const uint32_t box[4] = {(uint32_t)hopper::BOX, 1, (uint32_t)rows, 1};
+  return hopper::encode_bf16_map(map, p, 4, dims, strides, box);
 }
 
 template <int D>
@@ -288,14 +404,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
            int Sk, int H, int KVH, float scale, int causal, int window,
            float softcap, int q_offset, int kv_valid, cudaStream_t stream) {
   constexpr int bytes = Layout<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap qm, km, vm;
+  if (!encode_map(&qm, q, B, Sq, H, D, BQ) || !encode_map(&km, k, B, Sk, KVH, D, BK) ||
+      !encode_map(&vm, v, B, Sk, KVH, D, BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, KVH, scale,
-      causal, window, softcap, q_offset, kv_valid);
+      qm, km, vm, static_cast<bf16*>(o), Sq, H, KVH, scale, causal, window,
+      softcap, q_offset, kv_valid);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -311,8 +434,9 @@ int flash_attention_smem_bytes(int D) {
   return 0;
 }
 
-// q (B,Sq,H,D), k/v (B,Sk,KVH,D), o (B,Sq,H,D): contiguous bf16. kv_valid <= Sk.
-// Returns a cudaError_t value: 0 when the launch was accepted.
+// q (B,Sq,H,D), k/v (B,Sk,KVH,D), o (B,Sq,H,D): contiguous bf16, q, k and v
+// 16-byte aligned. kv_valid <= Sk. Returns a cudaError_t value: 0 when the
+// launch was accepted.
 int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                              int B, int Sq, int Sk, int H, int KVH, int D,
                              float scale, int causal, int window, float softcap,

@@ -6,42 +6,81 @@
 // contiguous and w (E, d, f) with f contiguous. The sum over d is kept in fp32
 // and the output is rounded once to x's dtype. The Pallas kernel pads C, d and
 // f to its blocks on the host and slices the result back (moe_gmm.py:56-66,
-// :87); this kernel masks its own ragged edges instead (zero-filled loads,
-// guarded stores), so no padded copy is made.
+// :87); here the ragged edges are zero-filled by the loads and the stores are
+// guarded, so no padded copy is made.
 //
 // Bound on the H100. Work: 2*E*C*d*f FLOPs at the 989 TFLOP/s bf16 tensor-core
 // peak, against the bytes of x, w and the output read or written once at
 // 3.35 TB/s. At deepseek-moe-16b's shapes (E=64 experts, d=2048, f=1408):
-//   prefill, B=4 x 2048 tokens, capacity C=968, gate/up:
-//     3.57e11 FLOPs = 0.361 ms against 0.80 GB = 0.238 ms: bound by operations;
-//   decode, 4 tokens, C=8 (the capacity floor):
-//     369 MB of expert weights = 0.110 ms against 3.0e9 FLOPs: bound by bytes.
-// The design is the simple right one, not yet the fast one:
-//   * one thread block per (f-tile of 128, C-tile of 128, expert); a loop over
-//     d inside the block takes the place of the TPU's sequential ("arbitrary")
-//     fourth grid axis, with the (128 x 128) fp32 accumulator in registers;
-//   * eight warps, each owning a 64 x 32 piece of the output tile: per 16-deep
-//     step four ldmatrix.x4 loads of x (the A operand, row-major), two
-//     ldmatrix.x4.trans loads of w (the B operand, f contiguous, exactly as V
-//     is read in flash_attention.cu) and sixteen mma.sync m16n8k16
-//     (bf16 x bf16 -> fp32);
-//   * x and w tiles 32 deep are staged through shared memory with cp.async,
-//     two stages, so the next tile loads while the current one is multiplied;
-//     shared rows carry 8 bf16 of padding so that ldmatrix is free of bank
-//     conflicts;
-//   * 16-byte cp.async needs d and f to be multiples of 8 and 16-byte aligned
-//     bases; other shapes take element-wise loads into the same pipeline;
-//   * fp32 inputs take an FMA path of the same block tiling (256 threads, 8 x 8
-//     outputs each, tiles 16 deep), never TF32, so that it keeps fp32 accuracy.
-// wgmma, TMA, a deeper pipeline and a C-tile chosen per shape are later work:
-// in the decode shape a 128-row C tile is 15/16 padding.
+//   prefill, B=4 x 2048 tokens, capacity C=968, gate/up (and down, d and f
+//   swapped): 3.57e11 FLOPs = 0.361 ms against 0.80 GB = 0.238 ms: bound by
+//   operations;
+//   decode, 4 tokens, C=8 (the capacity floor): 369 MB of expert weights
+//   = 0.110 ms against 3.0e9 FLOPs: bound by bytes.
 //
-// Plain C interface for ctypes: every pointer and the stream are void*; the
+// Three paths, chosen in Python (kernels/moe_gmm.py::gmm_variant):
+// * "wgmma", bf16 with d and f multiples of 8 (every model shape): TMA and
+//   wgmma, built from hopper.cuh.
+//   - A persistent grid (as many blocks as fit the card at once) walks the
+//     (expert, C-tile, f-tile) tiles, f fastest. A tile never crosses an
+//     expert: x and w are 3-D tensor maps, and TMA zero-fills rows past C
+//     (968 is ragged) and columns past d and f.
+//   - One producer thread fills a ring of stages, each 64 deep in d: the x
+//     tile (64 d wide, one box) and the w tile (64-column boxes), 128-byte
+//     swizzled, each stage completed on an mbarrier by its bytes.
+//   - Consumer warpgroups of 64 rows each issue wgmma m64nNk16, x K-major
+//     and w MN-major through the transpose bit, so no transposed copy of the
+//     369 MB of expert weights is made. One group stays in flight; a stage
+//     goes back to the producer by one mbarrier arrival per consumer warp
+//     once the group that read it has completed.
+//   - The fp32 sum stays in registers and is rounded once to bf16 by guarded
+//     stores while the producer already loads the next tile.
+//   - Tile per shape. C > 64 (prefill): 128 x 256 tiles (two consumer
+//     warpgroups of 64 x 256, 128 accumulators a thread), 4 stages of 48 KB,
+//     and two blocks to a cluster on neighbouring C-tiles of one expert and
+//     f-tile: each loads half of the shared w tile by TMA multicast into
+//     both, and a stage is free once the consumers of both blocks have read
+//     it. Alone, one block's tile reads 1.5 MB from L2 for 134 MFLOP, which
+//     at the kernel's rate is several TB/s of L2 reads; the multicast takes
+//     the w half of that down by half, and ran markedly faster than the
+//     same tiles without it.
+//     C <= 64 (decode, C=8): 64 x 64 tiles (one consumer warpgroup), 8
+//     stages of 16 KB, no cluster. Decode is bound by the weight bytes, so
+//     the padding rows cost only tensor-core cycles that the bytes leave idle
+//     (8x the work is 2.4e10 FLOPs = 0.024 ms at peak against 0.110 ms of
+//     weights), and TMA fills them with zeros without reading memory; the
+//     64-wide f tile gives 1 408 tiles, 10.7 a block, so the last wave is
+//     nearly full. Swapping the operands (f as wgmma's M, C=8 as its N) would
+//     read the same bytes through another operand layout, so it was not
+//     taken.
+//   - The two tensor maps are encoded inside the C entry point, once per
+//     call (moe_gmm_encode_ns measures it).
+//   - Measured (chip_smoke.py, H100 80GB HBM3 at 700 W): 0.710 ms at the
+//     prefill gate/up shape (1.97x the bound, 1.36x torch.bmm's 0.523 ms),
+//     0.159 ms at decode (1.43x the bound, 1.10x torch.bmm's 0.144 ms);
+//     168 registers (64 at decode), no spills, no serialization. What still
+//     holds prefill back: each consumer warpgroup reads the whole 64 x 256 w
+//     tile from shared memory at every step, so with TMA's writes a stage
+//     costs about as many shared-memory bytes per cycle as the card moves;
+//     the epilogue's stores are not overlapped with the next tile's
+//     products.
+// * "mma", other bf16 shapes (d or f not a multiple of 8, which TMA cannot
+//   address): one block per (f-tile 128, C-tile 128, expert), eight warps of
+//   mma.sync m16n8k16 fed by ldmatrix from two cp.async stages 32 deep;
+//   element-wise loads where 16-byte ones would be unaligned.
+// * "fma", fp32: the same block tiling in fp32 FMA, never TF32, so that it
+//   keeps fp32 accuracy.
+//
+// Plain C interface for ctypes: every pointer and the stream are void*; a
 // launch returns cudaGetLastError() so the caller can raise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <chrono>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -281,19 +320,236 @@ gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// ---- bf16 through TMA and wgmma --------------------------------------------
+
+namespace wg {
+
+constexpr int BKD = hopper::BOX;     // d depth of one stage: one box
+constexpr int B_BOX_BYTES = BKD * hopper::BOX_ROW_BYTES;   // 64 d-rows x 64 f
+
+// WGS consumer warpgroups of 64 rows each (a C tile of 64 * WGS rows), an f
+// tile of BN columns in 64-column boxes, a ring of STAGES stages; CL blocks
+// to a cluster.
+template <int WGS, int BN, int STAGES, int CL>
+struct Layout {
+  static constexpr int BM = 64 * WGS;
+  static constexpr int A_BYTES = BM * hopper::BOX_ROW_BYTES;   // BM rows of 64 d
+  static constexpr int B_BOXES = BN / hopper::BOX;
+  static constexpr int B_BYTES = B_BOXES * B_BOX_BYTES;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int BARRIERS = 2 * STAGES * 8;
+  static constexpr int BYTES = STAGES * STAGE + BARRIERS + 1024;   // + alignment slack
+  static constexpr int THREADS = 128 * (WGS + 1);
+  static_assert(B_BOXES % CL == 0, "each block of a cluster loads its share of w");
+};
+
+// Persistent: cluster c takes tile groups c, c + clusters, ... of the
+// (expert, C-tile group, f-tile) order, f fastest, so clusters that run
+// together share x tiles and one expert's weights in L2. Block r of a
+// cluster computes C-tile CL * group + r; the CL blocks share the w tile, and
+// each loads 1/CL of it by TMA multicast into every block of the cluster,
+// which divides the w traffic from L2 by CL. A stage is therefore free only
+// once the consumers of every block of the cluster have read it: each
+// consumer warp arrives on the empty barrier of every block.
+// The last warpgroup's first thread is the producer; the others multiply.
+// The ring runs on across tiles, so the producer loads the next tile while
+// the consumers store this one.
+template <int WGS, int BN, int STAGES, int CL>
+__global__ void __launch_bounds__(Layout<WGS, BN, STAGES, CL>::THREADS, 1)
+gmm_wgmma_kernel(__grid_constant__ const CUtensorMap xmap,
+                 __grid_constant__ const CUtensorMap wmap, bf16* __restrict__ out,
+                 int E, int C, int f, int k_steps) {
+  using L = Layout<WGS, BN, STAGES, CL>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + STAGES * L::STAGE);
+  uint64_t* empty = full + STAGES;
+  const int n_f = (f + BN - 1) / BN, n_c = (C + L::BM - 1) / L::BM;
+  const int n_g = (n_c + CL - 1) / CL;            // C-tile groups, one per cluster
+  const int groups = E * n_g * n_f;
+  const int rank = CL > 1 ? (int)hopper::cluster_ctarank() : 0;
+  const int cluster = blockIdx.x / CL, clusters = gridDim.x / CL;
+  const int wgi = hopper::warpgroup_index();
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);             // the producer's expect_tx
+      hopper::mbar_init(&empty[s], 4 * WGS * CL); // each consumer warp of the cluster
+    }
+    hopper::mbar_fence_init();
+  }
+  if constexpr (CL > 1) hopper::cluster_sync(); else __syncthreads();
+
+  if (wgi == WGS) {                               // producer warpgroup
+    if constexpr (WGS == 2) hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == WGS * 128) {
+      hopper::tma_prefetch_map(&xmap);
+      hopper::tma_prefetch_map(&wmap);
+      int it = 0;
+      for (int grp = cluster; grp < groups; grp += clusters) {
+        const int ft = grp % n_f, ct = (grp / n_f) % n_g * CL + rank, e = grp / (n_f * n_g);
+        for (int k = 0; k < k_steps; ++k, ++it) {
+          const int s = it % STAGES;
+          hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          unsigned char* st = base + s * L::STAGE;
+          hopper::mbar_expect_tx(&full[s], L::STAGE);   // all of w lands here, 1/CL from each block
+          hopper::tma_load_3d(st, &xmap, &full[s], k * BKD, ct * L::BM, e);
+#pragma unroll
+          for (int i = 0; i < L::B_BOXES / CL; ++i) {
+            const int nb = rank * (L::B_BOXES / CL) + i;
+            unsigned char* dst = st + L::A_BYTES + nb * B_BOX_BYTES;
+            const int col = ft * BN + nb * hopper::BOX;
+            if constexpr (CL > 1)
+              hopper::tma_load_3d_multicast(dst, &wmap, &full[s], col, k * BKD, e,
+                                            (uint16_t)((1u << CL) - 1));
+            else
+              hopper::tma_load_3d(dst, &wmap, &full[s], col, k * BKD, e);
+          }
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup wgi: rows wgi * 64 .. + 63 of each C tile
+    if constexpr (WGS == 2) hopper::setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    auto release = [&](int s) {                   // stage s is read: free it cluster-wide
+      if (lane != 0) return;
+      if constexpr (CL > 1) {
+#pragma unroll
+        for (int r = 0; r < CL; ++r) hopper::mbar_arrive_cluster(&empty[s], r);
+      } else {
+        hopper::mbar_arrive(&empty[s]);
+      }
+    };
+    float acc[BN / 2];
+    int it = 0;
+    for (int grp = cluster; grp < groups; grp += clusters) {
+      const int ft = grp % n_f, ct = (grp / n_f) % n_g * CL + rank, e = grp / (n_f * n_g);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int k = 0; k < k_steps; ++k, ++it) {
+        const int s = it % STAGES;
+        hopper::mbar_wait(&full[s], (it / STAGES) & 1);
+        const unsigned char* a = base + s * L::STAGE + wgi * 64 * hopper::BOX_ROW_BYTES;
+        const unsigned char* b = base + s * L::STAGE + L::A_BYTES;
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BKD / 16; ++kk)     // x K-major, w MN-major
+          hopper::wgmma_ss<0, 1>(acc, hopper::desc_kmajor(a + 32 * kk),
+                                 hopper::desc_mnmajor(b + 2048 * kk, B_BOX_BYTES), 1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();                  // the previous stage is read
+        hopper::fence_regs(acc);
+        if (k > 0) release((it - 1) % STAGES);
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      release((it - 1) % STAGES);
+
+      // rows g and g + 8 of this warp's 16, columns 8j + 2t and + 1; a
+      // C-tile past the end (n_c not a multiple of CL) stores nothing
+      const int row = ct * L::BM + wgi * 64 + warp * 16 + lane / 4;
+      const int col0 = ft * BN + (lane % 4) * 2;
+      bf16* oe = out + (size_t)e * C * f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = col0 + 8 * j;            // f % 8 == 0: col < f covers col + 1
+        if (col >= f) continue;
+        if (row < C)
+          *reinterpret_cast<uint32_t*>(oe + (size_t)row * f + col) =
+              pack_bf16(acc[4 * j], acc[4 * j + 1]);
+        if (row + 8 < C)
+          *reinterpret_cast<uint32_t*>(oe + (size_t)(row + 8) * f + col) =
+              pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+  }
+  // no block leaves while a peer may still multicast into it or arrive on
+  // its barriers
+  if constexpr (CL > 1) hopper::cluster_sync();
+}
+
+// x (E, C, d) and w (E, d, f) as 3-D maps, dims innermost first: x read in
+// (64 d x bm rows) boxes, w in (64 f x 64 d) boxes; both zero-filled past C,
+// d and f, and never past an expert.
+inline bool encode_maps(CUtensorMap* xm, CUtensorMap* wm, const void* x,
+                        const void* w, int E, int C, int d, int f, int bm) {
+  const uint64_t xd[3] = {(uint64_t)d, (uint64_t)C, (uint64_t)E};
+  const uint64_t xs[2] = {(uint64_t)d * 2, (uint64_t)C * d * 2};
+  const uint32_t xb[3] = {(uint32_t)BKD, (uint32_t)bm, 1};
+  const uint64_t wd[3] = {(uint64_t)f, (uint64_t)d, (uint64_t)E};
+  const uint64_t ws[2] = {(uint64_t)f * 2, (uint64_t)d * f * 2};
+  const uint32_t wb[3] = {(uint32_t)hopper::BOX, (uint32_t)BKD, 1};
+  return hopper::encode_bf16_map(xm, x, 3, xd, xs, xb) &&
+         hopper::encode_bf16_map(wm, w, 3, wd, ws, wb);
+}
+
+template <int WGS, int BN, int STAGES, int CL>
+int launch(const void* x, const void* w, void* out, int E, int C, int d, int f,
+           cudaStream_t stream) {
+  using L = Layout<WGS, BN, STAGES, CL>;
+  auto kernel = gmm_wgmma_kernel<WGS, BN, STAGES, CL>;
+  CUtensorMap xm, wm;
+  if (!encode_maps(&xm, &wm, x, w, E, C, d, f, L::BM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.blockDim = dim3(L::THREADS);
+  cfg.dynamicSmemBytes = L::BYTES;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // once per configuration: the shared-memory opt-in and how many clusters
+  // fit on the card at once (the persistent grid)
+  static int max_clusters = 0;
+  if (!max_clusters) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cfg.gridDim = dim3(CL * (hopper::sm_count() / CL));
+    err = cudaOccupancyMaxActiveClusters(&max_clusters, kernel, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (max_clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const int n_g = ((C + L::BM - 1) / L::BM + CL - 1) / CL;
+  const long groups = (long)E * n_g * ((f + BN - 1) / BN);
+  cfg.gridDim = dim3(CL * (int)(groups < max_clusters ? groups : max_clusters));
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, xm, wm, static_cast<bf16*>(out), E,
+                                       C, f, (d + BKD - 1) / BKD);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The two configurations the C entry point chooses between: C > 64 (prefill)
+// takes 128 x 256 tiles from 4 stages of 48 KB, two blocks to a cluster
+// sharing each w tile; C <= 64 (decode) 64 x 64 tiles from 8 stages of 16 KB.
+constexpr int PREFILL_WGS = 2, PREFILL_BN = 256, PREFILL_STAGES = 4, PREFILL_CL = 2;
+constexpr int DECODE_WGS = 1, DECODE_BN = 64, DECODE_STAGES = 8, DECODE_CL = 1;
+using Prefill = Layout<PREFILL_WGS, PREFILL_BN, PREFILL_STAGES, PREFILL_CL>;
+using Decode = Layout<DECODE_WGS, DECODE_BN, DECODE_STAGES, DECODE_CL>;
+
+}  // namespace wg
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory of one block: dtype 0 (bf16) or 1 (fp32); 0 for another.
+// Shared memory of one block of the mma (dtype 0, bf16) or fma (dtype 1,
+// fp32) path; 0 for another.
 int moe_gmm_smem_bytes(int dtype) {
   if (dtype == 0) return BF16_SMEM;
   if (dtype == 1) return F32_SMEM;
   return 0;
 }
 
-// x (E,C,d), w (E,d,f), out (E,C,f): contiguous, all of one dtype, 0 = bf16,
-// 1 = fp32. Returns a cudaError_t value: 0 when the launch was accepted.
+// The mma (dtype 0, bf16) and fma (dtype 1, fp32) paths: x (E,C,d), w (E,d,f),
+// out (E,C,f), contiguous, all of one dtype. Returns a cudaError_t value: 0 when the launch was accepted.
 int moe_gmm_fwd(const void* x, const void* w, void* out, int E, int C, int d,
                 int f, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -318,6 +574,45 @@ int moe_gmm_fwd(const void* x, const void* w, void* out, int E, int C, int d,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The TMA + wgmma path: bf16 x (E,C,d), w (E,d,f), out (E,C,f), contiguous,
+// d and f multiples of 8, x and w 16-byte aligned (what TMA can address).
+// A 64-row C tile (one consumer warpgroup) where C <= 64, else 128 rows.
+// Returns a cudaError_t value: 0 when the launch was accepted.
+int moe_gmm_wgmma_fwd(const void* x, const void* w, void* out, int E, int C,
+                      int d, int f, void* stream) {
+  if (E < 1 || C < 1 || d < 1 || f < 1 || d % 8 || f % 8 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C <= 64)
+    return wg::launch<wg::DECODE_WGS, wg::DECODE_BN, wg::DECODE_STAGES, wg::DECODE_CL>(
+        x, w, out, E, C, d, f, s);
+  return wg::launch<wg::PREFILL_WGS, wg::PREFILL_BN, wg::PREFILL_STAGES, wg::PREFILL_CL>(
+      x, w, out, E, C, d, f, s);
+}
+
+// Dynamic shared memory of the wgmma path with `wgs` consumer warpgroups
+// (a C tile of 64 * wgs rows); 0 for another count.
+int moe_gmm_wgmma_smem_bytes(int wgs) {
+  if (wgs == 1) return wg::Decode::BYTES;
+  if (wgs == 2) return wg::Prefill::BYTES;
+  return 0;
+}
+
+// Host nanoseconds per call to encode the two tensor maps of one wgmma
+// launch, averaged over `iters` encodings; -1 if the encoder refuses them.
+double moe_gmm_encode_ns(const void* x, const void* w, int E, int C, int d,
+                         int f, int iters) {
+  CUtensorMap xm, wm;
+  if (!wg::encode_maps(&xm, &wm, x, w, E, C, d, f, C <= 64 ? 64 : 128)) return -1;
+  auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < iters; ++i)
+    wg::encode_maps(&xm, &wm, x, w, E, C, d, f, C <= 64 ? 64 : 128);
+  auto t1 = std::chrono::steady_clock::now();
+  return std::chrono::duration<double, std::nano>(t1 - t0).count() / iters;
 }
 
 }  // extern "C"

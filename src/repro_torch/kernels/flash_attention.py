@@ -1,11 +1,16 @@
 """Flash attention for Hopper: the CUDA kernel's wrapper and its plain version.
 
 Counterpart of ``repro.kernels.flash_attention`` (``flash_attention_pallas``).
-The kernel is ``csrc/flash_attention.cu``: one thread block per (64-row q
-tile, head, batch), a loop over 64-row K/V tiles staged through shared memory,
-``mma.sync`` bf16 products with fp32 accumulation. It takes bf16 and head_dim
-64, 112 (zamba2-7b) or 128; its source note gives its bound on the H100 and
-the design.
+The kernel is ``csrc/flash_attention.cu``, FlashAttention-3's forward
+structure on the primitives of ``csrc/hopper.cuh``: one block per (128-row q
+tile, head, batch); a producer thread loads Q and 96-row K/V tiles by TMA
+into a 2-stage ring of 128-byte-swizzled boxes completed on mbarriers; two
+consumer warpgroups of 64 q rows each compute S = Q K^T and O += P V with
+``wgmma`` (P from registers, V through the transpose bit) and the online
+softmax in fp32 between them. It takes bf16 and head_dim 64, 112
+(zamba2-7b) or 128, in 64-column boxes: 112 is computed at 128, its pad
+columns zero and never stored. Its source note gives its bound on the H100
+and the design.
 
 ``flash_attention_cuda`` routes by where the tensors lie: on the CPU it runs
 the plain version (the torch twin of ``ref.mha_chunked``); on a CUDA tensor it
@@ -20,20 +25,35 @@ import torch
 
 from . import _build, ref
 
-BLOCK_Q = 64
-BLOCK_K = 64
+BLOCK_Q = 128          # q rows per block: two consumer warpgroups of 64
+BLOCK_K = 96           # kv rows per tile
+STAGES = 2             # K/V tiles in the ring
+BOX = 64               # bf16 columns of one 128-byte-swizzled TMA box
 HEAD_DIMS = (64, 112, 128)
 
 
-def smem_bytes(block_q: int = BLOCK_Q, block_k: int = BLOCK_K, d: int = 128,
-               dtype_bytes: int = 2, stages: int = 2, pad: int = 8) -> int:
-    """Shared memory of one block (counterpart of ``vmem_bytes``).
+def head_dim_boxes(d: int) -> int:
+    """64-column boxes that carry one row of head_dim ``d``."""
+    return -(-d // BOX)
 
-    The Q tile plus ``stages`` K and V tiles, each row padded by ``pad``
-    elements against bank conflicts. Must stay within the 227 KB a block
-    may use on Hopper.
+
+def padded_head_dim(d: int) -> int:
+    """The width the products run at: ``d`` rounded up to whole boxes (112
+    runs at 128, its last 16 columns zero-filled by TMA)."""
+    return head_dim_boxes(d) * BOX
+
+
+def smem_bytes(block_q: int = BLOCK_Q, block_k: int = BLOCK_K, d: int = 128,
+               stages: int = STAGES) -> int:
+    """Dynamic shared memory of one block (counterpart of ``vmem_bytes``).
+
+    The Q tile and ``stages`` K and V tiles, each row ``padded_head_dim(d)``
+    bf16 wide in 128-byte boxes; 128 bytes of mbarriers; 1 KB of slack to
+    align the tiles to the swizzle's 1024-byte atoms. Must stay within the
+    232 448 bytes a block may use on Hopper.
     """
-    return (block_q + 2 * stages * block_k) * (d + pad) * dtype_bytes
+    rows = block_q + 2 * stages * block_k
+    return rows * head_dim_boxes(d) * BOX * 2 + 128 + 1024
 
 
 @functools.cache

@@ -1,18 +1,29 @@
 """Grouped (per-expert) matmul for Hopper: the CUDA kernel's wrapper and its
 plain version.
 
-Counterpart of ``repro.kernels.moe_gmm`` (``gmm_pallas``). The kernel is
-``csrc/moe_gmm.cu``: one thread block per (f-tile, C-tile, expert), a loop
-over d that stages x and w tiles through shared memory with ``cp.async`` (two
-stages), ``mma.sync`` bf16 products with the fp32 accumulator in registers,
-and the output rounded once to x's dtype. fp32 inputs take an FMA path of the
-same tiling. Ragged C, d and f are masked inside the kernel; nothing is
-padded on the host. Its source note gives its bound on the H100 and the
+Counterpart of ``repro.kernels.moe_gmm`` (``gmm_pallas``). The kernels are in
+``csrc/moe_gmm.cu``; ``gmm_variant`` picks one from the shapes and the dtype:
+
+- ``"wgmma"``: bf16 with d and f multiples of 8, every model shape. A
+  persistent grid over (expert, C-tile, f-tile) tiles; a producer thread
+  feeds x and w tiles 64 deep by TMA into a ring of swizzled stages
+  completed on mbarriers, and consumer warpgroups multiply them with
+  ``wgmma`` (x K-major, w MN-major through the transpose bit). Prefill
+  (C > 64) takes 128 x 256 tiles, two blocks to a cluster sharing each w tile
+  by TMA multicast; decode (C <= 64) 64 x 64 tiles (``WGMMA_TILES``).
+- ``"mma"``: bf16 shapes TMA cannot address (d or f not a multiple of 8):
+  ``mma.sync`` from two ``cp.async`` stages 32 deep.
+- ``"fma"``: fp32, in fp32 FMA.
+
+Every path keeps the sum over d in fp32 and rounds the output once to x's
+dtype; ragged C, d and f are zero-filled or masked inside the kernel, never
+padded on the host. The source note gives the bound on the H100 and the
 design.
 
 ``gmm_cuda`` routes by where the tensors lie: on the CPU it runs the plain
 version (the torch twin of ``ref.gmm_naive``); on a CUDA tensor it launches
-the kernel or raises. It never falls back from one to the other.
+the chosen variant or raises. Nothing falls back to another variant or to the
+plain version.
 """
 from __future__ import annotations
 
@@ -23,11 +34,16 @@ import torch
 
 from . import _build, ref
 
-BLOCK_C = 128          # rows of the capacity buffer per block
-BLOCK_F = 128          # output columns per block
-BLOCK_D = 32           # depth of one bf16 d tile (one pipeline stage)
-MAX_EXPERTS = 65535    # the grid's third dimension
+BLOCK_C = 128          # mma / fma paths: rows of the capacity buffer per block
+BLOCK_F = 128          # mma / fma paths: output columns per block
+BLOCK_D = 32           # mma path: depth of one bf16 d tile (one pipeline stage)
+WGMMA_BLOCK_D = 64     # wgmma path: depth of one stage (one 128-byte box)
+# wgmma path, by C tile (64 rows where C <= 64, else 128): (f columns per
+# tile, stages in the ring)
+WGMMA_TILES = {64: (64, 8), 128: (256, 4)}
+MAX_EXPERTS = 65535    # the grid's third dimension (mma / fma paths)
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+VARIANTS = ("wgmma", "mma", "fma")
 
 
 @functools.cache
@@ -38,13 +54,43 @@ def _lib() -> ctypes.CDLL:
     lib.moe_gmm_fwd.restype = i
     lib.moe_gmm_smem_bytes.argtypes = [i]
     lib.moe_gmm_smem_bytes.restype = i
+    lib.moe_gmm_wgmma_fwd.argtypes = [p, p, p, i, i, i, i, p]
+    lib.moe_gmm_wgmma_fwd.restype = i
+    lib.moe_gmm_wgmma_smem_bytes.argtypes = [i]
+    lib.moe_gmm_wgmma_smem_bytes.restype = i
+    lib.moe_gmm_encode_ns.argtypes = [p, p, i, i, i, i, i]
+    lib.moe_gmm_encode_ns.restype = ctypes.c_double
     return lib
 
 
+def gmm_variant(x, w) -> str:
+    """The kernel that takes these operands, from their shapes and dtype.
+
+    ``"wgmma"`` for bf16 whose d and f are multiples of 8 (TMA needs row
+    strides that are multiples of 16 bytes), ``"mma"`` for other bf16
+    shapes, ``"fma"`` for fp32.
+    """
+    if x.dtype == torch.float32:
+        return "fma"
+    d, f = x.shape[-1], w.shape[-1]
+    return "wgmma" if d % 8 == 0 and f % 8 == 0 else "mma"
+
+
+def wgmma_smem_bytes(block_c: int = 128) -> int:
+    """Dynamic shared memory of one wgmma block: its stages of a
+    (block_c x 64) x tile and a (64 x block_f) w tile in bf16
+    (``WGMMA_TILES``), one full and one empty mbarrier a stage, and 1 KB of
+    slack to align the ring to the 128-byte swizzle's 1024-byte atoms."""
+    block_f, stages = WGMMA_TILES[block_c]
+    stage = (block_c + block_f) * WGMMA_BLOCK_D * 2
+    return stages * stage + 2 * stages * 8 + 1024
+
+
 def smem_bytes(dtype: torch.dtype = torch.bfloat16) -> int:
-    """Shared memory of one block (the kernel's layout): bf16, two stages of
-    a (128 x 32) x tile and a (32 x 128) w tile, rows padded by 8 elements;
-    fp32, one (16 x 129) transposed x tile and one (16 x 128) w tile."""
+    """Shared memory of one block of the mma (bf16) or fma (fp32) path:
+    bf16, two stages of a (128 x 32) x tile and a (32 x 128) w tile, rows
+    padded by 8 elements; fp32, one (16 x 129) transposed x tile and one
+    (16 x 128) w tile."""
     if dtype == torch.bfloat16:
         return 2 * (BLOCK_C * (BLOCK_D + 8) + BLOCK_D * (BLOCK_F + 8)) * 2
     return (16 * (BLOCK_C + 1) + 16 * BLOCK_F) * 4
@@ -67,6 +113,8 @@ def check_inputs(x, w) -> None:
     for name, t in (("x", x), ("w", w)):
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+        if gmm_variant(x, w) == "wgmma" and t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned, which TMA needs")
     if w.device != x.device:
         raise ValueError(f"w is on {w.device}, x on {x.device}")
 
@@ -79,8 +127,9 @@ def gmm_plain(x, w):
 def gmm_cuda(x, w):
     """x: (E, C, d), w: (E, d, f) -> (E, C, f) in x's dtype.
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel on the
-    current stream; ``gmm_cuda.launches`` counts the launches.
+    CPU tensors take the plain version. CUDA tensors launch the kernel that
+    ``gmm_variant`` names on the current stream; ``gmm_cuda.launches`` counts
+    the launches and ``gmm_cuda.variant_launches`` them by variant.
     """
     if x.device.type == "cpu":
         return gmm_plain(x, w)
@@ -89,15 +138,23 @@ def gmm_cuda(x, w):
     check_inputs(x, w)
     E, C, d = x.shape
     f = w.shape[2]
+    variant = gmm_variant(x, w)
     out = torch.empty(E, C, f, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().moe_gmm_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                 E, C, d, f, DTYPES[x.dtype], stream)
+        if variant == "wgmma":
+            err = _lib().moe_gmm_wgmma_fwd(x.data_ptr(), w.data_ptr(),
+                                           out.data_ptr(), E, C, d, f, stream)
+        else:
+            err = _lib().moe_gmm_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                     E, C, d, f, DTYPES[x.dtype], stream)
     if err:
-        raise RuntimeError(f"moe_gmm kernel launch failed (cudaError_t {err})")
+        raise RuntimeError(f"moe_gmm {variant} kernel launch failed "
+                           f"(cudaError_t {err})")
     gmm_cuda.launches += 1
+    gmm_cuda.variant_launches[variant] += 1
     return out
 
 
 gmm_cuda.launches = 0
+gmm_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)

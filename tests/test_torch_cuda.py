@@ -46,6 +46,35 @@ def test_flash_attention_kernel_vs_plain(cuda, D, kw):
                                want.float().cpu().numpy(), atol=2e-2, rtol=2e-2)
 
 
+# (B, Sq, Sk, H, KVH, options): one query row (decode through the prefill
+# kernel), ragged self- and cross-attention that TMA zero-fills past the
+# edges, a window with a softcap over three 128-row tiles, and a short q
+# block at the end of a long cache
+FLASH_EDGES = [
+    (1, 1, 256, 4, 2, {"q_offset": 99, "kv_valid": 100}),
+    (1, 1, 300, 2, 1, {"q_offset": 299}),
+    (1, 100, 100, 4, 2, {}),
+    (1, 70, 130, 4, 2, {"causal": False}),
+    (2, 300, 300, 4, 2, {"window": 48, "softcap": 30.0}),
+    (1, 5, 300, 2, 2, {"q_offset": 295}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,kw", FLASH_EDGES)
+def test_flash_attention_kernel_edges_vs_plain(cuda, D, B, Sq, Sk, H, KVH, kw):
+    """The TMA + wgmma kernel at every head dim (112 read as two 64-column
+    boxes) on the shapes whose edges TMA fills with zeros."""
+    q, k, v = _qkv(12, B, Sq, Sk, H, KVH, D, cuda)
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    assert got.shape == (B, Sq, H, D)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=2e-2, rtol=2e-2)
+
+
 @pytest.mark.cuda
 def test_flash_attention_kernel_rejects_fp32(cuda):
     q, k, v = (t.float() for t in _qkv(9, 1, 64, 64, 2, 2, 64, cuda))
@@ -97,21 +126,54 @@ def test_ssd_scan_kernel_rejects_fp16(cuda):
                                      (4, 8, 256, 128), (3, 200, 72, 136),
                                      (2, 37, 30, 50)])
 def test_gmm_kernel_vs_plain(cuda, dtype, tol, E, C, d, f):
-    """TestGMM's grid, a shape ragged in C and f (masked 16-byte loads) and
-    one that is not a multiple of 8 in d or f (element-wise loads), at
-    TOL * sqrt(d) as TestGMM holds the Pallas kernel."""
+    """TestGMM's grid and a shape ragged in C and f (bf16: the wgmma path,
+    zero-filled by TMA), and one that is not a multiple of 8 in d or f (bf16:
+    the mma path's element-wise loads); fp32 takes the fma path. At
+    TOL * sqrt(d), as TestGMM holds the Pallas kernel."""
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.standard_normal((E, C, d), np.float32)).to(cuda, dtype)
     w = torch.from_numpy(rng.standard_normal((E, d, f), np.float32)).to(cuda, dtype)
     before = mg.gmm_cuda.launches
+    variant = mg.gmm_variant(x, w)
+    before_variant = mg.gmm_cuda.variant_launches[variant]
     got = mg.gmm_cuda(x, w)
     torch.cuda.synchronize()
     assert mg.gmm_cuda.launches == before + 1
+    assert mg.gmm_cuda.variant_launches[variant] == before_variant + 1
     assert got.dtype == dtype and got.shape == (E, C, f)
     want = mg.gmm_plain(x, w)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                atol=tol * d ** 0.5, rtol=tol)
+
+
+def _gmm_ring_edges():
+    """(E, C, d, f) at each wgmma tile's ring-depth edges: d one stage deep,
+    and one stage more than the ring holds, at prefill's C=968 and decode's
+    C=8; and one prefill shape at full depth."""
+    cases = []
+    for C, block_c in ((968, 128), (8, 64)):
+        stages = mg.WGMMA_TILES[block_c][1]
+        cases += [(2, C, mg.WGMMA_BLOCK_D, 136),
+                  (2, C, (stages + 1) * mg.WGMMA_BLOCK_D, 264)]
+    return cases + [(4, 968, 2048, 1408)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,f", _gmm_ring_edges())
+def test_gmm_wgmma_ring_edges_vs_plain(cuda, E, C, d, f):
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((E, C, d), np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((E, d, f), np.float32)
+                         * d ** -0.5).to(cuda, torch.bfloat16)
+    assert mg.gmm_variant(x, w) == "wgmma"
+    before = mg.gmm_cuda.variant_launches["wgmma"]
+    got = mg.gmm_cuda(x, w)
+    torch.cuda.synchronize()
+    assert mg.gmm_cuda.variant_launches["wgmma"] == before + 1
+    want = mg.gmm_plain(x, w)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.cuda

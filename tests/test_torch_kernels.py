@@ -192,11 +192,43 @@ def test_check_inputs_rejects_what_the_kernel_does_not_take(case):
 
 
 def test_smem_budget():
-    """The kernel's shared memory fits a Hopper block at every head dim."""
-    assert fa.smem_bytes(d=128) == (64 + 4 * 64) * 136 * 2 == 87040
-    assert fa.smem_bytes(d=112) == (64 + 4 * 64) * 120 * 2 == 76800
-    assert fa.smem_bytes(d=64) == 46080
+    """The kernel's shared memory fits a Hopper block at every head dim: a
+    128-row Q tile and two stages of 96-row K and V tiles, rows in 64-column
+    boxes of 128 bytes, 128 bytes of mbarriers and 1 KB of alignment slack."""
+    assert fa.smem_bytes(d=128) == (128 + 4 * 96) * 2 * 128 + 128 + 1024 == 132224
+    assert fa.smem_bytes(d=112) == fa.smem_bytes(d=128)   # two boxes, as 128
+    assert fa.smem_bytes(d=64) == (128 + 4 * 96) * 128 + 1152 == 66688
     assert all(fa.smem_bytes(d=d) <= 232448 for d in fa.HEAD_DIMS)
+
+
+@pytest.mark.parametrize("d,boxes,padded", [(64, 1, 64), (112, 2, 128),
+                                            (128, 2, 128)])
+def test_head_dim_box_split(d, boxes, padded):
+    """The 128-byte swizzle caps a TMA box row at 64 bf16, so head_dim is
+    read in 64-column boxes; 112 takes two (its last 16 columns read past
+    the edge as zeros) and the products run at the padded width 128."""
+    assert fa.head_dim_boxes(d) == boxes
+    assert fa.padded_head_dim(d) == padded == boxes * fa.BOX
+    assert fa.BOX * 2 == 128 and padded - d < fa.BOX
+
+
+def test_library_name_hashes_shared_headers(tmp_path, monkeypatch):
+    """An edit to a shared csrc/*.cuh header alone gives a new library name,
+    so a stale build is never reused; an unchanged tree keeps its name."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    header = tmp_path / "shared.cuh"
+    header.write_text("// v1\n")
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    assert first.parent == tmp_path / "build" and first.name.startswith("libk-")
+    header.write_text("// v2\n")
+    second = _build.library_path("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n// edited\n')
+    assert _build.library_path("k") not in (first, second)
+    assert _build.ptxas_report(first).name == first.name + ".ptxas.txt"
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "moe_gmm", "ssd_scan"])
@@ -420,9 +452,54 @@ def test_gmm_check_inputs_rejects_what_the_kernel_does_not_take(case):
 
 
 def test_gmm_smem_budget():
-    """Two stages of a (128 x 32) x tile and a (32 x 128) w tile in bf16
-    with 8 elements of row padding: within the 48 KB of static shared
-    memory a block may use, so the launch needs no attribute."""
+    """The mma path: two stages of a (128 x 32) x tile and a (32 x 128) w
+    tile in bf16 with 8 elements of row padding, within the 48 KB of static
+    shared memory a block may use (the fma path likewise). The wgmma path:
+    prefill 4 stages of a (128 x 64) x tile and a (64 x 256) w tile, decode 8
+    stages of (64 x 64) and (64 x 64), each with two mbarriers a stage and
+    1 KB of alignment slack, within the 232 448 bytes of a Hopper block."""
     assert mg.smem_bytes(torch.bfloat16) == 2 * (128 * 40 + 32 * 136) * 2 == 37888
     assert mg.smem_bytes(torch.float32) == 16448
     assert max(mg.smem_bytes(t) for t in mg.DTYPES) <= 48 * 1024
+    assert mg.wgmma_smem_bytes(128) == 4 * (128 + 256) * 64 * 2 + 64 + 1024 == 197696
+    assert mg.wgmma_smem_bytes(64) == 8 * (64 + 64) * 64 * 2 + 128 + 1024 == 132224
+    assert max(mg.wgmma_smem_bytes(c) for c in mg.WGMMA_TILES) <= 232448
+
+
+# deepseek-moe-16b's expert products (prefill gate/up and down at capacity
+# 968, decode at 8), kimi-k2's (d 7168, f 2048), the TestGMM grid, the two
+# ragged shapes, and fp32
+GMM_VARIANT_CASES = [
+    ((64, 968, 2048), (64, 2048, 1408), "bfloat16", "wgmma"),
+    ((64, 968, 1408), (64, 1408, 2048), "bfloat16", "wgmma"),
+    ((64, 8, 2048), (64, 2048, 1408), "bfloat16", "wgmma"),
+    ((4, 8, 7168), (4, 7168, 2048), "bfloat16", "wgmma"),
+    ((2, 16, 32), (2, 32, 64), "bfloat16", "wgmma"),
+    ((3, 100, 72), (3, 72, 200), "bfloat16", "wgmma"),
+    ((2, 37, 30), (2, 30, 50), "bfloat16", "mma"),
+    ((2, 8, 64), (2, 64, 36), "bfloat16", "mma"),
+    ((2, 8, 36), (2, 36, 64), "bfloat16", "mma"),
+    ((64, 968, 2048), (64, 2048, 1408), "float32", "fma"),
+    ((2, 37, 30), (2, 30, 50), "float32", "fma"),
+]
+
+
+@pytest.mark.parametrize("xs,ws,dtype,variant", GMM_VARIANT_CASES)
+def test_gmm_variant_follows_shapes_and_dtype(xs, ws, dtype, variant):
+    """bf16 whose d and f are multiples of 8 (16-byte TMA strides) takes
+    wgmma, other bf16 shapes mma, fp32 fma; the choice reads only shapes and
+    the dtype."""
+    x = torch.empty(xs, dtype=TDT[dtype], device="meta")
+    w = torch.empty(ws, dtype=TDT[dtype], device="meta")
+    assert mg.gmm_variant(x, w) == variant
+    assert variant in mg.VARIANTS
+
+
+def test_gmm_cpu_wrapper_counts_no_variant(monkeypatch):
+    """On the CPU the plain version runs and no variant's count moves."""
+    monkeypatch.setattr(_build, "load", _refuse_build)
+    before = dict(mg.gmm_cuda.variant_launches)
+    _, (tx, tw) = _gmm_both(3, 2, 16, 32, 64, "bfloat16")
+    mg.gmm_cuda(tx, tw)
+    assert mg.gmm_cuda.variant_launches == before
+    assert set(before) == set(mg.VARIANTS)
