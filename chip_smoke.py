@@ -9,9 +9,10 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
 1. card:    the card's name and power limit, and the kernel build time
             (``nvcc`` builds every ``src/repro_torch/csrc/*.cu`` at once);
             per library its SASS census (``HGMMA`` wgmma, ``UTMALDG`` TMA
-            loads, ``HMMA`` mma.sync; the flash and gmm libraries must hold
-            both of the first two) and ptxas's registers and spills per
-            kernel; the host cost of encoding the gmm's tensor maps.
+            loads, ``HMMA`` mma.sync; the flash, gmm and SSD libraries must
+            hold both of the first two), ptxas's registers and spills per
+            kernel and any line where ptxas says it serialized wgmma; the
+            host cost of encoding the gmm's tensor maps.
 2. kernel:  the flash-attention kernel against its plain PyTorch version on
             the card, bf16, on the kernel-test grid, on deepseek-7b's serving
             shape (B=4, S=2048, H=KVH=32, D=128, causal) and on zamba2-7b's
@@ -23,14 +24,18 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             medians of CUDA-event timings of the kernel, the plain version
             and ``F.scaled_dot_product_attention`` (a yardstick the port
             never calls).
-   ssd:     the SSD-scan kernel against its plain version: the kernel-test
-            grid in fp32 within 1e-4 on y and on the state, and the prefill
-            shapes of zamba2-7b and mamba2-370m (B=4, L=2048, chunk 256) in
-            bf16, within an elementwise limit on y and relative-norm limits
-            on y and the fp32 state that two injected faults (the carried
-            state dropped in the last chunk; one 64-step tile of the last
-            chunk dropped) are shown to exceed; timings of the kernel and
-            the plain version there.
+   ssd:     the SSD-scan kernels against their plain version: the
+            kernel-test grid in fp32 (the ``fma`` variant) within 1e-4 on y
+            and on the state, and the prefill shapes of zamba2-7b and
+            mamba2-370m (B=4, L=2048, chunk 256) in bf16, which must take the
+            ``wgmma`` variant, within an elementwise limit on y and
+            relative-norm limits on y and the fp32 state that three injected
+            faults (the carried state dropped in the last chunk; one 64-step
+            tile of the last chunk dropped; the last chunk boundary not
+            decayed) are shown to exceed. There the ``fma`` variant is held to
+            the same limits through the module's launch function, and both
+            variants and the plain version are timed, with the ``wgmma``
+            variant's three kernels timed apart by torch.profiler.
    gmm:     the grouped-GEMM kernel against its plain version: the kernel-test
             grid in fp32 and bf16 within TOL * sqrt(d), two ragged shapes,
             and deepseek-moe-16b's expert products in bf16 (prefill gate/up
@@ -50,8 +55,8 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             are reset just before each path and read just after it; every
             prefill must launch the flash kernel once per attention block,
             the SSD kernel once per SSM layer and the grouped GEMM three
-            times per MoE layer, and every grouped-GEMM launch must take its
-            wgmma variant.
+            times per MoE layer, and every grouped-GEMM and SSD launch must
+            take its wgmma variant.
 4. agree:   deepseek-7b, zamba2-7b and deepseek-moe-16b: one full-width
             prefill through the kernels and the same prefill through their
             plain versions: logits at every prompt position within a stated
@@ -222,7 +227,7 @@ def ptxas_kernels(report: str) -> list[dict]:
 
 
 # the libraries whose kernels must be built from wgmma fed by TMA
-HOPPER_LIBRARIES = ("flash_attention", "moe_gmm")
+HOPPER_LIBRARIES = ("flash_attention", "moe_gmm", "ssd_scan")
 
 
 def phase_card():
@@ -241,8 +246,11 @@ def phase_card():
     census = {}
     for name, lib in libs.items():
         census[name] = _build.sass_census(lib)
+        report = _build.ptxas_report(lib).read_text()
         emit({"phase": "sass", "library": name, **census[name],
-              "ptxas": ptxas_kernels(_build.ptxas_report(lib).read_text())})
+              "ptxas": ptxas_kernels(report),
+              "wgmma_serialized": [line.strip() for line in report.splitlines()
+                                   if "serialized" in line]})
     for name in HOPPER_LIBRARIES:
         if not (census[name]["HGMMA"] and census[name]["UTMALDG"]):
             raise AssertionError(f"{name}: no HGMMA or no UTMALDG in its SASS "
@@ -254,6 +262,12 @@ def phase_card():
     for n in (16, 32, 64, 128):
         if ss._lib().ssd_scan_smem_bytes(n) != ss.smem_bytes(n):
             raise AssertionError(f"ssd smem_bytes({n}) disagrees with the kernel")
+    for i, kernel in enumerate(("chunk_state", "chunk_scan")):
+        for n in (64, 128):
+            if ss._lib().ssd_scan_wgmma_smem_bytes(i, n) != \
+                    ss.wgmma_smem_bytes(kernel, n):
+                raise AssertionError(f"ssd wgmma_smem_bytes({kernel}, {n}) "
+                                     "disagrees with the kernel")
     for dtype, code in mg.DTYPES.items():
         if mg._lib().moe_gmm_smem_bytes(code) != mg.smem_bytes(dtype):
             raise AssertionError(f"gmm smem_bytes({dtype}) disagrees with the kernel")
@@ -277,6 +291,8 @@ def phase_card():
           "smem_bytes_d112": fa.smem_bytes(d=112),
           "ssd_smem_bytes_n64": ss.smem_bytes(64),
           "ssd_smem_bytes_n128": ss.smem_bytes(128),
+          "ssd_wgmma_smem_bytes": {k: {n: ss.wgmma_smem_bytes(k, n) for n in (64, 128)}
+                                   for k in ("chunk_state", "chunk_scan")},
           "gmm_smem_bytes_mma": mg.smem_bytes(torch.bfloat16),
           "gmm_smem_bytes_wgmma": {c: mg.wgmma_smem_bytes(c) for c in mg.WGMMA_TILES},
           "gmm_tensor_map_encode_ns_per_call": encode_ns})
@@ -442,41 +458,78 @@ def ssd_faults(args, chunk):
             "last_boundary_not_decayed": (None, undecayed)}
 
 
-def phase_ssd():
-    """The SSD kernel against its plain version (see the module docstring)."""
+SSD_STAGES = ("chunk_state", "state_pass", "chunk_scan")   # the wgmma variant's kernels
+
+
+def device_ms_by_kernel(fn, names, iters: int = 5):
+    """Device ms per call of ``fn`` in each kernel whose name holds one of
+    ``names``, from torch.profiler over ``iters`` calls after one warm-up;
+    "not measured" where the profiler shows no device time."""
     import torch
-    from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key:
+                out[name] += _self_device_us(e) / 1e3 / iters
+    return out if any(out.values()) else "not measured"
+
+
+def phase_ssd():
+    """The SSD kernels against their plain version (see the module
+    docstring)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
 
     def norm_rel(got, want):
         return ((got.float() - want.float()).norm() / want.float().norm()).item()
 
+    def held(y, state, y_p, state_p):
+        """Errors against the plain version, and whether the bf16 limits
+        hold."""
+        errs = {"y_max_abs_err": (y.float() - y_p.float()).abs().max().item(),
+                "state_max_abs_err": (state - state_p).abs().max().item(),
+                "y_norm_rel_err": norm_rel(y, y_p),
+                "state_norm_rel_err": norm_rel(state, state_p)}
+        ok = bool(torch.isfinite(y).all() and torch.isfinite(state).all()) \
+            and torch.allclose(y.float(), y_p.float(), atol=SSD_Y_TOL, rtol=SSD_Y_TOL) \
+            and errs["y_norm_rel_err"] <= SSD_Y_RTOL \
+            and errs["state_norm_rel_err"] <= SSD_STATE_RTOL
+        return errs, ok
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     worst, failures, timings = 0.0, [], {}
+    model_shapes = {s[0] for s in SSD_MODEL_SHAPES}
     for name, B, L, H, P, N, G, chunk, dtype in SSD_GRID + SSD_MODEL_SHAPES:
         args = ssd_inputs(gen, B, L, H, P, N, G, dtype)
-        y, state = ssd_scan_cuda(*args, chunk=chunk)
+        variant = ss.ssd_variant(args[0], args[3], chunk)
+        if name in model_shapes and variant != "wgmma":
+            failures.append(f"{name}: takes the {variant} variant, not wgmma")
+        y, state = ss.ssd_scan_cuda(*args, chunk=chunk)
         torch.cuda.synchronize()
-        y_p, state_p = ssd_scan_plain(*args, chunk=chunk)
-        y_err = (y.float() - y_p.float()).abs().max().item()
-        s_err = (state - state_p).abs().max().item()
+        y_p, state_p = ss.ssd_scan_plain(*args, chunk=chunk)
         line = {"phase": "ssd", "shape": name, "dtype": dtype,
                 "B_L_H_P_N_G_chunk": [B, L, H, P, N, G, chunk],
-                "y_max_abs_err": y_err, "state_max_abs_err": s_err,
-                "y_norm_rel_err": norm_rel(y, y_p),
-                "state_norm_rel_err": norm_rel(state, state_p)}
-        finite = bool(torch.isfinite(y).all() and torch.isfinite(state).all())
+                "variant": variant}
         if dtype == "float32":
             tol = SSD_GRID_TOL
-            ok = finite and torch.allclose(y, y_p, atol=tol, rtol=tol) and \
-                torch.allclose(state, state_p, atol=tol, rtol=tol)
-            line["tol"] = tol
+            line.update(y_max_abs_err=(y - y_p).abs().max().item(),
+                        state_max_abs_err=(state - state_p).abs().max().item(),
+                        y_norm_rel_err=norm_rel(y, y_p),
+                        state_norm_rel_err=norm_rel(state, state_p), tol=tol)
+            ok = bool(torch.isfinite(y).all() and torch.isfinite(state).all()) \
+                and torch.allclose(y, y_p, atol=tol, rtol=tol) \
+                and torch.allclose(state, state_p, atol=tol, rtol=tol)
         else:
-            ok = finite and torch.allclose(
-                y.float(), y_p.float(), atol=SSD_Y_TOL, rtol=SSD_Y_TOL) and \
-                line["y_norm_rel_err"] <= SSD_Y_RTOL and \
-                line["state_norm_rel_err"] <= SSD_STATE_RTOL
-            line.update(y_tol=SSD_Y_TOL, y_rtol=SSD_Y_RTOL,
+            errs, ok = held(y, state, y_p, state_p)
+            line.update(errs, y_tol=SSD_Y_TOL, y_rtol=SSD_Y_RTOL,
                         state_rtol=SSD_STATE_RTOL, faults={})
             # the limits must have the power to see a one-chunk fault: the
             # y limit each fault that moves y, the state limit the state's
@@ -490,19 +543,31 @@ def phase_ssd():
                     failures.append(f"{name}: y limit misses {fault}")
                 if f_y is None and f_s <= SSD_STATE_RTOL:
                     failures.append(f"{name}: state limit misses {fault}")
-        worst = max(worst, y_err)
+            # the previous kernel, held to the same limits on the same inputs
+            y_f, state_f = ss._launch("fma", *args, chunk=chunk)
+            torch.cuda.synchronize()
+            f_errs, f_ok = held(y_f, state_f, y_p, state_p)
+            line["fma"] = {**f_errs, "ok": f_ok}
+            if not f_ok:
+                failures.append(f"{name}: fma variant")
+            del y_f, state_f
+        worst = max(worst, line["y_max_abs_err"])
         emit({**line, "ok": ok})
         if not ok:
             failures.append(name)
         if dtype == "bfloat16" and ok:
             bound_ms, bound_by = ssd_bound_ms(B, L, H, P, N, G, chunk, dtype)
             timings[name] = {
-                "ms": cuda_ms(lambda: ssd_scan_cuda(*args, chunk=chunk)),
-                "plain_ms": cuda_ms(lambda: ssd_scan_plain(*args, chunk=chunk),
+                "ms": cuda_ms(lambda: ss.ssd_scan_cuda(*args, chunk=chunk)),
+                "fma_ms": cuda_ms(lambda: ss._launch("fma", *args, chunk=chunk)),
+                "plain_ms": cuda_ms(lambda: ss.ssd_scan_plain(*args, chunk=chunk),
                                     warmup=1, iters=5),
                 "library_ms": None,     # no one PyTorch call computes the SSD
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
+                "variant": variant,
+                "stage_ms": device_ms_by_kernel(
+                    lambda: ss._launch(variant, *args, chunk=chunk), SSD_STAGES),
             }
             emit({"phase": "ssd_timing", "shape": name, **timings[name]})
         del args, y, state, y_p, state_p
@@ -657,8 +722,9 @@ def phase_serve(arch):
     counters = launch_counters()
     for fn in counters.values():
         fn.launches = 0
-    gmm = counters["gmm"]
+    gmm, ssd = counters["gmm"], counters["ssd_scan"]
     gmm.variant_launches = dict.fromkeys(gmm.variant_launches, 0)
+    ssd.variant_launches = dict.fromkeys(ssd.variant_launches, 0)
     outs, gen_s = [], []
     for p in prompts:
         out, s = _sync_s(lambda: sess.generate(p, max_new_tokens=MAX_NEW))
@@ -666,6 +732,7 @@ def phase_serve(arch):
         gen_s.append(s)
     launches = {name: fn.launches for name, fn in counters.items()}
     gmm_variants = dict(gmm.variant_launches)
+    ssd_variants = dict(ssd.variant_launches)
 
     peak = torch.cuda.max_memory_allocated()
     for out in outs:
@@ -682,6 +749,10 @@ def phase_serve(arch):
     if gmm_variants["wgmma"] != launches["gmm"]:
         raise AssertionError(f"{arch}: gmm launches by variant {gmm_variants}; "
                              f"all {launches['gmm']} must be wgmma")
+    # and every SSD scan of the model shapes the chunk-state decomposition
+    if ssd_variants["wgmma"] != launches["ssd_scan"]:
+        raise AssertionError(f"{arch}: SSD launches by variant {ssd_variants}; "
+                             f"all {launches['ssd_scan']} must be wgmma")
 
     # prefill alone, same entry point the session uses, for the split
     prefill = build_prefill_step(model, ServeOptions())
@@ -703,8 +774,10 @@ def phase_serve(arch):
           "tok_per_s": SERVE_BATCHES * SERVE_BATCH * MAX_NEW / sum(gen_s),
           "max_memory_allocated": peak,
           **{f"{name}_launches": n for name, n in launches.items()},
-          "gmm_launches_by_variant": gmm_variants})
-    return model, params, prompts[0], {**launches, "gmm_by_variant": gmm_variants}
+          "gmm_launches_by_variant": gmm_variants,
+          "ssd_scan_launches_by_variant": ssd_variants})
+    return model, params, prompts[0], {**launches, "gmm_by_variant": gmm_variants,
+                                       "ssd_by_variant": ssd_variants}
 
 
 def scale_routed_experts(model, params) -> None:
@@ -1119,8 +1192,9 @@ def main() -> int:
                 "variant": variant, "launches_by_path": by_path,
                 "sass": census[Path(source).stem], **more}
 
-    gmm_by_variant = {v: sum(n["gmm_by_variant"][v] for n in launches.values())
-                      for v in launches[SERVE_PATHS[0][0]]["gmm_by_variant"]}
+    def by_variant(key):
+        return {v: sum(n[key][v] for n in launches.values())
+                for v in launches[SERVE_PATHS[0][0]][key]}
 
     emit({"kernels": [
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -1134,7 +1208,11 @@ def main() -> int:
               "src/repro/kernels/ssd_scan.py:70", ssd_err,
               ssd_t["zamba2-7b"],
               "B=4 L=2048 H=112 P=64 N=64 G=2 chunk=256 bf16 (zamba2-7b)",
-              "fp32 FMA",
+              "wgmma (chunk-state decomposition: chunk_state and chunk_scan on "
+              "TMA + wgmma with fp32 operands split into bf16 hi + lo, "
+              "state_pass on the CUDA cores) for the model shapes; fma (fp32 "
+              "FMA, one block per P-slice) for fp32 and other bf16 shapes",
+              launches_by_variant=by_variant("ssd_by_variant"),
               at_mamba2={**ssd_t["mamba2-370m"],
                          "shape": "B=4 L=2048 H=32 P=64 N=128 G=1 chunk=256 "
                                   "bf16 (mamba2-370m)"}),
@@ -1146,7 +1224,7 @@ def main() -> int:
               "wgmma (TMA + wgmma: 128 x 256 tiles in clusters of 2 sharing w "
               "by multicast where C > 64, 64 x 64 tiles where C <= 64); mma "
               "(mma.sync) for bf16 shapes TMA cannot address; fma for fp32",
-              launches_by_variant=gmm_by_variant,
+              launches_by_variant=by_variant("gmm_by_variant"),
               at_prefill_down={**gmm_t["prefill_down"],
                                "shape": "E=64 C=968 d=1408 f=2048 bf16"},
               at_decode={**gmm_t["decode_gate_up"],

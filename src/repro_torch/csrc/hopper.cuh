@@ -1,4 +1,5 @@
-// Hopper (sm_90a) building blocks shared by flash_attention.cu and moe_gmm.cu.
+// Hopper (sm_90a) building blocks shared by flash_attention.cu, moe_gmm.cu and
+// ssd_scan.cu.
 //
 // Device side: mbarriers that complete on thread arrivals (local or from
 // another block of the cluster) and on TMA bytes, TMA tile loads
@@ -236,8 +237,9 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 
 // ---- wgmma products (operand lists written out) ---------------------------
 // The shapes the kernels use: A from shared memory at N = 64 and 256 (the
-// gmm's decode and prefill tiles) and 96 (flash's S); A from registers at
-// N = 64 and 128 (flash's O at head_dim 64 and 112/128).
+// gmm's decode and prefill tiles; the SSD's C S_in^T and C B^T at 64) and 96
+// (flash's S); A from registers at N = 64 and 128 (flash's O at head_dim 64
+// and 112/128; the SSD's chunk states and W x at 64).
 
 // d (m64 x n64, fp32) += A (smem, desc a) * B (smem, desc b); TA / TB: 1 where
 // that operand is MN-major. scale_d 0 overwrites d.

@@ -1,4 +1,4 @@
-// Mamba2 chunked SSD scan for Hopper (sm_90a): fp32 products on the CUDA cores.
+// Mamba2 chunked SSD scan for Hopper (sm_90a): two variants.
 //
 // Replaces the TPU kernel repro/kernels/ssd_scan.py::ssd_scan_pallas (body
 // _ssd_kernel) together with the work of its wrapper. For x (B,L,H,P), dt
@@ -10,7 +10,7 @@
 //   S      <- e^{cum_Q} S + sum_s e^{cum_Q - cum_s} u_s b_s^T   (fp32, P x N)
 // and returns y in x's dtype and the final S (B,H,P,N) in fp32.
 //
-// Departures from the Pallas path, kept on purpose:
+// Departures from the Pallas path, kept on purpose by both variants:
 //   * the inputs are read in the layout the model hands over ((B,L,H,P) etc.);
 //     u = x * dt and dt * A are formed here, so the fp32 head-major copies
 //     that the Pallas wrapper builds are never materialised;
@@ -24,11 +24,49 @@
 // At the serving prefill (B=4, L=2048, chunk 256) that is 4.5e10 FLOPs over
 // 250 MB for zamba2-7b (H=112, P=64, N=64, G=2): 0.075 ms, bound by bytes;
 // and 2.2e10 FLOPs over 77 MB for mamba2-370m (H=32, P=64, N=128, G=1),
-// nearly balanced. This first kernel does its products as fp32 FMAs on the
-// CUDA cores (67 TFLOP/s, not the tensor cores), so it is bound by
-// operations: the Pallas kernel's fp32 dots, carried over without TF32.
+// nearly balanced.
 //
-// Design:
+// Variant "wgmma" (bf16, P = 64, N in {64, 128}, Q a multiple of 64 up to
+// 256; every model shape): the chunk-state decomposition of arXiv:2405.21060
+// (section 7), three kernels launched in order on one stream:
+//   1. chunk_state, one block per (chunk, head, batch): the chunk's local
+//      state s_loc = sum_s x_s^T (dt_s e^{tot - cum_s}) b_s as a P x N
+//      product over the chunk's Q steps on wgmma (A = the scaled x^T from
+//      registers, B = b MN-major from shared memory), and tot = cum_{Q-1};
+//   2. state_pass, one block per (1024 state entries, head, batch): the
+//      only sequential part, S <- e^{tot_c} S + s_loc_c over the chunks on
+//      the CUDA cores (pure bandwidth); it writes the state entering each
+//      chunk as two bf16 tensors hi + lo and the final state in fp32;
+//   3. chunk_scan, one block per (64-row t tile, head, chunk and batch),
+//      the t tiles of a chunk side by side: acc = C_t S_in^T on wgmma (C and S_in K-major
+//      from shared memory), scaled by e^{cum_t} per row; then per 64-step
+//      s tile up to the diagonal, S = C B^T (wgmma, exactly flash's Q K^T),
+//      W = S * e^{cum_t - cum_s} * dt_s masked to s <= t in registers (in
+//      place of flash's softmax), acc += W x (wgmma, W from registers, x
+//      MN-major: flash's P V), the W of one s tile formed while the tensor
+//      cores run the previous tile's W x; y = acc + D x_t in fp32, rounded
+//      once.
+//   Each kernel has one producer warp that feeds 64-row tiles by TMA (4-D
+//   maps over (B,L,H,P) and (B,L,G,N), 128-byte swizzled 64-column boxes,
+//   so N = 128 is two boxes) into a ring of 2 stages on mbarriers, and one
+//   consumer warpgroup. Both kernels recompute cum with one device function
+//   (chunk_cum, explicit roundings), so they see bitwise the same decay.
+//   Precision: a product of two bf16 values is exact in fp32, so C B^T loses
+//   nothing; but x * w, W and S_in are fp32, and one bf16 rounding of them
+//   (2^-9 relative) would exceed the 1e-4 state limit. Each such operand is
+//   split as v = hi + lo (hi = bf16(v), lo = bf16(v - hi), about 16
+//   significant bits) and multiplied against the exact bf16 operand twice
+//   into the same fp32 accumulators: 2x the tensor-core work on those
+//   products, far below the bytes. The decay is never factored into
+//   e^{cum_t} e^{-cum_s} (cum reaches about -410 in a chunk and e^{410}
+//   overflows): it is formed per element, masked before it is exponentiated.
+//   The decomposition writes and reads the chunk states in fp32 and in
+//   hi/lo and reads x twice: about 340 MB more than the bound's 250 MB at
+//   zamba2-7b, so it cannot reach the algorithm's bound; that traffic is its
+//   price for running every chunk in parallel.
+//
+// Variant "fma" (fp32, and bf16 shapes outside the set above): the first
+// kernel, fp32 FMA products on the CUDA cores:
 //   * one block per (P-slice of 32 or 16 columns, head, batch). Each row p of
 //     the state evolves on its own given cum, b and c, so slicing P fills the
 //     card: 256 blocks at mamba2-370m instead of 128 for 132 SMs, at the cost
@@ -43,14 +81,17 @@
 //   * the decay is masked before it is exponentiated: above the diagonal
 //     cum_t - cum_s > 0 can overflow, and inf * 0 would be NaN;
 //   * cum is a block-wide inclusive scan (one step per thread, Q <= 256).
-// Tensor cores (TF32 or bf16 mma/wgmma) are a later step for this kernel.
+// It is bound by operations on the CUDA cores (67 TFLOP/s): the Pallas
+// kernel's fp32 dots, carried over without TF32.
 //
 // Plain C interface for ctypes: every pointer and the stream are void*; the
-// launch returns cudaGetLastError() so the caller can raise.
+// launches return cudaGetLastError() so the caller can raise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -330,6 +371,563 @@ int launch(const void* x, const void* dt, const void* a_log, const void* b,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- variant "wgmma": chunk_state, state_pass, chunk_scan ------------------
+
+namespace wg {
+
+constexpr int CONSUMERS = 128;              // one warpgroup: 64 rows of wgmma
+constexpr int THREADS = CONSUMERS + 32;     // and one producer warp
+constexpr int ROWS = 64;                    // steps of one s tile, rows of one t tile
+constexpr int STAGES = 2;                   // s tiles in the TMA ring
+constexpr int BOXB = ROWS * hopper::BOX_ROW_BYTES;   // one 64 x 64 bf16 box
+constexpr int P = 64;                       // the one head_dim this variant takes
+constexpr int PASS_THREADS = 256;           // state_pass: 4 entries a thread
+constexpr int PASS_ENTRIES = 4 * PASS_THREADS;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Barrier 0 is __syncthreads; the consumer warpgroup syncs on its own.
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(CONSUMERS) : "memory");
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// Element (r, col) of a 64-column bf16 box as TMA lands it with the 128-byte
+// swizzle: 16-byte chunk c of row r at chunk c ^ (r % 8) (hopper.cuh).
+__device__ __forceinline__ float box_at(const unsigned char* box, int r, int col) {
+  const int off = r * hopper::BOX_ROW_BYTES + ((((col >> 3) ^ r) & 7) << 4) + ((col & 7) << 1);
+  return __bfloat162float(*reinterpret_cast<const bf16*>(box + off));
+}
+
+// 2^x by the special-function unit (ex2.approx: relative error ~2^-22).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (v0, v1) as hi + lo bf16 pairs: hi = bf16(v), lo = bf16(v - hi). v - hi is
+// exact in fp32, and hi + lo keeps about 16 significant bits of v.
+__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);   // .x (v0) low half
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(v0 - hf.x, v1 - hf.y));
+}
+
+// The chunk's dt and cum_s = sum_{r<=s} dt_r A for s < Q <= 256 into sDt and
+// sCum, by the 128 consumer threads, thread i taking steps 2i and 2i + 1.
+// chunk_state and chunk_scan both call it, and every rounding is explicit
+// (no contraction into FMAs can differ), so both see bitwise the same cum.
+__device__ void chunk_cum(const float* __restrict__ dtg, int dt_stride, float A,
+                          int Q, float* sDt, float* sCum, float* warp_tot) {
+  const int i = threadIdx.x, lane = i & 31, warp = i >> 5, s0 = 2 * i;
+  const float d0 = s0 < Q ? dtg[(size_t)s0 * dt_stride] : 0.f;
+  const float d1 = s0 + 1 < Q ? dtg[(size_t)(s0 + 1) * dt_stride] : 0.f;
+  const float a0 = __fmul_rn(d0, A), a1 = __fmul_rn(d1, A);
+  float v = __fadd_rn(a0, a1);
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float n = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v = __fadd_rn(v, n);
+  }
+  float before = __shfl_up_sync(0xffffffffu, v, 1);
+  if (lane == 0) before = 0.f;
+  if (lane == 31) warp_tot[warp] = v;
+  consumer_sync();
+  float base = 0.f;
+  for (int w = 0; w < warp; ++w) base = __fadd_rn(base, warp_tot[w]);
+  const float c0 = __fadd_rn(__fadd_rn(base, before), a0);
+  const float c1 = __fadd_rn(c0, a1);
+  if (s0 < Q) {
+    sDt[s0] = d0;
+    sCum[s0] = c0;
+  }
+  if (s0 + 1 < Q) {
+    sDt[s0 + 1] = d1;
+    sCum[s0 + 1] = c1;
+  }
+  consumer_sync();
+}
+
+// Shared memory of chunk_state: the ring of (x box, N/64 b boxes) stages,
+// then a full and an empty barrier a stage; + slack to align to 1024.
+template <int N>
+struct StateLayout {
+  static constexpr int NB = N / 64;
+  static constexpr int STAGE = (1 + NB) * BOXB;
+  static constexpr int BARRIER_OFFSET = STAGES * STAGE;
+  static constexpr int BYTES = BARRIER_OFFSET + 2 * STAGES * 8 + 1024;
+};
+
+// Shared memory of chunk_scan: the t tile of C, the entering state's hi and
+// lo (each 64 rows x N), the ring of (x box, N/64 b boxes) stages, then the
+// barriers (C, state, full and empty a stage); + slack to align to 1024.
+template <int N>
+struct ScanLayout {
+  static constexpr int NB = N / 64;
+  static constexpr int OPER = NB * BOXB;
+  static constexpr int RING_OFFSET = 3 * OPER;
+  static constexpr int STAGE = BOXB + OPER;
+  static constexpr int BARRIER_OFFSET = RING_OFFSET + STAGES * STAGE;
+  static constexpr int BYTES = BARRIER_OFFSET + (2 + 2 * STAGES) * 8 + 1024;
+};
+
+// Block (chunk c, head h, batch b): s_loc[b,c,h] (P x N, fp32) = sum_s
+// x_s^T (dt_s e^{tot - cum_s}) b_s, and tot[b,c,h] = cum_{Q-1}.
+template <int N>
+__global__ void __launch_bounds__(THREADS)
+chunk_state_kernel(__grid_constant__ const CUtensorMap xmap,
+                   __grid_constant__ const CUtensorMap bmap,
+                   const float* __restrict__ dt, const float* __restrict__ a_log,
+                   float* __restrict__ s_loc, float* __restrict__ tot_out,
+                   int L, int H, int G, int Q) {
+  using Lay = StateLayout<N>;
+  constexpr int NB = Lay::NB;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ float sDt[QMAX], sCum[QMAX], sW[QMAX], warp_tot[CONSUMERS / 32];
+  unsigned char* base = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + Lay::BARRIER_OFFSET);
+  uint64_t* empty = full + STAGES;
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
+  const int g = h / (H / G);
+  const int l0 = c * Q, ntiles = Q / ROWS;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS / 32);   // one arrival a warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (hopper::warpgroup_index() == 1) {               // producer warp
+    if (threadIdx.x == CONSUMERS) {
+      hopper::tma_prefetch_map(&xmap);
+      hopper::tma_prefetch_map(&bmap);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % STAGES;
+        unsigned char* st = base + s * Lay::STAGE;
+        hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], Lay::STAGE);
+        hopper::tma_load_4d(st, &xmap, &full[s], 0, h, l0 + i * ROWS, b);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          hopper::tma_load_4d(st + (1 + nb) * BOXB, &bmap, &full[s], nb * hopper::BOX,
+                              g, l0 + i * ROWS, b);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: rows p0 and p0 + 8 of A = (x w)^T
+  const float A = -expf(a_log[h]);
+  chunk_cum(dt + ((size_t)b * L + l0) * H + h, H, A, Q, sDt, sCum, warp_tot);
+  const float tot = sCum[Q - 1];
+  for (int s = threadIdx.x; s < Q; s += CONSUMERS) sW[s] = sDt[s] * expf(tot - sCum[s]);
+  consumer_sync();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int p0 = warp * 16 + lane / 4, t4 = lane % 4;
+  float acc[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int k = 0; k < 32; ++k) acc[nb][k] = 0.f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % STAGES;
+    const unsigned char* st = base + s * Lay::STAGE;
+    const float* w = sW + i * ROWS;
+    hopper::mbar_wait(&full[s], (i / STAGES) & 1);
+    // the A fragments of the four k16 slices: register e holds row
+    // p0 + 8 (e & 1), steps 16 kk + 2 t4 + 8 (e >> 1) and the next one
+    uint32_t ahi[4][4], alo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * kk + 2 * t4 + 8 * (e >> 1), p = p0 + 8 * (e & 1);
+        split_bf16(box_at(st, r, p) * w[r], box_at(st, r + 1, p) * w[r + 1],
+                   ahi[kk][e], alo[kk][e]);
+      }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) hopper::fence_regs(acc[nb]);
+    hopper::fence_regs(ahi);
+    hopper::fence_regs(alo);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const uint64_t bd = hopper::desc_mnmajor(st + (1 + nb) * BOXB + 2048 * kk, BOXB);
+        hopper::wgmma_rs<1>(acc[nb], ahi[kk], bd, 1);
+        hopper::wgmma_rs<1>(acc[nb], alo[kk], bd, 1);
+      }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) hopper::fence_regs(acc[nb]);
+    hopper::fence_regs(ahi);
+    hopper::fence_regs(alo);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  // rows p0, p0 + 8; columns 64 nb + 8 j + 2 t4 and the next one
+  const size_t bch = ((size_t)b * nc + c) * H + h;
+  float* out = s_loc + bch * P * N;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = nb * 64 + 8 * j + 2 * t4;
+      *reinterpret_cast<float2*>(out + (size_t)p0 * N + n) =
+          make_float2(acc[nb][4 * j], acc[nb][4 * j + 1]);
+      *reinterpret_cast<float2*>(out + (size_t)(p0 + 8) * N + n) =
+          make_float2(acc[nb][4 * j + 2], acc[nb][4 * j + 3]);
+    }
+  if (threadIdx.x == 0) tot_out[bch] = tot;
+}
+
+// Block (1024 state entries, head h, batch b): S <- e^{tot_c} S + s_loc_c
+// over the chunks; the state entering chunk c > 0 goes out as hi + lo bf16
+// (chunk 0's is zero and is never read), the final state in fp32. P N
+// (4096 or 8192) is a multiple of the 1024 entries of a block.
+__global__ void __launch_bounds__(PASS_THREADS)
+state_pass_kernel(const float* __restrict__ s_loc, const float* __restrict__ tot,
+                  bf16* __restrict__ s_hi, bf16* __restrict__ s_lo,
+                  float* __restrict__ state, int nc, int H, int PN) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int e = blockIdx.x * PASS_ENTRIES + threadIdx.x * 4;
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int c = 0; c < nc; ++c) {
+    const size_t bch = ((size_t)b * nc + c) * H + h;
+    const size_t o = bch * PN + e;
+    const float4 sl = *reinterpret_cast<const float4*>(s_loc + o);
+    const float et = expf(tot[bch]);
+    if (c > 0) {
+      uint32_t hi[2], lo[2];
+      split_bf16(v[0], v[1], hi[0], lo[0]);
+      split_bf16(v[2], v[3], hi[1], lo[1]);
+      *reinterpret_cast<uint2*>(s_hi + o) = make_uint2(hi[0], hi[1]);
+      *reinterpret_cast<uint2*>(s_lo + o) = make_uint2(lo[0], lo[1]);
+    }
+    // S e^{tot} + s_loc, rounded twice as the plain version's two ops are
+    v[0] = __fadd_rn(__fmul_rn(v[0], et), sl.x);
+    v[1] = __fadd_rn(__fmul_rn(v[1], et), sl.y);
+    v[2] = __fadd_rn(__fmul_rn(v[2], et), sl.z);
+    v[3] = __fadd_rn(__fmul_rn(v[3], et), sl.w);
+  }
+  *reinterpret_cast<float4*>(state + ((size_t)b * H + h) * PN + e) =
+      make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Block (t tile, head h, chunk c and batch b as b nc + c): y of the 64 rows
+// t0 .. t0 + 63 of chunk c, all P columns. The t tiles of one (h, b, c) are
+// neighbours in the grid, so the x and b tiles they share come from L2.
+template <int N>
+__global__ void __launch_bounds__(THREADS)
+chunk_scan_kernel(__grid_constant__ const CUtensorMap xmap,
+                  __grid_constant__ const CUtensorMap bmap,
+                  __grid_constant__ const CUtensorMap cmap,
+                  __grid_constant__ const CUtensorMap himap,
+                  __grid_constant__ const CUtensorMap lomap,
+                  const float* __restrict__ dt, const float* __restrict__ a_log,
+                  const float* __restrict__ d_skip, bf16* __restrict__ y,
+                  int L, int H, int G, int Q, int nc) {
+  using Lay = ScanLayout<N>;
+  constexpr int NB = Lay::NB;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ float sDt[QMAX], sCum[QMAX], warp_tot[CONSUMERS / 32];
+  unsigned char* base = align1024(smem_raw);
+  unsigned char* sC = base;
+  unsigned char* sHi = base + Lay::OPER;
+  unsigned char* sLo = base + 2 * Lay::OPER;
+  unsigned char* ring = base + Lay::RING_OFFSET;
+  uint64_t* c_full = reinterpret_cast<uint64_t*>(base + Lay::BARRIER_OFFSET);
+  uint64_t* s_full = c_full + 1;
+  uint64_t* full = s_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int h = blockIdx.y, bc = blockIdx.z, b = bc / nc, c = bc % nc;
+  const int it = gridDim.x - 1 - blockIdx.x;          // longest t tile first
+  const int g = h / (H / G);
+  const int l0 = c * Q, t0 = it * ROWS;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(c_full, 1);
+    hopper::mbar_init(s_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (hopper::warpgroup_index() == 1) {               // producer warp
+    if (threadIdx.x == CONSUMERS) {
+      hopper::tma_prefetch_map(&xmap);
+      hopper::tma_prefetch_map(&bmap);
+      hopper::tma_prefetch_map(&cmap);
+      hopper::mbar_expect_tx(c_full, Lay::OPER);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        hopper::tma_load_4d(sC + nb * BOXB, &cmap, c_full, nb * hopper::BOX, g,
+                            l0 + t0, b);
+      if (c > 0) {
+        hopper::mbar_expect_tx(s_full, 2 * Lay::OPER);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          hopper::tma_load_3d(sHi + nb * BOXB, &himap, s_full, nb * hopper::BOX, 0,
+                              bc * H + h);
+          hopper::tma_load_3d(sLo + nb * BOXB, &lomap, s_full, nb * hopper::BOX, 0,
+                              bc * H + h);
+        }
+      }
+      for (int js = 0; js <= it; ++js) {
+        const int s = js % STAGES;
+        unsigned char* st = ring + s * Lay::STAGE;
+        hopper::mbar_wait(&empty[s], ((js / STAGES) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], Lay::STAGE);
+        hopper::tma_load_4d(st, &xmap, &full[s], 0, h, l0 + js * ROWS, b);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          hopper::tma_load_4d(st + (1 + nb) * BOXB, &bmap, &full[s], nb * hopper::BOX,
+                              g, l0 + js * ROWS, b);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: rows r0 = 16 warp + lane / 4 and r1 = r0 + 8 of the
+  // t tile; accumulator columns 8 j + 2 t4 and the next one
+  const float A = -expf(a_log[h]);
+  chunk_cum(dt + ((size_t)b * L + l0) * H + h, H, A, Q, sDt, sCum, warp_tot);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = warp * 16 + lane / 4, r1 = r0 + 8, t4 = lane % 4;
+  const float cum0 = sCum[t0 + r0], cum1 = sCum[t0 + r1];
+
+  float acc[32];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) acc[k] = 0.f;
+  hopper::mbar_wait(c_full, 0);
+
+  // carried state: acc = e^{cum_t} (C_t S_in^T), S_in = hi + lo
+  if (c > 0) {
+    hopper::mbar_wait(s_full, 0);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      const int off = (kk / 4) * BOXB + (kk % 4) * 32;
+      const uint64_t ad = hopper::desc_kmajor(sC + off);
+      hopper::wgmma_ss<0, 0>(acc, ad, hopper::desc_kmajor(sHi + off), 1);
+      hopper::wgmma_ss<0, 0>(acc, ad, hopper::desc_kmajor(sLo + off), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    const float e0 = expf(cum0), e1 = expf(cum1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc[4 * j] *= e0;
+      acc[4 * j + 1] *= e0;
+      acc[4 * j + 2] *= e1;
+      acc[4 * j + 3] *= e1;
+    }
+  }
+
+  // intra-chunk: acc += W_s x_s over the s tiles up to the diagonal. Step js
+  // issues S_js = C_t B_js^T and W_{js-1} x_{js-1} together, waits for S_js
+  // only, and forms W_js on the CUDA cores while the tensor cores finish
+  // W_{js-1} x_{js-1}; then stage js - 1 goes back to the producer and W_js
+  // is split into the A fragments. The diagonal stage is kept: it holds x_t.
+  auto stage = [&](int js) { return ring + (js % STAGES) * Lay::STAGE; };
+  auto issue_s = [&](float (&sc)[32], int js) {
+    const unsigned char* st = stage(js);
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      const int off = (kk / 4) * BOXB + (kk % 4) * 32;
+      hopper::wgmma_ss<0, 0>(sc, hopper::desc_kmajor(sC + off),
+                             hopper::desc_kmajor(st + BOXB + off), kk > 0);
+    }
+    hopper::wgmma_commit();
+  };
+  auto issue_wx = [&](float (&acc)[32], uint32_t (&whi)[4][4], uint32_t (&wlo)[4][4],
+                      int js) {
+    const unsigned char* st = stage(js);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bd = hopper::desc_mnmajor(st + 2048 * kk, BOXB);
+      hopper::wgmma_rs<1>(acc, whi[kk], bd, 1);
+      hopper::wgmma_rs<1>(acc, wlo[kk], bd, 1);
+    }
+    hopper::wgmma_commit();
+  };
+  // W = S e^{cum_t - cum_s} dt_s where s <= t (masked before the exp), in
+  // place. The decay is 2^{(cum_t - cum_s) log2 e} on the special-function
+  // unit: the difference is formed in natural units first, so scaling it
+  // costs one rounding of a small number, not of cum (which reaches about
+  // -410). expf's range reduction around the same instruction was the
+  // largest piece of this kernel's time.
+  auto weights = [&](float (&sc)[32], int js) {
+    const bool diag = js == it;
+    const float* cs = sCum + js * ROWS;
+    const float* ds = sDt + js * ROWS;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int sl = 8 * j + 2 * t4 + (e & 1), row = e < 2 ? r0 : r1;
+        const float ct = e < 2 ? cum0 : cum1;
+        sc[4 * j + e] = diag && sl > row
+            ? 0.f : sc[4 * j + e] * fast_exp2((ct - cs[sl]) * LOG2E) * ds[sl];
+      }
+  };
+  // W split into hi + lo A fragments: n8 blocks 2 kk and 2 kk + 1 of the
+  // accumulator layout are the k16 slice kk (hopper.cuh)
+  auto split = [&](const float (&sc)[32], uint32_t (&whi)[4][4], uint32_t (&wlo)[4][4]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      split_bf16(sc[4 * j], sc[4 * j + 1], whi[j / 2][(j % 2) * 2], wlo[j / 2][(j % 2) * 2]);
+      split_bf16(sc[4 * j + 2], sc[4 * j + 3], whi[j / 2][(j % 2) * 2 + 1],
+                 wlo[j / 2][(j % 2) * 2 + 1]);
+    }
+  };
+  auto release = [&](int js) {
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[js % STAGES]);
+  };
+
+  float sc[32];
+  uint32_t whi[4][4], wlo[4][4];
+  hopper::mbar_wait(&full[0], 0);
+  hopper::fence_regs(sc);
+  hopper::wgmma_fence();
+  issue_s(sc, 0);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(sc);
+  weights(sc, 0);
+  split(sc, whi, wlo);
+  for (int js = 1; js <= it; ++js) {
+    hopper::mbar_wait(&full[js % STAGES], (js / STAGES) & 1);
+    hopper::fence_regs(sc);
+    hopper::fence_regs(acc);
+    hopper::fence_regs(whi);
+    hopper::fence_regs(wlo);
+    hopper::wgmma_fence();
+    issue_s(sc, js);
+    issue_wx(acc, whi, wlo, js - 1);
+    hopper::wgmma_wait<1>();                 // S_js is in
+    hopper::fence_regs(sc);
+    weights(sc, js);
+    hopper::wgmma_wait<0>();                 // W_{js-1} x_{js-1} is in
+    hopper::fence_regs(acc);
+    hopper::fence_regs(whi);
+    hopper::fence_regs(wlo);
+    release(js - 1);
+    split(sc, whi, wlo);
+  }
+  hopper::fence_regs(acc);
+  hopper::fence_regs(whi);
+  hopper::fence_regs(wlo);
+  hopper::wgmma_fence();
+  issue_wx(acc, whi, wlo, it);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  const unsigned char* sx = stage(it);
+
+  // y = acc + D x_t, rounded once; x_t is the diagonal s tile
+  const float D = d_skip[h];
+  bf16* y0 = y + (((size_t)b * L + l0 + t0 + r0) * H + h) * P;
+  bf16* y1 = y + (((size_t)b * L + l0 + t0 + r1) * H + h) * P;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int p = 8 * j + 2 * t4;
+    *reinterpret_cast<__nv_bfloat162*>(y0 + p) = __floats2bfloat162_rn(
+        acc[4 * j] + D * box_at(sx, r0, p), acc[4 * j + 1] + D * box_at(sx, r0, p + 1));
+    *reinterpret_cast<__nv_bfloat162*>(y1 + p) = __floats2bfloat162_rn(
+        acc[4 * j + 2] + D * box_at(sx, r1, p), acc[4 * j + 3] + D * box_at(sx, r1, p + 1));
+  }
+}
+
+// A (B, L, heads, width) bf16 tensor as a 4-D map (width, heads, L, B) read
+// in boxes of 64 columns x 1 head x 64 steps x 1 batch.
+bool encode_steps_map(CUtensorMap* map, const void* p, int B, int L, int heads,
+                      int width) {
+  const uint64_t dims[4] = {(uint64_t)width, (uint64_t)heads, (uint64_t)L, (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)width * 2, (uint64_t)heads * width * 2,
+                               (uint64_t)L * heads * width * 2};
+  const uint32_t box[4] = {(uint32_t)hopper::BOX, 1, (uint32_t)ROWS, 1};
+  return hopper::encode_bf16_map(map, p, 4, dims, strides, box);
+}
+
+// The (B, nc, H, P, N) bf16 entering states as a 3-D map (N, P, B nc H) read
+// in boxes of 64 columns x 64 rows x 1 matrix.
+bool encode_state_map(CUtensorMap* map, const void* p, int mats, int N) {
+  const uint64_t dims[3] = {(uint64_t)N, (uint64_t)P, (uint64_t)mats};
+  const uint64_t strides[2] = {(uint64_t)N * 2, (uint64_t)P * N * 2};
+  const uint32_t box[3] = {(uint32_t)hopper::BOX, (uint32_t)P, 1};
+  return hopper::encode_bf16_map(map, p, 3, dims, strides, box);
+}
+
+template <int N>
+int launch(const void* x, const void* dt, const void* a_log, const void* b,
+           const void* c, const void* d_skip, void* y, void* state, void* s_loc,
+           void* tot, void* s_hi, void* s_lo, int B, int L, int H, int G, int Q,
+           cudaStream_t stream) {
+  const int nc = L / Q, mats = B * nc * H;
+  CUtensorMap xm, bm, cm, him, lom;
+  if (!encode_steps_map(&xm, x, B, L, H, P) || !encode_steps_map(&bm, b, B, L, G, N) ||
+      !encode_steps_map(&cm, c, B, L, G, N) || !encode_state_map(&him, s_hi, mats, N) ||
+      !encode_state_map(&lom, s_lo, mats, N))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(chunk_state_kernel<N>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           StateLayout<N>::BYTES);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(chunk_scan_kernel<N>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 ScanLayout<N>::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  const float* dtp = static_cast<const float*>(dt);
+  const float* alp = static_cast<const float*>(a_log);
+  chunk_state_kernel<N><<<dim3(nc, H, B), THREADS, StateLayout<N>::BYTES, stream>>>(
+      xm, bm, dtp, alp, static_cast<float*>(s_loc), static_cast<float*>(tot), L, H, G, Q);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int PN = P * N;
+  state_pass_kernel<<<dim3(PN / PASS_ENTRIES, H, B), PASS_THREADS,
+                      0, stream>>>(static_cast<const float*>(s_loc),
+                                   static_cast<const float*>(tot), static_cast<bf16*>(s_hi),
+                                   static_cast<bf16*>(s_lo), static_cast<float*>(state),
+                                   nc, H, PN);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  chunk_scan_kernel<N><<<dim3(Q / ROWS, H, B * nc), THREADS, ScanLayout<N>::BYTES, stream>>>(
+      xm, bm, cm, him, lom, dtp, alp, static_cast<const float*>(d_skip),
+      static_cast<bf16*>(y), L, H, G, Q, nc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 }  // namespace
 
 extern "C" {
@@ -353,6 +951,38 @@ int ssd_scan_fwd(const void* x, const void* dt, const void* a_log,
     return launch<bf16>(x, dt, a_log, b, c, d_skip, y, state, B, L, H, P, G, N, Q, s);
   if (dtype == 1)
     return launch<float>(x, dt, a_log, b, c, d_skip, y, state, B, L, H, P, G, N, Q, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of one block of the wgmma variant's chunk_state
+// (kernel 0) or chunk_scan (kernel 1) at state width N (0 if N is not built).
+int ssd_scan_wgmma_smem_bytes(int kernel, int N) {
+  if (N == 64) return kernel ? wg::ScanLayout<64>::BYTES : wg::StateLayout<64>::BYTES;
+  if (N == 128) return kernel ? wg::ScanLayout<128>::BYTES : wg::StateLayout<128>::BYTES;
+  return 0;
+}
+
+// The wgmma variant. x (B,L,H,64), b/c (B,L,G,N), y (B,L,H,64): contiguous
+// bf16, x, b and c 16-byte aligned; dt (B,L,H), a_log and d_skip (H,), state
+// (B,H,64,N): fp32. Scratch from the caller: s_loc (B,L/Q,H,64,N) and tot
+// (B,L/Q,H) fp32, s_hi and s_lo (B,L/Q,H,64,N) bf16. Takes N in {64, 128},
+// Q a multiple of 64 up to 256, L % Q == 0, H % G == 0, B L/Q <= 65535 (the
+// wrapper checks). Launches chunk_state, state_pass and chunk_scan in order;
+// returns a cudaError_t value: 0 when all three launches were accepted.
+int ssd_scan_wgmma_fwd(const void* x, const void* dt, const void* a_log,
+                       const void* b, const void* c, const void* d_skip, void* y,
+                       void* state, void* s_loc, void* tot, void* s_hi, void* s_lo,
+                       int B, int L, int H, int P, int G, int N, int Q, void* stream) {
+  if (P != wg::P || Q % wg::ROWS || Q < wg::ROWS || Q > QMAX || L % Q || H % G ||
+      (long long)B * (L / Q) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N == 64)
+    return wg::launch<64>(x, dt, a_log, b, c, d_skip, y, state, s_loc, tot, s_hi, s_lo,
+                          B, L, H, G, Q, s);
+  if (N == 128)
+    return wg::launch<128>(x, dt, a_log, b, c, d_skip, y, state, s_loc, tot, s_hi,
+                           s_lo, B, L, H, G, Q, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

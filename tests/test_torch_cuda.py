@@ -98,15 +98,62 @@ def test_ssd_scan_kernel_vs_plain(cuda, dtype, tol, L, chunk):
     a_log = t(np.log(rng.uniform(1, 16, H)))
     b, c = (t(rng.standard_normal((B, L, G, N)) * 0.3, dtype) for _ in range(2))
     d_skip = t(rng.standard_normal(H))
+    assert ss.ssd_variant(x, b, chunk) == "fma"       # fp32, or P = 32
     before = ss.ssd_scan_cuda.launches
+    before_fma = ss.ssd_scan_cuda.variant_launches["fma"]
     y, state = ss.ssd_scan_cuda(x, dt, a_log, b, c, d_skip, chunk=chunk)
     torch.cuda.synchronize()
     assert ss.ssd_scan_cuda.launches == before + 1
+    assert ss.ssd_scan_cuda.variant_launches["fma"] == before_fma + 1
     y_p, state_p = ss.ssd_scan_plain(x, dt, a_log, b, c, d_skip, chunk=chunk)
     np.testing.assert_allclose(y.float().cpu().numpy(),
                                y_p.float().cpu().numpy(), atol=tol, rtol=tol)
     np.testing.assert_allclose(state.cpu().numpy(), state_p.cpu().numpy(),
                                atol=1e-4, rtol=1e-4)
+
+
+def _ssd_model_like(seed, B, L, H, P, N, G, device):
+    """bf16 x, b, c and fp32 dt, a_log, d_skip drawn as chip_smoke.ssd_inputs
+    draws them: dt log-uniform in [1e-3, 1e-1], A in [1, 16]."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dt)
+
+    return (t(rng.standard_normal((B, L, H, P)) * 0.5, torch.bfloat16),
+            t(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (B, L, H)))),
+            t(np.log(rng.uniform(1, 16, H))),
+            t(rng.standard_normal((B, L, G, N)) * 0.3, torch.bfloat16),
+            t(rng.standard_normal((B, L, G, N)) * 0.3, torch.bfloat16),
+            t(rng.standard_normal(H)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("chunk", [128, 256])
+@pytest.mark.parametrize("N", [64, 128])
+def test_ssd_scan_wgmma_vs_plain(cuda, N, chunk, G):
+    """The wgmma variant (chunk_state, state_pass, chunk_scan) over three
+    chunks at P = 64, held to the limits chip_smoke.py holds the model
+    shapes to: y within 2e-2 elementwise and 1e-3 in relative norm, the
+    state within 1e-4 elementwise and in relative norm."""
+    B, L, H, P = 2, 3 * chunk, 4, 64
+    args = _ssd_model_like(14, B, L, H, P, N, G, cuda)
+    assert ss.ssd_variant(args[0], args[3], chunk) == "wgmma"
+    before = ss.ssd_scan_cuda.launches
+    before_wgmma = ss.ssd_scan_cuda.variant_launches["wgmma"]
+    y, state = ss.ssd_scan_cuda(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ss.ssd_scan_cuda.launches == before + 1
+    assert ss.ssd_scan_cuda.variant_launches["wgmma"] == before_wgmma + 1
+    assert y.dtype == torch.bfloat16 and state.dtype == torch.float32
+    y_p, state_p = ss.ssd_scan_plain(*args, chunk=chunk)
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               y_p.float().cpu().numpy(), atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(state.cpu().numpy(), state_p.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+    assert ((y.float() - y_p.float()).norm() / y_p.float().norm()).item() <= 1e-3
+    assert ((state - state_p).norm() / state_p.norm()).item() <= 1e-4
 
 
 @pytest.mark.cuda

@@ -376,6 +376,166 @@ def test_ssd_smem_budget():
     assert 2 * (ss.smem_bytes(128) + 1024) <= 233472
 
 
+def test_ssd_wgmma_smem_budget():
+    """The wgmma variant's blocks at each state width the models use:
+    chunk_state's 2-stage ring of x and b boxes, and chunk_scan's C tile,
+    entering state hi and lo and ring, each with its barriers and 1 KB of
+    alignment slack; at N=128 two chunk_scan blocks still fit one SM."""
+    assert ss.wgmma_smem_bytes("chunk_state", 64) == 33824
+    assert ss.wgmma_smem_bytes("chunk_state", 128) == 50208
+    assert ss.wgmma_smem_bytes("chunk_scan", 64) == 58416
+    assert ss.wgmma_smem_bytes("chunk_scan", 128) == 99376
+    assert 2 * (ss.wgmma_smem_bytes("chunk_scan", 128) + 3072 + 1024) <= 233472
+
+
+# (x shape, b shape, chunk, dtype, variant): the model shapes (zamba2-7b,
+# mamba2-370m, chunk 256 and 128), the reduced configs (P = 16), the
+# kernel-test grid and its P = 32 cases, fp32, and the edges of the set
+SSD_VARIANT_CASES = [
+    ((4, 2048, 112, 64), (4, 2048, 2, 64), 256, "bfloat16", "wgmma"),
+    ((4, 2048, 32, 64), (4, 2048, 1, 128), 256, "bfloat16", "wgmma"),
+    ((1, 512, 32, 64), (1, 512, 1, 128), 128, "bfloat16", "wgmma"),
+    ((2, 64, 4, 64), (2, 64, 1, 64), 256, "bfloat16", "wgmma"),
+    ((4, 2048, 112, 64), (4, 2048, 2, 64), 256, "float32", "fma"),
+    ((2, 256, 4, 32), (2, 256, 2, 64), 64, "bfloat16", "fma"),
+    ((2, 64, 8, 16), (2, 64, 2, 16), 16, "bfloat16", "fma"),
+    ((2, 128, 4, 64), (2, 128, 1, 32), 64, "bfloat16", "fma"),
+    ((2, 200, 4, 64), (2, 200, 1, 64), 100, "bfloat16", "fma"),
+    ((2, 96, 4, 64), (2, 96, 1, 64), 128, "bfloat16", "fma"),
+]
+
+
+@pytest.mark.parametrize("xs,bs,chunk,dtype,variant", SSD_VARIANT_CASES)
+def test_ssd_variant_follows_shapes_and_dtype(xs, bs, chunk, dtype, variant):
+    """bf16 with P = 64, N = 64 or 128 and an effective chunk (min(chunk,
+    L)) that is a multiple of 64 up to 256 takes wgmma; everything else
+    fma. The choice reads only shapes and the dtype."""
+    x = torch.empty(xs, dtype=TDT[dtype], device="meta")
+    b = torch.empty(bs, dtype=TDT[dtype], device="meta")
+    assert ss.ssd_variant(x, b, chunk) == variant
+    assert variant in ss.VARIANTS
+
+
+def test_ssd_cpu_wrapper_counts_no_variant(monkeypatch):
+    """On the CPU the plain version runs and no variant's count moves."""
+    monkeypatch.setattr(_build, "load", _refuse_build)
+    before = dict(ss.ssd_scan_cuda.variant_launches)
+    _, t = _ssd_both(4, 1, 128, 2, 64, 64, 1)
+    ss.ssd_scan_cuda(*t, chunk=64)
+    assert ss.ssd_scan_cuda.variant_launches == before
+    assert set(before) == set(ss.VARIANTS)
+
+
+def test_ssd_check_inputs_rejects_unaligned_tma_operands():
+    """The wgmma variant reads x, b and c by TMA, which needs 16-byte
+    aligned bases: a contiguous view 2 bytes into its storage is refused."""
+    B, L, H, P, N, G = 1, 64, 2, 64, 64, 1
+    x = torch.zeros(B * L * H * P + 1, dtype=torch.bfloat16)[1:].view(B, L, H, P)
+    b = torch.zeros(B, L, G, N, dtype=torch.bfloat16)
+    vec = torch.zeros(H)
+    assert ss.ssd_variant(x, b, 64) == "wgmma"
+    with pytest.raises(ValueError, match="aligned"):
+        ss.check_inputs(x, torch.zeros(B, L, H), vec, b, b.clone(), vec, 64)
+    ss.check_inputs(x.clone(), torch.zeros(B, L, H), vec, b, b.clone(), vec, 64)
+
+
+def test_split_bf16_keeps_sixteen_bits():
+    """hi is v rounded to bf16, lo the remainder rounded to bf16; hi + lo
+    is within 2^-16 of v, relative to |v|."""
+    v = torch.from_numpy(np.random.default_rng(5).standard_normal(4096)
+                         .astype(np.float32) * 10 ** np.linspace(-6, 6, 4096,
+                                                                  dtype=np.float32))
+    hi, lo = ss.split_bf16(v)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    torch.testing.assert_close(hi, v.to(torch.bfloat16), rtol=0, atol=0)
+    err = (hi.float() + lo.float() - v).abs() / v.abs()
+    assert err.max().item() <= 2.0 ** -16
+    assert (v - hi.float()).abs().max() > 0          # one bf16 alone loses bits
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["fp32", "split_bf16"])
+@pytest.mark.parametrize("B,L,H,P,N,G,chunk", SSD_GRID)
+def test_ssd_decomposition_vs_pallas_and_reference(B, L, H, P, N, G, chunk,
+                                                   split):
+    """The wgmma variant's three stages in plain torch (chunk states, the
+    state pass, the chunk scan), composed, in fp32 and with its split
+    operands, against the Pallas kernel in interpret mode and the
+    reference's ssd_chunked, on the TestSSDScan grid at 1e-4."""
+    j, t = _ssd_both(0, B, L, H, P, N, G)
+    y_p, st_p = ssd_scan_pallas(*j, chunk=chunk, interpret=True)
+    y_r, st_r = jref.ssd_chunked(*j, chunk_size=chunk)
+    y, st = ss.ssd_decomposed_plain(*t, chunk=chunk, split=split)
+    assert y.shape == (B, L, H, P) and st.shape == (B, H, P, N)
+    assert st.dtype == torch.float32
+    for want_y, want_st in ((y_p, st_p), (y_r, st_r)):
+        _close(y, want_y, SSD_TOL)
+        _close(st, want_st, SSD_TOL)
+    _close(y, ref.ssd_chunked(*t, chunk_size=chunk)[0], SSD_TOL)
+
+
+def test_ssd_state_pass_returns_the_entering_states():
+    """The state entering chunk c + 1 is e^{tot_c} times the one entering c
+    plus chunk c's own; the first is zero and the last step gives the
+    final state, equal to the reference's."""
+    B, L, H, P, N, G, chunk = 2, 128, 4, 32, 16, 2, 32
+    j, t = _ssd_both(6, B, L, H, P, N, G)
+    x, dt, a_log, b, c, d_skip = t
+    s_loc, tot = ss.chunk_states_plain(x, dt, a_log, b, chunk=chunk)
+    s_in, state = ss.state_pass_plain(s_loc, tot)
+    assert s_in.shape == (B, L // chunk, H, P, N) and tot.shape == (B, L // chunk, H)
+    assert not s_in[:, 0].any()
+    for ci in range(L // chunk - 1):
+        _close(s_in[:, ci + 1],
+               s_in[:, ci] * torch.exp(tot[:, ci])[..., None, None] + s_loc[:, ci],
+               0.0)
+    _close(state, jref.ssd_chunked(*j, chunk_size=chunk)[1], SSD_TOL)
+
+
+SSD_STATE_RTOL = 1e-4       # chip_smoke.py: the fp32 state at the model shapes
+
+
+def _ssd_model_like(seed, B, L, H, P, N, G):
+    """Inputs drawn as chip_smoke.ssd_inputs draws them (dt log-uniform in
+    [1e-3, 1e-1], A in [1, 16]); x, b and c rounded to bf16 as the model
+    hands them over, held in fp32 so that y stays fp32."""
+    rng = np.random.default_rng(seed)
+
+    def bf16(a):
+        return torch.from_numpy(a.astype(np.float32)).bfloat16().float()
+
+    return (bf16(rng.standard_normal((B, L, H, P)) * 0.5),
+            torch.from_numpy(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1),
+                                                (B, L, H))).astype(np.float32)),
+            torch.from_numpy(np.log(rng.uniform(1, 16, H)).astype(np.float32)),
+            bf16(rng.standard_normal((B, L, G, N)) * 0.3),
+            bf16(rng.standard_normal((B, L, G, N)) * 0.3),
+            torch.from_numpy(rng.standard_normal(H).astype(np.float32)))
+
+
+@pytest.mark.parametrize("B,L,H,P,N,G,chunk", [(2, 512, 4, 64, 64, 2, 256),
+                                               (1, 512, 2, 64, 128, 1, 256),
+                                               (2, 384, 4, 64, 64, 1, 128)])
+def test_ssd_split_operands_keep_a_tenth_of_the_state_limit(B, L, H, P, N, G,
+                                                            chunk, monkeypatch):
+    """The wgmma variant's two-pass hi + lo operands against the same
+    decomposition in fp32: y and the state within SSD_STATE_RTOL / 10 in
+    relative norm; one bf16 rounding of those operands instead puts the
+    state past the limit itself."""
+    def rel(got, want):
+        return ((got - want).norm() / want.norm()).item()
+
+    args = _ssd_model_like(9, B, L, H, P, N, G)
+    y, st = ss.ssd_decomposed_plain(*args, chunk=chunk, split=True)
+    y_w, st_w = ss.ssd_decomposed_plain(*args, chunk=chunk)
+    assert rel(y, y_w) <= SSD_STATE_RTOL / 10
+    assert rel(st, st_w) <= SSD_STATE_RTOL / 10
+    _close(st_w, ref.ssd_chunked(*args, chunk_size=chunk)[1], SSD_TOL)
+    monkeypatch.setattr(ss, "_as_operand", lambda v, split: v.bfloat16().float()
+                        if split else v)
+    _, st_1 = ss.ssd_decomposed_plain(*args, chunk=chunk, split=True)
+    assert rel(st_1, st_w) > SSD_STATE_RTOL
+
+
 # ---------------------------------------------------------------------------
 # Grouped (per-expert) matmul
 # ---------------------------------------------------------------------------
