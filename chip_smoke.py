@@ -15,15 +15,21 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             host cost of encoding the gmm's tensor maps.
 2. kernel:  the flash-attention kernel against its plain PyTorch version on
             the card, bf16, on the kernel-test grid, on deepseek-7b's serving
-            shape (B=4, S=2048, H=KVH=32, D=128, causal) and on zamba2-7b's
-            (the same at D=112): elementwise within 2e-2, and the worst row
+            shape (B=4, S=2048, H=KVH=32, D=128, causal), on zamba2-7b's
+            (the same at D=112) and on seamless-m4t-large-v2's over 1500
+            frames (H=KVH=16, D=64: the encoder's non-causal self-attention,
+            the cross-attention of one query row, the decoder's 1-token
+            self-attention), and on the video executor's (the same heads
+            over 64 audio steps; deepseek-7b's prefills of 4 x 17 and 1 x 24
+            tokens): elementwise within 2e-2, and the worst row
             and the whole output within relative-norm limits that two
             injected faults (the last K/V tile dropped or stale) are shown to
             exceed. At the serving shapes, kernel and plain version against
             an fp32-output reference (what rounding P to bf16 adds), and
             medians of CUDA-event timings of the kernel, the plain version
             and ``F.scaled_dot_product_attention`` (a yardstick the port
-            never calls).
+            never calls); the faults and timings also at the seamless
+            encoder and cross shapes.
    ssd:     the SSD-scan kernels against their plain version: the
             kernel-test grid in fp32 (the ``fma`` variant) within 1e-4 on y
             and on the state, and the prefill shapes of zamba2-7b and
@@ -45,29 +51,47 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             C-tile of one expert left unwritten) are shown to exceed; timings
             of the kernel, the plain version and ``torch.bmm`` (a yardstick
             the port never calls) there.
+   no_backward: each kernel's wrapper, given CUDA inputs that require grad
+            in grad mode, raises and launches nothing (no backward yet).
 3. serve:   the main paths: ``ServeSession.generate`` at full width, random
             bf16 weights from a seeded generator, two batches of 4 prompts of
             2048 tokens, 64 new greedy tokens each, on deepseek-7b (30
             layers, d_model 4096), zamba2-7b (81 SSM layers and 13 shared
             attention blocks, d_model 3584), mamba2-370m (48 layers, d_model
-            1024) and deepseek-moe-16b (28 layers, d_model 2048, 27 MoE
-            layers of 64 routed experts, top 6). The kernels' launch counts
-            are reset just before each path and read just after it; every
-            prefill must launch the flash kernel once per attention block,
-            the SSD kernel once per SSM layer and the grouped GEMM three
-            times per MoE layer, and every grouped-GEMM and SSD launch must
-            take its wgmma variant.
-4. agree:   deepseek-7b, zamba2-7b and deepseek-moe-16b: one full-width
-            prefill through the kernels and the same prefill through their
-            plain versions: logits at every prompt position within a stated
-            multiple of the network's own bf16 noise floor, argmax equal
-            wherever the top-2 margin exceeds that limit, and a prefill with
-            an injected fault shown to exceed it. For zamba2-7b also 8 decode
-            steps from each prefill's cache, held the same way, with a
-            dropped SSM-state handoff shown to exceed the limit.
+            1024), deepseek-moe-16b (28 layers, d_model 2048, 27 MoE layers
+            of 64 routed experts, top 6) and seamless-m4t-large-v2 (24
+            encoder and 24 decoder layers, d_model 1024; 1-token prompts over
+            1500 frames of random embeddings). The kernels' launch counts are
+            reset just before each path and read just after it; each must
+            equal, per batch, one prefill's (one flash launch per attention
+            block, the encoder's and cross-attention's included, one SSD
+            launch per SSM layer, three grouped-GEMM launches per MoE layer)
+            plus 63 decode steps' (one flash launch per cross-attention
+            block, the grouped GEMMs again), and every grouped-GEMM and SSD
+            launch must take its wgmma variant.
+4. agree:   deepseek-7b, zamba2-7b, deepseek-moe-16b and seamless-m4t-large-v2:
+            one full-width prefill through the kernels and the same prefill
+            through their plain versions: logits at every prompt position
+            within a stated multiple of the network's own bf16 noise floor,
+            argmax equal wherever the top-2 margin exceeds that limit, and a
+            prefill with an injected fault shown to exceed it. For zamba2-7b
+            and seamless also 8 decode steps from each prefill's cache, held
+            the same way, with a dropped prefill-to-decode handoff (SSM
+            states; cross-attention K/V) shown to exceed the limit; for
+            seamless also the encoder's final states at all 4 x 1500 frames,
+            and every attention call of its plain run replayed through the
+            kernel, held per shape to a floor of its own, with the last K/V
+            tile's fault shown to exceed it.
 5. trace:   torch.profiler over one prefill and a few decode steps of each
-            of those three: device busy time, idle share and the kernels that
+            of those four: device busy time, idle share and the kernels that
             take the most time.
+6. executor: ``RealExecutor.run`` over the video workflow (the reference's
+            plans written out in VIDEO_PLANS) on full-width
+            seamless-m4t-large-v2 and deepseek-7b: output shapes, outputs
+            bitwise equal across two runs, summaries equal across the
+            MIN_COST and baseline plans, the flash launches of each run, and
+            per-task times; every attention call of a run through the plain
+            attention replayed through the kernel, as in phase 4.
 
 Then a ``kernels`` line (one entry per kernel of the paths), the card's
 ``nvidia-smi`` name and power limit, and last the device line. Any failure
@@ -122,6 +146,25 @@ GRID = [
 ]
 SERVE_SHAPE = ("serve_prefill", 4, 2048, 2048, 32, 32, 128, {})
 ZAMBA_SHAPE = ("zamba2_prefill", 4, 2048, 2048, 32, 32, 112, {})
+# seamless-m4t-large-v2 (16 heads of 64) over ENC_LEN frames: the encoder's
+# self-attention, the cross-attention of the prefill and of every decode
+# step (one query row over the encoder's keys), and the decoder's
+# self-attention in the prefill of a 1-token prompt
+ENC_LEN = 1500             # the agent library's speech_to_text work, stt_work(1500, 200)
+SEAMLESS_ENCODER = ("seamless_encoder", 4, ENC_LEN, ENC_LEN, 16, 16, 64,
+                    {"causal": False})
+SEAMLESS_CROSS = ("seamless_cross", 4, 1, ENC_LEN, 16, 16, 64, {"causal": False})
+SEAMLESS_SHAPES = [SEAMLESS_ENCODER, SEAMLESS_CROSS,
+                   ("seamless_decoder_self", 4, 1, 1, 16, 16, 64, {})]
+# the video executor's calls (phase 6): seamless over the media's 64 audio
+# steps (encoder, cross-attention), deepseek-7b's summarize prefill (4
+# scenes x 17 context tokens) and qa's (1 x 24)
+EXECUTOR_SHAPES = [
+    ("executor_encoder", 4, 64, 64, 16, 16, 64, {"causal": False}),
+    ("executor_cross", 4, 1, 64, 16, 16, 64, {"causal": False}),
+    ("executor_summarize", 4, 17, 17, 32, 32, 128, {}),
+    ("executor_qa", 1, 24, 24, 32, 32, 128, {}),
+]
 KV_TILE = 64               # keys of an injected fault: fewer than the flash kernel's 96-row K/V tile
 SERVE_BATCHES, SERVE_BATCH, PROMPT_LEN, MAX_NEW = 2, 4, 2048, 64
 # (name, B, L, H, P, N, G, chunk, dtype): the TestSSDScan grid of
@@ -154,7 +197,42 @@ GMM_MODEL_SHAPES = [
 # the main paths in order, each with the decode steps its agreement phase
 # holds (None: no agreement and trace phases)
 SERVE_PATHS = (("deepseek-7b", 0), ("zamba2-7b", 8), ("mamba2-370m", None),
-               ("deepseek-moe-16b", 0))
+               ("deepseek-moe-16b", 0), ("seamless-m4t-large-v2", 8))
+
+# The video workflow as the reference plans it on its paper cluster
+# (repro.core's Murakkab.paper_cluster(): the MIN_COST declarative job, and
+# the baseline workflow lowered for the first paper video), written out
+# because this script imports nothing of repro; a CPU test holds it equal to
+# the reference's plans. Per plan, (task, agent, args, impl) in topological
+# order. No impl names a zoo arch, so the executor runs its defaults:
+# seamless-m4t-large-v2 for speech_to_text, deepseek-7b for the others.
+VIDEO_PRODUCES = {"frame_extract": "frames", "speech_to_text": "transcript",
+                  "object_detect": "objects", "summarize": "summary",
+                  "embed": "vectors"}
+VIDEO_IMPL_ARCH = dict.fromkeys(("opencv", "whisper-large", "clip", "nvlm-72b",
+                                 "nvlm-embed"))
+VIDEO_PLANS = {
+    "min_cost": (
+        ("t0_frame_extract", "frame_extract",
+         {"file": "cats.mov", "start_time": 0, "end_time": 240,
+          "num_frames": 10}, "opencv"),
+        ("t1_speech_to_text", "speech_to_text",
+         {"file": "cats.mov", "language": "en"}, "whisper-large"),
+        ("t2_object_detect", "object_detect",
+         {"frames": "$frames", "labels": "auto"}, "clip"),
+        ("t3_summarize", "summarize",
+         {"context": "$frames+$objects+$transcript", "max_tokens": 120},
+         "nvlm-72b"),
+        ("t4_embed", "embed", {"texts": "$summary"}, "nvlm-embed")),
+    "baseline": (
+        ("c0_frame_extract", "frame_extract", {"sampling_rate": 15}, "opencv"),
+        ("c1_speech_to_text", "speech_to_text", {}, "whisper-large"),
+        ("c2_object_detect", "object_detect", {}, "clip"),
+        ("c3_summarize", "summarize", {"context_len": 4096}, "nvlm-72b"),
+        ("c4_embed", "embed", {}, "nvlm-embed")),
+}
+VIDEO_SCENES, VIDEO_FPS = 4, 10   # Media.synthesize's defaults, as the reference's
+VIDEO_QUESTION = "what objects appear?"
 
 
 def emit(obj) -> None:
@@ -330,8 +408,11 @@ def phase_kernel():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     worst, failures, timings = 0.0, [], {}
-    serving = (SERVE_SHAPE[0], ZAMBA_SHAPE[0])
-    for name, B, Sq, Sk, H, KVH, D, opts in GRID + [SERVE_SHAPE, ZAMBA_SHAPE]:
+    serving = (SERVE_SHAPE[0], ZAMBA_SHAPE[0], SEAMLESS_ENCODER[0],
+               SEAMLESS_CROSS[0])
+    for name, B, Sq, Sk, H, KVH, D, opts in \
+            GRID + [SERVE_SHAPE, ZAMBA_SHAPE] + SEAMLESS_SHAPES + \
+            EXECUTOR_SHAPES:
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device="cuda",
                                dtype=torch.float32).to(torch.bfloat16)
@@ -383,7 +464,7 @@ def phase_kernel():
                 "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, **kw),
                                     warmup=1, iters=5),
                 "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True)),
+                    qt, kt, vt, is_causal=kw["causal"])),
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
             }
@@ -664,6 +745,41 @@ def phase_gmm():
     return worst, timings
 
 
+def phase_no_backward():
+    """Each kernel's wrapper, given CUDA inputs that require grad in grad
+    mode, raises (its kernel has no backward: ROADMAP.md C1) and launches
+    nothing: no silent route to the plain version either."""
+    import torch
+    counters = launch_counters()
+
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, device="cuda").to(dtype).requires_grad_()
+
+    f32 = torch.float32
+    calls = {
+        "flash_attention": lambda: counters["flash_attention"](
+            t(1, 128, 2, 64), t(1, 128, 2, 64), t(1, 128, 2, 64)),
+        "gmm": lambda: counters["gmm"](t(2, 64, 64), t(2, 64, 64)),
+        "ssd_scan": lambda: counters["ssd_scan"](
+            t(1, 64, 2, 64), t(1, 64, 2, dtype=f32), t(2, dtype=f32),
+            t(1, 64, 1, 64), t(1, 64, 1, 64), t(2, dtype=f32), chunk=64),
+    }
+    raises = {}
+    for name, call in calls.items():
+        before = counters[name].launches
+        with torch.enable_grad():
+            try:
+                call()
+                raises[name] = False
+            except RuntimeError as err:
+                raises[name] = "A10" in str(err)
+        raises[name] = raises[name] and counters[name].launches == before
+    torch.cuda.synchronize()
+    emit({"phase": "no_backward", "raises_on_requires_grad": raises})
+    if not all(raises.values()):
+        raise AssertionError(f"a wrapper took an input that requires grad: {raises}")
+
+
 def _sync_s(fn):
     import torch
     torch.cuda.synchronize()
@@ -673,21 +789,49 @@ def _sync_s(fn):
     return out, time.perf_counter() - t0
 
 
-def expected_launches(cfg) -> dict:
-    """Launches of each kernel that one prefill of ``cfg`` must make: one
-    flash launch per attention block, one SSD launch per SSM layer, three
-    grouped-GEMM launches (gate, up, down) per MoE layer."""
-    from repro_torch.models.transformer import layer_plan
+def expected_launches(cfg, mode: str = "prefill") -> dict:
+    """Launches of each kernel that one prefill (or one decode step) of
+    ``cfg`` must make. Prefill: one flash launch per attention block, the
+    encoder's and the cross-attention blocks' too, one SSD launch per SSM
+    layer, three grouped-GEMM launches (gate, up, down) per MoE layer. A
+    decode step: one flash launch per cross-attention block (self-attention
+    decodes by the plain GEMV, the SSM by its recurrence) and the same
+    grouped-GEMM launches."""
+    from repro_torch.models.transformer import encoder_plan, layer_plan
+    prefill = mode == "prefill"
+    plan = layer_plan(cfg)
+    if prefill and cfg.family == "encdec":
+        plan += encoder_plan(cfg)
     count = {"flash_attention": 0, "gmm": 0, "ssd_scan": 0}
-    for gd in layer_plan(cfg):
+    for gd in plan:
         for b in gd.blocks:
-            if b.kind in ("attn", "parallel", "shared_attn"):
+            if b.kind == "cross_attn" or (
+                    prefill and b.kind in ("attn", "parallel", "shared_attn")):
                 count["flash_attention"] += gd.repeat
-            elif b.kind == "ssm":
+            elif b.kind == "ssm" and prefill:
                 count["ssd_scan"] += gd.repeat
             elif b.kind == "moe":
                 count["gmm"] += 3 * gd.repeat
     return count
+
+
+def generate_launches(cfg, new_tokens: int) -> dict:
+    """Launches of one ``generate``: a prefill and new_tokens - 1 decode steps."""
+    pre, dec = expected_launches(cfg), expected_launches(cfg, "decode")
+    return {k: pre[k] + (new_tokens - 1) * dec[k] for k in pre}
+
+
+def video_workflow(plan_name: str):
+    """(dag, plan, library) of one VIDEO_PLANS entry, with the attributes the
+    executor reads."""
+    from types import SimpleNamespace as NS
+    tasks = VIDEO_PLANS[plan_name]
+    dag = NS(topo_order=[t for t, *_ in tasks],
+             nodes={t: NS(agent=agent, args=args) for t, agent, args, _ in tasks})
+    plan = {t: NS(impl=impl) for t, *_, impl in tasks}
+    library = NS(impls={name: NS(arch=arch) for name, arch in VIDEO_IMPL_ARCH.items()},
+                 interfaces={a: NS(produces=p) for a, p in VIDEO_PRODUCES.items()})
+    return dag, plan, library
 
 
 def launch_counters():
@@ -698,9 +842,26 @@ def launch_counters():
             "ssd_scan": ssd_scan_cuda}
 
 
+def reset_launches():
+    """Every kernel's launch counts, by variant too, set to 0."""
+    for fn in launch_counters().values():
+        fn.launches = 0
+        if hasattr(fn, "variant_launches"):
+            fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
+
+
+def read_launches() -> dict:
+    counters = launch_counters()
+    return {**{name: fn.launches for name, fn in counters.items()},
+            "gmm_by_variant": dict(counters["gmm"].variant_launches),
+            "ssd_by_variant": dict(counters["ssd_scan"].variant_launches)}
+
+
 def phase_serve(arch):
     """One main path: returns the model pieces phases 4 and 5 reuse and the
-    launches of each kernel in this path's run."""
+    launches of each kernel in this path's run. The encoder-decoder serves
+    1-token prompts over ENC_LEN frames of random bf16 embeddings (the stub
+    frontend's input)."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model_zoo import build_model
@@ -714,36 +875,36 @@ def phase_serve(arch):
     params, init_s = _sync_s(lambda: model.init(gen))
     scale_routed_experts(model, params)
     sess = ServeSession(model, params, ServeOptions(), device="cuda")
-    prompts = [torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT_LEN),
+    encdec = cfg.family == "encdec"
+    prompt_len = 1 if encdec else PROMPT_LEN
+    prompts = [torch.randint(0, cfg.vocab_size, (SERVE_BATCH, prompt_len),
                              generator=gen, device="cuda")
                for _ in range(SERVE_BATCHES)]
+    extras = [{"frames": torch.randn(SERVE_BATCH, ENC_LEN, cfg.d_model,
+                                     generator=gen, device="cuda").bfloat16()}
+              if encdec else {} for _ in range(SERVE_BATCHES)]
     torch.cuda.reset_peak_memory_stats()
 
-    counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    gmm, ssd = counters["gmm"], counters["ssd_scan"]
-    gmm.variant_launches = dict.fromkeys(gmm.variant_launches, 0)
-    ssd.variant_launches = dict.fromkeys(ssd.variant_launches, 0)
+    reset_launches()
     outs, gen_s = [], []
-    for p in prompts:
-        out, s = _sync_s(lambda: sess.generate(p, max_new_tokens=MAX_NEW))
+    for p, ex in zip(prompts, extras):
+        out, s = _sync_s(lambda: sess.generate(p, max_new_tokens=MAX_NEW,
+                                               extras=ex))
         outs.append(out)
         gen_s.append(s)
-    launches = {name: fn.launches for name, fn in counters.items()}
-    gmm_variants = dict(gmm.variant_launches)
-    ssd_variants = dict(ssd.variant_launches)
+    launches = read_launches()
+    gmm_variants, ssd_variants = launches["gmm_by_variant"], launches["ssd_by_variant"]
 
     peak = torch.cuda.max_memory_allocated()
     for out in outs:
         if out.shape != (SERVE_BATCH, MAX_NEW) or bool(
                 ((out < 0) | (out >= cfg.vocab_size)).any()):
             raise AssertionError(f"bad generate output {tuple(out.shape)}")
-    for name, per_prefill in expected_launches(cfg).items():
-        if launches[name] < per_prefill * SERVE_BATCHES:
+    for name, per_batch in generate_launches(cfg, MAX_NEW).items():
+        if launches[name] != per_batch * SERVE_BATCHES:
             raise AssertionError(f"{name} kernel launched {launches[name]} "
-                                 f"times on {arch}; expected >= "
-                                 f"{per_prefill} per batch")
+                                 f"times on {arch}; expected {per_batch} per "
+                                 f"batch")
     # every expert product of the model shapes (prefill and decode) must
     # take the TMA + wgmma kernel
     if gmm_variants["wgmma"] != launches["gmm"]:
@@ -757,10 +918,11 @@ def phase_serve(arch):
     # prefill alone, same entry point the session uses, for the split
     prefill = build_prefill_step(model, ServeOptions())
     pre_s = []
-    for p in prompts:
-        cache = model.init_cache(SERVE_BATCH, PROMPT_LEN + MAX_NEW, device="cuda")
+    for p, ex in zip(prompts, extras):
+        cache = model.init_cache(SERVE_BATCH, prompt_len + MAX_NEW,
+                                 enc_len=ENC_LEN if encdec else 0, device="cuda")
         with torch.inference_mode():
-            _, s = _sync_s(lambda: prefill(params, {"tokens": p}, cache))
+            _, s = _sync_s(lambda: prefill(params, {"tokens": p, **ex}, cache))
         pre_s.append(s)
         del cache
     prefill_ms = 1e3 * statistics.median(pre_s)
@@ -768,16 +930,111 @@ def phase_serve(arch):
     emit({"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "params": model.param_count(),
           "batches": SERVE_BATCHES, "batch": SERVE_BATCH,
-          "prompt_len": PROMPT_LEN, "max_new": MAX_NEW,
+          "prompt_len": prompt_len, "enc_len": ENC_LEN if encdec else None,
+          "max_new": MAX_NEW,
           "init_s": init_s, "generate_s": gen_s, "prefill_ms": prefill_ms,
           "decode_ms_per_token": decode_ms,
           "tok_per_s": SERVE_BATCHES * SERVE_BATCH * MAX_NEW / sum(gen_s),
           "max_memory_allocated": peak,
-          **{f"{name}_launches": n for name, n in launches.items()},
+          **{f"{name}_launches": launches[name] for name in launch_counters()},
+          "expected_launches_per_batch": generate_launches(cfg, MAX_NEW),
           "gmm_launches_by_variant": gmm_variants,
           "ssd_scan_launches_by_variant": ssd_variants})
-    return model, params, prompts[0], {**launches, "gmm_by_variant": gmm_variants,
-                                       "ssd_by_variant": ssd_variants}
+    return model, params, prompts[0], extras[0], launches
+
+
+def phase_executor():
+    """The port's ``RealExecutor.run`` on the card over the video workflow
+    (VIDEO_PLANS): full-width seamless-m4t-large-v2 and deepseek-7b from a
+    seeded torch init, media of VIDEO_SCENES scenes x VIDEO_FPS frames from
+    a seeded generator. Three runs: MIN_COST, MIN_COST again, baseline; each
+    with the launch counts reset before it and read after it. Checks the
+    outputs' shapes and ranges, bitwise-equal outputs across the two MIN_COST
+    runs, equal summaries across the two plans, the flash launches of each
+    run, and one qa call. Then a MIN_COST run and a qa call through the
+    plain attention, whose every attention call ``call_check`` replays
+    through the kernel. Returns the first run's launches."""
+    import functools
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import Media, RealExecutor, seeded_sessions
+    from repro_torch.kernels import ops
+
+    archs = ("seamless-m4t-large-v2", "deepseek-7b")
+    sessions = functools.cache(seeded_sessions(0, reduced=False, device="cuda"))
+    init_s = {arch: _sync_s(lambda: sessions(arch))[1] for arch in archs}
+    media = [Media.synthesize("cats.mov", scenes=VIDEO_SCENES, fps=VIDEO_FPS,
+                              seed=0, device="cuda")]
+    per_run = {k: sum(generate_launches(get_config(a), 8)[k] for a in archs)
+               for k in launch_counters()}
+    torch.cuda.reset_peak_memory_stats()
+    runs, failures = {}, []
+    for label, plan_name in (("min_cost", "min_cost"),
+                             ("min_cost_again", "min_cost"),
+                             ("baseline", "baseline")):
+        dag, plan, library = video_workflow(plan_name)
+        ex = RealExecutor(library, sessions, seed=0, device="cuda")
+        reset_launches()
+        out, wall_s = _sync_s(lambda: ex.run(dag, plan, media))
+        launches = read_launches()
+        by_agent = {dag.nodes[t].agent: out[t] for t in dag.topo_order}
+        runs[label] = (by_agent, launches)
+        shapes = {a: list(v.shape) for a, v in by_agent.items()}
+        scenes = VIDEO_SCENES * len(media)
+        if not (shapes["frame_extract"][0] == scenes
+                and shapes["speech_to_text"] == [scenes, 8]
+                and shapes["object_detect"][0] == scenes
+                and shapes["summarize"] == [scenes, 8]
+                and shapes["embed"][0] == scenes):
+            failures.append(f"{label}: output shapes {shapes}")
+        vocab = {a: get_config(a).vocab_size for a in archs}
+        for agent, arch in (("speech_to_text", archs[0]), ("summarize", archs[1])):
+            ids = by_agent[agent]
+            if bool(((ids < 0) | (ids >= vocab[arch])).any()):
+                failures.append(f"{label}: {agent} ids out of range")
+        if not bool(torch.isfinite(by_agent["embed"].float()).all()):
+            failures.append(f"{label}: embed vectors not finite")
+        if any(launches[k] != per_run[k] for k in per_run):
+            failures.append(f"{label}: launches {launches}, expected {per_run}")
+        emit({"phase": "executor", "run": label, "plan": plan_name,
+              "wall_s": wall_s, "task_s": out["_timings"], "shapes": shapes,
+              **{f"{k}_launches": launches[k] for k in per_run},
+              "expected_launches": per_run})
+    answer = ex.qa(None, VIDEO_QUESTION, None)
+    torch.cuda.synchronize()
+    # the kernel at this path's shapes: every call of a plain run, replayed
+    calls = []
+    dag, plan, library = video_workflow("min_cost")
+    ex = RealExecutor(library, sessions, seed=0, device="cuda")
+    reset_launches()
+    with mock.patch.object(ops, "flash_attention", recording_attention(calls)):
+        ex.run(dag, plan, media)
+        ex.qa(None, VIDEO_QUESTION, None)
+    if read_launches()["flash_attention"]:
+        raise AssertionError("the plain executor run launched a kernel")
+    calls_line, calls_ok, calls_power = call_check(calls)
+    del calls
+    if not calls_power:
+        failures.append("the limits on the replayed calls miss the fault")
+    first, again = runs["min_cost"][0], runs["min_cost_again"][0]
+    bitwise = {a: torch.equal(first[a], again[a]) for a in first}
+    same_summary = torch.equal(first["summarize"], runs["baseline"][0]["summarize"])
+    emit({"phase": "executor_checks", "session_init_s": init_s,
+          "bitwise_equal_across_runs": bitwise,
+          "summaries_equal_across_plans": same_summary,
+          "qa_shape": list(answer.shape), "calls": calls_line,
+          "transcript": first["speech_to_text"].tolist(),
+          "summary": first["summarize"].tolist(),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "ok": not failures and all(bitwise.values()) and same_summary
+          and tuple(answer.shape) == (1, 8) and calls_ok})
+    if failures or not all(bitwise.values()) or not same_summary \
+            or tuple(answer.shape) != (1, 8) or not calls_ok:
+        raise AssertionError(f"executor checks failed: {failures}, bitwise "
+                             f"{bitwise}, summaries equal {same_summary}, "
+                             f"qa {tuple(answer.shape)}, kernel within the "
+                             f"replayed calls' limits {calls_ok}")
+    return runs["min_cost"][1]
 
 
 def scale_routed_experts(model, params) -> None:
@@ -819,28 +1076,100 @@ def naive_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
 
 def p_bf16_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
                      scale=None, q_offset=0, kv_len=None):
-    """Full scores in fp32, the row sum of fp32 P, PV from bf16 P."""
+    """Full scores in fp32, the row sum of fp32 P, PV from bf16 P; causal
+    (query i sees keys <= i) or not, with no other mask."""
     import torch
     from repro_torch.kernels import ref
-    if not causal or window or logit_softcap or q_offset or kv_len:
-        raise NotImplementedError("causal self-attention only")
-    B, S, H, D = q.shape
-    KVH = k.shape[2]
+    if window or logit_softcap or q_offset or kv_len:
+        raise NotImplementedError("no window, softcap, offset or length mask")
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
     scale = D ** -0.5 if scale is None else scale
-    keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        keep = keep.tril()
     out = torch.empty_like(q)
     for b in range(B):      # one batch row at a time bounds the scores
-        qb = q[b].float().reshape(S, KVH, H // KVH, D)
+        qb = q[b].float().reshape(Sq, KVH, H // KVH, D)
         s = torch.einsum("qhgd,khd->hgqk", qb, k[b].float()) * scale
         s = s.masked_fill(~keep, ref.NEG_INF)
         p = torch.exp(s - s.amax(-1, keepdim=True))
         o = torch.einsum("hgqk,khd->qhgd", p.to(v.dtype).float(), v[b].float())
-        out[b] = (o / p.sum(-1).permute(2, 0, 1)[..., None]).reshape(S, H, D)
+        out[b] = (o / p.sum(-1).permute(2, 0, 1)[..., None]).reshape(Sq, H, D)
     return out
 
 
 def dropped_tile_attention(q, k, v, **kw):
-    return plain_attention(q, k, v, **{**kw, "kv_len": k.shape[1] - KV_TILE})
+    """The plain attention with the last K/V tile dropped: KV_TILE keys, or
+    the later half of the keys of a call shorter than two such tiles."""
+    drop = min(KV_TILE, k.shape[1] // 2)
+    return plain_attention(q, k, v, **{**kw, "kv_len": k.shape[1] - drop})
+
+
+def recording_attention(calls):
+    """The plain attention, keeping every call (q, k, v, options, output)
+    in ``calls``."""
+    def attention(q, k, v, **kw):
+        out = plain_attention(q, k, v, **kw)
+        calls.append((q, k, v, kw, out))
+        return out
+    return attention
+
+
+def call_shape(q, k, kw) -> str:
+    B, Sq, H, D = q.shape
+    mask = "causal" if kw.get("causal", True) else "non-causal"
+    return f"B={B} Sq={Sq} Sk={k.shape[1]} H={H} KVH={k.shape[2]} D={D} {mask}"
+
+
+def call_check(calls):
+    """Every recorded attention call (q, k, v, options, the plain output) of
+    a model run, replayed on its own inputs: the kernel, the two
+    rounding-only variants of phase 4's floor (the naive oracle, P rounded
+    to bf16) and the last-K/V-tile fault, each against the plain output.
+    The calls are held by shape: per shape the limits are FLOOR_MULT x the
+    largest rounding-only difference, max-abs and worst row (relative
+    2-norm over D), over its calls. The fault must exceed both limits at
+    every shape with two keys or more; over one key the output is that
+    key's value, the floor is 0 and the kernel is held to it exactly.
+    Returns (line, the kernel within the limits at every shape, the fault
+    beyond them at every shape it applies to)."""
+    import torch
+    from repro_torch.kernels import ops
+    shapes = {}
+    with torch.inference_mode():
+        for q, k, v, kw, want in calls:
+            outs = {"kernel": [ops.flash_attention(q, k, v, **kw)],
+                    "floor": [naive_attention(q, k, v, **kw),
+                              p_bf16_attention(q, k, v, **kw)]}
+            if k.shape[1] >= 2:
+                outs["fault"] = [dropped_tile_attention(q, k, v, **kw)]
+            worst = shapes.setdefault(call_shape(q, k, kw), {"calls": 0})
+            worst["calls"] += 1
+            for name, got in outs.items():
+                for g in got:
+                    err = (g.float() - want.float()).abs().max().item()
+                    row = rel_errors(g, want)[0]
+                    a, r = worst.get(name, (0.0, 0.0))
+                    worst[name] = (max(a, err), max(r, row))
+    line, ok, power = {}, True, True
+    for shape, worst in shapes.items():
+        tol = [FLOOR_MULT * f for f in worst["floor"]]
+        shape_ok = all(a <= t for a, t in zip(worst["kernel"], tol))
+        shape_power = all(a > t for a, t in zip(worst["fault"], tol)) \
+            if "fault" in worst else None
+        ok = ok and shape_ok
+        power = power and shape_power is not False
+        line[shape] = {
+            "calls": worst["calls"],
+            **{f"{name}_max_abs": worst[name][0]
+               for name in ("kernel", "floor", "fault") if name in worst},
+            **{f"{name}_row_rel": worst[name][1]
+               for name in ("kernel", "floor", "fault") if name in worst},
+            "tol_max_abs": tol[0], "tol_row_rel": tol[1],
+            "ok": shape_ok, "fault_exceeds": shape_power}
+    return {"floor_mult": FLOOR_MULT, "calls": len(calls), "shapes": line}, \
+        ok, power
 
 
 def plain_ssd(x, dt, a_log, b, c, d_skip, *, chunk=128):
@@ -930,10 +1259,11 @@ class RoutingReplay:
                    for a, b in zip(self.ids, other.ids))
 
 
-def phase_agree(model, params, prompts, *, decode_steps=0):
+def phase_agree(model, params, prompts, extras, *, decode_steps=0):
     """Full-width prefill logits, at every prompt position, through the
     kernels vs their plain versions; with ``decode_steps``, also the decode
-    logits of that many steps from each prefill's cache.
+    logits of that many steps from each prefill's cache; for the
+    encoder-decoder, also the encoder's final states at every frame.
 
     Each layer rounds activations to bf16, and random weights pass any
     rounding difference on from layer to layer, so no fixed tolerance fits.
@@ -947,11 +1277,25 @@ def phase_agree(model, params, prompts, *, decode_steps=0):
     tile of attention; with SSM layers instead one 64-step tile of the SSD's
     last chunk; with MoE layers instead the last 32-deep step of every expert
     product) must exceed the max-abs limit, or the check could not see such
-    a fault. The whole-tensor norm bounds faults that move every position; a
-    fault in 64 of 2048 positions stays below the network's own noise in it.
-    Decode steps are held to limits from the same floor runs, and a decode
-    from a cache whose SSM states were dropped after the prefill (no
-    handoff) must exceed the decode max-abs limit.
+    a fault. The whole-tensor norm bounds faults that move every
+    position; a fault in 64 of 2048 positions stays below the network's own
+    noise in it. Decode steps are held to limits from the same floor runs,
+    and a decode from a cache whose prefill state (SSM states,
+    cross-attention K/V) was dropped after the prefill (no handoff) must
+    exceed the decode max-abs limit.
+
+    The encoder-decoder is held in two stages. The encoder's final states
+    (every frame) are held to their own floor. The decoder (logits, decode
+    steps) is held with every run attending to the plain run's encoder
+    states, so that the encoder's rounding noise does not enter the
+    decoder's floor. At random weights neither stage can see a one-tile
+    fault: attention over 1 500 near-uniformly weighted frames changes
+    little when 64 are dropped, and 24 bf16 layers carry any difference, a
+    rounding one too, to about the same size. So the check that must catch
+    a fault in the kernel there is ``call_check``: every attention call of
+    the plain run (the encoder's self-attention, the decoder's, and the
+    cross-attention of the prefill and the decode steps), replayed on its
+    own inputs and held per shape.
 
     With MoE layers the routers' top-k choices of the plain run are replayed
     in every other run (``RoutingReplay``): a rounding difference that flips
@@ -963,37 +1307,50 @@ def phase_agree(model, params, prompts, *, decode_steps=0):
     """
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.models import transformer
 
     cfg = model.cfg
     has_ssm = expected_launches(cfg)["ssd_scan"] > 0
     has_moe = expected_launches(cfg)["gmm"] > 0
+    encdec = cfg.family == "encdec"
     counters = launch_counters()
     B, S = prompts.shape
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     dec_tokens = torch.randint(0, cfg.vocab_size, (B, decode_steps),
                                generator=gen, device="cuda")
+    enc_states = {}
+    encode_fn = transformer.encode
 
     def run(attention=None, ssd=None, gmm=None, drop_handoff=False,
-            routing=None):
+            routing=None, states=None):
         """fp32 logits of one prefill (B, S, vocab) and of the decode steps
         after it (B, decode_steps, vocab), through the session's path; with
-        ``routing``, the MoE layers route through it."""
-        cache = model.init_cache(B, S + decode_steps, device="cuda")
+        ``routing``, the MoE layers route through it. The encoder's states
+        of the prefill are left in ``enc_states["last"]``; with ``states``,
+        the decoder attends to those instead."""
+        def encode(*args, **kw):
+            enc_states["last"] = out = encode_fn(*args, **kw)
+            return out if states is None else states
+
+        cache = model.init_cache(B, S + decode_steps,
+                                 enc_len=ENC_LEN if encdec else 0,
+                                 device="cuda")
         with torch.inference_mode(), \
                 mock.patch.object(ops, "flash_attention",
                                   attention or ops.flash_attention), \
                 mock.patch.object(ops, "ssd_scan", ssd or ops.ssd_scan), \
                 mock.patch.object(ops, "gmm", gmm or ops.gmm), \
+                mock.patch.object(transformer, "encode", encode), \
                 (routing.patch() if routing else contextlib.nullcontext()):
-            logits = model.apply(params, {"tokens": prompts}, mode="prefill",
-                                 cache=cache, cache_index=0)[0]
-            if drop_handoff:
+            logits = model.apply(params, {"tokens": prompts, **extras},
+                                 mode="prefill", cache=cache, cache_index=0)[0]
+            if drop_handoff:      # what the prefill hands to decode, zeroed
                 for blocks in cache["groups"].values():
                     for bc in blocks.values():
-                        if "ssm" in bc:
-                            bc["ssm"].zero_()
-                            bc["conv"].zero_()
+                        for name in ("ssm", "conv", "ck", "cv"):
+                            if name in bc:
+                                bc[name].zero_()
             dec = [model.apply(params, {"tokens": dec_tokens[:, i:i + 1]},
                                mode="decode", cache=cache,
                                cache_index=S + i)[0][:, -1]
@@ -1003,13 +1360,17 @@ def phase_agree(model, params, prompts, *, decode_steps=0):
     def diffs(got, want):
         if got is None:
             return 0.0, 0.0
-        d = got - want
-        return d.abs().max().item(), (d.norm() / want.norm()).item()
+        d = got.float() - want.float()
+        return d.abs().max().item(), (d.norm() / want.float().norm()).item()
 
     replay = RoutingReplay() if has_moe else None
-    with_plain, dec_plain = run(plain_attention, plain_ssd, plain_gmm,
-                                routing=replay)    # records the routing
-    with_kernel, dec_kernel = run(routing=replay)
+    calls = []      # the encoder-decoder's attention calls, for call_check
+    with_plain, dec_plain = run(
+        recording_attention(calls) if encdec else plain_attention, plain_ssd,
+        plain_gmm, routing=replay)    # records the routing
+    enc_plain = enc_states.pop("last", None)
+    with_kernel, dec_kernel = run(routing=replay, states=enc_plain)
+    enc_kernel = enc_states.pop("last", None)
     line = {"phase": "agree", "arch": cfg.name, "positions": B * S}
     if has_moe:
         free = RoutingReplay()
@@ -1028,16 +1389,22 @@ def phase_agree(model, params, prompts, *, decode_steps=0):
                                           plain_gmm)
     if has_moe:
         floors["floor_gmm_split_d"] = (plain_attention, plain_ssd, split_d_gmm)
-    floor = [0.0, 0.0, 0.0, 0.0]        # prefill abs, rel; decode abs, rel
+    # prefill abs, rel; decode abs, rel; encoder states abs, rel
+    floor = [0.0] * 6
     for name, (attention, ssd, gmm) in floors.items():
-        got, dec = run(attention, ssd, gmm, routing=replay)
+        got, dec = run(attention, ssd, gmm, routing=replay, states=enc_plain)
         p_abs, p_rel = diffs(got, with_plain)
         d_abs, d_rel = diffs(dec, dec_plain)
-        floor = [max(a, b) for a, b in zip(floor, (p_abs, p_rel, d_abs, d_rel))]
+        e_abs, e_rel = diffs(enc_states.pop("last", None), enc_plain)
+        floor = [max(a, b) for a, b in zip(
+            floor, (p_abs, p_rel, d_abs, d_rel, e_abs, e_rel))]
         line[name] = {"max_abs": p_abs, "norm_rel": p_rel}
         if decode_steps:
             line[name].update(decode_max_abs=d_abs, decode_norm_rel=d_rel)
+        if encdec:
+            line[name].update(encoder_max_abs=e_abs, encoder_norm_rel=e_rel)
         del got, dec
+    fault = got = None      # the encoder-decoder's: in call_check
     if has_ssm:
         fault = "fault_ssd_tile_dropped"
         got, _ = run(plain_attention, dropped_tile_ssd, plain_gmm)
@@ -1045,18 +1412,23 @@ def phase_agree(model, params, prompts, *, decode_steps=0):
         fault = "fault_gmm_d_step_dropped"
         got, _ = run(plain_attention, plain_ssd, dropped_step_gmm,
                      routing=replay)
-    else:
+    elif not encdec:
         fault = "fault_last_tile_dropped"
         got, _ = run(dropped_tile_attention, plain_ssd, plain_gmm)
     fault_abs, fault_rel = diffs(got, with_plain)
     del got
     handoff_abs = handoff_rel = 0.0
     if decode_steps:
-        _, dec = run(plain_attention, plain_ssd, plain_gmm, drop_handoff=True)
+        _, dec = run(plain_attention, plain_ssd, plain_gmm, drop_handoff=True,
+                     states=enc_plain)
         handoff_abs, handoff_rel = diffs(dec, dec_plain)
         del dec
     if any(fn.launches != before[name] for name, fn in counters.items()):
         raise AssertionError("a plain run launched a kernel")
+    calls_ok = calls_power = True
+    if encdec:
+        line["calls"], calls_ok, calls_power = call_check(calls)
+    del calls
 
     diff_abs, diff_rel = diffs(with_kernel, with_plain)
     tol_abs, tol_rel = FLOOR_MULT * floor[0], FLOOR_MULT * floor[1]
@@ -1066,14 +1438,28 @@ def phase_agree(model, params, prompts, *, decode_steps=0):
     n_decided, n_same = int(decided.sum()), int(same[decided].sum())
     ok = bool(torch.isfinite(with_kernel).all()) and diff_abs <= tol_abs \
         and diff_rel <= tol_rel and n_same == n_decided
-    power = fault_abs > tol_abs
+    # the encoder-decoder's logits cannot see a one-tile fault (see above):
+    # there the replayed attention calls must
+    power = calls_power if encdec else fault_abs > tol_abs
+    ok = ok and calls_ok
+    if fault:
+        line[fault] = {"max_abs": fault_abs, "norm_rel": fault_rel,
+                       "exceeds_limit": fault_abs > tol_abs}
     line.update({
         "max_abs_logit_diff": diff_abs, "norm_rel_logit_diff": diff_rel,
         "floor_mult": FLOOR_MULT, "tol_abs": tol_abs, "tol_rel": tol_rel,
-        fault: {"max_abs": fault_abs, "norm_rel": fault_rel},
         "logit_absmax": with_plain.abs().max().item(),
         "argmax_decided": n_decided, "argmax_equal_where_decided": n_same,
         "argmax_equal_all": int(same.sum())})
+    if encdec:
+        etol_abs, etol_rel = FLOOR_MULT * floor[4], FLOOR_MULT * floor[5]
+        enc_abs, enc_rel = diffs(enc_kernel, enc_plain)
+        ok = ok and bool(torch.isfinite(enc_kernel).all()) \
+            and enc_abs <= etol_abs and enc_rel <= etol_rel
+        line.update({
+            "encoder_positions": enc_plain.shape[0] * enc_plain.shape[1],
+            "encoder_max_abs_diff": enc_abs, "encoder_norm_rel_diff": enc_rel,
+            "encoder_tol_abs": etol_abs, "encoder_tol_rel": etol_rel})
     if decode_steps:
         dtol_abs, dtol_rel = FLOOR_MULT * floor[2], FLOOR_MULT * floor[3]
         dec_abs, dec_rel = diffs(dec_kernel, dec_plain)
@@ -1105,7 +1491,7 @@ def _self_device_us(event) -> float:
     return 0.0
 
 
-def phase_trace(model, params, prompts):
+def phase_trace(model, params, prompts, extras):
     # one full-width prefill and TRACE_DECODE_STEPS decode steps of one arch
     """Where the time goes: torch.profiler over one full-width prefill and
     TRACE_DECODE_STEPS decode steps after it, off the main path's count.
@@ -1123,11 +1509,13 @@ def phase_trace(model, params, prompts):
     prefill = build_prefill_step(model, ServeOptions())
     decode = build_decode_step(model, ServeOptions())
     B, S = prompts.shape
-    cache = model.init_cache(B, S + TRACE_DECODE_STEPS + 1, device="cuda")
+    cache = model.init_cache(B, S + TRACE_DECODE_STEPS + 1,
+                             enc_len=ENC_LEN if extras else 0, device="cuda")
     state = {}
 
     def run_prefill():
-        state["tok"] = prefill(params, {"tokens": prompts}, cache)[0].argmax(-1)[:, None]
+        state["tok"] = prefill(params, {"tokens": prompts, **extras},
+                               cache)[0].argmax(-1)[:, None]
 
     def run_decode():
         tok = state["tok"]
@@ -1174,15 +1562,20 @@ def main() -> int:
     flash_err, flash_t = phase_kernel()
     ssd_err, ssd_t = phase_ssd()
     gmm_err, gmm_t = phase_gmm()
+    phase_no_backward()
     launches = {}
     for arch, decode_steps in SERVE_PATHS:
-        model, params, prompts, launches[arch] = phase_serve(arch)
+        model, params, prompts, extras, launches[arch] = phase_serve(arch)
         if decode_steps is not None:
-            phase_agree(model, params, prompts, decode_steps=decode_steps)
-            phase_trace(model, params, prompts)
-        del model, params, prompts
+            phase_agree(model, params, prompts, extras,
+                        decode_steps=decode_steps)
+            phase_trace(model, params, prompts, extras)
+        del model, params, prompts, extras
         gc.collect()
         torch.cuda.empty_cache()
+    launches["video_executor"] = phase_executor()
+    gc.collect()
+    torch.cuda.empty_cache()
 
     def entry(name, source, replaces, err, timing, shape, variant, **more):
         by_path = {arch: n[name] for arch, n in launches.items()}
@@ -1203,7 +1596,14 @@ def main() -> int:
               "TMA + wgmma: 128-row q tiles over 96-row K/V tiles, a producer "
               "warpgroup and two consumer warpgroups",
               at_d112={**flash_t[ZAMBA_SHAPE[0]],
-                       "shape": "B=4 S=2048 H=KVH=32 D=112 causal bf16"}),
+                       "shape": "B=4 S=2048 H=KVH=32 D=112 causal bf16"},
+              at_seamless_encoder={
+                  **flash_t[SEAMLESS_ENCODER[0]],
+                  "shape": f"B=4 S={ENC_LEN} H=KVH=16 D=64 non-causal bf16"},
+              at_seamless_cross={
+                  **flash_t[SEAMLESS_CROSS[0]],
+                  "shape": f"B=4 Sq=1 Sk={ENC_LEN} H=KVH=16 D=64 non-causal "
+                           "bf16 (prefill and every decode step)"}),
         entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
               "src/repro/kernels/ssd_scan.py:70", ssd_err,
               ssd_t["zamba2-7b"],

@@ -5,7 +5,8 @@ others join as their slices land (ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
-from . import deepseek_7b, deepseek_moe_16b, kimi_k2_1t, mamba2_370m, zamba2_7b
+from . import (deepseek_7b, deepseek_moe_16b, kimi_k2_1t, mamba2_370m,
+               seamless_m4t_large_v2, zamba2_7b)
 from .base import ModelConfig
 
 _MODULES = {
@@ -13,6 +14,7 @@ _MODULES = {
     "deepseek-moe-16b": deepseek_moe_16b,
     "kimi-k2-1t-a32b": kimi_k2_1t,
     "mamba2-370m": mamba2_370m,
+    "seamless-m4t-large-v2": seamless_m4t_large_v2,
     "zamba2-7b": zamba2_7b,
 }
 

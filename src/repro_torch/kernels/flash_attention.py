@@ -24,6 +24,7 @@ import functools
 import torch
 
 from . import _build, ref
+from ._autograd import refuse_grad
 
 BLOCK_Q = 128          # q rows per block: two consumer warpgroups of 64
 BLOCK_K = 96           # kv rows per tile
@@ -104,7 +105,8 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, softcap=0.0,
     """q: (B, Sq, H, D); k, v: (B, Sk, KVH, D) -> (B, Sq, H, D).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel on the
-    current stream; ``flash_attention_cuda.launches`` counts the launches.
+    current stream; ``flash_attention_cuda.launches`` counts the launches. On
+    the card an input that requires grad, in grad mode, raises (no backward).
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -112,6 +114,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, softcap=0.0,
                                      q_offset=q_offset, kv_valid=kv_valid)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
+    refuse_grad("flash_attention", q, k, v)
     check_inputs(q, k, v)
     B, Sq, H, D = q.shape
     _, Sk, KVH, _ = k.shape

@@ -33,6 +33,7 @@ import functools
 import torch
 
 from . import _build, ref
+from ._autograd import refuse_grad
 
 BLOCK_C = 128          # mma / fma paths: rows of the capacity buffer per block
 BLOCK_F = 128          # mma / fma paths: output columns per block
@@ -129,12 +130,14 @@ def gmm_cuda(x, w):
 
     CPU tensors take the plain version. CUDA tensors launch the kernel that
     ``gmm_variant`` names on the current stream; ``gmm_cuda.launches`` counts
-    the launches and ``gmm_cuda.variant_launches`` them by variant.
+    the launches and ``gmm_cuda.variant_launches`` them by variant. On the
+    card an input that requires grad, in grad mode, raises (no backward).
     """
     if x.device.type == "cpu":
         return gmm_plain(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"no grouped-GEMM kernel for device {x.device}")
+    refuse_grad("gmm", x, w)
     check_inputs(x, w)
     E, C, d = x.shape
     f = w.shape[2]

@@ -41,6 +41,7 @@ import functools
 import torch
 
 from . import _build, ref
+from ._autograd import refuse_grad
 
 MAX_CHUNK = 256       # the kernels' scans: one step a thread (fma, 256 threads), two (wgmma, 128)
 MAX_STATE = 128       # widest N the kernels keep per thread
@@ -295,11 +296,14 @@ def ssd_scan_cuda(x, dt, a_log, b, c, d_skip, *, chunk=128):
     ``ssd_variant`` names on the current stream; ``ssd_scan_cuda.launches``
     counts the wrapper's launches (one per call, whatever the variant
     launches inside) and ``ssd_scan_cuda.variant_launches`` them by variant.
+    On the card an input that requires grad, in grad mode, raises (no
+    backward).
     """
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a_log, b, c, d_skip, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"no SSD kernel for device {x.device}")
+    refuse_grad("ssd_scan", x, dt, a_log, b, c, d_skip)
     chunk = min(chunk, x.shape[1])
     variant = ssd_variant(x, b, chunk)
     out = _launch(variant, x, dt, a_log, b, c, d_skip, chunk)

@@ -10,8 +10,10 @@ and the median batch latency.
         --requests 8 --batch 4 --prompt-len 2048 --max-new 64
 
 ``--arch`` takes deepseek-7b, deepseek-moe-16b, kimi-k2-1t-a32b (reduced
-only: at full width no card holds it), mamba2-370m and zamba2-7b. As in the
-reference, ``generate`` is greedy whatever ``--temperature`` says.
+only: at full width no card holds it), mamba2-370m, seamless-m4t-large-v2
+and zamba2-7b. The encoder-decoder gets the reference's stub frontend: zero
+frames of the prompt's length (``Model.extra_inputs``). As in the reference,
+``generate`` is greedy whatever ``--temperature`` says.
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ def main(argv=None) -> dict:
     rng = np.random.default_rng(args.seed)
     queue = [rng.integers(0, cfg.vocab_size, (args.prompt_len,), dtype=np.int64)
              for _ in range(args.requests)]
+    extras = model.extra_inputs(args.batch, args.prompt_len, device=device)
 
     def sync():
         if device.type == "cuda":
@@ -69,7 +72,7 @@ def main(argv=None) -> dict:
             chunk.append(chunk[-1])
         prompts = torch.from_numpy(np.stack(chunk)).to(device)
         ts = time.perf_counter()
-        sess.generate(prompts, max_new_tokens=args.max_new)
+        sess.generate(prompts, max_new_tokens=args.max_new, extras=extras)
         sync()
         lat.append(time.perf_counter() - ts)
         done += args.batch

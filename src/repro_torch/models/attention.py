@@ -56,17 +56,26 @@ def apply_attention(p, x, *, cfg, window: int = 0, positions=None,
     - train: no cache IO, flash attention over x.
     - prefill: flash attention over x; k/v written into ``cache`` at 0.
     - decode: k/v written at ``cache_index``; attention over the cache.
+    - cross-attention: ``cross_kv`` = (k, v) precomputed from the encoder's
+      states; no RoPE, ``causal`` is ignored (every key is visible).
 
     The cache is written in place (the reference returns an updated copy):
     ``cache`` holds views of one layer of the stacked cache, so the returned
     slice is ``cache`` itself.
     """
-    if cross_kv is not None:
-        raise NotImplementedError(
-            "cross attention is ported with the encoder-decoder and VLM "
-            "families (ROADMAP.md A5, A7)")
     B, S, _ = x.shape
     scale = cfg.attn_scale or cfg.head_dim_ ** -0.5
+
+    if cross_kv is not None:
+        q = _heads(x, p["wq"])
+        if cfg.use_bias:
+            q = q + p["bq"]
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"])
+        k, v = cross_kv
+        o = ops.flash_attention(q, k, v, causal=False, scale=scale,
+                                logit_softcap=cfg.attn_logit_softcap)
+        return _out(p, o, cfg), None
 
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
@@ -92,7 +101,29 @@ def apply_attention(p, x, *, cfg, window: int = 0, positions=None,
             cache["v"][:, :S] = v.to(cache["v"].dtype)
             new_cache = cache
 
+    return _out(p, o, cfg), new_cache
+
+
+def _out(p, o, cfg):
+    """(B, S, H, hd) @ (H, hd, d) -> (B, S, d), plus ``bo``."""
+    B, S = o.shape[:2]
     out = o.reshape(B, S, -1) @ p["wo"].reshape(-1, p["wo"].shape[-1])
     if cfg.use_bias:
         out = out + p["bo"]
-    return out, new_cache
+    return out
+
+
+def cross_kv_specs(cfg, d_src: int) -> dict:
+    """K/V projections from a source modality (the encoder's states)."""
+    hd = cfg.head_dim_
+    return {
+        "wk": ParamSpec((d_src, cfg.n_kv_heads, hd),
+                        ("src_embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d_src, cfg.n_kv_heads, hd),
+                        ("src_embed", "kv_heads", "head_dim")),
+    }
+
+
+def compute_cross_kv(p, src):
+    """src (B, S_enc, d_src) -> k, v (B, S_enc, KVH, hd)."""
+    return _heads(src, p["wk"]), _heads(src, p["wv"])

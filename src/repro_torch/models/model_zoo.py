@@ -24,17 +24,34 @@ class Model:
     def param_count(self) -> int:
         return param_count(self.specs)
 
+    # -- inputs -------------------------------------------------------------
+    def extra_inputs(self, batch: int, seq_len: int, *, device=None) -> dict:
+        """Modality-stub inputs: zero bf16 ``frames`` (batch, seq_len,
+        d_model) for the encoder-decoder, as the reference's; nothing for
+        the decoder-only families. ``device`` defaults to ``cuda``."""
+        if self.cfg.family != "encdec":
+            return {}
+        return {"frames": torch.zeros((batch, seq_len, self.cfg.d_model),
+                                      dtype=torch.bfloat16,
+                                      device=resolve_device(device))}
+
+    def enc_len_for(self, seq_len: int) -> int:
+        """Cross-attention KV length the reference sizes a cache with: the
+        encoder's states (encdec), none otherwise."""
+        return seq_len if self.cfg.family == "encdec" else 0
+
     # -- execution ----------------------------------------------------------
     def apply(self, params, inputs, *, mode="train", cache=None,
               cache_index=None):
         return transformer.forward(params, inputs, cfg=self.cfg, mode=mode,
                                    cache=cache, cache_index=cache_index)
 
-    def init_cache(self, batch: int, max_len: int, *, device=None,
-                   kv_dtype=torch.bfloat16):
-        """Zeroed decode cache on ``device`` (default ``cuda``)."""
+    def init_cache(self, batch: int, max_len: int, *, enc_len: int = 0,
+                   device=None, kv_dtype=torch.bfloat16):
+        """Zeroed decode cache on ``device`` (default ``cuda``); ``enc_len``
+        sizes the cross-attention K/V (a prefill refits it to the frames)."""
         return transformer.init_cache(self.cfg, batch, max_len,
-                                      kv_dtype=kv_dtype,
+                                      enc_len=enc_len, kv_dtype=kv_dtype,
                                       device=resolve_device(device))
 
 

@@ -1,7 +1,7 @@
 """Decoder stack: layer plans, a loop over stacked layers, caches.
 
-Counterpart of ``repro.models.transformer`` for the dense, MoE, SSM and
-hybrid families. Every architecture is a *layer plan*, a tuple of
+Counterpart of ``repro.models.transformer`` for the dense, MoE, SSM, hybrid
+and encoder-decoder families. Every architecture is a *layer plan*, a tuple of
 ``GroupDesc`` entries; each group's parameters are stacked per layer (leading
 ``layers`` axis, the reference's layout), and the group runs as a Python loop
 that indexes layer ``i`` of the stacked tensors in place of
@@ -11,8 +11,11 @@ Modes: ``train`` (no cache), ``prefill`` (flash attention or the SSD scan +
 cache write at 0), ``decode`` (single-token step over the KV cache and SSM
 state). MoE blocks (the local path of ``models/moe.py``) return the router's
 load-balance loss, which ``forward`` sums over the blocks as the reference
-does. The encoder-decoder and VLM families raise ``NotImplementedError``
-naming the ROADMAP.md item that ports them.
+does. The encoder-decoder family runs its encoder (``encoder_plan``) on
+``inputs["frames"]`` outside decode; its ``cross_attn`` blocks attend to the
+encoder's final states, through a ``ck``/``cv`` cache in decode. The VLM
+family raises ``NotImplementedError`` naming the ROADMAP.md item that ports
+it.
 """
 from __future__ import annotations
 
@@ -20,18 +23,15 @@ from dataclasses import dataclass
 
 import torch
 
-from .attention import apply_attention, attention_specs
+from .attention import (apply_attention, attention_specs, compute_cross_kv,
+                        cross_kv_specs)
 from .common import (ParamSpec, apply_norm, dtype_of, norm_spec, softcap,
                      stack_specs)
 from .ffn import apply_ffn, ffn_specs
 from .moe import apply_moe, moe_specs
 from .ssm import apply_ssm, apply_ssm_decode, init_ssm_state, ssm_specs
 
-_NOT_PORTED = {
-    "encdec": "the encoder-decoder family (ROADMAP.md A5)",
-    "cross_attn": "the encoder-decoder and VLM families (ROADMAP.md A5, A7)",
-    "vlm": "the VLM family (ROADMAP.md A7)",
-}
+_NOT_PORTED = {"vlm": "the VLM family (ROADMAP.md A7)"}
 
 
 def _not_ported(what: str):
@@ -41,7 +41,7 @@ def _not_ported(what: str):
 
 @dataclass(frozen=True)
 class BlockDesc:
-    kind: str            # attn | ffn | moe | parallel | ssm | shared_attn
+    kind: str            # attn | ffn | moe | ssm | cross_attn | parallel | shared_attn
     window: int = 0
     d_ff: int = 0        # ffn width override (0 -> cfg.d_ff)
     causal: bool = True
@@ -68,6 +68,8 @@ def layer_plan(cfg) -> tuple[GroupDesc, ...]:
         if rest:
             groups.append(GroupDesc(rest, (S,)))
         return tuple(groups)
+    if cfg.family == "encdec":
+        return (GroupDesc(cfg.n_layers, (A, BlockDesc("cross_attn"), F)),)
     if cfg.parallel_block:
         return (GroupDesc(cfg.n_layers, (BlockDesc("parallel"),)),)
     if cfg.alt_local_global:
@@ -90,6 +92,11 @@ def layer_plan(cfg) -> tuple[GroupDesc, ...]:
     return (GroupDesc(cfg.n_layers, (attn, F)),)
 
 
+def encoder_plan(cfg) -> tuple[GroupDesc, ...]:
+    return (GroupDesc(cfg.n_encoder_layers,
+                      (BlockDesc("attn", causal=False), F)),)
+
+
 # ---------------------------------------------------------------------------
 # Specs
 # ---------------------------------------------------------------------------
@@ -109,11 +116,14 @@ def _block_specs(cfg, b: BlockDesc) -> dict:
         spec["moe"] = moe_specs(cfg)
     elif b.kind == "ssm":
         spec["ssm"] = ssm_specs(cfg)
+    elif b.kind == "cross_attn":
+        if cfg.family in _NOT_PORTED:   # the VLM's cross-attention over patches
+            raise _not_ported(cfg.family)
+        spec["attn"] = attention_specs(cfg)
+        spec["cross_kv"] = cross_kv_specs(cfg, cfg.d_model)
     elif b.kind == "parallel":
         spec["attn"] = attention_specs(cfg)
         spec["ffn"] = ffn_specs(cfg)
-    elif b.kind in _NOT_PORTED:
-        raise _not_ported(b.kind)
     else:
         raise ValueError(b.kind)
     return spec
@@ -142,6 +152,14 @@ def lm_specs(cfg) -> dict:
             "ffn": ffn_specs(cfg),
             "ffn_norm": norm_spec(cfg),
         }
+    if cfg.family == "encdec":
+        spec["encoder"] = {
+            "in_proj": ParamSpec((cfg.d_model, cfg.d_model),
+                                 ("src_embed", "embed")),
+            "final_norm": norm_spec(cfg),
+            "groups": {f"g{i}": _group_specs(cfg, gd)
+                       for i, gd in enumerate(encoder_plan(cfg))},
+        }
     return spec
 
 
@@ -150,24 +168,29 @@ def lm_specs(cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg, batch: int, max_len: int, *, device,
+def _kv_pair(names, repeat, batch, length, cfg, *, device, kv_dtype) -> dict:
+    shape = (repeat, batch, length, cfg.n_kv_heads, cfg.head_dim_)
+    return {n: torch.zeros(shape, dtype=kv_dtype, device=device) for n in names}
+
+
+def init_cache(cfg, batch: int, max_len: int, *, device, enc_len: int = 0,
                kv_dtype=torch.bfloat16) -> dict:
     """Decode cache mirroring the layer plan: per attention block (a shared
     one too: each repeat has its own), k/v of (repeat, batch, max_len,
-    kv_heads, head_dim); per SSM block, the fp32 conv buffer and state of
-    ``init_ssm_state``. Cross-attention caches (``enc_len``) come with the
-    encoder-decoder and VLM families."""
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+    kv_heads, head_dim); per cross-attention block, ck/cv of (repeat, batch,
+    enc_len, kv_heads, head_dim); per SSM block, the fp32 conv buffer and
+    state of ``init_ssm_state``."""
+    kw = dict(device=device, kv_dtype=kv_dtype)
     groups = {}
     for i, gd in enumerate(layer_plan(cfg)):
         blocks = {}
         for j, b in enumerate(gd.blocks):
             if b.kind in ("attn", "parallel", "shared_attn"):
-                blocks[f"b{j}"] = {
-                    "k": torch.zeros((gd.repeat, *shape), dtype=kv_dtype,
-                                     device=device),
-                    "v": torch.zeros((gd.repeat, *shape), dtype=kv_dtype,
-                                     device=device)}
+                blocks[f"b{j}"] = _kv_pair(("k", "v"), gd.repeat, batch,
+                                           max_len, cfg, **kw)
+            elif b.kind == "cross_attn":
+                blocks[f"b{j}"] = _kv_pair(("ck", "cv"), gd.repeat, batch,
+                                           enc_len, cfg, **kw)
             elif b.kind == "ssm":
                 blocks[f"b{j}"] = init_ssm_state(cfg, batch, gd.repeat,
                                                  device=device)
@@ -188,7 +211,7 @@ def _layer(tree, i: int):
 
 
 def _apply_block(bp, x, b: BlockDesc, *, cfg, mode, cache, cache_index,
-                 shared_params, positions):
+                 cross_states, shared_params, positions):
     """One residual block. Returns (x, new_cache|None, aux).
 
     Caches are written in place (attention and SSM alike). ``aux`` is the
@@ -230,15 +253,31 @@ def _apply_block(bp, x, b: BlockDesc, *, cfg, mode, cache, cache_index,
         else:
             out, new_cache = apply_ssm(bp["ssm"], h, cfg=cfg, state=cache)
         x = x + maybe_post(out, bp)
-    elif b.kind in _NOT_PORTED:
-        raise _not_ported(b.kind)
+    elif b.kind == "cross_attn":
+        h = apply_norm(bp["norm"], x, cfg)
+        if mode == "decode":      # the encoder's K/V, cached by the prefill
+            kv = (cache["ck"], cache["cv"])
+            new_cache = cache
+        else:
+            kv = compute_cross_kv(bp["cross_kv"], cross_states)
+            if cache is not None:
+                if cache["ck"].shape[1] != kv[0].shape[1]:
+                    raise ValueError(
+                        f"cross cache made for {cache['ck'].shape[1]} encoder "
+                        f"positions, the frames have {kv[0].shape[1]}")
+                cache["ck"].copy_(kv[0])
+                cache["cv"].copy_(kv[1])
+                new_cache = cache
+        out, _ = apply_attention(bp["attn"], h, cfg=cfg, cross_kv=kv,
+                                 positions=positions, mode=mode)
+        x = x + maybe_post(out, bp)
     else:
         raise ValueError(b.kind)
     return x, new_cache, aux
 
 
 def _apply_group(gp, x, gd: GroupDesc, *, cfg, mode, cache, cache_index,
-                 shared_params, positions):
+                 cross_states, shared_params, positions):
     """Run the group's ``repeat`` stacked layers in order. Returns (x, aux,
     cache): aux is the blocks' auxiliary losses summed in layer order from an
     fp32 zero, as the reference's scan carries it.
@@ -256,8 +295,8 @@ def _apply_group(gp, x, gd: GroupDesc, *, cfg, mode, cache, cache_index,
             bc = None if bc_all is None else bc_all.get(key)
             x, _, aux_j = _apply_block(
                 bp_all.get(key), x, b, cfg=cfg, mode=mode, cache=bc,
-                cache_index=cache_index, shared_params=shared_params,
-                positions=positions)
+                cache_index=cache_index, cross_states=cross_states,
+                shared_params=shared_params, positions=positions)
             if aux_j is not None:
                 aux = aux + aux_j
     return x, aux, cache
@@ -267,8 +306,13 @@ def forward(params, inputs, *, cfg, mode="train", cache=None,
             cache_index=None):
     """Run the model.
 
-    inputs: {'tokens': (B, S) int}. Returns (logits fp32, new_cache|None,
-    aux_loss fp32: the MoE blocks' load-balance losses, zero without them).
+    inputs: {'tokens': (B, S) int, and for the encoder-decoder outside
+    decode 'frames': (B, S_enc, d_model), the stub frontend's frame
+    embeddings}. Returns (logits fp32, new_cache|None, aux_loss fp32: the MoE
+    blocks' load-balance losses, zero without them).
+
+    A prefill writes the encoder's K/V into the cache's ck/cv leaves, which
+    must have been made for the frames' length (``enc_len``).
     """
     if cfg.family in _NOT_PORTED:
         raise _not_ported(cfg.family)
@@ -285,6 +329,10 @@ def forward(params, inputs, *, cfg, mode="train", cache=None,
     else:
         positions = int(cache_index) + torch.arange(Sq, device=dev)[None, :]
 
+    cross_states = None
+    if cfg.family == "encdec" and mode != "decode":
+        cross_states = encode(params, inputs["frames"], cfg=cfg)
+
     shared_params = params.get("shared")
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     new_groups = {}
@@ -292,7 +340,7 @@ def forward(params, inputs, *, cfg, mode="train", cache=None,
         gcache = None if cache is None else cache["groups"].get(f"g{i}")
         x, aux_g, ncache = _apply_group(
             params["groups"][f"g{i}"], x, gd, cfg=cfg, mode=mode,
-            cache=gcache, cache_index=cache_index,
+            cache=gcache, cache_index=cache_index, cross_states=cross_states,
             shared_params=shared_params, positions=positions)
         aux = aux + aux_g
         if ncache is not None:
@@ -306,3 +354,21 @@ def forward(params, inputs, *, cfg, mode="train", cache=None,
     logits = softcap(logits.float(), cfg.final_logit_softcap)
     new_cache = {"groups": new_groups} if cache is not None else None
     return logits, new_cache, aux
+
+
+def encode(params, frames, *, cfg):
+    """The encoder over the frame embeddings (B, S_enc, d_model):
+    ``in_proj``, the non-causal stack of ``encoder_plan``, ``final_norm``.
+    Returns the states that the decoder's cross-attention blocks attend to,
+    in the activation dtype."""
+    enc = params["encoder"]
+    dt = dtype_of(cfg.activ_dtype)
+    h = frames.to(dt) @ enc["in_proj"].to(dt)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    for i, gd in enumerate(encoder_plan(cfg)):
+        h, _, _ = _apply_group(enc["groups"][f"g{i}"], h, gd, cfg=cfg,
+                               mode="train", cache=None, cache_index=None,
+                               cross_states=None, shared_params=None,
+                               positions=positions)
+    return apply_norm(enc["final_norm"], h, cfg)
+

@@ -79,18 +79,22 @@ class ServeSession:
         self._decode = build_decode_step(model, opts)
 
     @torch.inference_mode()
-    def generate(self, prompts, max_new_tokens: int = 32):
+    def generate(self, prompts, max_new_tokens: int = 32, extras=None):
         """prompts: (B, S) int tensor -> (B, max_new_tokens) int64.
 
-        Modality inputs (the reference's ``extras``) come with the
-        encoder-decoder and VLM families."""
+        ``extras``: modality inputs for the prefill, e.g. ``{"frames": (B,
+        S_enc, d_model)}`` for the encoder-decoder, whose cross-attention
+        cache is sized by the frames (the reference sizes it by the prompt,
+        ``enc_len_for(S)``, and its prefill replaces the leaves)."""
         prompts = torch.as_tensor(prompts, device=self.device)
         B, S = prompts.shape
-        cache = self.model.init_cache(B, S + max_new_tokens,
+        extras = extras or {}
+        enc_len = extras["frames"].shape[1] if "frames" in extras else 0
+        cache = self.model.init_cache(B, S + max_new_tokens, enc_len=enc_len,
                                       device=self.device,
                                       kv_dtype=dtype_of(self.opts.kv_dtype))
-        last_logits, cache = self._prefill(self.params, {"tokens": prompts},
-                                           cache)
+        inputs = {"tokens": prompts, **extras}
+        last_logits, cache = self._prefill(self.params, inputs, cache)
         tok = torch.argmax(last_logits, dim=-1)[:, None]
         out = [tok]
         for idx in range(S, S + max_new_tokens - 1):

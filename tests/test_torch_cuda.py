@@ -47,12 +47,14 @@ def test_flash_attention_kernel_vs_plain(cuda, D, kw):
 
 
 # (B, Sq, Sk, H, KVH, options): one query row (decode through the prefill
-# kernel), ragged self- and cross-attention that TMA zero-fills past the
-# edges, a window with a softcap over three 128-row tiles, and a short q
-# block at the end of a long cache
+# kernel; non-causal, the encoder-decoder's cross-attention decode step over
+# a ragged encoder length), ragged self- and cross-attention that TMA
+# zero-fills past the edges, a window with a softcap over three 128-row
+# tiles, and a short q block at the end of a long cache
 FLASH_EDGES = [
     (1, 1, 256, 4, 2, {"q_offset": 99, "kv_valid": 100}),
     (1, 1, 300, 2, 1, {"q_offset": 299}),
+    (2, 1, 250, 4, 4, {"causal": False}),
     (1, 100, 100, 4, 2, {}),
     (1, 70, 130, 4, 2, {"causal": False}),
     (2, 300, 300, 4, 2, {"window": 48, "softcap": 30.0}),
@@ -73,6 +75,42 @@ def test_flash_attention_kernel_edges_vs_plain(cuda, D, B, Sq, Sk, H, KVH, kw):
     assert got.shape == (B, Sq, H, D)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), atol=2e-2, rtol=2e-2)
+
+
+def _requires_grad_inputs(kernel, device):
+    """Inputs of one small call of ``kernel``, each requiring grad."""
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, device=device).to(dtype).requires_grad_()
+
+    f32 = torch.float32
+    if kernel == "flash_attention":
+        return fa.flash_attention_cuda, (t(1, 128, 2, 64), t(1, 128, 2, 64),
+                                         t(1, 128, 2, 64)), {}
+    if kernel == "gmm":
+        return mg.gmm_cuda, (t(2, 64, 64), t(2, 64, 64)), {}
+    return ss.ssd_scan_cuda, (t(1, 64, 2, 64), t(1, 64, 2, dtype=f32),
+                              t(2, dtype=f32), t(1, 64, 1, 64),
+                              t(1, 64, 1, 64), t(2, dtype=f32)), {"chunk": 64}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_attention", "gmm", "ssd_scan"])
+def test_kernel_raises_where_it_would_drop_a_gradient(cuda, kernel):
+    """The kernels have no backward: in grad mode an input that requires
+    grad raises (naming ROADMAP.md A10) and launches nothing; without grad
+    mode the same call launches the kernel, and nothing falls back to the
+    plain version."""
+    fn, args, kw = _requires_grad_inputs(kernel, cuda)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="A10"):
+        fn(*args, **kw)
+    assert fn.launches == before
+    with torch.no_grad():
+        out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert all(not t.requires_grad for t in (out if isinstance(out, tuple)
+                                             else (out,)))
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
 """Port vs reference: norms, RoPE, the gated FFN, the Mamba2 block, the MoE
-layer (routing, dispatch, experts), the dense decoder and the MoE, SSM and
-hybrid models.
+layer (routing, dispatch, experts), the dense decoder and the MoE, SSM,
+hybrid and encoder-decoder models.
 
 The JAX model's parameters cross to the port through ``repro_torch._bridge``;
 inputs are seeded numpy. Each variant is checked in fp32 (tolerance 1e-4)
@@ -226,7 +226,7 @@ def test_init_fan_in_scaling():
     assert abs(params["embed"].float().std().item() - 0.02) < 0.002
 
 
-@pytest.mark.parametrize("family", ["encdec", "vlm"])
+@pytest.mark.parametrize("family", ["vlm"])
 def test_unported_families_name_their_roadmap_item(family):
     cfg = get_config("deepseek-7b", reduced=True).replace(family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A"):
@@ -234,8 +234,10 @@ def test_unported_families_name_their_roadmap_item(family):
 
 
 def test_unported_block_kind_names_its_roadmap_item():
-    cfg = get_config("deepseek-7b", reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5, A7"):
+    """The VLM's cross-attention (over image patches) is not ported; the
+    encoder-decoder's is."""
+    cfg = get_config("deepseek-7b", reduced=True).replace(family="vlm")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         transformer._block_specs(cfg, transformer.BlockDesc("cross_attn"))
 
 
@@ -663,3 +665,144 @@ def test_moe_layer_plan_matches_reference(arch, reduced):
     want = plan(jtransformer, jax_get_config(arch, reduced=reduced))
     assert plan(transformer, get_config(arch, reduced=reduced)) == want
     assert [kinds[-1][0] for _, kinds in want] == ["ffn", "moe"]
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder: seamless-m4t-large-v2
+# ---------------------------------------------------------------------------
+
+SEAMLESS = "seamless-m4t-large-v2"
+ENC_S = 23          # frames: another length than the prompt, not a block multiple
+
+
+def _frames(seed=7, shape=(B, ENC_S, 64)):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _inputs(toks, frames):
+    return ({"tokens": jnp.asarray(toks), "frames": jnp.asarray(frames)},
+            {"tokens": torch.from_numpy(toks), "frames": torch.from_numpy(frames)})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encdec_train_logits_match(dtype):
+    jm, jp, tm, tp = _ssm_pair(SEAMLESS, dtype)
+    j_in, t_in = _inputs(_tokens(), _frames())
+    want, _, _ = jm.apply(jp, j_in, mode="train")
+    got, cache, aux = tm.apply(tp, t_in, mode="train")
+    assert got.dtype == torch.float32 and cache is None and float(aux) == 0.0
+    _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("enc_len", [S - 1, ENC_S])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encdec_prefill_cache_and_decode_match(dtype, enc_len):
+    """Prefill logits, every cache leaf (the self-attention K/V and the
+    encoder's K/V in ck/cv), then the next token's decode logits. The
+    reference's cache made for ``enc_len`` cross entries (the prompt's
+    length, as its generate sizes it, or the frames') holds the frames'
+    length after its prefill, the port's is made for the frames' length."""
+    jm, jp, tm, tp = _ssm_pair(SEAMLESS, dtype)
+    toks, frames = _tokens(), _frames()
+    j_in, t_in = _inputs(toks[:, :S - 1], frames)
+    jcache = jm.init_cache(B, S + 2, enc_len=enc_len)
+    want, jcache = jserve.build_prefill_step(jm, jserve.ServeOptions())(
+        jp, j_in, jcache)
+    tcache = tm.init_cache(B, S + 2, enc_len=ENC_S, device="cpu")
+    got, tcache = serve.build_prefill_step(tm, serve.ServeOptions())(
+        tp, t_in, tcache)
+    _close(got, want, TOL[dtype])
+    want_leaves, got_leaves = dict(_flat(jcache)), dict(_flat(tcache))
+    assert set(got_leaves) == set(want_leaves)
+    for path, leaf in want_leaves.items():
+        assert tuple(got_leaves[path].shape) == leaf.shape, path
+        assert got_leaves[path].dtype == torch.bfloat16, path
+        _close(got_leaves[path], leaf, max(TOL[dtype], 2 ** -7))
+    assert got_leaves[("groups", "g0", "b1", "ck")].shape[2] == ENC_S
+    _, want, _ = jserve.build_decode_step(jm, jserve.ServeOptions())(
+        jp, jcache, jnp.asarray(toks[:, S - 1:]), jnp.asarray(S - 1, jnp.int32))
+    nxt, got, _ = serve.build_decode_step(tm, serve.ServeOptions())(
+        tp, tcache, torch.from_numpy(toks[:, S - 1:]), S - 1)
+    assert nxt.shape == (B, 1)
+    _close(got, want, TOL[dtype])
+
+
+def test_encdec_decode_equals_forward():
+    """Prefill(S-1) + decode(1) logits == full forward at the last position,
+    on the port alone: decode reads the encoder's K/V from the cache."""
+    tm = build_model(get_config(SEAMLESS, reduced=True))
+    params = tm.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_tokens(seed=2)).long()
+    frames = torch.from_numpy(_frames(seed=3))
+    full, _, _ = tm.apply(params, {"tokens": toks, "frames": frames},
+                          mode="train")
+    cache = tm.init_cache(B, S + 1, enc_len=ENC_S, device="cpu")
+    _, cache = serve.build_prefill_step(tm, serve.ServeOptions())(
+        params, {"tokens": toks[:, :S - 1], "frames": frames}, cache)
+    _, last, _ = serve.build_decode_step(tm, serve.ServeOptions())(
+        params, cache, toks[:, S - 1:], S - 1)
+    _close(last, full[:, -1], DECODE_TOL)
+
+
+@pytest.mark.parametrize("enc_len", [1, ENC_S + 1])
+def test_encdec_prefill_rejects_a_cross_cache_of_another_length(enc_len):
+    """A cross cache not made for the frames' length is refused, not
+    broadcast into (a 1-row frame set into a longer cache) or cut."""
+    tm = build_model(get_config(SEAMLESS, reduced=True))
+    params = tm.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_tokens(seed=2)).long()
+    frames = torch.from_numpy(_frames(seed=3))
+    cache = tm.init_cache(B, S, enc_len=enc_len, device="cpu")
+    with pytest.raises(ValueError, match="cross cache"):
+        serve.build_prefill_step(tm, serve.ServeOptions())(
+            params, {"tokens": toks, "frames": frames}, cache)
+
+
+def test_encdec_param_tree_matches_reference():
+    """Same paths, shapes and dtypes as the reference, the ``encoder`` and
+    the ``cross_kv`` subtrees included."""
+    jm, jp, tm, _ = _ssm_pair(SEAMLESS, "bfloat16")
+    flat = jax.tree_util.tree_flatten_with_path(jp)[0]
+    want = {tuple(k.key for k in path): (leaf.shape, str(leaf.dtype))
+            for path, leaf in flat}
+    got = {path: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+           for path, t in _leaves(tm.init(torch.Generator().manual_seed(0)))}
+    assert got == want
+    assert ("encoder", "in_proj") in got
+    assert ("groups", "g0", "b1", "cross_kv", "wk") in got
+    assert tm.param_count() == jm.param_count()
+
+
+@pytest.mark.parametrize("reduced", [True, False])
+def test_encdec_layer_plans_match_reference(reduced):
+    """Decoder (attn, cross_attn, ffn) x n_layers; encoder (non-causal attn,
+    ffn) x n_encoder_layers."""
+    def plan(fn, cfg):
+        return [(g.repeat, [(b.kind, b.window, b.d_ff, b.causal)
+                            for b in g.blocks]) for g in fn(cfg)]
+
+    jcfg, cfg = jax_get_config(SEAMLESS, reduced=reduced), \
+        get_config(SEAMLESS, reduced=reduced)
+    assert plan(transformer.layer_plan, cfg) == plan(jtransformer.layer_plan, jcfg)
+    assert plan(transformer.encoder_plan, cfg) == \
+        plan(jtransformer.encoder_plan, jcfg)
+    assert plan(transformer.encoder_plan, cfg)[0][1][0] == ("attn", 0, 0, False)
+
+
+def test_encoder_states_match_reference():
+    """The encoder alone (in_proj, the non-causal stack, final_norm) in fp32
+    against the reference's forward, whose cross-attention K/V in the cache
+    are these states projected."""
+    jm, jp, tm, tp = _ssm_pair(SEAMLESS, "float32")
+    frames = _frames()
+    got = transformer.encode(tp, torch.from_numpy(frames), cfg=tm.cfg)
+    assert got.shape == (B, ENC_S, tm.cfg.d_model) and got.dtype == torch.float32
+    enc = jp["encoder"]
+    h = jnp.einsum("bse,ed->bsd", jnp.asarray(frames), enc["in_proj"])
+    gd, = jtransformer.encoder_plan(jm.cfg)
+    h, _, _ = jtransformer._apply_group(
+        enc["groups"]["g0"], h, gd, cfg=jm.cfg, dist=jmoe.LOCAL, mode="train",
+        cache=None, cache_index=None, cross_states=None, shared_params=None,
+        positions=jnp.arange(ENC_S)[None, :])
+    want = jcommon.apply_norm(enc["final_norm"], h, jm.cfg)
+    _close(got, want, TOL["float32"])

@@ -5,6 +5,7 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -17,11 +18,13 @@ from repro.configs import deepseek_7b as jax_deepseek  # noqa: E402
 from repro.configs import deepseek_moe_16b as jax_deepseek_moe  # noqa: E402
 from repro.configs import kimi_k2_1t as jax_kimi  # noqa: E402
 from repro.configs import mamba2_370m as jax_mamba2  # noqa: E402
+from repro.configs import seamless_m4t_large_v2 as jax_seamless  # noqa: E402
 from repro.configs import zamba2_7b as jax_zamba2  # noqa: E402
 from repro.configs.base import ModelConfig as JaxModelConfig  # noqa: E402
 from repro_torch import _bridge  # noqa: E402
 from repro_torch.configs import (deepseek_7b, deepseek_moe_16b,  # noqa: E402
-                                  kimi_k2_1t, mamba2_370m, zamba2_7b)
+                                  kimi_k2_1t, mamba2_370m,
+                                  seamless_m4t_large_v2, zamba2_7b)
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -62,6 +65,15 @@ def test_source_names_no_jax_or_repro_import(path):
         if words[:1] in (["import"], ["from"]) and len(words) > 1:
             top = words[1].split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), line
+
+
+def test_build_layer_imports_no_torch():
+    """``kernels/_build.py`` builds and loads with nvcc and ctypes alone; the
+    wrappers' autograd rule lives beside them (``kernels/_autograd.py``)."""
+    for line in Path(_build.__file__).read_text().splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]) and len(words) > 1:
+            assert words[1].split(".")[0] != "torch", line
 
 
 @pytest.fixture
@@ -167,12 +179,13 @@ def test_configs_are_copies_of_the_reference():
     for port, ref_mod in ((deepseek_7b, jax_deepseek), (mamba2_370m, jax_mamba2),
                           (zamba2_7b, jax_zamba2),
                           (deepseek_moe_16b, jax_deepseek_moe),
-                          (kimi_k2_1t, jax_kimi)):
+                          (kimi_k2_1t, jax_kimi),
+                          (seamless_m4t_large_v2, jax_seamless)):
         for name in ("CONFIG", "REDUCED"):
             assert dataclasses.asdict(getattr(port, name)) == \
                 dataclasses.asdict(getattr(ref_mod, name))
     assert ARCH_IDS == ("deepseek-7b", "deepseek-moe-16b", "kimi-k2-1t-a32b",
-                        "mamba2-370m", "zamba2-7b")
+                        "mamba2-370m", "seamless-m4t-large-v2", "zamba2-7b")
     assert get_config("deepseek-7b").n_layers == 30
     assert get_config("zamba2-7b").n_layers == 81
     assert get_config("deepseek-moe-16b").n_layers == 28
@@ -205,6 +218,17 @@ def test_ssm_full_width_sizes(arch, low, high):
     assert low < build_model(get_config(arch)).param_count() < high
 
 
+def test_encdec_full_width_size():
+    """seamless-m4t-large-v2 at full width: ~1.83e9 parameters (~3.6 GB in
+    bf16): the tied 256 206 x 1024 embedding, 24 decoder layers of (attn,
+    cross attn with its K/V projections, ffn of 8192) and 24 encoder layers
+    of (attn, ffn)."""
+    cfg = get_config("seamless-m4t-large-v2")
+    n = build_model(cfg).param_count()
+    assert 1.80e9 < n < 1.85e9
+    assert cfg.d_model // cfg.n_heads == 64       # a head dim the flash kernel takes
+
+
 @pytest.fixture
 def chip_smoke(monkeypatch):
     monkeypatch.syspath_prepend(str(ROOT))
@@ -231,15 +255,28 @@ def test_chip_smoke_counts_the_work_the_masks_leave(chip_smoke):
 
 
 def test_chip_smoke_expects_a_launch_per_block(chip_smoke):
-    """Per prefill: one flash launch per attention block, one SSD launch per
-    SSM layer, three grouped-GEMM launches per MoE layer."""
+    """Per prefill: one flash launch per attention block (the encoder's and
+    the cross-attention blocks' too), one SSD launch per SSM layer, three
+    grouped-GEMM launches per MoE layer. Per decode step: one flash launch
+    per cross-attention block and the grouped GEMMs again."""
     want = {"deepseek-7b": {"flash_attention": 30, "gmm": 0, "ssd_scan": 0},
             "zamba2-7b": {"flash_attention": 13, "gmm": 0, "ssd_scan": 81},
             "mamba2-370m": {"flash_attention": 0, "gmm": 0, "ssd_scan": 48},
             "deepseek-moe-16b": {"flash_attention": 28, "gmm": 81,
-                                 "ssd_scan": 0}}
+                                 "ssd_scan": 0},
+            "seamless-m4t-large-v2": {"flash_attention": 72, "gmm": 0,
+                                      "ssd_scan": 0}}
+    decode = {"deepseek-moe-16b": {"flash_attention": 0, "gmm": 81,
+                                   "ssd_scan": 0},
+              "seamless-m4t-large-v2": {"flash_attention": 24, "gmm": 0,
+                                        "ssd_scan": 0}}
     for arch, count in want.items():
-        assert chip_smoke.expected_launches(get_config(arch)) == count
+        cfg = get_config(arch)
+        assert chip_smoke.expected_launches(cfg) == count
+        step = decode.get(arch, dict.fromkeys(count, 0))
+        assert chip_smoke.expected_launches(cfg, "decode") == step
+        assert chip_smoke.generate_launches(cfg, 64) == {
+            k: count[k] + 63 * step[k] for k in count}
     assert [a for a, _ in chip_smoke.SERVE_PATHS] == list(want)
 
 
@@ -317,3 +354,58 @@ def test_chip_smoke_routing_replay_pins_the_experts(chip_smoke):
     torch.testing.assert_close(w.float().sum(-1), torch.ones(18), atol=1e-2,
                                rtol=0)
     assert float(aux) == 0.0
+
+
+def test_chip_smoke_seamless_attention_bounds(chip_smoke):
+    """The flash bounds at seamless-m4t-large-v2's shapes over 1500 frames:
+    the encoder's self-attention 3.69e10 FLOPs over 49 MB, by operations;
+    a cross-attention step (one query row) 24.6 MB, by bytes."""
+    for shape, want_ms, want_by in ((chip_smoke.SEAMLESS_ENCODER, 0.0373, "operations"),
+                                    (chip_smoke.SEAMLESS_CROSS, 0.00734, "bytes")):
+        _, B, Sq, Sk, H, KVH, D, opts = shape
+        ms, by = chip_smoke.attention_bound_ms(B, Sq, Sk, H, KVH, D, opts)
+        assert by == want_by and abs(ms - want_ms) < 1e-4
+
+
+def test_chip_smoke_call_check_holds_each_shape(chip_smoke):
+    """The replay of recorded attention calls, held per shape: on the CPU
+    the wrapper is the plain version (no difference), the rounding floor is
+    small, and the last-K/V-tile fault exceeds both limits at every shape
+    with two keys or more (64 keys, or half of a shorter call's). Over one
+    key the floor is 0 and no fault applies."""
+    rng = np.random.default_rng(0)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).bfloat16()
+
+    nc, causal = {"causal": False, "scale": 0.125}, {"causal": True, "scale": 0.125}
+    cross = (t(2, 1, 4, 64), t(2, 300, 4, 64), t(2, 300, 4, 64), nc)
+    encoder = (t(2, 40, 4, 64), t(2, 40, 4, 64), t(2, 40, 4, 64), nc)
+    prefill = (t(1, 17, 4, 64), t(1, 17, 2, 64), t(1, 17, 2, 64), causal)
+    one_key = (t(2, 1, 4, 64), t(2, 1, 4, 64), t(2, 1, 4, 64), causal)
+    calls = [(q, k, v, kw, chip_smoke.plain_attention(q, k, v, **kw))
+             for q, k, v, kw in (cross, encoder, prefill, one_key, cross)]
+    line, ok, power = chip_smoke.call_check(calls)
+    assert ok and power and line["calls"] == 5
+    shapes = line["shapes"]
+    assert list(shapes) == [
+        "B=2 Sq=1 Sk=300 H=4 KVH=4 D=64 non-causal",
+        "B=2 Sq=40 Sk=40 H=4 KVH=4 D=64 non-causal",
+        "B=1 Sq=17 Sk=17 H=4 KVH=2 D=64 causal",
+        "B=2 Sq=1 Sk=1 H=4 KVH=4 D=64 causal"]
+    assert shapes["B=2 Sq=1 Sk=300 H=4 KVH=4 D=64 non-causal"]["calls"] == 2
+    for shape in list(shapes)[:3]:
+        held = shapes[shape]
+        assert held["kernel_max_abs"] == 0.0 and held["fault_exceeds"]
+        assert held["fault_row_rel"] > held["tol_row_rel"] > 0
+    held = shapes["B=2 Sq=1 Sk=1 H=4 KVH=4 D=64 causal"]
+    assert held["tol_max_abs"] == 0.0 and held["fault_exceeds"] is None
+    assert "fault_max_abs" not in held
+    # a wrong kernel fails the shape it is wrong at
+    with mock.patch.object(ops, "flash_attention",
+                           lambda q, k, v, **kw: chip_smoke.dropped_tile_attention(
+                               q, k, v, causal=kw["causal"], scale=kw["scale"])):
+        line, ok, _ = chip_smoke.call_check(calls)
+    assert not ok
+    assert [held["ok"] for held in line["shapes"].values()] == \
+        [False, False, False, True]

@@ -33,18 +33,20 @@ def _pair(dtype, arch="deepseek-7b", **overrides):
     return jm, jp, tm, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
 
 
-def _prompts(seed=4, vocab=256):
-    return np.random.default_rng(seed).integers(0, vocab, (B, S)).astype(np.int32)
+def _prompts(seed=4, vocab=256, length=S):
+    return np.random.default_rng(seed).integers(0, vocab, (B, length)).astype(np.int32)
 
 
-def _assert_tokens_match(jm, jp, prompts, got, want, tol):
+def _assert_tokens_match(jm, jp, prompts, got, want, tol, extras=None):
     """Equal tokens up to the first step whose reference top-2 margin is
     within ``tol`` (a near-tie may flip there, and the paths go apart)."""
     assert got.shape == want.shape == (B, N)
     # the reference's logits at each step of its own greedy path
     seq = np.concatenate([prompts, want[:, :-1]], axis=1)
-    logits, _, _ = jm.apply(jp, {"tokens": jnp.asarray(seq)}, mode="train")
-    top2 = np.sort(np.asarray(logits[:, S - 1:], np.float32), axis=-1)[..., -2:]
+    logits, _, _ = jm.apply(jp, {"tokens": jnp.asarray(seq), **(extras or {})},
+                            mode="train")
+    P = prompts.shape[1]
+    top2 = np.sort(np.asarray(logits[:, P - 1:], np.float32), axis=-1)[..., -2:]
     margin = top2[..., 1] - top2[..., 0]
     for b in range(B):
         for i in range(N):
@@ -82,6 +84,66 @@ def test_ssm_generate_matches_reference(arch, dtype):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_moe_generate_matches_reference(arch, dtype):
     _generate_both(dtype, arch)
+
+
+@pytest.mark.parametrize("prompt_len,enc_len", [(1, 24), (S, S)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_encdec_generate_with_frames_matches_reference(dtype, prompt_len,
+                                                       enc_len):
+    """seamless-m4t-large-v2 with ``extras={"frames": ...}``: a 1-token
+    prompt over 24 frames (the executor's shape: the reference sizes the
+    cross cache by the prompt and replaces it in the prefill, the port sizes
+    it by the frames) and a prompt as long as its frames."""
+    jm, jp, tm, tp = _pair(dtype, "seamless-m4t-large-v2")
+    prompts = _prompts(length=prompt_len)
+    frames = np.random.default_rng(5).standard_normal(
+        (B, enc_len, tm.cfg.d_model)).astype(np.float32)
+    jframes = jnp.asarray(frames).astype(jnp.bfloat16)
+    want = np.asarray(jserve.ServeSession(jm, jp).generate(
+        jnp.asarray(prompts), max_new_tokens=N, extras={"frames": jframes}))
+    got = serve.ServeSession(tm, tp, device="cpu").generate(
+        torch.from_numpy(prompts), max_new_tokens=N,
+        extras={"frames": torch.from_numpy(frames).bfloat16()}).numpy()
+    _assert_tokens_match(jm, jp, prompts, got, want, TOL[dtype],
+                         extras={"frames": jframes})
+
+
+def test_encdec_cache_after_prefill_has_the_reference_shapes():
+    """The cache as each package's ``generate`` makes it (the reference's
+    cross entries sized by the prompt, ``enc_len_for(S)``, the port's by the
+    frames), after a prefill of a 1-token prompt over 24 frames: every leaf
+    has the reference's shape, ck/cv the frames' length."""
+    jm, jp, tm, tp = _pair("bfloat16", "seamless-m4t-large-v2")
+    prompts = _prompts(length=1)
+    frames = np.zeros((B, 24, tm.cfg.d_model), np.float32)
+    assert tm.enc_len_for(1) == jm.enc_len_for(1) == 1
+    jcache = jm.init_cache(B, 1 + N, enc_len=jm.enc_len_for(1))
+    _, jcache = jserve.build_prefill_step(jm, jserve.ServeOptions())(
+        jp, {"tokens": jnp.asarray(prompts), "frames": jnp.asarray(frames)},
+        jcache)
+    tcache = tm.init_cache(B, 1 + N, enc_len=frames.shape[1], device="cpu")
+    _, tcache = serve.build_prefill_step(tm, serve.ServeOptions())(
+        tp, {"tokens": torch.from_numpy(prompts),
+             "frames": torch.from_numpy(frames)}, tcache)
+    want = {path: leaf.shape for path, leaf in
+            ((tuple(k.key for k in p), leaf) for p, leaf in
+             jax.tree_util.tree_flatten_with_path(jcache)[0])}
+    got = {}
+    for g, blocks in tcache["groups"].items():
+        for b, leaves in blocks.items():
+            for name, t in leaves.items():
+                got[("groups", g, b, name)] = tuple(t.shape)
+    assert got == want
+    assert got[("groups", "g0", "b1", "ck")] == (2, B, 24, 4, 16)
+
+
+def test_extra_inputs_match_reference():
+    jm, _, tm, _ = _pair("bfloat16", "seamless-m4t-large-v2")
+    want = jm.extra_inputs(3, 5)["frames"]
+    got = tm.extra_inputs(3, 5, device="cpu")["frames"]
+    assert tuple(got.shape) == want.shape and got.dtype == torch.bfloat16
+    assert not bool(got.ne(0).any())
+    assert build_model(get_config("deepseek-7b")).extra_inputs(3, 5) == {}
 
 
 @pytest.mark.parametrize("arch", ["deepseek-7b", "zamba2-7b"])
@@ -138,7 +200,8 @@ def test_prefill_and_decode_steps_shapes():
 
 
 @pytest.mark.parametrize("arch", ["deepseek-7b", "deepseek-moe-16b",
-                                  "kimi-k2-1t-a32b", "mamba2-370m", "zamba2-7b"])
+                                  "kimi-k2-1t-a32b", "mamba2-370m",
+                                  "seamless-m4t-large-v2", "zamba2-7b"])
 def test_launcher_runs_reduced_on_cpu(arch, capsys):
     out = launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                              "--requests", "3", "--batch", "2",
