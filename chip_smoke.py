@@ -14,9 +14,15 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             kernel and any line where ptxas says it serialized wgmma; the
             host cost of encoding the gmm's tensor maps.
 2. kernel:  the flash-attention kernel against its plain PyTorch version on
-            the card, bf16, on the kernel-test grid, on deepseek-7b's serving
+            the card, bf16, on the kernel-test grid (at head_dim 64/128, and
+            again at 160 and 256), on deepseek-7b's serving
             shape (B=4, S=2048, H=KVH=32, D=128, causal), on zamba2-7b's
-            (the same at D=112) and on seamless-m4t-large-v2's over 1500
+            (the same at D=112), on gemma2-9b's (H=16, KVH=8, D=256, scale
+            224^-0.5, softcap 50: the global layers at 4 x 2048, the local
+            layers at 1 x 6144 past their 4096 window), on stablelm-12b's
+            (H=32, KVH=8, D=160), on llama-3.2-vision-90b's cross-attention
+            (4 x 2048 queries over 4096 patches, H=64, KVH=8, D=128), on
+            seamless-m4t-large-v2's over 1500
             frames (H=KVH=16, D=64: the encoder's non-causal self-attention,
             the cross-attention of one query row, the decoder's 1-token
             self-attention), and on the video executor's (the same heads
@@ -28,8 +34,9 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             an fp32-output reference (what rounding P to bf16 adds), and
             medians of CUDA-event timings of the kernel, the plain version
             and ``F.scaled_dot_product_attention`` (a yardstick the port
-            never calls); the faults and timings also at the seamless
-            encoder and cross shapes.
+            never calls; it takes no softcap or window, and is timed
+            without them, as the line says); the faults and timings also
+            at the gemma2, stablelm, VLM-cross and seamless shapes.
    ssd:     the SSD-scan kernels against their plain version: the
             kernel-test grid in fp32 (the ``fma`` variant) within 1e-4 on y
             and on the state, and the prefill shapes of zamba2-7b and
@@ -59,9 +66,15 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             layers, d_model 4096), zamba2-7b (81 SSM layers and 13 shared
             attention blocks, d_model 3584), mamba2-370m (48 layers, d_model
             1024), deepseek-moe-16b (28 layers, d_model 2048, 27 MoE layers
-            of 64 routed experts, top 6) and seamless-m4t-large-v2 (24
+            of 64 routed experts, top 6), seamless-m4t-large-v2 (24
             encoder and 24 decoder layers, d_model 1024; 1-token prompts over
-            1500 frames of random embeddings). The kernels' launch counts are
+            1500 frames of random embeddings), gemma2-9b (42 layers, d_model
+            3584), stablelm-12b (40 layers, d_model 5120),
+            llama-3.2-vision-90b (d_model 8192, depth cut to 10 of 100
+            layers: 8 self- and 2 cross-attention, over 4096 random patches of
+            width 1280) and command-r-plus-104b (d_model 12288, depth cut to
+            4 of 64 layers); each path prints its parameter count, peak
+            memory and any depth cut. The kernels' launch counts are
             reset just before each path and read just after it; each must
             equal, per batch, one prefill's (one flash launch per attention
             block, the encoder's and cross-attention's included, one SSD
@@ -69,21 +82,25 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             plus 63 decode steps' (one flash launch per cross-attention
             block, the grouped GEMMs again), and every grouped-GEMM and SSD
             launch must take its wgmma variant.
-4. agree:   deepseek-7b, zamba2-7b, deepseek-moe-16b and seamless-m4t-large-v2:
-            one full-width prefill through the kernels and the same prefill
+4. agree:   every path but mamba2-370m's: one full-width prefill through
+            the kernels and the same prefill
             through their plain versions: logits at every prompt position
             within a stated multiple of the network's own bf16 noise floor,
             argmax equal wherever the top-2 margin exceeds that limit, and a
-            prefill with an injected fault shown to exceed it. For zamba2-7b
-            and seamless also 8 decode steps from each prefill's cache, held
-            the same way, with a dropped prefill-to-decode handoff (SSM
-            states; cross-attention K/V) shown to exceed the limit; for
-            seamless also the encoder's final states at all 4 x 1500 frames,
-            and every attention call of its plain run replayed through the
-            kernel, held per shape to a floor of its own, with the last K/V
-            tile's fault shown to exceed it.
+            prefill with an injected fault shown to exceed it. For zamba2-7b,
+            seamless, gemma2-9b, stablelm-12b and the VLM also 8 decode steps
+            from each prefill's cache, held the same way, with a dropped
+            prefill-to-decode handoff (SSM states; the encoder's K/V; the
+            whole cache elsewhere) shown to exceed the limit;
+            for seamless also the encoder's final states at all 4 x 1500
+            frames. gemma2-9b is held on 1 x 6144-token prompts, so that its
+            local layers' 4096 window binds in the prefill and in decode.
+            For seamless, gemma2, stablelm, the VLM and command-r every attention
+            call of the plain run is replayed through the kernel, held per
+            shape to a floor of its own, with the last K/V tile's fault shown
+            to exceed it.
 5. trace:   torch.profiler over one prefill and a few decode steps of each
-            of those four: device busy time, idle share and the kernels that
+            of those paths: device busy time, idle share and the kernels that
             take the most time.
 6. executor: ``RealExecutor.run`` over the video workflow (the reference's
             plans written out in VIDEO_PLANS) on full-width
@@ -146,6 +163,22 @@ GRID = [
 ]
 SERVE_SHAPE = ("serve_prefill", 4, 2048, 2048, 32, 32, 128, {})
 ZAMBA_SHAPE = ("zamba2_prefill", 4, 2048, 2048, 32, 32, 112, {})
+# the grid again at the head dims of gemma2-9b and stablelm-12b
+GRID_WIDE = [(f"{name}_d{d}", B, Sq, Sk, H, KVH, d, opts)
+             for d in (160, 256)
+             for name, B, Sq, Sk, H, KVH, _, opts in GRID]
+# gemma2-9b (16 heads of 256 over 8 kv heads; scale (3584 / 16)^-0.5, not
+# 256^-0.5; softcap 50): a global layer's prefill of 4 x 2048 tokens, and a
+# local layer's of 1 x 6144, past its 4096 window; stablelm-12b (32 heads of
+# 160 over 8); the VLM's cross-attention (64 heads of 128 over 8, 4 x 2048
+# queries over 4096 patches)
+GEMMA2_OPTS = {"scale": 224 ** -0.5, "softcap": 50.0}
+GEMMA2_GLOBAL = ("gemma2_global", 4, 2048, 2048, 16, 8, 256, GEMMA2_OPTS)
+GEMMA2_LOCAL = ("gemma2_local_past_window", 1, 6144, 6144, 16, 8, 256,
+                {**GEMMA2_OPTS, "window": 4096})
+STABLELM_SHAPE = ("stablelm_prefill", 4, 2048, 2048, 32, 8, 160, {})
+VLM_CROSS = ("vlm_cross", 4, 2048, 4096, 64, 8, 128, {"causal": False})
+FAMILY_SHAPES = [GEMMA2_GLOBAL, GEMMA2_LOCAL, STABLELM_SHAPE, VLM_CROSS]
 # seamless-m4t-large-v2 (16 heads of 64) over ENC_LEN frames: the encoder's
 # self-attention, the cross-attention of the prefill and of every decode
 # step (one query row over the encoder's keys), and the decoder's
@@ -165,7 +198,9 @@ EXECUTOR_SHAPES = [
     ("executor_summarize", 4, 17, 17, 32, 32, 128, {}),
     ("executor_qa", 1, 24, 24, 32, 32, 128, {}),
 ]
-KV_TILE = 64               # keys of an injected fault: fewer than the flash kernel's 96-row K/V tile
+KV_TILE = 64               # keys of an injected fault: no more than the flash kernel's K/V tile (96 rows; 64 at D=256)
+LOCAL_FAULT_ROWS = 0.02    # a fault moving fewer rows than this share need not move the whole output's norm
+NUM_PATCHES = 4096         # the VLM's patches (llama-3.2-vision-90b's vision.num_patches)
 SERVE_BATCHES, SERVE_BATCH, PROMPT_LEN, MAX_NEW = 2, 4, 2048, 64
 # (name, B, L, H, P, N, G, chunk, dtype): the TestSSDScan grid of
 # tests/test_kernels.py in fp32, and the models' prefill shapes in bf16
@@ -197,7 +232,19 @@ GMM_MODEL_SHAPES = [
 # the main paths in order, each with the decode steps its agreement phase
 # holds (None: no agreement and trace phases)
 SERVE_PATHS = (("deepseek-7b", 0), ("zamba2-7b", 8), ("mamba2-370m", None),
-               ("deepseek-moe-16b", 0), ("seamless-m4t-large-v2", 8))
+               ("deepseek-moe-16b", 0), ("seamless-m4t-large-v2", 8),
+               ("gemma2-9b", 8), ("stablelm-12b", 8),
+               ("llama-3.2-vision-90b", 8), ("command-r-plus-104b", 0))
+# full width, depth cut where 80 GB cannot hold the model in bf16 (8.8e10
+# and 1.04e11 parameters): the VLM keeps 2 of its 20 five-layer groups
+DEPTH_CUTS = {"llama-3.2-vision-90b": 10, "command-r-plus-104b": 4}
+# the agreement phase's prompts where they differ from the serve phase's
+# (B, S): gemma2-9b's 6144 tokens take its local layers past their window
+AGREE_PROMPTS = {"gemma2-9b": (1, 6144)}
+# the paths whose agreement phase replays every attention call of the plain
+# run through the kernel (``call_check``)
+REPLAY_CALLS = ("seamless-m4t-large-v2", "gemma2-9b", "stablelm-12b",
+                "llama-3.2-vision-90b", "command-r-plus-104b")
 
 # The video workflow as the reference plans it on its paper cluster
 # (repro.core's Murakkab.paper_cluster(): the MIN_COST declarative job, and
@@ -367,6 +414,9 @@ def phase_card():
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "smem_bytes_d128": fa.smem_bytes(d=128),
           "smem_bytes_d112": fa.smem_bytes(d=112),
+          "smem_bytes_d160": fa.smem_bytes(d=160),
+          "smem_bytes_d256": fa.smem_bytes(d=256),
+          "block_threads": {d: fa.block_threads(d) for d in fa.HEAD_DIMS},
           "ssd_smem_bytes_n64": ss.smem_bytes(64),
           "ssd_smem_bytes_n128": ss.smem_bytes(128),
           "ssd_wgmma_smem_bytes": {k: {n: ss.wgmma_smem_bytes(k, n) for n in (64, 128)}
@@ -377,26 +427,44 @@ def phase_card():
     return census
 
 
+def row_errors(got, want):
+    """|got - want| / |want| of each (b, q, h) row, 2-norms over D."""
+    d, w = got.float() - want.float(), want.float()
+    return d.norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+
+
 def rel_errors(got, want) -> tuple[float, float]:
     """(worst row, whole tensor) of |got - want| / |want|, 2-norms; a row is
     one (b, q, h) vector over D."""
-    d, w = got.float() - want.float(), want.float()
-    rows = d.norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
-    return rows.max().item(), (d.norm() / w.norm()).item()
+    d = got.float() - want.float()
+    return row_errors(got, want).max().item(), \
+        (d.norm() / want.float().norm()).item()
+
+
+def moved_rows(got, want) -> float:
+    """Share of the (b, q, h) rows that ``got`` moves beyond ROW_RTOL from
+    ``want``."""
+    return (row_errors(got, want) > ROW_RTOL).float().mean().item()
 
 
 def injected_faults(q, k, v, kw):
     """The plain version's output under two faults a tiled kernel can have
     that move only the longest rows: the last K/V tile dropped, and the last
-    tile computed with the previous tile's K/V (a stale pipeline stage)."""
+    tile computed with the previous tile's K/V (a stale pipeline stage);
+    with a window, also the window's first tile dropped (a kernel that
+    starts each window a tile late), which moves every row past it."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
     Sk = k.shape[1]
     dropped = flash_attention_plain(q, k, v, **{**kw, "kv_valid": Sk - KV_TILE})
     ks, vs = k.clone(), v.clone()
     ks[:, -KV_TILE:] = k[:, -2 * KV_TILE:-KV_TILE]
     vs[:, -KV_TILE:] = v[:, -2 * KV_TILE:-KV_TILE]
-    return {"last_tile_dropped": dropped,
-            "last_tile_stale": flash_attention_plain(q, ks, vs, **kw)}
+    faults = {"last_tile_dropped": dropped,
+              "last_tile_stale": flash_attention_plain(q, ks, vs, **kw)}
+    if kw.get("window"):
+        faults["window_first_tile_dropped"] = flash_attention_plain(
+            q, k, v, **{**kw, "window": kw["window"] - KV_TILE})
+    return faults
 
 
 def phase_kernel():
@@ -409,16 +477,16 @@ def phase_kernel():
     gen.manual_seed(0)
     worst, failures, timings = 0.0, [], {}
     serving = (SERVE_SHAPE[0], ZAMBA_SHAPE[0], SEAMLESS_ENCODER[0],
-               SEAMLESS_CROSS[0])
+               SEAMLESS_CROSS[0], *(shape[0] for shape in FAMILY_SHAPES))
     for name, B, Sq, Sk, H, KVH, D, opts in \
-            GRID + [SERVE_SHAPE, ZAMBA_SHAPE] + SEAMLESS_SHAPES + \
-            EXECUTOR_SHAPES:
+            GRID + GRID_WIDE + [SERVE_SHAPE, ZAMBA_SHAPE] + FAMILY_SHAPES + \
+            SEAMLESS_SHAPES + EXECUTOR_SHAPES:
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device="cuda",
                                dtype=torch.float32).to(torch.bfloat16)
         q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, KVH, D), rnd(B, Sk, KVH, D)
         kw = dict(causal=opts.get("causal", True), window=opts.get("window", 0),
-                  softcap=opts.get("softcap", 0.0),
+                  softcap=opts.get("softcap", 0.0), scale=opts.get("scale"),
                   q_offset=opts.get("q_offset", 0),
                   kv_valid=opts.get("kv_valid"))
         got = flash_attention_cuda(q, k, v, **kw)
@@ -438,11 +506,18 @@ def phase_kernel():
         if name in serving:
             # the checks must have the power to see a one-tile fault
             line["faults"] = {}
+            # A fault must exceed the worst-row limit; and the whole-output
+            # limit too, unless it moves fewer than LOCAL_FAULT_ROWS of the
+            # rows (the last tile of one 6144-row sequence moves 1%), which
+            # no whole-output norm can see
             for fault, out in injected_faults(q, k, v, kw).items():
                 f_row, f_norm = rel_errors(out, want)
+                moved = moved_rows(out, want)
                 line["faults"][fault] = {"row_rel_err": f_row,
-                                         "norm_rel_err": f_norm}
-                if f_row <= ROW_RTOL or f_norm <= NORM_RTOL:
+                                         "norm_rel_err": f_norm,
+                                         "rows_moved": moved}
+                if f_row <= ROW_RTOL or (f_norm <= NORM_RTOL and
+                                         moved >= LOCAL_FAULT_ROWS):
                     failures.append(f"{name}: limits miss {fault}")
                 del out
             # what rounding P to bf16 adds: both against fp32 output
@@ -464,10 +539,19 @@ def phase_kernel():
                 "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, **kw),
                                     warmup=1, iters=5),
                 "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=kw["causal"])),
+                    qt, kt, vt, is_causal=kw["causal"], scale=kw["scale"],
+                    enable_gqa=H != KVH)),
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
             }
+            if kw["softcap"] or kw["window"]:
+                # sdpa takes neither: it computes the causal attention over
+                # every key, without the softcap; the kernel is timed so too
+                timing["library_note"] = "sdpa without " + " or ".join(
+                    o for o in ("softcap", "window") if kw[o])
+                timing["ms_without_softcap_or_window"] = cuda_ms(
+                    lambda: flash_attention_cuda(q, k, v, **{
+                        **kw, "softcap": 0.0, "window": 0}))
             emit({"phase": "kernel_timing", "shape": name, **timing})
         del q, k, v, got, want
     if failures:
@@ -815,6 +899,31 @@ def expected_launches(cfg, mode: str = "prefill") -> dict:
     return count
 
 
+def path_config(arch):
+    """The configuration a serve path runs: full width, its depth cut to
+    DEPTH_CUTS where it has one."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    return cfg.replace(n_layers=DEPTH_CUTS[arch]) if arch in DEPTH_CUTS else cfg
+
+
+def path_extras(cfg, batch: int, gen) -> dict:
+    """A path's modality inputs on the card, random bf16 from ``gen``: the
+    encoder-decoder's ENC_LEN frames, the VLM's NUM_PATCHES patches (the
+    reference's zero stub patches would make the cross-attention K/V zero
+    and its check empty)."""
+    import torch
+    if cfg.family == "encdec":
+        shape = (batch, ENC_LEN, cfg.d_model)
+    elif cfg.family == "vlm":
+        assert cfg.vision.num_patches == NUM_PATCHES
+        shape = (batch, NUM_PATCHES, cfg.vision.d_vision)
+    else:
+        return {}
+    name = "frames" if cfg.family == "encdec" else "patches"
+    return {name: torch.randn(shape, generator=gen, device="cuda").bfloat16()}
+
+
 def generate_launches(cfg, new_tokens: int) -> dict:
     """Launches of one ``generate``: a prefill and new_tokens - 1 decode steps."""
     pre, dec = expected_launches(cfg), expected_launches(cfg, "decode")
@@ -861,14 +970,15 @@ def phase_serve(arch):
     """One main path: returns the model pieces phases 4 and 5 reuse and the
     launches of each kernel in this path's run. The encoder-decoder serves
     1-token prompts over ENC_LEN frames of random bf16 embeddings (the stub
-    frontend's input)."""
+    frontend's input), the VLM 2048-token prompts over NUM_PATCHES random
+    patches; DEPTH_CUTS cut a path's depth, never its width."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model_zoo import build_model
     from repro_torch.runtime.serve import ServeOptions, ServeSession, \
-        build_prefill_step
+        build_prefill_step, cross_len
 
-    cfg = get_config(arch)
+    cfg = path_config(arch)
     model = build_model(cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -880,9 +990,8 @@ def phase_serve(arch):
     prompts = [torch.randint(0, cfg.vocab_size, (SERVE_BATCH, prompt_len),
                              generator=gen, device="cuda")
                for _ in range(SERVE_BATCHES)]
-    extras = [{"frames": torch.randn(SERVE_BATCH, ENC_LEN, cfg.d_model,
-                                     generator=gen, device="cuda").bfloat16()}
-              if encdec else {} for _ in range(SERVE_BATCHES)]
+    extras = [path_extras(cfg, SERVE_BATCH, gen) for _ in range(SERVE_BATCHES)]
+    enc_len = cross_len(extras[0])
     torch.cuda.reset_peak_memory_stats()
 
     reset_launches()
@@ -920,17 +1029,19 @@ def phase_serve(arch):
     pre_s = []
     for p, ex in zip(prompts, extras):
         cache = model.init_cache(SERVE_BATCH, prompt_len + MAX_NEW,
-                                 enc_len=ENC_LEN if encdec else 0, device="cuda")
+                                 enc_len=enc_len, device="cuda")
         with torch.inference_mode():
             _, s = _sync_s(lambda: prefill(params, {"tokens": p, **ex}, cache))
         pre_s.append(s)
         del cache
     prefill_ms = 1e3 * statistics.median(pre_s)
     decode_ms = (1e3 * statistics.median(gen_s) - prefill_ms) / (MAX_NEW - 1)
-    emit({"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+    cut = {"reduced": {"n_layers": [get_config(arch).n_layers, cfg.n_layers]}} \
+        if arch in DEPTH_CUTS else {}
+    emit({"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers, **cut,
           "d_model": cfg.d_model, "params": model.param_count(),
           "batches": SERVE_BATCHES, "batch": SERVE_BATCH,
-          "prompt_len": prompt_len, "enc_len": ENC_LEN if encdec else None,
+          "prompt_len": prompt_len, "enc_len": enc_len or None,
           "max_new": MAX_NEW,
           "init_s": init_s, "generate_s": gen_s, "prefill_ms": prefill_ms,
           "decode_ms_per_token": decode_ms,
@@ -1068,30 +1179,40 @@ def plain_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
 
 def naive_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
                     scale=None, q_offset=0, kv_len=None):
+    """The naive oracle, one batch row at a time (which bounds the scores:
+    4 x 64 heads x 2048 x 4096 in fp32 would be 8.6 GB)."""
+    import torch
     from repro_torch.kernels import ref
-    return ref.mha_naive(q, k, v, causal=causal, window=window,
-                         logit_softcap=logit_softcap, scale=scale,
-                         q_offset=q_offset, kv_len=kv_len)
+    return torch.cat([ref.mha_naive(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                    causal=causal, window=window,
+                                    logit_softcap=logit_softcap, scale=scale,
+                                    q_offset=q_offset, kv_len=kv_len)
+                      for b in range(q.shape[0])])
 
 
 def p_bf16_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
                      scale=None, q_offset=0, kv_len=None):
-    """Full scores in fp32, the row sum of fp32 P, PV from bf16 P; causal
-    (query i sees keys <= i) or not, with no other mask."""
+    """Full scores in fp32 (tanh-softcapped after the scale), the row sum of
+    fp32 P, PV from bf16 P; causal (query i sees keys <= i) or not, and a
+    sliding window, with no offset or length mask."""
     import torch
     from repro_torch.kernels import ref
-    if window or logit_softcap or q_offset or kv_len:
-        raise NotImplementedError("no window, softcap, offset or length mask")
+    if q_offset or kv_len:
+        raise NotImplementedError("no offset or length mask")
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     scale = D ** -0.5 if scale is None else scale
     keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
     if causal:
         keep = keep.tril()
+    if window:
+        keep = keep.triu(1 - window)
     out = torch.empty_like(q)
     for b in range(B):      # one batch row at a time bounds the scores
         qb = q[b].float().reshape(Sq, KVH, H // KVH, D)
         s = torch.einsum("qhgd,khd->hgqk", qb, k[b].float()) * scale
+        if logit_softcap:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
         s = s.masked_fill(~keep, ref.NEG_INF)
         p = torch.exp(s - s.amax(-1, keepdim=True))
         o = torch.einsum("hgqk,khd->qhgd", p.to(v.dtype).float(), v[b].float())
@@ -1119,6 +1240,8 @@ def recording_attention(calls):
 def call_shape(q, k, kw) -> str:
     B, Sq, H, D = q.shape
     mask = "causal" if kw.get("causal", True) else "non-causal"
+    if kw.get("window"):
+        mask += f" window={kw['window']}"
     return f"B={B} Sq={Sq} Sk={k.shape[1]} H={H} KVH={k.shape[2]} D={D} {mask}"
 
 
@@ -1129,11 +1252,15 @@ def call_check(calls):
     to bf16) and the last-K/V-tile fault, each against the plain output.
     The calls are held by shape: per shape the limits are FLOOR_MULT x the
     largest rounding-only difference, max-abs and worst row (relative
-    2-norm over D), over its calls. The fault must exceed both limits at
-    every shape with two keys or more; over one key the output is that
-    key's value, the floor is 0 and the kernel is held to it exactly.
-    Returns (line, the kernel within the limits at every shape, the fault
-    beyond them at every shape it applies to)."""
+    2-norm over D), over its calls. A shape fails when the kernel exceeds
+    either limit, so the fault must exceed one of them at every shape with
+    two keys or more to show the check would catch it: over a long causal
+    sequence the max-abs limit is set by the early rows' large outputs,
+    and a dropped last tile moves only the late rows' small ones, which the
+    worst-row limit sees. Over one key the output is that key's value, the
+    floor is 0 and the kernel is held to it exactly. Returns (line, the
+    kernel within the limits at every shape, the fault beyond them at every
+    shape it applies to)."""
     import torch
     from repro_torch.kernels import ops
     shapes = {}
@@ -1156,7 +1283,7 @@ def call_check(calls):
     for shape, worst in shapes.items():
         tol = [FLOOR_MULT * f for f in worst["floor"]]
         shape_ok = all(a <= t for a, t in zip(worst["kernel"], tol))
-        shape_power = all(a > t for a, t in zip(worst["fault"], tol)) \
+        shape_power = any(a > t for a, t in zip(worst["fault"], tol)) \
             if "fault" in worst else None
         ok = ok and shape_ok
         power = power and shape_power is not False
@@ -1259,7 +1386,8 @@ class RoutingReplay:
                    for a, b in zip(self.ids, other.ids))
 
 
-def phase_agree(model, params, prompts, extras, *, decode_steps=0):
+def phase_agree(model, params, prompts, extras, *, decode_steps=0,
+                replay_calls=False):
     """Full-width prefill logits, at every prompt position, through the
     kernels vs their plain versions; with ``decode_steps``, also the decode
     logits of that many steps from each prefill's cache; for the
@@ -1295,7 +1423,14 @@ def phase_agree(model, params, prompts, extras, *, decode_steps=0):
     a fault in the kernel there is ``call_check``: every attention call of
     the plain run (the encoder's self-attention, the decoder's, and the
     cross-attention of the prefill and the decode steps), replayed on its
-    own inputs and held per shape.
+    own inputs and held per shape. With ``replay_calls`` the same holds for
+    any path: its calls are replayed, and they, not the logits, must show the
+    power to see a one-tile fault (the logits' fault is reported beside).
+
+    The dropped handoff zeroes the SSM states (SSM and hybrid families),
+    the encoder's K/V (the encoder-decoder), and elsewhere the whole cache:
+    the VLM's cross K/V over near-uniformly weighted random patches alone
+    moves its decode logits less than the rounding floor does.
 
     With MoE layers the routers' top-k choices of the plain run are replayed
     in every other run (``RoutingReplay``): a rounding difference that flips
@@ -1308,11 +1443,17 @@ def phase_agree(model, params, prompts, extras, *, decode_steps=0):
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
+    from repro_torch.runtime.serve import cross_len
 
     cfg = model.cfg
     has_ssm = expected_launches(cfg)["ssd_scan"] > 0
     has_moe = expected_launches(cfg)["gmm"] > 0
     encdec = cfg.family == "encdec"
+    enc_len = cross_len(extras)
+    # the cache leaves a dropped handoff zeroes: the SSM states, the
+    # encoder's K/V; for the other families the whole cache
+    handoff = {"encdec": ("ck", "cv"), "hybrid": ("ssm", "conv"),
+               "ssm": ("ssm", "conv")}.get(cfg.family)
     counters = launch_counters()
     B, S = prompts.shape
     gen = torch.Generator(device="cuda")
@@ -1333,8 +1474,7 @@ def phase_agree(model, params, prompts, extras, *, decode_steps=0):
             enc_states["last"] = out = encode_fn(*args, **kw)
             return out if states is None else states
 
-        cache = model.init_cache(B, S + decode_steps,
-                                 enc_len=ENC_LEN if encdec else 0,
+        cache = model.init_cache(B, S + decode_steps, enc_len=enc_len,
                                  device="cuda")
         with torch.inference_mode(), \
                 mock.patch.object(ops, "flash_attention",
@@ -1348,8 +1488,8 @@ def phase_agree(model, params, prompts, extras, *, decode_steps=0):
             if drop_handoff:      # what the prefill hands to decode, zeroed
                 for blocks in cache["groups"].values():
                     for bc in blocks.values():
-                        for name in ("ssm", "conv", "ck", "cv"):
-                            if name in bc:
+                        for name in bc:
+                            if handoff is None or name in handoff:
                                 bc[name].zero_()
             dec = [model.apply(params, {"tokens": dec_tokens[:, i:i + 1]},
                                mode="decode", cache=cache,
@@ -1364,9 +1504,10 @@ def phase_agree(model, params, prompts, extras, *, decode_steps=0):
         return d.abs().max().item(), (d.norm() / want.float().norm()).item()
 
     replay = RoutingReplay() if has_moe else None
-    calls = []      # the encoder-decoder's attention calls, for call_check
+    calls = []      # the plain run's attention calls, for call_check
     with_plain, dec_plain = run(
-        recording_attention(calls) if encdec else plain_attention, plain_ssd,
+        recording_attention(calls) if replay_calls else plain_attention,
+        plain_ssd,
         plain_gmm, routing=replay)    # records the routing
     enc_plain = enc_states.pop("last", None)
     with_kernel, dec_kernel = run(routing=replay, states=enc_plain)
@@ -1426,7 +1567,7 @@ def phase_agree(model, params, prompts, extras, *, decode_steps=0):
     if any(fn.launches != before[name] for name, fn in counters.items()):
         raise AssertionError("a plain run launched a kernel")
     calls_ok = calls_power = True
-    if encdec:
+    if replay_calls:
         line["calls"], calls_ok, calls_power = call_check(calls)
     del calls
 
@@ -1439,8 +1580,8 @@ def phase_agree(model, params, prompts, extras, *, decode_steps=0):
     ok = bool(torch.isfinite(with_kernel).all()) and diff_abs <= tol_abs \
         and diff_rel <= tol_rel and n_same == n_decided
     # the encoder-decoder's logits cannot see a one-tile fault (see above):
-    # there the replayed attention calls must
-    power = calls_power if encdec else fault_abs > tol_abs
+    # there, and wherever calls are replayed, the replayed calls must
+    power = calls_power if replay_calls else fault_abs > tol_abs
     ok = ok and calls_ok
     if fault:
         line[fault] = {"max_abs": fault_abs, "norm_rel": fault_rel,
@@ -1491,6 +1632,21 @@ def _self_device_us(event) -> float:
     return 0.0
 
 
+def agree_inputs(arch, prompts, extras):
+    """The agreement phase's (prompts, extras): the serve phase's, or
+    AGREE_PROMPTS' seeded random tokens (with the serve phase's extras cut
+    to their batch)."""
+    import torch
+    if arch not in AGREE_PROMPTS:
+        return prompts, extras
+    B, S = AGREE_PROMPTS[arch]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    vocab = path_config(arch).vocab_size
+    return (torch.randint(0, vocab, (B, S), generator=gen, device="cuda"),
+            {name: t[:B] for name, t in extras.items()})
+
+
 def phase_trace(model, params, prompts, extras):
     # one full-width prefill and TRACE_DECODE_STEPS decode steps of one arch
     """Where the time goes: torch.profiler over one full-width prefill and
@@ -1504,13 +1660,13 @@ def phase_trace(model, params, prompts, extras):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime.serve import (ServeOptions, build_decode_step,
-                                           build_prefill_step)
+                                           build_prefill_step, cross_len)
 
     prefill = build_prefill_step(model, ServeOptions())
     decode = build_decode_step(model, ServeOptions())
     B, S = prompts.shape
     cache = model.init_cache(B, S + TRACE_DECODE_STEPS + 1,
-                             enc_len=ENC_LEN if extras else 0, device="cuda")
+                             enc_len=cross_len(extras), device="cuda")
     state = {}
 
     def run_prefill():
@@ -1567,8 +1723,9 @@ def main() -> int:
     for arch, decode_steps in SERVE_PATHS:
         model, params, prompts, extras, launches[arch] = phase_serve(arch)
         if decode_steps is not None:
-            phase_agree(model, params, prompts, extras,
-                        decode_steps=decode_steps)
+            phase_agree(model, params, *agree_inputs(arch, prompts, extras),
+                        decode_steps=decode_steps,
+                        replay_calls=arch in REPLAY_CALLS)
             phase_trace(model, params, prompts, extras)
         del model, params, prompts, extras
         gc.collect()
@@ -1594,9 +1751,24 @@ def main() -> int:
               "src/repro/kernels/flash_attention.py:82", flash_err,
               flash_t[SERVE_SHAPE[0]], "B=4 S=2048 H=KVH=32 D=128 causal bf16",
               "TMA + wgmma: 128-row q tiles over 96-row K/V tiles, a producer "
-              "warpgroup and two consumer warpgroups",
+              "warpgroup and two consumer warpgroups; at head_dim 160 and 256 "
+              "64-row q tiles, one consumer warpgroup and a producer warp",
               at_d112={**flash_t[ZAMBA_SHAPE[0]],
                        "shape": "B=4 S=2048 H=KVH=32 D=112 causal bf16"},
+              at_d256={**flash_t[GEMMA2_GLOBAL[0]],
+                       "shape": "B=4 S=2048 H=16 KVH=8 D=256 causal, softcap "
+                                "50, scale 224^-0.5, bf16 (gemma2-9b global)"},
+              at_gemma2_local={
+                  **flash_t[GEMMA2_LOCAL[0]],
+                  "shape": "B=1 S=6144 H=16 KVH=8 D=256 causal, window 4096, "
+                           "softcap 50, scale 224^-0.5, bf16 (gemma2-9b local)"},
+              at_d160={**flash_t[STABLELM_SHAPE[0]],
+                       "shape": "B=4 S=2048 H=32 KVH=8 D=160 causal bf16 "
+                                "(stablelm-12b)"},
+              at_vlm_cross={
+                  **flash_t[VLM_CROSS[0]],
+                  "shape": f"B=4 Sq=2048 Sk={NUM_PATCHES} H=64 KVH=8 D=128 "
+                           "non-causal bf16 (llama-3.2-vision-90b cross)"},
               at_seamless_encoder={
                   **flash_t[SEAMLESS_ENCODER[0]],
                   "shape": f"B=4 S={ENC_LEN} H=KVH=16 D=64 non-causal bf16"},

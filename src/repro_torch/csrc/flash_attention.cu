@@ -17,14 +17,15 @@
 // with its intra-warpgroup overlap, without its inter-warpgroup ping-pong:
 //   * one block per (128-row q tile, head, batch), longest causal rows first;
 //     three warpgroups, setmaxnreg moving registers from the producer (24)
-//     to the two consumers (240);
-//   * the producer's one thread loads Q once and K/V tiles of 96 rows by TMA
-//     into a ring of 2 stages; K and V each complete on their own full
-//     mbarrier and are released on their own empty one, so the next K can
-//     load as soon as its stage's S is computed;
+//     to the two consumers (240) (at D=160 and 256 the producer is one warp:
+//     see below);
+//   * the producer's one thread loads Q once and K/V tiles of 96 rows (64 at
+//     D=256) by TMA into a ring of 2 stages; K and V each complete on their
+//     own full mbarrier and are released on their own empty one, so the next
+//     K can load as soon as its stage's S is computed;
 //   * consumer warpgroup w owns q rows 64w..64w+63. S_t = Q K_t^T is a
-//     wgmma m64n96k16 chain with both operands in shared memory (K
-//     K-major); O += P V is a wgmma with P from registers (P rounded to bf16;
+//     wgmma m64n96k16 (m64n64k16 at D=256) chain with both operands in
+//     shared memory (K K-major); O += P V is a wgmma with P from registers (P rounded to bf16;
 //     the accumulator layout is the A-fragment layout) and V read MN-major
 //     through the transpose bit. Step t issues S_t, then P_{t-1} V_{t-1},
 //     waits for S_t only, and runs the online softmax of tile t (fp32, base
@@ -54,10 +55,32 @@
 // there too. FA3's inter-warpgroup ping-pong, tried, ran slower here and
 // serialized the wgmma again; it is not used.
 //
-// Measured (chip_smoke.py, H100 80GB HBM3 at 700 W): 0.378 ms at the serving
-// shape, 2.7x the bound and 1.3x scaled_dot_product_attention (0.285 ms);
-// ptxas: 168 registers, no spills, no serialization. What still holds it
-// back: the two consumer warpgroups' softmax overlaps only their own P V
+// Head dims 160 (stablelm-12b, 5120 / 32) and 256 (gemma2-9b). O alone is
+// DP / 2 fp32 registers a consumer thread: 96 at D=160 (run at 192, three
+// boxes, columns 160-191 zero-filled past the edge and never stored) and 128
+// at D=256, and beside S and P neither fits 168. The cap is set per SM
+// sub-partition: each of the four holds 16 384 registers and takes every
+// fourth warp, so 9 warps (two consumer warpgroups and a producer warp,
+// tried) cap a thread at 168 as 12 do. So at these widths a block is one
+// consumer warpgroup of 64 q rows and a producer warp (5 warps: cap 255),
+// with no setmaxnreg (it needs whole warpgroups) and 2 stages of K/V tiles:
+// 96 rows at D=160 (173 184 B of shared memory), 64 at D=256 (164 992 B).
+// At D=256 96-row tiles (230 528 B) fit too, but ptxas then spilled 16
+// bytes; the two ran at the same speed before the softcap below. ptxas
+// (chip_smoke.py phase 1): 254 registers at D=160, 255 at D=256, no spills,
+// no serialized wgmma. The cost of one consumer: each K/V tile is read for
+// 64 q rows, not 128, and the softmax overlaps only this warpgroup's own
+// P V.
+// The tanh softcap (gemma2: 50) is c tanh(x / c) = c - 2c / (1 + e^(2x/c)):
+// one ex2.approx and one rcp.approx a score, within ~1e-6 of c. tanhf's
+// software sequence, tried first, was the costliest part of the kernel at
+// D=256.
+//
+// Measured (chip_smoke.py, H100 80GB HBM3 at 700 W, PR 14): 0.378 ms at the
+// serving shape, 2.7x the bound and 1.3x scaled_dot_product_attention
+// (0.285 ms); ptxas: 168 registers, no spills, no serialization. What
+// still holds it back: the two consumer warpgroups' softmax overlaps only
+// their own P V
 // (no ping-pong), and S, P and O must share 168 registers, which caps the
 // K/V tile at 96 rows.
 //
@@ -74,19 +97,38 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BQ = 128;             // q rows per block: two consumer warpgroups of 64
-constexpr int BK = 96;              // kv rows per tile
-constexpr int STAGES = 2;           // K/V tiles in the ring
-constexpr int THREADS = 384;        // warpgroups 0, 1 consume; 2 produces
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Head dim D in 64-column boxes; D = 112 is read as 128 (the second box's
-// last 16 columns are zeros past the edge of the tensor map).
+// The tile shape at head_dim D: consumer warpgroups (64 q rows each), kv rows
+// per tile, tiles in the ring, and the producer's threads (a warpgroup that
+// hands its registers to the consumers by setmaxnreg, or one warp and no
+// setmaxnreg). The source note says why D=160 and 256 differ.
+template <int D>
+struct Tiles {
+  static constexpr int CONSUMERS = 2, BK = 96, STAGES = 2, PRODUCER_THREADS = 128;
+};
+template <>
+struct Tiles<160> {
+  static constexpr int CONSUMERS = 1, BK = 96, STAGES = 2, PRODUCER_THREADS = 32;
+};
+template <>
+struct Tiles<256> {
+  static constexpr int CONSUMERS = 1, BK = 64, STAGES = 2, PRODUCER_THREADS = 32;
+};
+
+// Head dim D in 64-column boxes; D = 112 is read as 128 and D = 160 as 192
+// (the last box's columns past D are zeros past the edge of the tensor map).
 template <int D>
 struct Layout {
+  static constexpr int CONSUMERS = Tiles<D>::CONSUMERS;        // warpgroups
+  static constexpr int BQ = 64 * CONSUMERS;                    // q rows per block
+  static constexpr int BK = Tiles<D>::BK;                      // kv rows per tile
+  static constexpr int STAGES = Tiles<D>::STAGES;              // K/V tiles in the ring
+  static constexpr int THREADS = 128 * CONSUMERS + Tiles<D>::PRODUCER_THREADS;
+  static constexpr bool SETMAXNREG = Tiles<D>::PRODUCER_THREADS == 128;
   static constexpr int NB = (D + hopper::BOX - 1) / hopper::BOX;
   static constexpr int DP = NB * hopper::BOX;                  // padded head dim
   static constexpr int Q_BOX = BQ * hopper::BOX_ROW_BYTES;     // bytes of one Q box
@@ -111,6 +153,13 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// 1/x by the special-function unit (rcp.approx: within 1 ulp; 1/inf = 0).
+__device__ __forceinline__ float fast_rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // The online softmax of one warpgroup's rows over one BK-key tile, in base
 // 2: the scores are scaled (and softcapped), masked where a mask reaches
 // into the tile, and replaced by p = 2^(x - m) with m the new running max;
@@ -121,12 +170,15 @@ struct Softmax {
   float scale, softcap;
   int causal, window, kv_valid, q_lo, qpos, t4;
 
+  template <int BK>
   __device__ __forceinline__ void update(float (&sc)[BK / 2], int kstart,
                                          float (&m_run)[2], float (&l_run)[2],
                                          float (&corr)[2]) const {
-    if (softcap > 0.f) {
+    if (softcap > 0.f) {        // c tanh(x s / c) log2(e) = cL - 2 cL / (1 + 2^(2 x s L / c))
+      const float cl = softcap * LOG2E, k = 2.f * scale * LOG2E / softcap;
 #pragma unroll
-      for (int i = 0; i < BK / 2; ++i) sc[i] = softcap * tanhf(sc[i] * scale / softcap) * LOG2E;
+      for (int i = 0; i < BK / 2; ++i)
+        sc[i] = fmaf(-2.f * cl, fast_rcp(1.f + fast_exp2(sc[i] * k)), cl);
     } else {
       const float scale_log2 = scale * LOG2E;
 #pragma unroll
@@ -181,6 +233,7 @@ struct Softmax {
 
 // P rounded to bf16 pairs: n8 blocks 2s and 2s + 1 of the accumulator are the
 // A fragment of the k16 slice s (hopper.cuh: the layouts agree).
+template <int BK>
 __device__ __forceinline__ void to_bf16_fragments(const float (&sc)[BK / 2],
                                                   uint32_t (&p)[BK / 16][4]) {
 #pragma unroll
@@ -191,13 +244,14 @@ __device__ __forceinline__ void to_bf16_fragments(const float (&sc)[BK / 2],
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Layout<D>::THREADS, 1)
 flash_fwd_kernel(__grid_constant__ const CUtensorMap qmap,
                  __grid_constant__ const CUtensorMap kmap,
                  __grid_constant__ const CUtensorMap vmap, bf16* __restrict__ o,
                  int Sq, int H, int KVH, float scale, int causal, int window,
                  float softcap, int q_offset, int kv_valid) {
   using L = Layout<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, STAGES = L::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -228,17 +282,17 @@ flash_fwd_kernel(__grid_constant__ const CUtensorMap qmap,
     for (int s = 0; s < STAGES; ++s) {
       hopper::mbar_init(&k_full[s], 1);
       hopper::mbar_init(&v_full[s], 1);
-      hopper::mbar_init(&k_empty[s], 8);        // one arrival per consumer warp
-      hopper::mbar_init(&v_empty[s], 8);
+      hopper::mbar_init(&k_empty[s], 4 * L::CONSUMERS);   // one arrival per consumer warp
+      hopper::mbar_init(&v_empty[s], 4 * L::CONSUMERS);
     }
 
     hopper::mbar_fence_init();
   }
   __syncthreads();
 
-  if (wgi == 2) {                               // producer warpgroup
-    hopper::setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x == 256) {
+  if (wgi == L::CONSUMERS) {                    // producer warpgroup (or warp)
+    if constexpr (L::SETMAXNREG) hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 128 * L::CONSUMERS) {
       hopper::tma_prefetch_map(&qmap);
       hopper::tma_prefetch_map(&kmap);
       hopper::tma_prefetch_map(&vmap);
@@ -267,7 +321,7 @@ flash_fwd_kernel(__grid_constant__ const CUtensorMap qmap,
     }
   } else {                                      // consumer warpgroups
     // consumer warpgroup wgi: q rows q0 + 64 wgi .. + 63
-    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    if constexpr (L::SETMAXNREG) hopper::setmaxnreg_inc<CONSUMER_REGS>();
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane / 4, t4 = lane % 4;
     const int q_lo = q_offset + q0 + wgi * 64;    // first q position of this warpgroup
@@ -291,7 +345,7 @@ flash_fwd_kernel(__grid_constant__ const CUtensorMap qmap,
       hopper::mbar_wait(&v_full[stage(t)], parity(t));
       release(&v_empty[stage(t)]);
     };
-    // S = Q K_t^T: 64 rows x 96 keys, both operands K-major in shared memory
+    // S = Q K_t^T: 64 rows x BK keys, both operands K-major in shared memory
     auto issue_s = [&](float (&sc)[BK / 2], int t) {
       const unsigned char* k_s = sK + stage(t) * L::KV_BYTES;
 #pragma unroll
@@ -328,8 +382,8 @@ flash_fwd_kernel(__grid_constant__ const CUtensorMap qmap,
       hopper::wgmma_wait<0>();
       hopper::fence_regs(sc);
       release(&k_empty[stage(lo)]);
-      sm.update(sc, lo * BK, m_run, l_run, corr);
-      to_bf16_fragments(sc, p);
+      sm.update<BK>(sc, lo * BK, m_run, l_run, corr);
+      to_bf16_fragments<BK>(sc, p);
       // In step t the tensor cores run S_t, then P_{t-1} V_{t-1}; the softmax
       // of S_t overlaps the second. O is rescaled once P_{t-1} V_{t-1} is in.
       for (int t = lo + 1; t < hi; ++t) {
@@ -344,7 +398,7 @@ flash_fwd_kernel(__grid_constant__ const CUtensorMap qmap,
         hopper::wgmma_wait<1>();                // S_t is in
         hopper::fence_regs(sc);
         release(&k_empty[stage(t)]);
-        sm.update(sc, t * BK, m_run, l_run, corr);
+        sm.update<BK>(sc, t * BK, m_run, l_run, corr);
         hopper::wgmma_wait<0>();                // P_{t-1} V_{t-1} is in
         hopper::fence_regs(acc);
         hopper::fence_regs(p);
@@ -356,7 +410,7 @@ flash_fwd_kernel(__grid_constant__ const CUtensorMap qmap,
           acc[4 * j + 2] *= corr[1];
           acc[4 * j + 3] *= corr[1];
         }
-        to_bf16_fragments(sc, p);
+        to_bf16_fragments<BK>(sc, p);
       }
       hopper::mbar_wait(&v_full[stage(hi - 1)], parity(hi - 1));
       hopper::fence_regs(acc);
@@ -369,7 +423,7 @@ flash_fwd_kernel(__grid_constant__ const CUtensorMap qmap,
     }
     for (int t = hi; t < t_end; ++t) pass(t);
 
-    // rows g and g + 8 of this warp's 16; columns 8j + 2t, + 1; pad columns
+// rows g and g + 8 of this warp's 16; columns 8j + 2t, + 1; pad columns
     // (D = 112) are never stored
     const int row0 = q0 + wgi * 64 + warp * 16 + g, row1 = row0 + 8;
     const float inv0 = 1.f / fmaxf(l_run[0], 1e-30f);
@@ -403,10 +457,12 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
            int Sk, int H, int KVH, float scale, int causal, int window,
            float softcap, int q_offset, int kv_valid, cudaStream_t stream) {
-  constexpr int bytes = Layout<D>::BYTES;
+  using L = Layout<D>;
+  constexpr int bytes = L::BYTES;
   CUtensorMap qm, km, vm;
-  if (!encode_map(&qm, q, B, Sq, H, D, BQ) || !encode_map(&km, k, B, Sk, KVH, D, BK) ||
-      !encode_map(&vm, v, B, Sk, KVH, D, BK))
+  if (!encode_map(&qm, q, B, Sq, H, D, L::BQ) ||
+      !encode_map(&km, k, B, Sk, KVH, D, L::BK) ||
+      !encode_map(&vm, v, B, Sk, KVH, D, L::BK))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool attr_set = false;
   if (!attr_set) {
@@ -415,8 +471,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, THREADS, bytes, stream>>>(
+  dim3 grid((Sq + L::BQ - 1) / L::BQ, H, B);
+  flash_fwd_kernel<D><<<grid, L::THREADS, bytes, stream>>>(
       qm, km, vm, static_cast<bf16*>(o), Sq, H, KVH, scale, causal, window,
       softcap, q_offset, kv_valid);
   return static_cast<int>(cudaGetLastError());
@@ -431,6 +487,8 @@ int flash_attention_smem_bytes(int D) {
   if (D == 64) return Layout<64>::BYTES;
   if (D == 112) return Layout<112>::BYTES;
   if (D == 128) return Layout<128>::BYTES;
+  if (D == 160) return Layout<160>::BYTES;
+  if (D == 256) return Layout<256>::BYTES;
   return 0;
 }
 
@@ -450,6 +508,12 @@ int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* 
                        softcap, q_offset, kv_valid, s);
   if (D == 128)
     return launch<128>(q, k, v, o, B, Sq, Sk, H, KVH, scale, causal, window,
+                       softcap, q_offset, kv_valid, s);
+  if (D == 160)   // stablelm-12b: 5120 / 32 heads
+    return launch<160>(q, k, v, o, B, Sq, Sk, H, KVH, scale, causal, window,
+                       softcap, q_offset, kv_valid, s);
+  if (D == 256)   // gemma2-9b
+    return launch<256>(q, k, v, o, B, Sq, Sk, H, KVH, scale, causal, window,
                        softcap, q_offset, kv_valid, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

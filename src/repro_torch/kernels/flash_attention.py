@@ -3,14 +3,19 @@
 Counterpart of ``repro.kernels.flash_attention`` (``flash_attention_pallas``).
 The kernel is ``csrc/flash_attention.cu``, FlashAttention-3's forward
 structure on the primitives of ``csrc/hopper.cuh``: one block per (128-row q
-tile, head, batch); a producer thread loads Q and 96-row K/V tiles by TMA
-into a 2-stage ring of 128-byte-swizzled boxes completed on mbarriers; two
-consumer warpgroups of 64 q rows each compute S = Q K^T and O += P V with
-``wgmma`` (P from registers, V through the transpose bit) and the online
-softmax in fp32 between them. It takes bf16 and head_dim 64, 112
-(zamba2-7b) or 128, in 64-column boxes: 112 is computed at 128, its pad
-columns zero and never stored. Its source note gives its bound on the H100
-and the design.
+tile, head, batch; 64 rows at head_dim 160 and 256); a producer thread loads
+Q and 96-row K/V tiles (64 at 256) by TMA into a 2-stage ring of
+128-byte-swizzled boxes completed on mbarriers; consumer warpgroups of 64 q
+rows each compute S = Q K^T and O += P V with ``wgmma`` (P from registers,
+V through the transpose bit) and the online softmax in fp32 between them.
+It takes bf16 and head_dim 64, 112 (zamba2-7b), 128, 160 (stablelm-12b) or
+256 (gemma2-9b), in 64-column boxes: 112 is computed at 128 and 160 at 192,
+their pad columns zero and never stored. The block's shape depends on the
+head dim (``TILES``): up to 128, two consumer warpgroups and a producer
+warpgroup; at 160 and 256, where O alone takes 96 or 128 registers a
+thread, one consumer warpgroup and a producer warp, so that a thread may
+hold 255 registers. Its source note gives its bound on the H100 and the
+design.
 
 ``flash_attention_cuda`` routes by where the tensors lie: on the CPU it runs
 the plain version (the torch twin of ``ref.mha_chunked``); on a CUDA tensor it
@@ -26,11 +31,12 @@ import torch
 from . import _build, ref
 from ._autograd import refuse_grad
 
-BLOCK_Q = 128          # q rows per block: two consumer warpgroups of 64
-BLOCK_K = 96           # kv rows per tile
-STAGES = 2             # K/V tiles in the ring
 BOX = 64               # bf16 columns of one 128-byte-swizzled TMA box
-HEAD_DIMS = (64, 112, 128)
+# head_dim -> (consumer warpgroups of 64 q rows, kv rows per tile, K/V tiles
+# in the ring, producer threads): the kernel's Tiles<D>
+TILES = {64: (2, 96, 2, 128), 112: (2, 96, 2, 128), 128: (2, 96, 2, 128),
+         160: (1, 96, 2, 32), 256: (1, 64, 2, 32)}
+HEAD_DIMS = tuple(TILES)
 
 
 def head_dim_boxes(d: int) -> int:
@@ -40,20 +46,34 @@ def head_dim_boxes(d: int) -> int:
 
 def padded_head_dim(d: int) -> int:
     """The width the products run at: ``d`` rounded up to whole boxes (112
-    runs at 128, its last 16 columns zero-filled by TMA)."""
+    runs at 128 and 160 at 192, the last box's columns past ``d``
+    zero-filled by TMA)."""
     return head_dim_boxes(d) * BOX
 
 
-def smem_bytes(block_q: int = BLOCK_Q, block_k: int = BLOCK_K, d: int = 128,
-               stages: int = STAGES) -> int:
-    """Dynamic shared memory of one block (counterpart of ``vmem_bytes``).
+def block_q(d: int) -> int:
+    """q rows of one block at head_dim ``d``: 64 per consumer warpgroup."""
+    return 64 * TILES[d][0]
 
-    The Q tile and ``stages`` K and V tiles, each row ``padded_head_dim(d)``
-    bf16 wide in 128-byte boxes; 128 bytes of mbarriers; 1 KB of slack to
-    align the tiles to the swizzle's 1024-byte atoms. Must stay within the
-    232 448 bytes a block may use on Hopper.
+
+def block_threads(d: int) -> int:
+    """Threads of one block at head_dim ``d``: the consumer warpgroups and
+    the producer (a warpgroup, or one warp at 160 and 256)."""
+    return 128 * TILES[d][0] + TILES[d][3]
+
+
+def smem_bytes(d: int = 128) -> int:
+    """Dynamic shared memory of one block at head_dim ``d`` (counterpart of
+    ``vmem_bytes``).
+
+    The ``block_q(d)``-row Q tile and ``stages`` K and V tiles of
+    ``TILES[d]``'s rows, each row ``padded_head_dim(d)`` bf16 wide in
+    128-byte boxes; 128 bytes of mbarriers; 1 KB of slack to align the tiles
+    to the swizzle's 1024-byte atoms. Must stay within the 232 448 bytes a
+    block may use on Hopper.
     """
-    rows = block_q + 2 * stages * block_k
+    _, block_k, stages, _ = TILES[d]
+    rows = block_q(d) + 2 * stages * block_k
     return rows * head_dim_boxes(d) * BOX * 2 + 128 + 1024
 
 

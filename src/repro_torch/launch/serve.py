@@ -9,11 +9,13 @@ and the median batch latency.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --requests 8 --batch 4 --prompt-len 2048 --max-new 64
 
-``--arch`` takes deepseek-7b, deepseek-moe-16b, kimi-k2-1t-a32b (reduced
-only: at full width no card holds it), mamba2-370m, seamless-m4t-large-v2
-and zamba2-7b. The encoder-decoder gets the reference's stub frontend: zero
-frames of the prompt's length (``Model.extra_inputs``). As in the reference,
-``generate`` is greedy whatever ``--temperature`` says.
+``--arch`` takes every architecture of the registry. kimi-k2-1t-a32b,
+command-r-plus-104b and llama-3.2-vision-90b run reduced only: at full width
+and depth no 80 GB card holds them (``chip_smoke.py`` serves the last two at
+full width with their depth cut). The encoder-decoder and the VLM get the
+reference's stub frontends: zero frames of the prompt's length, zero
+patches of ``vision.num_patches`` (``Model.extra_inputs``). As in the
+reference, ``generate`` is greedy whatever ``--temperature`` says.
 """
 from __future__ import annotations
 

@@ -26,19 +26,29 @@ class Model:
 
     # -- inputs -------------------------------------------------------------
     def extra_inputs(self, batch: int, seq_len: int, *, device=None) -> dict:
-        """Modality-stub inputs: zero bf16 ``frames`` (batch, seq_len,
-        d_model) for the encoder-decoder, as the reference's; nothing for
-        the decoder-only families. ``device`` defaults to ``cuda``."""
-        if self.cfg.family != "encdec":
+        """Modality-stub inputs, zero bf16 as the reference's: ``frames``
+        (batch, seq_len, d_model) for the encoder-decoder, ``patches``
+        (batch, num_patches, d_vision) for the VLM; nothing for the
+        decoder-only families. ``device`` defaults to ``cuda``."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            name, shape = "frames", (batch, seq_len, cfg.d_model)
+        elif cfg.family == "vlm":
+            name = "patches"
+            shape = (batch, cfg.vision.num_patches, cfg.vision.d_vision)
+        else:
             return {}
-        return {"frames": torch.zeros((batch, seq_len, self.cfg.d_model),
-                                      dtype=torch.bfloat16,
-                                      device=resolve_device(device))}
+        return {name: torch.zeros(shape, dtype=torch.bfloat16,
+                                  device=resolve_device(device))}
 
     def enc_len_for(self, seq_len: int) -> int:
         """Cross-attention KV length the reference sizes a cache with: the
-        encoder's states (encdec), none otherwise."""
-        return seq_len if self.cfg.family == "encdec" else 0
+        encoder's states (encdec), the image patches (vlm), none otherwise."""
+        if self.cfg.family == "encdec":
+            return seq_len
+        if self.cfg.family == "vlm":
+            return self.cfg.vision.num_patches
+        return 0
 
     # -- execution ----------------------------------------------------------
     def apply(self, params, inputs, *, mode="train", cache=None,
@@ -49,7 +59,8 @@ class Model:
     def init_cache(self, batch: int, max_len: int, *, enc_len: int = 0,
                    device=None, kv_dtype=torch.bfloat16):
         """Zeroed decode cache on ``device`` (default ``cuda``); ``enc_len``
-        sizes the cross-attention K/V (a prefill refits it to the frames)."""
+        sizes the cross-attention K/V, which a prefill fills from the frames
+        or patches of that length."""
         return transformer.init_cache(self.cfg, batch, max_len,
                                       enc_len=enc_len, kv_dtype=kv_dtype,
                                       device=resolve_device(device))

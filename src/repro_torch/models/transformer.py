@@ -1,10 +1,10 @@
 """Decoder stack: layer plans, a loop over stacked layers, caches.
 
-Counterpart of ``repro.models.transformer`` for the dense, MoE, SSM, hybrid
-and encoder-decoder families. Every architecture is a *layer plan*, a tuple of
-``GroupDesc`` entries; each group's parameters are stacked per layer (leading
-``layers`` axis, the reference's layout), and the group runs as a Python loop
-that indexes layer ``i`` of the stacked tensors in place of
+Counterpart of ``repro.models.transformer`` for every family: dense, MoE,
+SSM, hybrid, encoder-decoder and VLM. Every architecture is a *layer plan*,
+a tuple of ``GroupDesc`` entries; each group's parameters are stacked per
+layer (leading ``layers`` axis, the reference's layout), and the group runs
+as a Python loop that indexes layer ``i`` of the stacked tensors in place of
 ``jax.lax.scan``.
 
 Modes: ``train`` (no cache), ``prefill`` (flash attention or the SSD scan +
@@ -13,9 +13,9 @@ state). MoE blocks (the local path of ``models/moe.py``) return the router's
 load-balance loss, which ``forward`` sums over the blocks as the reference
 does. The encoder-decoder family runs its encoder (``encoder_plan``) on
 ``inputs["frames"]`` outside decode; its ``cross_attn`` blocks attend to the
-encoder's final states, through a ``ck``/``cv`` cache in decode. The VLM
-family raises ``NotImplementedError`` naming the ROADMAP.md item that ports
-it.
+encoder's final states, through a ``ck``/``cv`` cache in decode. The VLM's
+``cross_attn`` blocks (every ``vision.cross_every``-th layer) attend the same
+way to ``inputs["patches"]`` projected by ``vision_proj``.
 """
 from __future__ import annotations
 
@@ -30,14 +30,6 @@ from .common import (ParamSpec, apply_norm, dtype_of, norm_spec, softcap,
 from .ffn import apply_ffn, ffn_specs
 from .moe import apply_moe, moe_specs
 from .ssm import apply_ssm, apply_ssm_decode, init_ssm_state, ssm_specs
-
-_NOT_PORTED = {"vlm": "the VLM family (ROADMAP.md A7)"}
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what!r} is not ported yet: it comes with "
-                               f"{_NOT_PORTED[what]}")
-
 
 @dataclass(frozen=True)
 class BlockDesc:
@@ -57,8 +49,6 @@ A, F, S = BlockDesc("attn"), BlockDesc("ffn"), BlockDesc("ssm")
 
 
 def layer_plan(cfg) -> tuple[GroupDesc, ...]:
-    if cfg.family in _NOT_PORTED:
-        raise _not_ported(cfg.family)
     if cfg.family == "ssm":
         return (GroupDesc(cfg.n_layers, (S,)),)
     if cfg.family == "hybrid":
@@ -68,6 +58,11 @@ def layer_plan(cfg) -> tuple[GroupDesc, ...]:
         if rest:
             groups.append(GroupDesc(rest, (S,)))
         return tuple(groups)
+    if cfg.family == "vlm":
+        ce = cfg.vision.cross_every
+        assert cfg.n_layers % ce == 0
+        blocks = tuple([A, F] * (ce - 1)) + (BlockDesc("cross_attn"), F)
+        return (GroupDesc(cfg.n_layers // ce, blocks),)
     if cfg.family == "encdec":
         return (GroupDesc(cfg.n_layers, (A, BlockDesc("cross_attn"), F)),)
     if cfg.parallel_block:
@@ -117,8 +112,6 @@ def _block_specs(cfg, b: BlockDesc) -> dict:
     elif b.kind == "ssm":
         spec["ssm"] = ssm_specs(cfg)
     elif b.kind == "cross_attn":
-        if cfg.family in _NOT_PORTED:   # the VLM's cross-attention over patches
-            raise _not_ported(cfg.family)
         spec["attn"] = attention_specs(cfg)
         spec["cross_kv"] = cross_kv_specs(cfg, cfg.d_model)
     elif b.kind == "parallel":
@@ -145,6 +138,9 @@ def lm_specs(cfg) -> dict:
     if not cfg.tie_embeddings:
         spec["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
                                     ("embed", "vocab"))
+    if cfg.family == "vlm":
+        spec["vision_proj"] = ParamSpec((cfg.vision.d_vision, cfg.d_model),
+                                        ("vision_embed", "embed"))
     if cfg.family == "hybrid":
         spec["shared"] = {
             "norm": norm_spec(cfg),
@@ -263,8 +259,9 @@ def _apply_block(bp, x, b: BlockDesc, *, cfg, mode, cache, cache_index,
             if cache is not None:
                 if cache["ck"].shape[1] != kv[0].shape[1]:
                     raise ValueError(
-                        f"cross cache made for {cache['ck'].shape[1]} encoder "
-                        f"positions, the frames have {kv[0].shape[1]}")
+                        f"cross cache made for {cache['ck'].shape[1]} "
+                        f"positions, the frames or patches have "
+                        f"{kv[0].shape[1]}")
                 cache["ck"].copy_(kv[0])
                 cache["cv"].copy_(kv[1])
                 new_cache = cache
@@ -306,16 +303,16 @@ def forward(params, inputs, *, cfg, mode="train", cache=None,
             cache_index=None):
     """Run the model.
 
-    inputs: {'tokens': (B, S) int, and for the encoder-decoder outside
-    decode 'frames': (B, S_enc, d_model), the stub frontend's frame
+    inputs: {'tokens': (B, S) int; outside decode, for the encoder-decoder
+    'frames': (B, S_enc, d_model), the stub frontend's frame embeddings, and
+    for the VLM 'patches': (B, P, d_vision), the stub vision frontend's patch
     embeddings}. Returns (logits fp32, new_cache|None, aux_loss fp32: the MoE
     blocks' load-balance losses, zero without them).
 
-    A prefill writes the encoder's K/V into the cache's ck/cv leaves, which
-    must have been made for the frames' length (``enc_len``).
+    A prefill writes the cross-attention K/V (of the encoder's states or the
+    projected patches) into the cache's ck/cv leaves, which must have been
+    made for that length (``enc_len``).
     """
-    if cfg.family in _NOT_PORTED:
-        raise _not_ported(cfg.family)
     tokens = inputs["tokens"]
     B, Sq = tokens.shape
     dev = tokens.device
@@ -330,6 +327,9 @@ def forward(params, inputs, *, cfg, mode="train", cache=None,
         positions = int(cache_index) + torch.arange(Sq, device=dev)[None, :]
 
     cross_states = None
+    if cfg.family == "vlm" and mode != "decode":
+        cross_states = inputs["patches"].to(x.dtype) @ \
+            params["vision_proj"].to(x.dtype)
     if cfg.family == "encdec" and mode != "decode":
         cross_states = encode(params, inputs["frames"], cfg=cfg)
 

@@ -57,6 +57,15 @@ def build_decode_step(model: Model, opts: ServeOptions):
     return decode
 
 
+def cross_len(extras: dict) -> int:
+    """The cross-attention source length of a prefill's modality inputs:
+    the encoder-decoder's frames or the VLM's patches (0 without either)."""
+    for name in ("frames", "patches"):
+        if name in extras:
+            return extras[name].shape[1]
+    return 0
+
+
 class ServeSession:
     """Batched request serving against a locally-materialized model.
 
@@ -82,14 +91,16 @@ class ServeSession:
     def generate(self, prompts, max_new_tokens: int = 32, extras=None):
         """prompts: (B, S) int tensor -> (B, max_new_tokens) int64.
 
-        ``extras``: modality inputs for the prefill, e.g. ``{"frames": (B,
-        S_enc, d_model)}`` for the encoder-decoder, whose cross-attention
-        cache is sized by the frames (the reference sizes it by the prompt,
-        ``enc_len_for(S)``, and its prefill replaces the leaves)."""
+        ``extras``: modality inputs for the prefill, ``{"frames": (B, S_enc,
+        d_model)}`` for the encoder-decoder or ``{"patches": (B, P,
+        d_vision)}`` for the VLM; the cross-attention cache is sized by their
+        length (the reference sizes it by ``enc_len_for(S)``, the prompt's
+        length for the encoder-decoder, and its prefill replaces the
+        leaves)."""
         prompts = torch.as_tensor(prompts, device=self.device)
         B, S = prompts.shape
         extras = extras or {}
-        enc_len = extras["frames"].shape[1] if "frames" in extras else 0
+        enc_len = cross_len(extras)
         cache = self.model.init_cache(B, S + max_new_tokens, enc_len=enc_len,
                                       device=self.device,
                                       kv_dtype=dtype_of(self.opts.kv_dtype))

@@ -77,6 +77,32 @@ def test_flash_attention_kernel_edges_vs_plain(cuda, D, B, Sq, Sk, H, KVH, kw):
                                want.float().cpu().numpy(), atol=2e-2, rtol=2e-2)
 
 
+# (B, S, H, KVH, D, options): the serving options of the head dims and GQA
+# groups the new paths bring, at small size: gemma2-9b's global and local
+# layers (scale 224^-0.5, softcap 50; a window that binds), stablelm-12b's
+# group of 4, the VLM's group of 8 and command-r-plus's of 12
+MODEL_OPTION_CASES = [
+    (2, 300, 4, 2, 256, {"scale": 224 ** -0.5, "softcap": 50.0}),
+    (1, 400, 4, 2, 256, {"scale": 224 ** -0.5, "softcap": 50.0,
+                         "window": 128}),
+    (2, 300, 8, 2, 160, {}),
+    (1, 200, 16, 2, 128, {"causal": False}),
+    (1, 200, 24, 2, 128, {}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KVH,D,kw", MODEL_OPTION_CASES)
+def test_flash_attention_kernel_at_model_options_vs_plain(cuda, B, S, H, KVH,
+                                                          D, kw):
+    q, k, v = _qkv(13, B, S, S, H, KVH, D, cuda)
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=2e-2, rtol=2e-2)
+
+
 def _requires_grad_inputs(kernel, device):
     """Inputs of one small call of ``kernel``, each requiring grad."""
     def t(*shape, dtype=torch.bfloat16):

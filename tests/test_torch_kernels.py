@@ -205,6 +205,64 @@ def test_check_inputs_rejects_what_the_kernel_does_not_take(case):
         fa.check_inputs(q, k, v)
 
 
+# (B, S, H, KVH, D, options): the new head dims at small size with the GQA
+# groups of their models and gemma2's scale and softcaps
+NEW_HEAD_DIM_CASES = [
+    (2, 64, 4, 2, 256, {"window": 16, "logit_softcap": 50.0,
+                        "scale": 224 ** -0.5}),
+    (1, 80, 4, 2, 256, {"logit_softcap": 20.0}),
+    (2, 64, 8, 2, 160, {}),
+    (1, 70, 4, 1, 160, {"window": 24}),
+]
+
+
+@pytest.mark.parametrize("B,S,H,KVH,D,kw", NEW_HEAD_DIM_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_version_at_new_head_dims_vs_reference(B, S, H, KVH, D, kw,
+                                                     dtype):
+    """The plain version (the CPU path of the wrapper) at head_dim 256
+    (gemma2-9b) and 160 (stablelm-12b) against the reference's naive oracle
+    and its Pallas kernel in interpret mode."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(5, B, S, S, H, KVH, D), dtype)
+    oracle = jref.mha_naive(jq, jk, jv, **kw)
+    pallas = flash_attention_pallas(
+        jq, jk, jv, causal=True, window=kw.get("window", 0),
+        softcap=kw.get("logit_softcap", 0.0), scale=kw.get("scale"),
+        interpret=True, block_q=32, block_k=32)
+    got = ops.flash_attention(tq, tk, tv, **kw)
+    assert got.dtype == TDT[dtype] and got.shape == (B, S, H, D)
+    _close(got, oracle, TOL[dtype])
+    _close(got, pallas, TOL[dtype])
+
+
+@pytest.mark.parametrize("D,takes", [(160, True), (256, True), (96, False),
+                                     (192, False)])
+def test_check_inputs_takes_the_built_head_dims(D, takes):
+    """160 and 256 are built; 96 and 192 (160's padded width) are not."""
+    q = torch.zeros(1, 8, 4, D, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, D, dtype=torch.bfloat16)
+    if takes:
+        fa.check_inputs(q, k, k.clone())
+    else:
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.check_inputs(q, k, k.clone())
+
+
+def test_smem_budget_at_new_head_dims():
+    """At 160 and 256 a block is one consumer warpgroup (a 64-row Q tile) and
+    a producer warp over two stages of K and V tiles: 96-row tiles at 160 in
+    three boxes (run at 192), 64-row tiles at 256 in four."""
+    assert fa.smem_bytes(d=160) == (64 + 4 * 96) * 3 * 128 + 1152 == 173184
+    assert fa.smem_bytes(d=256) == (64 + 4 * 64) * 4 * 128 + 1152 == 164992
+    assert fa.block_q(160) == fa.block_q(256) == 64
+    assert fa.block_threads(160) == fa.block_threads(256) == 160
+    assert fa.block_q(128) == 128 and fa.block_threads(128) == 384
+    # five warps: two a sub-partition at most, so a thread may hold 255
+    # registers, where twelve (or nine) warps cap it at 168
+    assert all(-(-fa.block_threads(d) // 32) <= 8 for d in (160, 256))
+    assert all(fa.smem_bytes(d=d) <= 232448 for d in fa.HEAD_DIMS)
+
+
 def test_smem_budget():
     """The kernel's shared memory fits a Hopper block at every head dim: a
     128-row Q tile and two stages of 96-row K and V tiles, rows in 64-column
@@ -216,7 +274,8 @@ def test_smem_budget():
 
 
 @pytest.mark.parametrize("d,boxes,padded", [(64, 1, 64), (112, 2, 128),
-                                            (128, 2, 128)])
+                                            (128, 2, 128), (160, 3, 192),
+                                            (256, 4, 256)])
 def test_head_dim_box_split(d, boxes, padded):
     """The 128-byte swizzle caps a TMA box row at 64 bf16, so head_dim is
     read in 64-column boxes; 112 takes two (its last 16 columns read past

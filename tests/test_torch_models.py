@@ -226,21 +226,6 @@ def test_init_fan_in_scaling():
     assert abs(params["embed"].float().std().item() - 0.02) < 0.002
 
 
-@pytest.mark.parametrize("family", ["vlm"])
-def test_unported_families_name_their_roadmap_item(family):
-    cfg = get_config("deepseek-7b", reduced=True).replace(family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A"):
-        transformer.layer_plan(cfg)
-
-
-def test_unported_block_kind_names_its_roadmap_item():
-    """The VLM's cross-attention (over image patches) is not ported; the
-    encoder-decoder's is."""
-    cfg = get_config("deepseek-7b", reduced=True).replace(family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        transformer._block_specs(cfg, transformer.BlockDesc("cross_attn"))
-
-
 # ---------------------------------------------------------------------------
 # Mamba2 block, mamba2-370m and zamba2-7b
 # ---------------------------------------------------------------------------

@@ -14,21 +14,15 @@ torch = pytest.importorskip("torch")
 
 import ml_dtypes  # noqa: E402
 
-from repro.configs import deepseek_7b as jax_deepseek  # noqa: E402
-from repro.configs import deepseek_moe_16b as jax_deepseek_moe  # noqa: E402
-from repro.configs import kimi_k2_1t as jax_kimi  # noqa: E402
-from repro.configs import mamba2_370m as jax_mamba2  # noqa: E402
-from repro.configs import seamless_m4t_large_v2 as jax_seamless  # noqa: E402
-from repro.configs import zamba2_7b as jax_zamba2  # noqa: E402
+from repro.configs import registry as jax_registry  # noqa: E402
 from repro.configs.base import ModelConfig as JaxModelConfig  # noqa: E402
 from repro_torch import _bridge  # noqa: E402
-from repro_torch.configs import (deepseek_7b, deepseek_moe_16b,  # noqa: E402
-                                  kimi_k2_1t, mamba2_370m,
-                                  seamless_m4t_large_v2, zamba2_7b)
+from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.runtime import serve  # noqa: E402
 
@@ -174,23 +168,28 @@ def test_bridge_bf16_keeps_values():
 
 
 def test_configs_are_copies_of_the_reference():
+    """Every architecture of the reference's registry, in its order, with
+    CONFIG and REDUCED equal field for field."""
     assert [f.name for f in dataclasses.fields(ModelConfig)] == \
         [f.name for f in dataclasses.fields(JaxModelConfig)]
-    for port, ref_mod in ((deepseek_7b, jax_deepseek), (mamba2_370m, jax_mamba2),
-                          (zamba2_7b, jax_zamba2),
-                          (deepseek_moe_16b, jax_deepseek_moe),
-                          (kimi_k2_1t, jax_kimi),
-                          (seamless_m4t_large_v2, jax_seamless)):
+    assert ARCH_IDS == jax_registry.ARCH_IDS
+    assert len(ARCH_IDS) == 10
+    for arch in ARCH_IDS:
+        port, ref_mod = registry._MODULES[arch], jax_registry._MODULES[arch]
+        assert port.__name__.rsplit(".", 1)[1] == \
+            ref_mod.__name__.rsplit(".", 1)[1]
         for name in ("CONFIG", "REDUCED"):
             assert dataclasses.asdict(getattr(port, name)) == \
                 dataclasses.asdict(getattr(ref_mod, name))
-    assert ARCH_IDS == ("deepseek-7b", "deepseek-moe-16b", "kimi-k2-1t-a32b",
-                        "mamba2-370m", "seamless-m4t-large-v2", "zamba2-7b")
     assert get_config("deepseek-7b").n_layers == 30
     assert get_config("zamba2-7b").n_layers == 81
     assert get_config("deepseek-moe-16b").n_layers == 28
+    assert get_config("gemma2-9b").head_dim_ == 256
+    assert get_config("stablelm-12b").head_dim_ == 160
     with pytest.raises(KeyError):
-        get_config("gemma2-9b")
+        get_config("llama-2-7b")
+    with pytest.raises(KeyError):
+        jax_registry.get_config("llama-2-7b")
 
 
 def test_full_width_size():
@@ -265,13 +264,21 @@ def test_chip_smoke_expects_a_launch_per_block(chip_smoke):
             "deepseek-moe-16b": {"flash_attention": 28, "gmm": 81,
                                  "ssd_scan": 0},
             "seamless-m4t-large-v2": {"flash_attention": 72, "gmm": 0,
-                                      "ssd_scan": 0}}
+                                      "ssd_scan": 0},
+            "gemma2-9b": {"flash_attention": 42, "gmm": 0, "ssd_scan": 0},
+            "stablelm-12b": {"flash_attention": 40, "gmm": 0, "ssd_scan": 0},
+            "llama-3.2-vision-90b": {"flash_attention": 10, "gmm": 0,
+                                     "ssd_scan": 0},
+            "command-r-plus-104b": {"flash_attention": 4, "gmm": 0,
+                                    "ssd_scan": 0}}
     decode = {"deepseek-moe-16b": {"flash_attention": 0, "gmm": 81,
                                    "ssd_scan": 0},
               "seamless-m4t-large-v2": {"flash_attention": 24, "gmm": 0,
-                                        "ssd_scan": 0}}
+                                        "ssd_scan": 0},
+              "llama-3.2-vision-90b": {"flash_attention": 2, "gmm": 0,
+                                       "ssd_scan": 0}}
     for arch, count in want.items():
-        cfg = get_config(arch)
+        cfg = chip_smoke.path_config(arch)
         assert chip_smoke.expected_launches(cfg) == count
         step = decode.get(arch, dict.fromkeys(count, 0))
         assert chip_smoke.expected_launches(cfg, "decode") == step
@@ -365,6 +372,104 @@ def test_chip_smoke_seamless_attention_bounds(chip_smoke):
         _, B, Sq, Sk, H, KVH, D, opts = shape
         ms, by = chip_smoke.attention_bound_ms(B, Sq, Sk, H, KVH, D, opts)
         assert by == want_by and abs(ms - want_ms) < 1e-4
+
+
+def test_chip_smoke_paths_cut_depth_not_width(chip_smoke):
+    """The VLM runs 10 of its 100 layers (2 of 20 five-layer groups: 8 self-
+    and 2 cross-attention) and command-r-plus 4 of 64, both at full width;
+    every other path runs its whole config. gemma2-9b's agreement prompts
+    reach past its local layers' window."""
+    for arch, _ in chip_smoke.SERVE_PATHS:
+        full, cfg = get_config(arch), chip_smoke.path_config(arch)
+        assert cfg.replace(n_layers=full.n_layers) == full
+        assert cfg.n_layers == chip_smoke.DEPTH_CUTS.get(arch, full.n_layers)
+    (gd,) = transformer.layer_plan(chip_smoke.path_config("llama-3.2-vision-90b"))
+    assert gd.repeat == 2 and [b.kind for b in gd.blocks].count("attn") == 4
+    assert get_config("llama-3.2-vision-90b").vision.num_patches == \
+        chip_smoke.NUM_PATCHES
+    _, S = chip_smoke.AGREE_PROMPTS["gemma2-9b"]
+    assert S > get_config("gemma2-9b").sliding_window
+    assert set(chip_smoke.REPLAY_CALLS) <= {a for a, _ in chip_smoke.SERVE_PATHS}
+
+
+def test_chip_smoke_new_attention_bounds(chip_smoke):
+    """The flash bounds at the new serving shapes, by operations: gemma2's
+    global layer 1.37e11 FLOPs = 0.139 ms, its local layer past the window
+    (4096 x 4097 / 2 + 2048 x 4096 pairs) 0.278 ms, stablelm's 1.72e11 =
+    0.174 ms, the VLM's cross-attention 1.10e12 = 1.11 ms."""
+    want = {"gemma2_global": 0.139, "gemma2_local_past_window": 0.278,
+            "stablelm_prefill": 0.174, "vlm_cross": 1.112}
+    for name, B, Sq, Sk, H, KVH, D, opts in chip_smoke.FAMILY_SHAPES:
+        ms, by = chip_smoke.attention_bound_ms(B, Sq, Sk, H, KVH, D, opts)
+        assert by == "operations" and abs(ms - want[name]) < 1e-3, name
+    assert len(chip_smoke.GRID_WIDE) == 2 * len(chip_smoke.GRID)
+    assert {shape[6] for shape in chip_smoke.GRID_WIDE} == {160, 256}
+
+
+@pytest.mark.parametrize("kw", [{"causal": True}, {"causal": False},
+                                {"causal": True, "window": 5,
+                                 "logit_softcap": 20.0},
+                                {"causal": True, "logit_softcap": 50.0,
+                                 "scale": 224 ** -0.5}])
+def test_chip_smoke_floor_oracles_take_window_and_softcap(chip_smoke, kw):
+    """Both rounding-only oracles of the floor agree with the naive one in
+    fp32 (where P's rounding to v's dtype is none) under gemma2's window and
+    softcap; the naive one runs a batch row at a time."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, np.float32))
+               for sh in ((2, 12, 4, 16), (2, 12, 2, 16), (2, 12, 2, 16)))
+    want = ref.mha_naive(q, k, v, **kw)
+    for oracle in (chip_smoke.naive_attention, chip_smoke.p_bf16_attention,
+                   chip_smoke.plain_attention):
+        np.testing.assert_allclose(oracle(q, k, v, **kw).numpy(),
+                                   want.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_chip_smoke_window_fault_moves_every_row_past_the_window(chip_smoke):
+    """With a window, the injected faults include the window's first tile
+    dropped: it moves every row whose window is full, where the last tile's
+    faults move only the rows that reach the last tile."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, np.float32))
+               for sh in ((1, 400, 2, 16), (1, 400, 2, 16), (1, 400, 2, 16)))
+    kw = dict(causal=True, window=128, softcap=0.0, scale=None, q_offset=0,
+              kv_valid=None)
+    want = chip_smoke.plain_attention(q, k, v, window=128)
+    faults = chip_smoke.injected_faults(q, k, v, kw)
+    assert list(faults) == ["last_tile_dropped", "last_tile_stale",
+                            "window_first_tile_dropped"]
+    moved = {name: chip_smoke.moved_rows(out, want)
+             for name, out in faults.items()}
+    assert moved["last_tile_dropped"] <= chip_smoke.KV_TILE / 400 + 1e-6
+    # rows 64.. lose their window's oldest 64 keys
+    assert abs(moved["window_first_tile_dropped"] - (400 - 64) / 400) < 0.05
+    assert "window_first_tile_dropped" not in chip_smoke.injected_faults(
+        q, k, v, {**kw, "window": 0})
+
+
+def test_chip_smoke_call_check_power_takes_either_limit(chip_smoke):
+    """A shape fails when the kernel passes either limit, so a fault shows
+    the check's power when it passes one: here the fault moves only the row
+    of smallest norm, past the worst-row limit and within the max-abs one."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, np.float32)).bfloat16()
+               for sh in ((1, 64, 2, 16), (1, 64, 2, 16), (1, 64, 2, 16)))
+    kw = {"causal": True, "scale": 0.25}
+    want = chip_smoke.plain_attention(q, k, v, **kw)
+    norms = want.float().norm(dim=-1)
+    row = np.unravel_index(int(norms.argmin()), tuple(norms.shape))
+
+    def fault(q, k, v, **kw):
+        out = chip_smoke.plain_attention(q, k, v, **kw).clone()
+        out[row] = (out[row].float() * 1.03).to(out.dtype)
+        return out
+
+    with mock.patch.object(chip_smoke, "dropped_tile_attention", fault):
+        line, ok, power = chip_smoke.call_check([(q, k, v, kw, want)])
+    (held,) = line["shapes"].values()
+    assert ok and power and held["fault_exceeds"]
+    assert held["fault_max_abs"] <= held["tol_max_abs"]
+    assert held["fault_row_rel"] > held["tol_row_rel"]
 
 
 def test_chip_smoke_call_check_holds_each_shape(chip_smoke):

@@ -86,6 +86,34 @@ def test_moe_generate_matches_reference(arch, dtype):
     _generate_both(dtype, arch)
 
 
+@pytest.mark.parametrize("arch", ["gemma2-9b", "stablelm-12b",
+                                  "command-r-plus-104b"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_family_generate_matches_reference(arch, dtype):
+    """gemma2-9b (local/global windows, softcaps), stablelm-12b (partial
+    RoPE, qk-norm) and command-r-plus-104b (parallel block, LayerNorm)."""
+    _generate_both(dtype, arch)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_vlm_generate_with_patches_matches_reference(dtype):
+    """llama-3.2-vision-90b with seeded random ``patches``: both packages
+    size the cross cache by the patches (``enc_len_for``)."""
+    jm, jp, tm, tp = _pair(dtype, "llama-3.2-vision-90b")
+    prompts = _prompts()
+    v = tm.cfg.vision
+    patches = np.random.default_rng(6).standard_normal(
+        (B, v.num_patches, v.d_vision)).astype(np.float32)
+    jpatches = jnp.asarray(patches).astype(jnp.bfloat16)
+    want = np.asarray(jserve.ServeSession(jm, jp).generate(
+        jnp.asarray(prompts), max_new_tokens=N, extras={"patches": jpatches}))
+    got = serve.ServeSession(tm, tp, device="cpu").generate(
+        torch.from_numpy(prompts), max_new_tokens=N,
+        extras={"patches": torch.from_numpy(patches).bfloat16()}).numpy()
+    _assert_tokens_match(jm, jp, prompts, got, want, TOL[dtype],
+                         extras={"patches": jpatches})
+
+
 @pytest.mark.parametrize("prompt_len,enc_len", [(1, 24), (S, S)])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_encdec_generate_with_frames_matches_reference(dtype, prompt_len,
@@ -146,6 +174,19 @@ def test_extra_inputs_match_reference():
     assert build_model(get_config("deepseek-7b")).extra_inputs(3, 5) == {}
 
 
+def test_vlm_extra_inputs_match_reference():
+    """The VLM's stub frontend: zero bf16 patches of ``num_patches``, whatever
+    the prompt's length, and the cross length ``generate`` sizes by."""
+    jm, _, tm, _ = _pair("bfloat16", "llama-3.2-vision-90b")
+    want = jm.extra_inputs(3, 5)
+    got = tm.extra_inputs(3, 5, device="cpu")
+    assert list(got) == list(want) == ["patches"]
+    assert tuple(got["patches"].shape) == want["patches"].shape == (3, 16, 32)
+    assert got["patches"].dtype == torch.bfloat16
+    assert not bool(got["patches"].ne(0).any())
+    assert serve.cross_len(got) == tm.enc_len_for(5) == 16
+
+
 @pytest.mark.parametrize("arch", ["deepseek-7b", "zamba2-7b"])
 def test_generate_ignores_temperature_as_the_reference_does(arch):
     """The reference's generate decodes greedily whatever the temperature
@@ -201,7 +242,10 @@ def test_prefill_and_decode_steps_shapes():
 
 @pytest.mark.parametrize("arch", ["deepseek-7b", "deepseek-moe-16b",
                                   "kimi-k2-1t-a32b", "mamba2-370m",
-                                  "seamless-m4t-large-v2", "zamba2-7b"])
+                                  "seamless-m4t-large-v2", "zamba2-7b",
+                                  "gemma2-9b", "stablelm-12b",
+                                  "command-r-plus-104b",
+                                  "llama-3.2-vision-90b"])
 def test_launcher_runs_reduced_on_cpu(arch, capsys):
     out = launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                              "--requests", "3", "--batch", "2",
