@@ -10,7 +10,8 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             (``nvcc`` builds every ``src/repro_torch/csrc/*.cu`` at once);
             per library its SASS census (``HGMMA`` wgmma, ``UTMALDG`` TMA
             loads, ``HMMA`` mma.sync; the flash, gmm and SSD libraries must
-            hold both of the first two), ptxas's registers and spills per
+            hold both of the first two, the flash backward ``HMMA``),
+            ptxas's registers and spills per
             kernel and any line where ptxas says it serialized wgmma; the
             host cost of encoding the gmm's tensor maps.
 2. kernel:  the flash-attention kernel against its plain PyTorch version on
@@ -37,6 +38,19 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             never calls; it takes no softcap or window, and is timed
             without them, as the line says); the faults and timings also
             at the gemma2, stablelm, VLM-cross and seamless shapes.
+   flash_bwd: the flash backward kernel against autograd through the
+            plain version in fp32: first the forward's row log-sum-exp at
+            every head dim within LSE_TOL; a call where no row has a key
+            (LSE -inf, every gradient 0); dQ, dK and dV on the grid at head
+            dims 64, 112 and 128 and at the training shapes of deepseek-7b
+            and deepseek-moe-16b (B=2, S=2048, D=128, causal) within an
+            elementwise, a worst-row and a whole-tensor limit that two
+            injected faults (the last K/V tile's dK dropped; Delta left at
+            zero) are shown to exceed, sdpa's backward's errors beside them;
+            the backward run twice bitwise equal; timings of the kernel, the
+            plain version and the backward of
+            ``F.scaled_dot_product_attention`` (a yardstick the port never
+            calls) beside the bound.
    ssd:     the SSD-scan kernels against their plain version: the
             kernel-test grid in fp32 (the ``fma`` variant) within 1e-4 on y
             and on the state, and the prefill shapes of zamba2-7b and
@@ -58,8 +72,30 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             C-tile of one expert left unwritten) are shown to exceed; timings
             of the kernel, the plain version and ``torch.bmm`` (a yardstick
             the port never calls) there.
-   no_backward: each kernel's wrapper, given CUDA inputs that require grad
-            in grad mode, raises and launches nothing (no backward yet).
+   gmm_bwd: the grouped GEMM's backward (dx and dw, two launches of its
+            kernel) against the two einsums: the grid in fp32 and bf16, and
+            deepseek-moe-16b's expert products at the training capacity
+            (488 for 2 x 2048 tokens), each product's two forward faults
+            shown to exceed the norm limit; timings beside the backward of
+            ``torch.bmm``.
+   no_backward: the SSD scan's wrapper, given CUDA inputs that require grad
+            in grad mode, raises and launches nothing (its backward kernel
+            is queued).
+   train:   the training paths, through ``runtime.train`` at full width:
+            deepseek-7b (30 layers) and deepseek-moe-16b (8 of 28 layers),
+            B=2 x 2048 tokens of the reference's synthetic stream, remat
+            "full", bf16 moments. Step 1's loss, the worst leaf's gradient
+            norm and each leaf's whole gradient through the kernels against
+            the plain versions within 3 x a noise floor measured in the run
+            (MoE routing replayed), with faults planted in the flash
+            backward (a K/V tile's dK dropped; Delta zero) shown to fail
+            that gate where a whole leaf can see them; then 8
+            steps: losses finite and falling, each kernel's launches as
+            predicted (remat runs every forward launch twice), step time,
+            tokens/s, peak memory, model TFLOP/s, and the idle share of one
+            more step under torch.profiler. Then the restart loop at a
+            REDUCED size: a run with two injected failures ends bitwise
+            equal to a clean one.
 3. serve:   the main paths: ``ServeSession.generate`` at full width, random
             bf16 weights from a seeded generator, two batches of 4 prompts of
             2048 tokens, 64 new greedy tokens each, on deepseek-7b (30
@@ -229,6 +265,53 @@ GMM_MODEL_SHAPES = [
     ("prefill_down", 64, 968, 1408, 2048, "bfloat16"),
     ("decode_gate_up", 64, 8, 2048, 1408, "bfloat16"),
 ]
+# The backward kernels (phases flash_bwd and gmm_bwd). dQ, dK and dV (dx,
+# dw) against the plain version's autograd in fp32: the largest elementwise
+# difference as a share of the tensor's largest |plain| value, the worst row
+# (a (b, s, h) vector over D) and the whole tensor in relative norm. The
+# kernel rounds P and dS to bf16 for its products, as the forward rounds P.
+BWD_ELEM_TOL = 2e-2
+BWD_ROW_RTOL = 1e-1
+BWD_NORM_RTOL = 1e-2
+# a row's error is taken against its own norm, or this share of the median
+# row norm where that is larger. Delta comes from the bf16 output (as in
+# every flash backward, sdpa's too: its errors are printed beside), so each
+# dQ row carries an error of about the same absolute size, largest where
+# the output's rounding is (early causal rows, which see few keys and whose
+# true dQ is small: the first row's is exactly 0); measured up to 5.2% of
+# the median row at deepseek-7b's training shape, against faults at 70-100%
+BWD_ROW_FLOOR = 1.0
+LSE_TOL = 1e-4             # the forward's row log-sum-exp (base 2), absolute
+BWD_KV_TILE = 64           # keys of the backward's K/V tile, a fault's unit
+# the flash grid of phase 2 that the backward takes (no q_offset: training
+# passes none), again at head_dim 112, and a call where no row has a key
+BWD_GRID = [(f"bwd_{name}", B, Sq, Sk, H, KVH, D, opts)
+            for name, B, Sq, Sk, H, KVH, D, opts in GRID
+            if not opts.get("q_offset")] + \
+    [(f"bwd_{name}_d112", B, Sq, Sk, H, KVH, 112, opts)
+     for name, B, Sq, Sk, H, KVH, _, opts in GRID[:7]]
+BWD_NO_KEYS = ("bwd_no_keys", 1, 64, 64, 2, 2, 64, {"kv_valid": 0, "causal": False})
+# the training paths (phase train): full width, deepseek-7b at all 30
+# layers, deepseek-moe-16b cut to 8 of 28 (1 dense and 7 MoE layers, 4.6e9
+# parameters: 16.4e9 x 8 bytes of params, grads and bf16 moments do not fit
+# 80 GB); batches of TRAIN_BATCH x TRAIN_SEQ tokens of the reference's
+# synthetic stream, remat "full", bf16 moments, TRAIN_STEPS steps
+TRAIN_PATHS = ("deepseek-7b", "deepseek-moe-16b")
+TRAIN_DEPTH_CUTS = {"deepseek-moe-16b": 8}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 8
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 1
+# faults planted in the flash backward of a training run, and whether the
+# step-1 gate must fail on each. The last K/V tile's dK is reported only:
+# under causal attention its 64 keys are seen by the last 64 queries alone
+# and carry under 1% of dK's squared norm, so no leaf moves past its
+# rounding floor (phase flash_bwd holds that fault on dK itself)
+TRAIN_FAULTS = {"first_tile_dk_dropped": True, "last_tile_dk_dropped": False,
+                "delta_zero": True}
+# the flash backward at the training paths' attention (B=2, S=2048, D=128,
+# causal): deepseek-7b's 32 heads and deepseek-moe-16b's 16
+FLASH_TRAIN_SHAPES = [("deepseek7b_train", 2, 2048, 2048, 32, 32, 128, {}),
+                      ("moe16b_train", 2, 2048, 2048, 16, 16, 128, {})]
+
 # the main paths in order, each with the decode steps its agreement phase
 # holds (None: no agreement and trace phases)
 SERVE_PATHS = (("deepseek-7b", 0), ("zamba2-7b", 8), ("mamba2-370m", None),
@@ -336,7 +419,7 @@ def attention_bound_ms(B, Sq, Sk, H, KVH, D, opts) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-KERNEL_SOURCES = ("flash_attention", "moe_gmm", "ssd_scan")
+KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "moe_gmm", "ssd_scan")
 
 
 def ptxas_kernels(report: str) -> list[dict]:
@@ -380,10 +463,18 @@ def phase_card():
         if not (census[name]["HGMMA"] and census[name]["UTMALDG"]):
             raise AssertionError(f"{name}: no HGMMA or no UTMALDG in its SASS "
                                  f"({census[name]})")
+    if not census["flash_attention_bwd"]["HMMA"]:    # mma.sync from cp.async
+        raise AssertionError("flash_attention_bwd: no HMMA in its SASS")
     lib = fa._lib()
     for d in fa.HEAD_DIMS:
         if lib.flash_attention_smem_bytes(d) != fa.smem_bytes(d=d):
             raise AssertionError(f"smem_bytes({d}) disagrees with the kernel")
+    for d in fa.BWD_HEAD_DIMS:
+        for i, kernel in enumerate(("dkdv", "dq")):
+            if fa._bwd_lib().flash_attention_bwd_smem_bytes(d, i) != \
+                    fa.bwd_smem_bytes(d, kernel):
+                raise AssertionError(f"bwd_smem_bytes({d}, {kernel}) "
+                                     "disagrees with the kernel")
     for n in (16, 32, 64, 128):
         if ss._lib().ssd_scan_smem_bytes(n) != ss.smem_bytes(n):
             raise AssertionError(f"ssd smem_bytes({n}) disagrees with the kernel")
@@ -416,6 +507,8 @@ def phase_card():
           "smem_bytes_d112": fa.smem_bytes(d=112),
           "smem_bytes_d160": fa.smem_bytes(d=160),
           "smem_bytes_d256": fa.smem_bytes(d=256),
+          "bwd_smem_bytes": {d: {k: fa.bwd_smem_bytes(d, k) for k in fa.BWD_BLOCKS}
+                             for d in fa.BWD_HEAD_DIMS},
           "block_threads": {d: fa.block_threads(d) for d in fa.HEAD_DIMS},
           "ssd_smem_bytes_n64": ss.smem_bytes(64),
           "ssd_smem_bytes_n128": ss.smem_bytes(128),
@@ -829,10 +922,325 @@ def phase_gmm():
     return worst, timings
 
 
+def attention_bwd_bound_ms(B, Sq, Sk, H, KVH, D, opts) -> tuple[float, str]:
+    """Least time on the card for one attention backward: the five products
+    (S, dP, dV, dK, dQ), 10 B H D FLOPs an attended pair, at the bf16 peak,
+    against q, k, v, o, dO, LSE read and dQ, dK, dV written once."""
+    pairs = attended_pairs(Sq, Sk, causal=opts.get("causal", True),
+                           window=opts.get("window", 0),
+                           kv_valid=opts.get("kv_valid"))
+    flops = 10 * B * H * D * pairs
+    nbytes = 2 * (6 * B * Sq * H * D + 4 * B * Sk * KVH * D) + 4 * B * H * Sq
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def attention_grads_naive(q, k, v, dout, *, causal=True, window=0, softcap=0.0,
+                          scale=None, zero_delta=False):
+    """dQ, dK, dV of the attention from its formulas in fp32, one batch row
+    at a time (q_offset 0): P from the full scores, dP = dO V^T, Delta =
+    rowsum(dO o O), dS = P (dP - Delta) (times 1 - tanh^2 under a softcap).
+    ``zero_delta`` leaves Delta at zero: a backward that never computed it."""
+    import torch
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    scale = D ** -0.5 if scale is None else scale
+    keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        keep = keep.tril()
+    if window:
+        keep = keep.triu(1 - window)
+    grads = [torch.empty(t.shape, dtype=torch.float32, device=q.device)
+             for t in (q, k, v)]
+    for b in range(B):
+        qb = q[b].float().reshape(Sq, KVH, G, D)
+        kb, vb = k[b].float(), v[b].float()
+        dob = dout[b].float().reshape(Sq, KVH, G, D)
+        x = torch.einsum("qhgd,khd->hgqk", qb, kb) * scale
+        dy = 1.0
+        if softcap:
+            t = torch.tanh(x / softcap)
+            x, dy = softcap * t, 1 - t * t
+        p = torch.softmax(x.masked_fill(~keep, float("-inf")), dim=-1)
+        dp = torch.einsum("qhgd,khd->hgqk", dob, vb)
+        if zero_delta:
+            delta = 0.0
+        else:
+            o = torch.einsum("hgqk,khd->qhgd", p, vb)
+            delta = (dob * o).sum(-1).permute(1, 2, 0)[..., None]
+        ds = p * (dp - delta) * dy
+        grads[0][b] = torch.einsum("hgqk,khd->qhgd", ds, kb).reshape(Sq, H, D) * scale
+        grads[1][b] = torch.einsum("hgqk,qhgd->khd", ds, qb) * scale
+        grads[2][b] = torch.einsum("hgqk,qhgd->khd", p, dob)
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
+
+
+def grad_errors(got, want) -> dict:
+    """Elementwise (largest |got - want| over the largest |want|), worst row
+    (against BWD_ROW_FLOOR) and whole-tensor relative errors of one
+    gradient."""
+    import torch
+    diff = got.float() - want.float()
+    d = diff.abs().max().item()
+    rows = want.float().norm(dim=-1)
+    scale = torch.maximum(rows, BWD_ROW_FLOOR * rows.median())
+    return {"elem": d / max(want.float().abs().max().item(), 1e-30),
+            "row": (diff.norm(dim=-1) / scale.clamp_min(1e-30)).max().item(),
+            "norm": (diff.norm() / want.float().norm().clamp_min(1e-30)).item(),
+            "max_abs": d}
+
+
+def within_bwd_limits(e) -> bool:
+    return e["elem"] <= BWD_ELEM_TOL and e["row"] <= BWD_ROW_RTOL and \
+        e["norm"] <= BWD_NORM_RTOL
+
+
+def phase_flash_bwd():
+    """The flash backward kernel against its plain version (autograd through
+    the plain forward in fp32): dQ, dK and dV on the grid and at the
+    training shapes within BWD_ELEM_TOL, BWD_ROW_RTOL and BWD_NORM_RTOL,
+    which two injected faults must exceed (the last K/V tile's dK dropped;
+    Delta left at zero); the forward's row log-sum-exp at every head dim
+    within LSE_TOL; a call with no key to attend to giving zero gradients;
+    the backward run twice bitwise equal; timings beside the bound, the
+    plain version and the backward of ``F.scaled_dot_product_attention``
+    (a yardstick the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def options(opts):
+        return dict(causal=opts.get("causal", True), window=opts.get("window", 0),
+                    softcap=opts.get("softcap", 0.0), scale=opts.get("scale"),
+                    kv_valid=opts.get("kv_valid"))
+
+    failures, worst, timings = [], 0.0, {}
+    # the forward's LSE at every head dim (one consumer warpgroup at 160, 256)
+    lse_err = {}
+    for d in fa.HEAD_DIMS:
+        for name, opts in (("causal", {}), ("window_softcap",
+                                            {"window": 48, "softcap": 30.0}),
+                           ("noncausal", {"causal": False})):
+            q, k, v = rnd(2, 300, 4, d), rnd(2, 300, 2, d), rnd(2, 300, 2, d)
+            kw = options(opts)
+            _, lse = fa._forward(q, k, v, q_offset=0, with_lse=True, **kw)
+            want = fa.attention_lse_plain(q, k, causal=kw["causal"],
+                                          window=kw["window"],
+                                          softcap=kw["softcap"])
+            lse_err[f"d{d}_{name}"] = err = (lse - want).abs().max().item()
+            if not err <= LSE_TOL:
+                failures.append(f"lse d{d} {name}: {err}")
+    emit({"phase": "flash_lse", "max_abs_err": lse_err, "tol": LSE_TOL})
+
+    for name, B, Sq, Sk, H, KVH, D, opts in [BWD_NO_KEYS] + BWD_GRID + \
+            FLASH_TRAIN_SHAPES:
+        q, k, v, do = rnd(B, Sq, H, D), rnd(B, Sk, KVH, D), rnd(B, Sk, KVH, D), \
+            rnd(B, Sq, H, D)
+        kw = options(opts)
+        out, lse = fa._forward(q, k, v, q_offset=0, with_lse=True, **kw)
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+        torch.cuda.synchronize()
+        if name == BWD_NO_KEYS[0]:
+            ok = bool(torch.isneginf(lse).all()) and \
+                all(bool((g == 0).all()) for g in got)
+            emit({"phase": "flash_bwd", "shape": name, "lse_all_neg_inf":
+                  bool(torch.isneginf(lse).all()), "grads_all_zero": ok, "ok": ok})
+            if not ok:
+                failures.append(name)
+            continue
+        want = fa.flash_attention_bwd_plain(q, k, v, do, **kw)
+        errs = {g: grad_errors(a, b) for g, a, b in zip(("dq", "dk", "dv"), got, want)}
+        ok = all(torch.isfinite(g).all() for g in got) and \
+            all(within_bwd_limits(e) for e in errs.values())
+        worst = max([worst] + [e["max_abs"] for e in errs.values()])
+        line = {"phase": "flash_bwd", "shape": name,
+                "B_Sq_Sk_H_KVH_D": [B, Sq, Sk, H, KVH, D], "options": opts,
+                "errors": errs, "limits": {"elem": BWD_ELEM_TOL,
+                                           "row": BWD_ROW_RTOL,
+                                           "norm": BWD_NORM_RTOL}}
+        if name in {s[0] for s in FLASH_TRAIN_SHAPES}:
+            # the limits must have the power to see a one-tile fault and a
+            # missing Delta: each must pass one of them
+            dk_dropped = want[1].clone()
+            dk_dropped[:, -BWD_KV_TILE:] = 0
+            no_delta = attention_grads_naive(q, k, v, do, zero_delta=True,
+                                             **{o: kw[o] for o in
+                                                ("causal", "window", "softcap",
+                                                 "scale")})
+            faults = {"last_tile_dk_dropped": {"dk": grad_errors(dk_dropped, want[1])},
+                      "delta_zero": {g: grad_errors(a, b) for g, a, b in
+                                     zip(("dq", "dk"), no_delta[:2], want[:2])}}
+            line["faults"] = faults
+            for fault, by_grad in faults.items():
+                if all(within_bwd_limits(e) for e in by_grad.values()):
+                    failures.append(f"{name}: limits miss {fault}")
+            del dk_dropped, no_delta
+            # the library's backward against the same plain version
+            qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_()
+                          for t in (q, k, v))
+            lib = torch.autograd.grad(F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True), (qs, ks, vs), do.transpose(1, 2))
+            line["library_errors"] = {g: grad_errors(a.transpose(1, 2), b)
+                                      for g, a, b in zip(("dq", "dk", "dv"),
+                                                         lib, want)}
+            del qs, ks, vs, lib
+            again = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+            line["bitwise_repeat"] = all(torch.equal(a, b) for a, b in zip(got, again))
+            if not line["bitwise_repeat"]:
+                failures.append(f"{name}: the backward is not bitwise repeatable")
+            del again
+            if ok:
+                qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_()
+                              for t in (q, k, v))
+                sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+                do_t = do.transpose(1, 2)
+                bound_ms, bound_by = attention_bwd_bound_ms(B, Sq, Sk, H, KVH, D, opts)
+                timings[name] = {
+                    "ms": cuda_ms(lambda: fa.flash_attention_bwd_cuda(
+                        q, k, v, out, do, lse, **kw)),
+                    "plain_ms": cuda_ms(lambda: fa.flash_attention_bwd_plain(
+                        q, k, v, do, **kw), warmup=1, iters=3),
+                    "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                        sdpa_out, (qs, ks, vs), do_t, retain_graph=True)),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_note": "the backward of F.scaled_dot_product_attention",
+                    "fwd_with_lse_ms": cuda_ms(lambda: fa._forward(
+                        q, k, v, q_offset=0, with_lse=True, **kw)),
+                    "library_fwd_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                        qs.detach(), ks.detach(), vs.detach(), is_causal=True)),
+                }
+                emit({"phase": "flash_bwd_timing", "shape": name, **timings[name]})
+                del sdpa_out, qs, ks, vs
+        emit({**line, "ok": bool(ok)})
+        if not ok:
+            failures.append(name)
+        del q, k, v, do, out, lse, got, want
+    if failures:
+        raise AssertionError(f"flash backward checks failed: {failures}")
+    return worst, timings
+
+
+def gmm_bwd_bound_ms(E, C, d, f) -> tuple[float, str]:
+    """Least time on the card for dx and dw of one bf16 grouped matmul: 4 E
+    C d f operations, against x, w, dy read and dx, dw written once."""
+    flops = 4 * E * C * d * f
+    nbytes = 2 * (2 * E * C * d + 2 * E * d * f + E * C * f)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def train_capacity(arch="deepseek-moe-16b") -> int:
+    """The MoE capacity of a training batch of TRAIN_BATCH x TRAIN_SEQ."""
+    from repro_torch.models.moe import _capacity
+    return _capacity(TRAIN_BATCH * TRAIN_SEQ, path_config(arch))
+
+
+def phase_gmm_bwd():
+    """The grouped GEMM's backward (two launches of its kernel: dx = dy w^T,
+    dw = x^T dy) against the two einsums in fp32: the kernel-test grid in
+    fp32 and bf16 within TOL * sqrt(contraction), and deepseek-moe-16b's
+    expert products at the training capacity in bf16 within KERNEL_TOL of
+    the largest |plain| value elementwise and GMM_NORM_RTOL in relative
+    norm, which the forward's two faults on each product must exceed; every
+    launch at the model shapes on the wgmma variant; timings beside the
+    bound, the plain version and the backward of ``torch.bmm`` (a yardstick
+    the port never calls)."""
+    import torch
+    from repro_torch.kernels.moe_gmm import gmm_bwd_cuda, gmm_bwd_plain
+
+    def norm_rel(got, want):
+        return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    C = train_capacity()
+    shapes = [(name, E, Cg, d, f, dt) for name, E, Cg, d, f, dt in GMM_GRID] + \
+        [("train_gate_up", 64, C, 2048, 1408, "bfloat16"),
+         ("train_down", 64, C, 1408, 2048, "bfloat16")]
+    worst, failures, timings = 0.0, [], {}
+    for name, E, Cg, d, f, dtype in shapes:
+        model = name.startswith("train")
+        dt_ = getattr(torch, dtype)
+        x = torch.randn(E, Cg, d, generator=gen, device="cuda").to(dt_)
+        w = (torch.randn(E, d, f, generator=gen, device="cuda")
+             * (d ** -0.5 if model else 1.0)).to(dt_)
+        dy = (torch.randn(E, Cg, f, generator=gen, device="cuda")
+              * (Cg ** -0.5 if model else 1.0)).to(dt_)
+        before = dict(gmm_bwd_cuda.variant_launches)
+        got = gmm_bwd_cuda(x, w, dy)
+        torch.cuda.synchronize()
+        variants = {k: gmm_bwd_cuda.variant_launches[k] - before[k] for k in before}
+        want = gmm_bwd_plain(x, w, dy)
+        line = {"phase": "gmm_bwd", "shape": name, "dtype": dtype,
+                "E_C_d_f": [E, Cg, d, f], "variants": variants}
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        errs = {}
+        for g, a, b, depth in (("dx", got[0], want[0], f), ("dw", got[1], want[1], Cg)):
+            e = (a.float() - b.float()).abs().max().item()
+            errs[g] = {"max_abs": e, "norm_rel": norm_rel(a, b)}
+            worst = max(worst, e)
+            if model:
+                errs[g]["elem"] = e / b.float().abs().max().item()
+                errs[g]["ok"] = errs[g]["elem"] <= KERNEL_TOL and \
+                    errs[g]["norm_rel"] <= GMM_NORM_RTOL
+            else:
+                tol = GMM_TOL[dtype]
+                errs[g]["ok"] = torch.allclose(a.float(), b.float(),
+                                               atol=tol * depth ** 0.5, rtol=tol)
+        ok = finite and all(e["ok"] for e in errs.values())
+        line["errors"] = errs
+        if model:
+            ok = ok and variants["wgmma"] == 2
+            # the norm limit must see a one-step and a one-tile fault of
+            # each product: dx = gmm(dy, w^T), dw = gmm(x^T, dy)
+            wt, xt = w.transpose(1, 2).contiguous(), x.transpose(1, 2).contiguous()
+            line["faults"] = {}
+            for g, (a, b), plain in (("dx", (dy, wt), want[0]),
+                                     ("dw", (xt, dy), want[1])):
+                for fault, out in gmm_faults(a, b).items():
+                    f_norm = norm_rel(out, plain)
+                    line["faults"][f"{g}_{fault}"] = f_norm
+                    if f_norm <= GMM_NORM_RTOL:
+                        failures.append(f"{name}: norm limit misses {g} {fault}")
+            del wt, xt
+        emit({**line, "ok": bool(ok)})
+        if not ok:
+            failures.append(name)
+        if model and ok:
+            xs, ws = (t.detach().requires_grad_() for t in (x, w))
+            y = torch.bmm(xs, ws)
+            bound_ms, bound_by = gmm_bwd_bound_ms(E, Cg, d, f)
+            timings[name] = {
+                "ms": cuda_ms(lambda: gmm_bwd_cuda(x, w, dy)),
+                "plain_ms": cuda_ms(lambda: gmm_bwd_plain(x, w, dy), warmup=1,
+                                    iters=5),
+                "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                    y, (xs, ws), dy, retain_graph=True)),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_note": "the backward of torch.bmm (dx and dw)",
+                "capacity": Cg,
+            }
+            emit({"phase": "gmm_bwd_timing", "shape": name, **timings[name]})
+            del xs, ws, y
+        del x, w, dy, got, want
+    if failures:
+        raise AssertionError(f"gmm backward checks failed: {failures}")
+    return worst, timings
+
+
 def phase_no_backward():
-    """Each kernel's wrapper, given CUDA inputs that require grad in grad
-    mode, raises (its kernel has no backward: ROADMAP.md C1) and launches
-    nothing: no silent route to the plain version either."""
+    """The SSD scan's wrapper, given CUDA inputs that require grad in grad
+    mode, raises (its kernel has no backward yet: ROADMAP.md A10) and
+    launches nothing: no silent route to the plain version either. The
+    flash and gmm kernels have backward kernels (phases flash_bwd and
+    gmm_bwd)."""
     import torch
     counters = launch_counters()
 
@@ -841,9 +1249,6 @@ def phase_no_backward():
 
     f32 = torch.float32
     calls = {
-        "flash_attention": lambda: counters["flash_attention"](
-            t(1, 128, 2, 64), t(1, 128, 2, 64), t(1, 128, 2, 64)),
-        "gmm": lambda: counters["gmm"](t(2, 64, 64), t(2, 64, 64)),
         "ssd_scan": lambda: counters["ssd_scan"](
             t(1, 64, 2, 64), t(1, 64, 2, dtype=f32), t(2, dtype=f32),
             t(1, 64, 1, 64), t(1, 64, 1, 64), t(2, dtype=f32), chunk=64),
@@ -944,11 +1349,17 @@ def video_workflow(plan_name: str):
 
 
 def launch_counters():
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.moe_gmm import gmm_cuda
+    """Each kernel wrapper by name: the forward kernels count launches, the
+    backward wrappers count calls (three kernels each for the flash
+    backward, two launches of the gmm kernel for its backward)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.moe_gmm import gmm_bwd_cuda, gmm_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
     return {"flash_attention": flash_attention_cuda, "gmm": gmm_cuda,
-            "ssd_scan": ssd_scan_cuda}
+            "ssd_scan": ssd_scan_cuda,
+            "flash_attention_bwd": flash_attention_bwd_cuda,
+            "gmm_bwd": gmm_bwd_cuda}
 
 
 def reset_launches():
@@ -963,6 +1374,7 @@ def read_launches() -> dict:
     counters = launch_counters()
     return {**{name: fn.launches for name, fn in counters.items()},
             "gmm_by_variant": dict(counters["gmm"].variant_launches),
+            "gmm_bwd_by_variant": dict(counters["gmm_bwd"].variant_launches),
             "ssd_by_variant": dict(counters["ssd_scan"].variant_launches)}
 
 
@@ -1076,7 +1488,7 @@ def phase_executor():
     init_s = {arch: _sync_s(lambda: sessions(arch))[1] for arch in archs}
     media = [Media.synthesize("cats.mov", scenes=VIDEO_SCENES, fps=VIDEO_FPS,
                               seed=0, device="cuda")]
-    per_run = {k: sum(generate_launches(get_config(a), 8)[k] for a in archs)
+    per_run = {k: sum(generate_launches(get_config(a), 8).get(k, 0) for a in archs)
                for k in launch_counters()}
     torch.cuda.reset_peak_memory_stats()
     runs, failures = {}, []
@@ -1346,8 +1758,11 @@ class RoutingReplay:
 
     Recording, ``route`` is ``moe._route``. Replaying, it returns the
     recorded ids with each token's weights taken from this run's router
-    probabilities at those ids and normalised as ``_route`` does (the aux
-    loss, which serving discards, is 0)."""
+    probabilities at those ids and normalised as ``_route`` does, and the
+    aux loss of those ids and probabilities as ``_route`` computes it
+    (serving discards it; training differentiates it). Under remat a
+    layer routes twice a step (its forward and its recompute), in the same
+    order in every run."""
 
     def __init__(self):
         from repro_torch.models import moe
@@ -1372,9 +1787,14 @@ class RoutingReplay:
             return idx, w, aux
         idx = self.ids[self.next]
         self.next += 1
-        p = torch.softmax(x2d.float() @ router_w, dim=-1).gather(1, idx)
+        probs = torch.softmax(x2d.float() @ router_w, dim=-1)
+        p = probs.gather(1, idx)
         w = p / p.sum(-1, keepdim=True).clamp_min(1e-9)
-        return idx, w.to(x2d.dtype), torch.zeros((), device=x2d.device)
+        E, n = cfg.moe.num_experts, idx.numel()
+        f_e = torch.zeros(E, device=x2d.device).scatter_add_(
+            0, idx.reshape(-1), torch.full((n,), 1.0 / n, device=x2d.device))
+        aux = E * torch.sum(f_e * probs.mean(0)) * cfg.moe.router_aux_coef
+        return idx, w.to(x2d.dtype), aux
 
     def count(self) -> int:
         """(layer, token) routings recorded."""
@@ -1705,6 +2125,337 @@ def phase_trace(model, params, prompts, extras):
                                   for k, ms, n in top]})
 
 
+def train_config(arch):
+    """A training path's configuration: full width, its depth cut to
+    TRAIN_DEPTH_CUTS where it has one."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    return cfg.replace(n_layers=TRAIN_DEPTH_CUTS[arch]) \
+        if arch in TRAIN_DEPTH_CUTS else cfg
+
+
+def expected_train_launches(cfg, steps: int) -> dict:
+    """Kernel launches (backward calls) of ``steps`` train steps with remat
+    "full": every forward launch twice (the forward and its recompute in the
+    backward), one backward call per forward call."""
+    fwd = expected_launches(cfg)
+    return {"flash_attention": 2 * steps * fwd["flash_attention"],
+            "flash_attention_bwd": steps * fwd["flash_attention"],
+            "gmm": 2 * steps * fwd["gmm"], "gmm_bwd": steps * fwd["gmm"],
+            "ssd_scan": 2 * steps * fwd["ssd_scan"]}
+
+
+def train_model_flops(model, B, S) -> float:
+    """Model FLOPs of one train step (forward and backward, no recompute):
+    6 x the parameters a token multiplies (the embedding lookup excluded;
+    routed experts at top_k / E) x tokens, plus 3 x the forward's attention
+    products (4 B H D per attended pair, a layer)."""
+    from repro_torch.tree import leaves_with_path
+    cfg = model.cfg
+    n = 0
+    for path, spec in leaves_with_path(model.specs):
+        size = math.prod(spec.shape)
+        if path[0] == "embed":
+            continue
+        if "moe" in path and path[-1] in ("w_gate", "w_up", "w_down"):
+            size = size * cfg.moe.top_k // cfg.moe.num_experts
+        n += size
+    attn_layers = expected_launches(cfg)["flash_attention"]
+    pairs = attended_pairs(S, S)
+    attn = 3 * 4 * B * cfg.n_heads * cfg.head_dim_ * pairs * attn_layers
+    return 6 * n * B * S + attn
+
+
+def planted_flash_bwd(fault):
+    """``flash_attention_bwd_cuda`` with a fault of TRAIN_FAULTS planted in
+    what the training path's backward gets: the first or the last K/V
+    tile's dK dropped (BWD_KV_TILE keys of every sequence), or Delta left
+    at zero (the naive formulas, as phase flash_bwd plants it)."""
+    from repro_torch.kernels import flash_attention as fa
+    real = fa.flash_attention_bwd_cuda
+
+    def bwd(q, k, v, out, dout, lse, **kw):
+        if fault == "delta_zero":
+            return attention_grads_naive(
+                q, k, v, dout, zero_delta=True,
+                **{o: kw[o] for o in ("causal", "window", "softcap", "scale")})
+        dq, dk, dv = real(q, k, v, out, dout, lse, **kw)
+        keys = slice(0, BWD_KV_TILE) if fault == "first_tile_dk_dropped" \
+            else slice(-BWD_KV_TILE, None)
+        dk[:, keys] = 0
+        return dq, dk, dv
+
+    bwd.launches = 0    # the kernel's wrapper counts on its module's name
+    return mock.patch.object(fa, "flash_attention_bwd_cuda", bwd)
+
+
+def phase_train(arch):
+    """A training path (TRAIN_PATHS) at full width on the card, through
+    ``runtime.train``: step 1's loss, the worst leaf's gradient norm and
+    each leaf's whole gradient (relative norm of its difference), kernels
+    against the plain versions from the same weights and batch, within
+    FLOOR_MULT x a noise floor measured in this run (the largest difference
+    of runs that differ from the plain one only in rounding: the naive
+    attention oracle with the grouped matmul summed in two halves of d, and
+    the attention with P in bf16; each leaf's gradient against its own
+    floor), MoE routing replayed from the plain run; the faults of
+    TRAIN_FAULTS planted in the flash backward, each of those marked
+    required shown to fail that gate; then TRAIN_STEPS steps of ``build_train_step`` from a fresh AdamW state:
+    losses finite and lower at the last step than at the first, the kernels'
+    launches as ``expected_train_launches`` predicts (every gmm launch on
+    its wgmma variant), step times, tokens/s, peak memory and model
+    TFLOP/s; then one more step under torch.profiler for the idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    from repro_torch.kernels import ops
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train as train_rt
+
+    cfg = train_config(arch)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(gen)
+    scale_routed_experts(model, params)
+    opts = train_rt.TrainOptions(
+        remat_policy="full", warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS,
+        opt=adamw.AdamWConfig(lr=TRAIN_LR, moment_dtype="bfloat16"))
+    data = DataIterator(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH),
+                        model_cfg=cfg, device="cuda")
+    first_batch = next(data)
+    data.restore({"step": 0})
+    has_moe = expected_launches(cfg)["gmm"] > 0
+    grad_fn = train_rt.build_grad_fn(model, opts)
+
+    def run(attention=None, gmm=None, routing=None):
+        """Step 1's loss and gradients through the given attention and
+        grouped matmul (the kernels by default)."""
+        with mock.patch.object(ops, "flash_attention",
+                               attention or ops.flash_attention), \
+                mock.patch.object(ops, "gmm", gmm or ops.gmm), \
+                (routing.patch() if routing else contextlib.nullcontext()):
+            grads, metrics = grad_fn(params, first_batch)
+        return float(metrics["loss"]), grads
+
+    replay = RoutingReplay() if has_moe else None
+    plain_loss, plain = run(plain_attention, plain_gmm, replay)
+    plain_norms = {k: g.float().norm().item() for k, g in _flat(plain)}
+
+    def compare(grads):
+        """Per leaf: the gradient norm's relative difference from the plain
+        run's, and the gradient's own (relative norm of the difference)."""
+        out = {}
+        for (k, g), (_, p) in zip(_flat(grads), _flat(plain)):
+            gn = g.float().norm().item()
+            out[k] = (abs(gn - plain_norms[k]) / max(plain_norms[k], 1e-30),
+                      ((g.float() - p.float()).norm() /
+                       max(plain_norms[k], 1e-30)).item())
+        return out
+
+    floors = {}
+    for name, attention, gmm in (("naive_split_d", naive_attention, split_d_gmm),
+                                 ("p_bf16", p_bf16_attention, plain_gmm)):
+        loss, grads = run(attention, gmm, replay)
+        floors[name] = (abs(loss - plain_loss), compare(grads))
+        del grads
+    loss, grads = run(routing=replay)
+    kernel = (abs(loss - plain_loss), compare(grads))
+    kernel_loss = loss
+    del grads
+    planted = {}
+    for fault in TRAIN_FAULTS:
+        with planted_flash_bwd(fault):
+            loss, grads = run(routing=replay)
+        planted[fault] = (abs(loss - plain_loss), compare(grads))
+        del grads
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_floor = max(f[0] for f in floors.values())
+    norm_floor = max(v[0] for f in floors.values() for v in f[1].values())
+    leaf_floor = {k: max(f[1][k][1] for f in floors.values()) for k in plain_norms}
+
+    def gate(result):
+        """(passes, the worst leaf's whole-gradient difference over
+        FLOOR_MULT x its floor, that leaf)."""
+        loss_diff, by_leaf = result
+        leaf, ratio = max(((k, v[1] / max(FLOOR_MULT * leaf_floor[k], 1e-30))
+                           for k, v in by_leaf.items()), key=lambda kv: kv[1])
+        ok = loss_diff <= FLOOR_MULT * loss_floor and \
+            max(v[0] for v in by_leaf.values()) <= FLOOR_MULT * norm_floor and \
+            all(v[1] <= FLOOR_MULT * leaf_floor[k] for k, v in by_leaf.items())
+        return ok, ratio, leaf
+
+    worst_norm = max(kernel[1].items(), key=lambda kv: kv[1][0])
+    worst_vec = max(kernel[1].items(), key=lambda kv: kv[1][1])
+    agree_ok, kernel_ratio, kernel_leaf = gate(kernel)
+    faults = {}
+    for fault, result in planted.items():
+        passes, ratio, leaf = gate(result)
+        faults[fault] = {"required": TRAIN_FAULTS[fault], "fails_the_gate": not passes,
+                         "grad_rel_diff_over_limit": ratio, "leaf": leaf,
+                         "grad_rel_diff": result[1][leaf][1],
+                         "grad_norm_rel_diff_worst": max(
+                             v[0] for v in result[1].values())}
+    faults_ok = all(f["fails_the_gate"] for f in faults.values() if f["required"])
+    emit({"phase": "train_agree", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "routing": "replayed from the plain run" if has_moe else None,
+          "plain_loss": plain_loss, "kernel_loss": kernel_loss,
+          "loss_diff": kernel[0], "loss_floor": loss_floor,
+          "grad_norm_rel_diff_worst": {"leaf": worst_norm[0], "value": worst_norm[1][0]},
+          "grad_norm_floor": norm_floor,
+          "grad_rel_diff_worst": {"leaf": worst_vec[0], "value": worst_vec[1][1],
+                                  "floor": leaf_floor[worst_vec[0]]},
+          "grad_rel_diff_over_limit_worst": {"leaf": kernel_leaf,
+                                             "value": kernel_ratio},
+          "floor_runs": {n: {"loss_diff": f[0],
+                             "grad_norm_rel_diff": max(v[0] for v in f[1].values()),
+                             "grad_rel_diff": max(v[1] for v in f[1].values())}
+                         for n, f in floors.items()},
+          "planted_faults": faults,
+          "floor_mult": FLOOR_MULT, "ok": agree_ok and faults_ok})
+
+    # the main path: TRAIN_STEPS steps of build_train_step from step 0
+    state = {"params": params, "opt": adamw.init_opt_state(params, opts.opt),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    step_fn = train_rt.build_train_step(model, opts)
+    losses, step_s, lrs = [], [], []
+    reset_launches()
+    for _ in range(TRAIN_STEPS):
+        batch = next(data)
+        (state, metrics), s = _sync_s(lambda: step_fn(state, batch))
+        losses.append(float(metrics["loss"]))
+        lrs.append(float(metrics["lr"]))
+        step_s.append(s)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    expected = expected_train_launches(cfg, TRAIN_STEPS)
+    launches_ok = all(launches[k] == v for k, v in expected.items()) and \
+        launches["gmm_by_variant"]["wgmma"] == launches["gmm"] and \
+        launches["gmm_bwd_by_variant"]["wgmma"] == 2 * launches["gmm_bwd"]
+    finite = all(math.isfinite(x) for x in losses)
+    falls = losses[-1] < losses[0]
+    # the first step of the main path repeats step 1 of the agreement runs
+    repeat = losses[0] == kernel_loss
+
+    # one more step under the profiler, off the main path's count
+    batch = next(data)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [(e.key, _self_device_us(e) / 1e3, e.count)
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    top = sorted(kernels, key=lambda k: -k[1])[:10]
+
+    step_med = statistics.median(step_s[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_model_flops(model, TRAIN_BATCH, TRAIN_SEQ)
+    cut = {"reduced": {"n_layers": [path_config(arch).n_layers, cfg.n_layers]}} \
+        if arch in TRAIN_DEPTH_CUTS else {}
+    ok = agree_ok and faults_ok and launches_ok and finite and falls
+    emit({"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers, **cut,
+          "d_model": cfg.d_model, "params": model.param_count(),
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+          "remat": opts.remat_policy, "moment_dtype": opts.opt.moment_dtype,
+          "lr": lrs, "losses": losses, "loss_falls": falls,
+          "step1_repeats_agree_run_bitwise": repeat,
+          "step_s": step_s, "step_s_median_after_first": step_med,
+          "tokens_per_s": tokens / step_med,
+          "model_tflops_per_step": flops / 1e12,
+          "model_tflop_per_s": flops / step_med / 1e12,
+          "model_flops_share_of_989": flops / step_med / PEAK_BF16_FLOPS,
+          "max_memory_allocated": peak,
+          "launches": {k: launches[k] for k in expected},
+          "expected_launches": expected,
+          "gmm_launches_by_variant": launches["gmm_by_variant"],
+          "gmm_bwd_launches_by_variant": launches["gmm_bwd_by_variant"],
+          "traced_step_ms": traced_ms,
+          "traced_device_busy_ms": busy_ms if busy_ms else "not measured",
+          "traced_idle_share": 1 - busy_ms / traced_ms if busy_ms else "not measured",
+          "traced_kernel_launches": sum(n for _, _, n in kernels),
+          "top_kernels": [{"name": k[:80], "ms": ms, "calls": n}
+                          for k, ms, n in top],
+          "ok": ok})
+    if not ok:
+        raise AssertionError(
+            f"{arch} training failed: agree {agree_ok}, planted faults seen "
+            f"{faults_ok} ({faults}), launches {launches_ok} "
+            f"({ {k: launches[k] for k in expected} } vs {expected}), finite "
+            f"{finite}, loss falls {falls} ({losses})")
+    del state, params
+    return launches
+
+
+def _flat(tree):
+    """("a/b", leaf) of a tree of tensors in sorted-key order."""
+    from repro_torch.tree import leaves_with_path
+    for path, leaf in leaves_with_path(tree):
+        yield "/".join(path), leaf
+
+
+def phase_train_restart():
+    """The restart loop on the card at a REDUCED size (a checkpoint's
+    bytes measure the disk, not the port): deepseek-7b REDUCED with one
+    head of 64 (the kernels' smallest head dim), 15 steps with failures
+    injected at steps 6 and 11 against 15 clean steps, checkpoints every 5:
+    the two end states bitwise equal, through the kernels' backward."""
+    import tempfile
+    import torch
+    from repro_torch.checkpointing.manager import CheckpointManager
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime import train as train_rt
+    from repro_torch.runtime.fault_tolerance import RestartPolicy, run_with_restarts
+
+    cfg = get_config("deepseek-7b", reduced=True).replace(n_heads=1, n_kv_heads=1)
+    model = build_model(cfg)
+    opts = train_rt.TrainOptions(remat_policy="full", warmup_steps=1,
+                                 total_steps=30)
+    step = train_rt.build_train_step(model, opts)
+    before = read_launches()
+
+    def run(inject, tmp):
+        mgr = CheckpointManager(str(Path(tmp) / f"ck{inject}"), async_save=True)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        state = train_rt.init_train_state(model, gen, opts)
+        data = DataIterator(DataConfig(cfg.vocab_size, 64, 4), model_cfg=cfg,
+                            device="cuda")
+        injected = {6, 11} if inject else set()
+
+        def hook(s):
+            if s in injected:
+                injected.discard(s)
+                raise RuntimeError("injected failure")
+
+        return run_with_restarts(num_steps=15, state=state, data_iter=data,
+                                 step_fn=step, ckpt_manager=mgr, save_every=5,
+                                 policy=RestartPolicy(max_failures=4),
+                                 fail_hook=hook)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clean, hist, f0 = run(False, tmp)
+        faulty, _, f1 = run(True, tmp)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(_flat(clean), _flat(faulty)))
+    bwd = read_launches()["flash_attention_bwd"] - before["flash_attention_bwd"]
+    ok = same and f0 == 0 and f1 == 2 and bwd > 0
+    emit({"phase": "train_restart", "arch": cfg.name, "n_heads": cfg.n_heads,
+          "steps": 15, "failures_survived": f1, "end_states_bitwise_equal": same,
+          "flash_bwd_calls": bwd, "loss_first": hist[0]["loss"],
+          "loss_last": hist[-1]["loss"], "ok": ok})
+    if not ok:
+        raise AssertionError("the restart check failed on the card")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1716,10 +2467,17 @@ def main() -> int:
 
     census = phase_card()
     flash_err, flash_t = phase_kernel()
+    flash_bwd_err, flash_bwd_t = phase_flash_bwd()
     ssd_err, ssd_t = phase_ssd()
     gmm_err, gmm_t = phase_gmm()
+    gmm_bwd_err, gmm_bwd_t = phase_gmm_bwd()
     phase_no_backward()
     launches = {}
+    for arch in TRAIN_PATHS:
+        launches[f"train:{arch}"] = phase_train(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_train_restart()
     for arch, decode_steps in SERVE_PATHS:
         model, params, prompts, extras, launches[arch] = phase_serve(arch)
         if decode_steps is not None:
@@ -1735,7 +2493,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     def entry(name, source, replaces, err, timing, shape, variant, **more):
-        by_path = {arch: n[name] for arch, n in launches.items()}
+        by_path = {arch: n[name] for arch, n in launches.items() if n[name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "max_abs_err": err, **timing, "shape": shape,
@@ -1801,6 +2559,27 @@ def main() -> int:
                                "shape": "E=64 C=968 d=1408 f=2048 bf16"},
               at_decode={**gmm_t["decode_gate_up"],
                          "shape": "E=64 C=8 d=2048 f=1408 bf16"}),
+        entry("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+              "src/repro/kernels/flash_attention.py:82", flash_bwd_err,
+              flash_bwd_t[FLASH_TRAIN_SHAPES[0][0]],
+              "B=2 S=2048 H=KVH=32 D=128 causal bf16 (deepseek-7b training)",
+              "mma.sync from cp.async, three kernels: Delta, then dK and dV "
+              "per 64-key tile over the group's heads, then dQ per 64-row q "
+              "tile; no atomics (bitwise repeatable); launches count calls",
+              at_moe16b={**flash_bwd_t[FLASH_TRAIN_SHAPES[1][0]],
+                         "shape": "B=2 S=2048 H=KVH=16 D=128 causal bf16 "
+                                  "(deepseek-moe-16b training)"}),
+        entry("gmm_bwd", "src/repro_torch/csrc/moe_gmm.cu",
+              "src/repro/kernels/moe_gmm.py:47", gmm_bwd_err,
+              gmm_bwd_t["train_gate_up"],
+              f"E=64 C={train_capacity()} d=2048 f=1408 bf16 "
+              "(deepseek-moe-16b training gate/up: dx and dw)",
+              "two launches of the grouped-GEMM kernel (dx = dy w^T, dw = "
+              "x^T dy) on contiguous transposes; launches count calls",
+              launches_by_variant=by_variant("gmm_bwd_by_variant"),
+              at_train_down={**gmm_bwd_t["train_down"],
+                             "shape": f"E=64 C={train_capacity()} d=1408 "
+                                      "f=2048 bf16"}),
     ]})
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

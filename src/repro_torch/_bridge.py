@@ -1,14 +1,19 @@
-"""Device choice and weights carried across from the JAX package.
+"""Device choice, and weights and train states carried across from the
+JAX package.
 
 ``params_from_numpy`` turns a parameter pytree that was flattened to numpy
 (``jax.tree.map(np.asarray, params)``) into the port's tensors, path by path,
 with identical keys and shapes; ``params_to_numpy`` is its inverse. The two
 packages draw different random bits from the same seed, so parity tests run
-both on weights converted here.
+both on weights converted here. The two carry a whole train state the same
+way (any nested dict of arrays): params, the AdamW moments (int8 ``{"q",
+"scale"}`` pairs included), ``count`` and ``step``, so that both packages
+can train from one state.
 
 numpy has no bf16 of its own: a bf16 array (``dtype.name == "bfloat16"``,
-as ``ml_dtypes`` defines it) crosses as its raw 16-bit pattern, so this
-direction needs no ``ml_dtypes``.
+as ``ml_dtypes`` defines it) crosses as its raw 16-bit pattern. The port
+never imports ``ml_dtypes``; the way back to numpy's bf16 type needs it to
+have been imported by the caller (JAX does), and raises otherwise.
 """
 from __future__ import annotations
 
@@ -50,8 +55,12 @@ def params_from_numpy(tree, device=None):
 def _numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes  # only this direction needs numpy's bf16 type
-        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        try:
+            bf16 = np.dtype("bfloat16")   # registered by ml_dtypes
+        except TypeError as err:
+            raise TypeError("numpy has no bfloat16 until ml_dtypes (which "
+                            "JAX imports) is imported") from err
+        return t.view(torch.int16).numpy().view(bf16)
     return t.numpy()
 
 

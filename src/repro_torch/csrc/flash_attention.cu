@@ -84,6 +84,14 @@
 // (no ping-pong), and S, P and O must share 168 registers, which caps the
 // K/V tile at 96 rows.
 //
+// Training (the backward, csrc/flash_attention_bwd.cu) needs each row's
+// log-sum-exp: with a non-null `lse` the epilogue writes LSE2 = m + log2(l)
+// of the base-2 scores y2 = log2(e) * (scaled, softcapped score), the domain
+// the backward exponentiates in (P = 2^(y2 - LSE2)); -inf for a row that saw
+// no key. The 4 threads of a quad hold the same m and l (at D=160 and 256 as
+// at D<=128: one warp owns 16 rows either way). Serving passes null and
+// nothing is written.
+//
 // Plain C interface for ctypes: every pointer and the stream are void*; the
 // launch returns cudaGetLastError() so the caller can raise.
 
@@ -231,6 +239,11 @@ struct Softmax {
   }
 };
 
+// log2 of a row's softmax denominator, from its running max and sum (base 2)
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m > 0.5f * NEG_INF && l > 0.f ? m + log2f(l) : -INFINITY;
+}
+
 // P rounded to bf16 pairs: n8 blocks 2s and 2s + 1 of the accumulator are the
 // A fragment of the k16 slice s (hopper.cuh: the layouts agree).
 template <int BK>
@@ -248,8 +261,8 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
 flash_fwd_kernel(__grid_constant__ const CUtensorMap qmap,
                  __grid_constant__ const CUtensorMap kmap,
                  __grid_constant__ const CUtensorMap vmap, bf16* __restrict__ o,
-                 int Sq, int H, int KVH, float scale, int causal, int window,
-                 float softcap, int q_offset, int kv_valid) {
+                 float* __restrict__ lse, int Sq, int H, int KVH, float scale,
+                 int causal, int window, float softcap, int q_offset, int kv_valid) {
   using L = Layout<D>;
   constexpr int BQ = L::BQ, BK = L::BK, STAGES = L::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -439,6 +452,15 @@ flash_fwd_kernel(__grid_constant__ const CUtensorMap qmap,
       if (row1 < Sq)
         *reinterpret_cast<uint32_t*>(o1 + col) = pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
     }
+    // The row log-sum-exp for the backward, in the softmax's base-2 domain:
+    // LSE2 = m + log2(l) of y2 = log2(e) * (scaled, softcapped score), so
+    // that P = 2^(y2 - LSE2). -inf where the row saw no key (m still the
+    // mask value). The 4 threads of a quad hold the same m and l; one writes.
+    if (lse != nullptr && t4 == 0) {
+      float* lrow = lse + ((size_t)b * H + h) * Sq;
+      if (row0 < Sq) lrow[row0] = row_lse(m_run[0], l_run[0]);
+      if (row1 < Sq) lrow[row1] = row_lse(m_run[1], l_run[1]);
+    }
   }
 }
 
@@ -454,8 +476,8 @@ bool encode_map(CUtensorMap* map, const void* p, int B, int S, int heads, int D,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Sk, int H, int KVH, float scale, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+           int Sq, int Sk, int H, int KVH, float scale, int causal, int window,
            float softcap, int q_offset, int kv_valid, cudaStream_t stream) {
   using L = Layout<D>;
   constexpr int bytes = L::BYTES;
@@ -473,7 +495,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   }
   dim3 grid((Sq + L::BQ - 1) / L::BQ, H, B);
   flash_fwd_kernel<D><<<grid, L::THREADS, bytes, stream>>>(
-      qm, km, vm, static_cast<bf16*>(o), Sq, H, KVH, scale, causal, window,
+      qm, km, vm, static_cast<bf16*>(o), lse, Sq, H, KVH, scale, causal, window,
       softcap, q_offset, kv_valid);
   return static_cast<int>(cudaGetLastError());
 }
@@ -493,27 +515,29 @@ int flash_attention_smem_bytes(int D) {
 }
 
 // q (B,Sq,H,D), k/v (B,Sk,KVH,D), o (B,Sq,H,D): contiguous bf16, q, k and v
-// 16-byte aligned. kv_valid <= Sk. Returns a cudaError_t value: 0 when the
-// launch was accepted.
+// 16-byte aligned. kv_valid <= Sk. lse: null (serving: nothing is written),
+// or (B,H,Sq) fp32 for the rows' base-2 log-sum-exp (training). Returns a
+// cudaError_t value: 0 when the launch was accepted.
 int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                             int B, int Sq, int Sk, int H, int KVH, int D,
-                             float scale, int causal, int window, float softcap,
+                             void* lse_out, int B, int Sq, int Sk, int H, int KVH,
+                             int D, float scale, int causal, int window, float softcap,
                              int q_offset, int kv_valid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (D == 64)
-    return launch<64>(q, k, v, o, B, Sq, Sk, H, KVH, scale, causal, window,
+    return launch<64>(q, k, v, o, lse, B, Sq, Sk, H, KVH, scale, causal, window,
                       softcap, q_offset, kv_valid, s);
   if (D == 112)   // zamba2-7b: 3584 / 32 heads
-    return launch<112>(q, k, v, o, B, Sq, Sk, H, KVH, scale, causal, window,
+    return launch<112>(q, k, v, o, lse, B, Sq, Sk, H, KVH, scale, causal, window,
                        softcap, q_offset, kv_valid, s);
   if (D == 128)
-    return launch<128>(q, k, v, o, B, Sq, Sk, H, KVH, scale, causal, window,
+    return launch<128>(q, k, v, o, lse, B, Sq, Sk, H, KVH, scale, causal, window,
                        softcap, q_offset, kv_valid, s);
   if (D == 160)   // stablelm-12b: 5120 / 32 heads
-    return launch<160>(q, k, v, o, B, Sq, Sk, H, KVH, scale, causal, window,
+    return launch<160>(q, k, v, o, lse, B, Sq, Sk, H, KVH, scale, causal, window,
                        softcap, q_offset, kv_valid, s);
   if (D == 256)   // gemma2-9b
-    return launch<256>(q, k, v, o, B, Sq, Sk, H, KVH, scale, causal, window,
+    return launch<256>(q, k, v, o, lse, B, Sq, Sk, H, KVH, scale, causal, window,
                        softcap, q_offset, kv_valid, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,18 +18,24 @@ hold 255 registers. Its source note gives its bound on the H100 and the
 design.
 
 ``flash_attention_cuda`` routes by where the tensors lie: on the CPU it runs
-the plain version (the torch twin of ``ref.mha_chunked``); on a CUDA tensor it
-launches the kernel or raises. It never falls back from one to the other.
+the plain version (the torch twin of ``ref.mha_chunked``), through which
+autograd differentiates; on a CUDA tensor it launches the kernel or raises.
+It never falls back from one to the other. In grad mode, with an input that
+requires grad, the CUDA path is ``FlashAttentionFn``: the forward kernel also
+writes each row's log-sum-exp, and the backward is ``csrc/flash_attention_bwd.cu``
+(``flash_attention_bwd_cuda``), held against ``flash_attention_bwd_plain``,
+autograd through the plain version in fp32. Serving keeps the forward alone,
+with no log-sum-exp written.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from . import _build, ref
-from ._autograd import refuse_grad
 
 BOX = 64               # bf16 columns of one 128-byte-swizzled TMA box
 # head_dim -> (consumer warpgroups of 64 q rows, kv rows per tile, K/V tiles
@@ -37,6 +43,12 @@ BOX = 64               # bf16 columns of one 128-byte-swizzled TMA box
 TILES = {64: (2, 96, 2, 128), 112: (2, 96, 2, 128), 128: (2, 96, 2, 128),
          160: (1, 96, 2, 32), 256: (1, 64, 2, 32)}
 HEAD_DIMS = tuple(TILES)
+# head dims the backward kernel takes (112 runs at 128); 160 and 256 wait for
+# ROADMAP.md B5, since their families are not on the card's training path
+BWD_HEAD_DIMS = (64, 112, 128)
+# backward kernel -> (rows a block owns, rows a step streams): dkdv owns 64
+# keys and streams 32 q rows; dq owns 64 q rows and streams 64 keys
+BWD_BLOCKS = {"dkdv": (64, 32), "dq": (64, 64)}
 
 
 def head_dim_boxes(d: int) -> int:
@@ -81,12 +93,34 @@ def smem_bytes(d: int = 128) -> int:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_fwd_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i,
+    lib.flash_attention_fwd_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                              f, i, i, f, i, i, p]
     lib.flash_attention_fwd_bf16.restype = i
     lib.flash_attention_smem_bytes.argtypes = [i]
     lib.flash_attention_smem_bytes.restype = i
     return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_bwd_bf16.argtypes = [p] * 10 + [i] * 6 + [f, i, i, f, i, p]
+    lib.flash_attention_bwd_bf16.restype = i
+    lib.flash_attention_bwd_smem_bytes.argtypes = [i, i]
+    lib.flash_attention_bwd_smem_bytes.restype = i
+    return lib
+
+
+def bwd_smem_bytes(d: int, kernel: str) -> int:
+    """Dynamic shared memory of one block of the backward's ``dkdv`` or
+    ``dq`` kernel at head_dim ``d``: the resident tiles (K and V, or Q and
+    dO) and two stages of the streamed ones, each row ``padded_head_dim(d)``
+    bf16 plus 8 of padding; the dkdv kernel also stages the LSE and Delta of
+    its q rows in fp32."""
+    own, step = BWD_BLOCKS[kernel]
+    row = (padded_head_dim(d) + 8) * 2
+    return (2 * own + 4 * step) * row + (4 * step * 4 if kernel == "dkdv" else 0)
 
 
 def check_inputs(q, k, v) -> None:
@@ -120,13 +154,42 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
                            q_offset=q_offset, kv_len=kv_len)
 
 
+def _forward(q, k, v, *, causal, window, softcap, scale, q_offset,
+             kv_valid, with_lse: bool):
+    """Launch the forward kernel: (out, the rows' base-2 log-sum-exp (B, H,
+    Sq) fp32 or None)."""
+    check_inputs(q, k, v)
+    B, Sq, H, D = q.shape
+    _, Sk, KVH, _ = k.shape
+    scale = D ** -0.5 if scale is None else float(scale)
+    kv_valid = Sk if kv_valid is None else min(int(kv_valid), Sk)
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    if out.numel() == 0:
+        return out, lse
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().flash_attention_fwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            B, Sq, Sk, H, KVH, D, scale, int(causal), int(window),
+            float(softcap), int(q_offset), kv_valid, stream)
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed "
+                           f"(cudaError_t {err})")
+    flash_attention_cuda.launches += 1
+    return out, lse
+
+
 def flash_attention_cuda(q, k, v, *, causal=True, window=0, softcap=0.0,
                          scale=None, q_offset=0, kv_valid=None):
     """q: (B, Sq, H, D); k, v: (B, Sk, KVH, D) -> (B, Sq, H, D).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel on the
     current stream; ``flash_attention_cuda.launches`` counts the launches. On
-    the card an input that requires grad, in grad mode, raises (no backward).
+    the card, in grad mode with an input that requires grad, the call goes
+    through ``FlashAttentionFn``, whose backward is the backward kernel.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -134,26 +197,128 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, softcap=0.0,
                                      q_offset=q_offset, kv_valid=kv_valid)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
-    refuse_grad("flash_attention", q, k, v)
-    check_inputs(q, k, v)
-    B, Sq, H, D = q.shape
-    _, Sk, KVH, _ = k.shape
-    scale = D ** -0.5 if scale is None else float(scale)
-    kv_valid = Sk if kv_valid is None else min(int(kv_valid), Sk)
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().flash_attention_fwd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Sk, H, KVH, D, scale, int(causal), int(window),
-            float(softcap), int(q_offset), kv_valid, stream)
-    if err:
-        raise RuntimeError(f"flash_attention kernel launch failed "
-                           f"(cudaError_t {err})")
-    flash_attention_cuda.launches += 1
-    return out
+    opts = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+                q_offset=q_offset, kv_valid=kv_valid)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        check_bwd_inputs(q, q_offset)
+        return FlashAttentionFn.apply(q, k, v, opts)
+    return _forward(q, k, v, **opts, with_lse=False)[0]
 
 
 flash_attention_cuda.launches = 0
+
+
+def check_bwd_inputs(q, q_offset=0) -> None:
+    """Raise ``ValueError`` for what the backward kernel does not take."""
+    D = q.shape[-1]
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"head_dim {D}: the backward kernel takes "
+                         f"{BWD_HEAD_DIMS}; 160 and 256 are ROADMAP.md B5")
+    if q_offset:
+        raise ValueError("the backward kernel takes q_offset 0 only "
+                         "(training passes no offset)")
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The forward kernel, keeping q, k, v, the output and the rows'
+    log-sum-exp; the backward kernel for the gradients."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, opts):
+        out, lse = _forward(q, k, v, **opts, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        o = ctx.opts
+        dq, dk, dv = flash_attention_bwd_cuda(
+            q, k, v, out, dout.contiguous(), lse, causal=o["causal"],
+            window=o["window"], softcap=o["softcap"], scale=o["scale"],
+            kv_valid=o["kv_valid"])
+        return dq, dk, dv, None
+
+
+def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal=True,
+                             window=0, softcap=0.0, scale=None, kv_valid=None):
+    """Gradients (dq, dk, dv) of the attention ``out`` = flash(q, k, v) for
+    the output gradient ``dout``, from the forward's ``lse`` (B, H, Sq), fp32,
+    base 2: three kernels on the current stream (Delta = rowsum(dout * out),
+    then dK and dV per K/V tile, then dQ per q tile).
+    ``flash_attention_bwd_cuda.launches`` counts the calls. CUDA tensors
+    only; no q_offset; head_dim 64, 112 or 128.
+    """
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention backward kernel for device "
+                         f"{q.device}; on the CPU autograd differentiates the "
+                         f"plain version")
+    check_inputs(q, k, v)
+    check_bwd_inputs(q)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous() \
+                or t.data_ptr() % 16 or t.device != q.device:
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"bf16 tensor shaped like q on its device")
+    B, Sq, H, D = q.shape
+    _, Sk, KVH, _ = k.shape
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or \
+            not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous fp32 (B, H, Sq) = "
+                         f"{(B, H, Sq)}, got {tuple(lse.shape)} {lse.dtype}")
+    scale = D ** -0.5 if scale is None else float(scale)
+    kv_valid = Sk if kv_valid is None else min(int(kv_valid), Sk)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_lib().flash_attention_bwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KVH, D, scale,
+            int(causal), int(window), float(softcap), kv_valid, stream)
+    if err:
+        raise RuntimeError(f"flash_attention backward kernel launch failed "
+                           f"(cudaError_t {err})")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0
+
+
+def flash_attention_bwd_plain(q, k, v, dout, *, causal=True, window=0,
+                              softcap=0.0, scale=None, kv_valid=None):
+    """The backward kernel's function in plain torch: autograd through
+    ``flash_attention_plain`` in fp32; (dq, dk, dv) in the inputs' dtype."""
+    with torch.enable_grad():
+        qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+        out = flash_attention_plain(qf, kf, vf, causal=causal, window=window,
+                                    softcap=softcap, scale=scale,
+                                    kv_valid=kv_valid)
+        grads = torch.autograd.grad(out, (qf, kf, vf), dout.float())
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
+
+
+def attention_lse_plain(q, k, *, causal=True, window=0, softcap=0.0,
+                        scale=None, q_offset=0, kv_valid=None):
+    """The rows' log-sum-exp that the forward kernel writes, in plain torch:
+    (B, H, Sq) fp32 in base 2 (log2 of the sum of e^y over the visible keys,
+    y the scaled and softcapped score); -inf for a row that sees no key."""
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    scale = D ** -0.5 if scale is None else scale
+    qf = q.float().reshape(B, Sq, KVH, H // KVH, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    kv_len = None if kv_valid is None else ref._as_kv_len(
+        min(int(kv_valid), Sk), B, q.device)
+    keep = ref._mask(torch.arange(Sq, device=q.device)[None] + q_offset,
+                     torch.arange(Sk, device=q.device)[None], causal=causal,
+                     window=window, kv_len=kv_len)
+    s = s.masked_fill(~keep[:, None, None], float("-inf"))
+    return (torch.logsumexp(s, dim=-1) / math.log(2.0)).reshape(B, H, Sq)

@@ -21,9 +21,13 @@ padded on the host. The source note gives the bound on the H100 and the
 design.
 
 ``gmm_cuda`` routes by where the tensors lie: on the CPU it runs the plain
-version (the torch twin of ``ref.gmm_naive``); on a CUDA tensor it launches
-the chosen variant or raises. Nothing falls back to another variant or to the
-plain version.
+version (the torch twin of ``ref.gmm_naive``), through which autograd
+differentiates; on a CUDA tensor it launches the chosen variant or raises.
+Nothing falls back to another variant or to the plain version. In grad mode,
+with an input that requires grad, the CUDA path is ``GmmFn``, whose backward
+(``gmm_bwd_cuda``) is two more launches of the same kernels: dx = dy w^T and
+dw = x^T dy, on transposed operands made contiguous first. Its plain version
+is ``gmm_bwd_plain``.
 """
 from __future__ import annotations
 
@@ -33,7 +37,6 @@ import functools
 import torch
 
 from . import _build, ref
-from ._autograd import refuse_grad
 
 BLOCK_C = 128          # mma / fma paths: rows of the capacity buffer per block
 BLOCK_F = 128          # mma / fma paths: output columns per block
@@ -125,19 +128,9 @@ def gmm_plain(x, w):
     return ref.gmm_naive(x, w)
 
 
-def gmm_cuda(x, w):
-    """x: (E, C, d), w: (E, d, f) -> (E, C, f) in x's dtype.
-
-    CPU tensors take the plain version. CUDA tensors launch the kernel that
-    ``gmm_variant`` names on the current stream; ``gmm_cuda.launches`` counts
-    the launches and ``gmm_cuda.variant_launches`` them by variant. On the
-    card an input that requires grad, in grad mode, raises (no backward).
-    """
-    if x.device.type == "cpu":
-        return gmm_plain(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"no grouped-GEMM kernel for device {x.device}")
-    refuse_grad("gmm", x, w)
+def _launch(x, w, counter):
+    """Launch the kernel ``gmm_variant`` names for x @ w; ``counter`` (a
+    wrapper) counts it by variant."""
     check_inputs(x, w)
     E, C, d = x.shape
     f = w.shape[2]
@@ -154,10 +147,83 @@ def gmm_cuda(x, w):
     if err:
         raise RuntimeError(f"moe_gmm {variant} kernel launch failed "
                            f"(cudaError_t {err})")
+    counter.variant_launches[variant] += 1
+    return out
+
+
+def gmm_cuda(x, w):
+    """x: (E, C, d), w: (E, d, f) -> (E, C, f) in x's dtype.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel that
+    ``gmm_variant`` names on the current stream; ``gmm_cuda.launches`` counts
+    the launches and ``gmm_cuda.variant_launches`` them by variant. On the
+    card, in grad mode with an input that requires grad, the call goes
+    through ``GmmFn``, whose backward is ``gmm_bwd_cuda``.
+    """
+    if x.device.type == "cpu":
+        return gmm_plain(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"no grouped-GEMM kernel for device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return GmmFn.apply(x, w)
+    return _forward(x, w)
+
+
+def _forward(x, w):
+    out = _launch(x, w, gmm_cuda)
     gmm_cuda.launches += 1
-    gmm_cuda.variant_launches[variant] += 1
     return out
 
 
 gmm_cuda.launches = 0
 gmm_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+
+class GmmFn(torch.autograd.Function):
+    """The grouped-GEMM kernel, keeping x and w; ``gmm_bwd_cuda`` for the
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _forward(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return gmm_bwd_cuda(x, w, dy.contiguous())
+
+
+def gmm_bwd_cuda(x, w, dy):
+    """Gradients (dx, dw) of y = x @ w per expert for the output gradient
+    ``dy`` (E, C, f): dx = dy w^T (E, C, d) and dw = x^T dy (E, d, f), two
+    launches of the forward's kernels on contiguous transposes (w^T is (E,
+    f, d), x^T (E, d, C)), each on the variant ``gmm_variant`` names for its
+    operands. ``gmm_bwd_cuda.launches`` counts the calls (two kernel
+    launches each) and ``gmm_bwd_cuda.variant_launches`` the kernel launches
+    by variant. CUDA tensors only.
+    """
+    if x.device.type != "cuda":
+        raise ValueError(f"no grouped-GEMM backward kernel for device "
+                         f"{x.device}; on the CPU autograd differentiates the "
+                         f"plain version")
+    if dy.shape != (x.shape[0], x.shape[1], w.shape[2]):
+        raise ValueError(f"dy {tuple(dy.shape)} does not match x "
+                         f"{tuple(x.shape)} @ w {tuple(w.shape)}")
+    dx = _launch(dy, w.transpose(1, 2).contiguous(), gmm_bwd_cuda)
+    dw = _launch(x.transpose(1, 2).contiguous(), dy, gmm_bwd_cuda)
+    gmm_bwd_cuda.launches += 1
+    return dx, dw
+
+
+gmm_bwd_cuda.launches = 0
+gmm_bwd_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+
+def gmm_bwd_plain(x, w, dy):
+    """The backward's function in plain torch: the two einsums, fp32 sums,
+    the inputs' dtypes out."""
+    xf, wf, dyf = x.float(), w.float(), dy.float()
+    dx = torch.einsum("ecf,edf->ecd", dyf, wf)
+    dw = torch.einsum("ecd,ecf->edf", xf, dyf)
+    return dx.to(x.dtype), dw.to(w.dtype)

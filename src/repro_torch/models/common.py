@@ -13,6 +13,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..tree import leaves_with_path
+
 
 class ParamSpec(NamedTuple):
     shape: tuple[int, ...]
@@ -26,15 +28,6 @@ def tree_map_specs(fn, spec_tree):
     if isinstance(spec_tree, dict):
         return {k: tree_map_specs(fn, v) for k, v in spec_tree.items()}
     return fn(spec_tree)
-
-
-def _leaves(tree, prefix=()):
-    """(path, leaf) pairs in sorted-key order, the order JAX flattens dicts."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k], prefix + (k,))
-    else:
-        yield prefix, tree
 
 
 def stack_specs(spec_tree, n: int, axis_name: str = "layers"):
@@ -63,7 +56,7 @@ def init_params(spec_tree, generator: torch.Generator,
     """
     dev = generator.device
     out: dict = {}
-    for path, s in _leaves(spec_tree):
+    for path, s in leaves_with_path(spec_tree):
         dt = s.dtype or default_dtype
         if s.init == "zeros":
             t = torch.zeros(s.shape, dtype=dt, device=dev)
@@ -83,7 +76,7 @@ def init_params(spec_tree, generator: torch.Generator,
 
 
 def param_count(spec_tree) -> int:
-    return sum(math.prod(s.shape) for _, s in _leaves(spec_tree))
+    return sum(math.prod(s.shape) for _, s in leaves_with_path(spec_tree))
 
 
 # ---------------------------------------------------------------------------

@@ -52,9 +52,11 @@ class Model:
 
     # -- execution ----------------------------------------------------------
     def apply(self, params, inputs, *, mode="train", cache=None,
-              cache_index=None):
+              cache_index=None, remat_policy=None, scan_unroll: int = 1):
         return transformer.forward(params, inputs, cfg=self.cfg, mode=mode,
-                                   cache=cache, cache_index=cache_index)
+                                   cache=cache, cache_index=cache_index,
+                                   remat_policy=remat_policy,
+                                   scan_unroll=scan_unroll)
 
     def init_cache(self, batch: int, max_len: int, *, enc_len: int = 0,
                    device=None, kv_dtype=torch.bfloat16):

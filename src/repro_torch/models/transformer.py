@@ -7,6 +7,9 @@ layer (leading ``layers`` axis, the reference's layout), and the group runs
 as a Python loop that indexes layer ``i`` of the stacked tensors in place of
 ``jax.lax.scan``.
 
+In ``train`` mode each layer of a group can be one checkpointed unit
+(``remat_policy``, as the reference checkpoints one scan step).
+
 Modes: ``train`` (no cache), ``prefill`` (flash attention or the SSD scan +
 cache write at 0), ``decode`` (single-token step over the KV cache and SSM
 state). MoE blocks (the local path of ``models/moe.py``) return the router's
@@ -22,6 +25,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from .attention import (apply_attention, attention_specs, compute_cross_kv,
                         cross_kv_specs)
@@ -199,11 +203,51 @@ def init_cache(cfg, batch: int, max_len: int, *, device, enc_len: int = 0,
 # ---------------------------------------------------------------------------
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a tree of stacked tensors (views, no copies)."""
+def _layers(tree, n: int) -> list:
+    """The ``n`` layers of a tree of stacked tensors (views, no copies), by
+    one ``unbind`` per leaf: its backward stacks the layers' gradients once,
+    where indexing each layer would make a zero-filled full-size gradient
+    per layer."""
+    if tree is None:
+        return [None] * n
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: layers[i] for k, layers in per_key.items()}
+                for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+# remat "dots": matmul outputs without batch dims are saved, everything else
+# recomputed (jax.checkpoint_policies.dots_with_no_batch_dims_saveable); a
+# (B, S, d) @ (d, f) product runs as one aten.mm
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    policy = torch_checkpoint.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(body, remat_policy: str | None, mode: str):
+    """remat_policy: None (no remat) | 'full' | 'dots' | 'minimal', in
+    ``train`` mode only; ``torch.utils.checkpoint`` without reentrance.
+    'minimal' saves everything (the reference's everything_saveable), which
+    is what autograd does without a checkpoint."""
+    if remat_policy not in (None, "full", "dots", "minimal"):
+        raise ValueError(remat_policy)
+    if remat_policy in (None, "minimal") or mode != "train":
+        return body
+    if remat_policy == "full":
+        context_fn = torch_checkpoint.noop_context_fn
+    else:
+        def context_fn():
+            return torch_checkpoint.create_selective_checkpoint_contexts(
+                _dots_policy)
+
+    def remat_body(*args):
+        return torch_checkpoint.checkpoint(body, *args, use_reentrant=False,
+                                           context_fn=context_fn)
+    return remat_body
 
 
 def _apply_block(bp, x, b: BlockDesc, *, cfg, mode, cache, cache_index,
@@ -274,34 +318,43 @@ def _apply_block(bp, x, b: BlockDesc, *, cfg, mode, cache, cache_index,
 
 
 def _apply_group(gp, x, gd: GroupDesc, *, cfg, mode, cache, cache_index,
-                 cross_states, shared_params, positions):
+                 cross_states, shared_params, positions, remat_policy=None):
     """Run the group's ``repeat`` stacked layers in order. Returns (x, aux,
     cache): aux is the blocks' auxiliary losses summed in layer order from an
-    fp32 zero, as the reference's scan carries it.
+    fp32 zero, as the reference's scan carries it. With ``remat_policy`` in
+    ``train`` mode, each layer (all of its blocks) is one checkpointed unit.
 
     Every block writes its slice of the cache in place (the KV cache and the
     SSM conv buffer and state alike), so the blocks' returned caches are
     discarded and the group's new cache is ``cache``.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(gd.repeat):
-        bp_all = _layer(gp, i)
-        bc_all = None if cache is None else _layer(cache, i)
-        for j, b in enumerate(gd.blocks):
-            key = f"b{j}"
-            bc = None if bc_all is None else bc_all.get(key)
-            x, _, aux_j = _apply_block(
-                bp_all.get(key), x, b, cfg=cfg, mode=mode, cache=bc,
-                cache_index=cache_index, cross_states=cross_states,
-                shared_params=shared_params, positions=positions)
-            if aux_j is not None:
-                aux = aux + aux_j
+    for bp_all, bc_all in zip(_layers(gp, gd.repeat),
+                              _layers(cache, gd.repeat)):
+        def body(x, aux, bp_all=bp_all, bc_all=bc_all):
+            for j, b in enumerate(gd.blocks):
+                key = f"b{j}"
+                bc = None if bc_all is None else bc_all.get(key)
+                x, _, aux_j = _apply_block(
+                    bp_all.get(key), x, b, cfg=cfg, mode=mode, cache=bc,
+                    cache_index=cache_index, cross_states=cross_states,
+                    shared_params=shared_params, positions=positions)
+                if aux_j is not None:
+                    aux = aux + aux_j
+            return x, aux
+
+        x, aux = _maybe_remat(body, remat_policy, mode)(x, aux)
     return x, aux, cache
 
 
 def forward(params, inputs, *, cfg, mode="train", cache=None,
-            cache_index=None):
+            cache_index=None, remat_policy=None, scan_unroll: int = 1):
     """Run the model.
+
+    remat_policy: None | 'full' | 'dots' | 'minimal', applied per layer in
+    ``train`` mode (the encoder's layers too). scan_unroll is accepted for
+    parity with the reference, where it unrolls ``jax.lax.scan``; the layers
+    here are a Python loop, so it has no effect.
 
     inputs: {'tokens': (B, S) int; outside decode, for the encoder-decoder
     'frames': (B, S_enc, d_model), the stub frontend's frame embeddings, and
@@ -331,7 +384,8 @@ def forward(params, inputs, *, cfg, mode="train", cache=None,
         cross_states = inputs["patches"].to(x.dtype) @ \
             params["vision_proj"].to(x.dtype)
     if cfg.family == "encdec" and mode != "decode":
-        cross_states = encode(params, inputs["frames"], cfg=cfg)
+        cross_states = encode(params, inputs["frames"], cfg=cfg,
+                              remat_policy=remat_policy)
 
     shared_params = params.get("shared")
     aux = torch.zeros((), dtype=torch.float32, device=dev)
@@ -341,7 +395,8 @@ def forward(params, inputs, *, cfg, mode="train", cache=None,
         x, aux_g, ncache = _apply_group(
             params["groups"][f"g{i}"], x, gd, cfg=cfg, mode=mode,
             cache=gcache, cache_index=cache_index, cross_states=cross_states,
-            shared_params=shared_params, positions=positions)
+            shared_params=shared_params, positions=positions,
+            remat_policy=remat_policy)
         aux = aux + aux_g
         if ncache is not None:
             new_groups[f"g{i}"] = ncache
@@ -356,11 +411,12 @@ def forward(params, inputs, *, cfg, mode="train", cache=None,
     return logits, new_cache, aux
 
 
-def encode(params, frames, *, cfg):
+def encode(params, frames, *, cfg, remat_policy=None):
     """The encoder over the frame embeddings (B, S_enc, d_model):
     ``in_proj``, the non-causal stack of ``encoder_plan``, ``final_norm``.
     Returns the states that the decoder's cross-attention blocks attend to,
-    in the activation dtype."""
+    in the activation dtype. Its layers run in ``train`` mode, so
+    ``remat_policy`` applies to them, as in the reference."""
     enc = params["encoder"]
     dt = dtype_of(cfg.activ_dtype)
     h = frames.to(dt) @ enc["in_proj"].to(dt)
@@ -369,6 +425,6 @@ def encode(params, frames, *, cfg):
         h, _, _ = _apply_group(enc["groups"][f"g{i}"], h, gd, cfg=cfg,
                                mode="train", cache=None, cache_index=None,
                                cross_states=None, shared_params=None,
-                               positions=positions)
+                               positions=positions, remat_policy=remat_policy)
     return apply_norm(enc["final_norm"], h, cfg)
 

@@ -122,21 +122,203 @@ def _requires_grad_inputs(kernel, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["flash_attention", "gmm", "ssd_scan"])
 def test_kernel_raises_where_it_would_drop_a_gradient(cuda, kernel):
-    """The kernels have no backward: in grad mode an input that requires
-    grad raises (naming ROADMAP.md A10) and launches nothing; without grad
-    mode the same call launches the kernel, and nothing falls back to the
-    plain version."""
+    """No kernel drops a gradient. The SSD scan has no backward kernel yet:
+    in grad mode an input that requires grad raises (naming ROADMAP.md A10)
+    and launches nothing. The flash and gmm kernels take the gradient
+    through their backward kernels: the output carries a ``grad_fn``, the
+    backward launches its kernel, and the gradients match autograd through
+    the plain version. Without grad mode each call launches its kernel, and
+    nothing falls back to the plain version."""
     fn, args, kw = _requires_grad_inputs(kernel, cuda)
     before = fn.launches
-    with pytest.raises(RuntimeError, match="A10"):
-        fn(*args, **kw)
-    assert fn.launches == before
+    if kernel == "ssd_scan":
+        with pytest.raises(RuntimeError, match="A10"):
+            fn(*args, **kw)
+        assert fn.launches == before
+    else:
+        bwd = fa.flash_attention_bwd_cuda if kernel == "flash_attention" \
+            else mg.gmm_bwd_cuda
+        bwd_before = bwd.launches
+        out = fn(*args, **kw)
+        assert out.grad_fn is not None and fn.launches == before + 1
+        dout = torch.randn_like(out)
+        got = torch.autograd.grad(out, args, dout)
+        torch.cuda.synchronize()
+        assert bwd.launches == bwd_before + 1
+        plain = fa.flash_attention_plain if kernel == "flash_attention" \
+            else mg.gmm_plain
+        leaves = [a.detach().float().requires_grad_() for a in args]
+        want = torch.autograd.grad(plain(*leaves, **kw), leaves, dout.float())
+        for g, w in zip(got, want):
+            assert g.dtype == torch.bfloat16
+            assert float((g.float() - w).norm() / w.norm()) < 1e-2
+        before = fn.launches
     with torch.no_grad():
         out = fn(*args, **kw)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     assert all(not t.requires_grad for t in (out if isinstance(out, tuple)
                                              else (out,)))
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+# (B, Sq, Sk, H, KVH, options): the backward's grid: causal, non-causal,
+# GQA, window, softcap, ragged lengths and a causal Sq < Sk
+FLASH_BWD_CASES = [
+    (1, 128, 128, 4, 4, {}),
+    (2, 200, 200, 4, 2, {}),
+    (2, 200, 200, 4, 2, {"causal": False}),
+    (1, 70, 130, 4, 2, {"causal": False}),
+    (1, 64, 192, 2, 2, {}),
+    (2, 300, 300, 4, 2, {"window": 48}),
+    (2, 300, 300, 4, 2, {"softcap": 30.0}),
+    (2, 300, 300, 8, 2, {"window": 48, "softcap": 30.0, "scale": 0.1}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", fa.BWD_HEAD_DIMS)
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,kw", FLASH_BWD_CASES)
+def test_flash_attention_backward_vs_plain(cuda, D, B, Sq, Sk, H, KVH, kw):
+    """dQ, dK, dV of the backward kernel against autograd through the plain
+    version in fp32: 1e-2 in relative norm (P and dS are rounded to bf16 for
+    the products, as the forward rounds P); and bitwise repeatable."""
+    q, k, v = _qkv(21, B, Sq, Sk, H, KVH, D, cuda)
+    do = _qkv(22, B, Sq, Sq, H, H, D, cuda)[0]
+    out, lse = fa._forward(q, k, v, q_offset=0, kv_valid=None, with_lse=True,
+                           causal=kw.get("causal", True),
+                           window=kw.get("window", 0),
+                           softcap=kw.get("softcap", 0.0), scale=kw.get("scale"))
+    opts = dict(causal=kw.get("causal", True), window=kw.get("window", 0),
+                softcap=kw.get("softcap", 0.0), scale=kw.get("scale"))
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **opts)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **opts)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, do, **opts)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert _rel(g, w) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("kw", [{}, {"window": 48, "softcap": 30.0},
+                                {"causal": False}],
+                         ids=["causal", "window_softcap", "noncausal"])
+def test_flash_attention_forward_lse_vs_plain(cuda, D, kw):
+    """The forward's row log-sum-exp (base 2), at every head dim: one
+    consumer warpgroup at 160 and 256 holds the row statistics otherwise."""
+    q, k, v = _qkv(23, 2, 300, 300, 4, 2, D, cuda)
+    opts = dict(causal=kw.get("causal", True), window=kw.get("window", 0),
+                softcap=kw.get("softcap", 0.0), scale=None)
+    out, lse = fa._forward(q, k, v, q_offset=0, kv_valid=None, with_lse=True,
+                           **opts)
+    torch.cuda.synchronize()
+    want = fa.attention_lse_plain(q, k, **opts)
+    assert float((lse - want).abs().max()) < 1e-4
+    assert torch.equal(out, fa.flash_attention_cuda(q, k, v, **opts))
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_of_a_row_with_no_key_is_zero(cuda):
+    q, k, v = _qkv(24, 1, 64, 64, 2, 2, 64, cuda)
+    out, lse = fa._forward(q, k, v, causal=False, window=0, softcap=0.0,
+                           scale=None, q_offset=0, kv_valid=0, with_lse=True)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, out, torch.ones_like(q), lse,
+                                        causal=False, kv_valid=0)
+    torch.cuda.synchronize()
+    assert bool(torch.isneginf(lse).all())
+    assert all(bool((g == 0).all()) for g in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,kw", [(160, {}), (256, {}), (128, {"q_offset": 4})])
+def test_flash_attention_backward_rejects_what_it_does_not_take(cuda, D, kw):
+    q, k, v = (t.requires_grad_() for t in _qkv(25, 1, 64, 64, 2, 2, D, cuda))
+    before = fa.flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="B5" if D != 128 else "q_offset"):
+        fa.flash_attention_cuda(q, k, v, **kw)
+    assert fa.flash_attention_cuda.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("E,C,d,f", [(2, 16, 32, 64), (8, 64, 128, 64),
+                                     (4, 8, 256, 128), (3, 100, 72, 200),
+                                     (2, 37, 30, 50), (4, 488, 256, 128)])
+def test_gmm_backward_vs_plain(cuda, dtype, tol, E, C, d, f):
+    """dx and dw of the grouped GEMM's backward (two launches of its kernel)
+    against the two einsums in fp32, TOL x sqrt(contraction)."""
+    rng = np.random.default_rng(26)
+    x, w, dy = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(cuda, dtype)
+                for s in ((E, C, d), (E, d, f), (E, C, f)))
+    before = mg.gmm_bwd_cuda.launches
+    dx, dw = mg.gmm_bwd_cuda(x, w, dy)
+    torch.cuda.synchronize()
+    assert mg.gmm_bwd_cuda.launches == before + 1
+    px, pw = mg.gmm_bwd_plain(x, w, dy)
+    for got, want, depth in ((dx, px, f), (dw, pw, C)):
+        assert got.dtype == dtype
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   atol=tol * depth ** 0.5, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,remat", [("deepseek-7b", "full"),
+                                        ("deepseek-7b", "dots"),
+                                        ("deepseek-moe-16b", "full")])
+def test_train_step_on_the_card(cuda, arch, remat):
+    """One train step at REDUCED with one attention head of 64 (the flash
+    kernels' smallest head dim), with remat, on the card and on the CPU
+    from the same state: the loss within 2e-2, every grad leaf finite, the
+    dense model's grads within 5e-2 in relative norm (bf16 rounds on each
+    side in other places), the backward kernels launched."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime import train as train_rt
+    cfg = get_config(arch, reduced=True).replace(n_heads=1, n_kv_heads=1)
+    model = build_model(cfg)
+    opts = train_rt.TrainOptions(remat_policy=remat, warmup_steps=1,
+                                 total_steps=10)
+    params = model.init(torch.Generator().manual_seed(0))
+    dc = DataConfig(cfg.vocab_size, 64, 4)
+    grads, losses = {}, {}
+    before = {f: f.launches for f in (fa.flash_attention_bwd_cuda,
+                                      mg.gmm_bwd_cuda)}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        g, m = train_rt.build_grad_fn(model, opts)(
+            p, batch_for_step(dc, 0, cfg, device=dev))
+        grads[dev], losses[dev] = g, float(m["loss"])
+    torch.cuda.synchronize()
+    assert abs(losses["cuda"] - losses["cpu"]) <= 2e-2 * abs(losses["cpu"])
+    assert fa.flash_attention_bwd_cuda.launches > before[fa.flash_attention_bwd_cuda]
+    if arch == "deepseek-moe-16b":
+        assert mg.gmm_bwd_cuda.launches > before[mg.gmm_bwd_cuda]
+    for (path, a), (_, b) in zip(_flat(grads["cuda"]), _flat(grads["cpu"])):
+        assert bool(torch.isfinite(a).all()), path
+        if arch == "deepseek-7b":
+            assert _rel(a.cpu(), b) < 5e-2, path
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
 
 
 @pytest.mark.cuda

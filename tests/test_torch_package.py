@@ -22,7 +22,7 @@ from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import moe, transformer  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.runtime import serve  # noqa: E402
 
@@ -360,7 +360,101 @@ def test_chip_smoke_routing_replay_pins_the_experts(chip_smoke):
     assert replay.differing(replay) == 0 and other.differing(other) == 0
     torch.testing.assert_close(w.float().sum(-1), torch.ones(18), atol=1e-2,
                                rtol=0)
-    assert float(aux) == 0.0
+    # the aux loss of the replayed ids, as ``_route`` computes it (training
+    # differentiates it): with the recording router, the recorded run's
+    _, _, aux_free = moe._route(x2d, router, cfg)
+    same = chip_smoke.RoutingReplay()
+    with same.patch():
+        same.route(x2d, router, cfg)
+    same.next = 0
+    torch.testing.assert_close(same.route(x2d, router, cfg)[2], aux_free)
+    assert float(aux) > 0.0
+
+
+def test_chip_smoke_expects_the_train_launches(chip_smoke):
+    """Remat "full" runs every forward launch twice a step (the forward and
+    its recompute), and each backward wrapper once per forward call:
+    deepseek-7b 30 attention layers, deepseek-moe-16b cut to 8 layers (1
+    dense, 7 MoE of 3 expert products)."""
+    for arch, attn, gmm in (("deepseek-7b", 30, 0), ("deepseek-moe-16b", 8, 21)):
+        cfg = chip_smoke.train_config(arch)
+        assert chip_smoke.expected_train_launches(cfg, 8) == {
+            "flash_attention": 16 * attn, "flash_attention_bwd": 8 * attn,
+            "gmm": 16 * gmm, "gmm_bwd": 8 * gmm, "ssd_scan": 0}
+    assert list(chip_smoke.TRAIN_PATHS) == ["deepseek-7b", "deepseek-moe-16b"]
+
+
+def test_chip_smoke_train_paths_cut_depth_not_width(chip_smoke):
+    for arch in chip_smoke.TRAIN_PATHS:
+        full, cfg = get_config(arch), chip_smoke.train_config(arch)
+        assert cfg.replace(n_layers=full.n_layers) == full
+    moe_cfg = chip_smoke.train_config("deepseek-moe-16b")
+    assert [gd.repeat for gd in transformer.layer_plan(moe_cfg)] == [1, 7]
+    assert 4.5e9 < build_model(moe_cfg).param_count() < 4.7e9
+    assert chip_smoke.train_capacity() == 488       # 2 x 2048 tokens, top 6 of 64
+
+
+def test_chip_smoke_backward_bounds(chip_smoke):
+    """The flash backward's five products at deepseek-7b's training shape:
+    10 B H D S(S+1)/2 = 1.72e11 FLOPs, 0.174 ms at 989 TFLOP/s; the gmm
+    backward's two products at the training capacity."""
+    ms, by = chip_smoke.attention_bwd_bound_ms(2, 2048, 2048, 32, 32, 128, {})
+    assert by == "operations" and abs(ms - 0.1738) < 1e-3
+    ms, by = chip_smoke.gmm_bwd_bound_ms(64, 488, 2048, 1408)
+    assert by == "operations" and abs(ms - 4 * 64 * 488 * 2048 * 1408 / 989e9) < 1e-6
+
+
+@pytest.mark.parametrize("kw", [{}, {"window": 8, "softcap": 5.0},
+                                {"causal": False}])
+def test_chip_smoke_attention_grads_match_autograd(chip_smoke, kw):
+    """The formulas that make the Delta fault agree with autograd through
+    the plain version, and dropping Delta moves dQ and dK, not dV."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator().manual_seed(0)
+    q, do = torch.randn(2, 20, 4, 16, generator=g), torch.randn(2, 20, 4, 16, generator=g)
+    k, v = torch.randn(2, 20, 2, 16, generator=g), torch.randn(2, 20, 2, 16, generator=g)
+    want = fa.flash_attention_bwd_plain(q, k, v, do, **kw)
+    for got, w in zip(chip_smoke.attention_grads_naive(q, k, v, do, **kw), want):
+        torch.testing.assert_close(got, w, atol=1e-5, rtol=1e-5)
+    fault = chip_smoke.attention_grads_naive(q, k, v, do, zero_delta=True, **kw)
+    errs = [chip_smoke.grad_errors(f, w) for f, w in zip(fault, want)]
+    assert not chip_smoke.within_bwd_limits(errs[0])
+    assert not chip_smoke.within_bwd_limits(errs[1])
+    assert chip_smoke.within_bwd_limits(errs[2])
+
+
+@pytest.mark.parametrize("fault", ["first_tile_dk_dropped", "last_tile_dk_dropped",
+                                   "delta_zero"])
+def test_chip_smoke_planted_faults_reach_the_autograd_function(chip_smoke,
+                                                               monkeypatch, fault):
+    """The train phase's faults replace what FlashAttentionFn's backward
+    gets: one K/V tile's dK zeroed and the rest as the kernel gave it, or
+    the gradients with Delta at zero."""
+    from types import SimpleNamespace
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator().manual_seed(0)
+    q, do = torch.randn(1, 150, 4, 16, generator=g), torch.randn(1, 150, 4, 16, generator=g)
+    k, v = torch.randn(1, 150, 2, 16, generator=g), torch.randn(1, 150, 2, 16, generator=g)
+    opts = dict(causal=True, window=0, softcap=0.0, scale=None, kv_valid=None)
+
+    def kernel(q, k, v, out, dout, lse, *, kv_valid, **kw):
+        return chip_smoke.attention_grads_naive(q, k, v, dout, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention_bwd_cuda", kernel)
+    ctx = SimpleNamespace(saved_tensors=(q, k, v, q, None), opts=opts)
+    want = fa.FlashAttentionFn.backward(ctx, do)[:3]
+    with chip_smoke.planted_flash_bwd(fault):
+        got = fa.FlashAttentionFn.backward(ctx, do)[:3]
+    torch.testing.assert_close(got[2], want[2], atol=1e-6, rtol=1e-6)
+    if fault == "delta_zero":
+        assert (got[0] - want[0]).norm() > 0.1 * want[0].norm()
+        return
+    tile = chip_smoke.BWD_KV_TILE
+    keys = slice(0, tile) if fault == "first_tile_dk_dropped" else slice(-tile, None)
+    rest = slice(tile, None) if fault == "first_tile_dk_dropped" else slice(0, -tile)
+    assert torch.equal(got[0], want[0])
+    assert bool((got[1][:, keys] == 0).all()) and want[1][:, keys].abs().max() > 0
+    assert torch.equal(got[1][:, rest], want[1][:, rest])
 
 
 def test_chip_smoke_seamless_attention_bounds(chip_smoke):

@@ -1,0 +1,708 @@
+"""Port vs reference: the training path.
+
+The schedule, the data pipeline, AdamW (fp32, bf16 and int8 moments), the
+checkpoints (bitwise across the two packages, both ways), the restart loop,
+one train step against ``jax.value_and_grad`` of the reference's loss at the
+REDUCED deepseek-7b, deepseek-moe-16b and mamba2-370m, mirrors of
+``tests/test_runtime.py``'s training tests, and the launcher across a
+checkpoint boundary. Both packages start from one train state, carried by
+``repro_torch._bridge``; inputs are seeded numpy.
+"""
+import contextlib
+import dataclasses
+import json
+import os
+from unittest import mock
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.checkpointing import checkpoint as jckpt  # noqa: E402
+from repro.configs.registry import get_config as jax_get_config  # noqa: E402
+from repro.data import pipeline as jpipeline  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
+from repro.models.model_zoo import build_model as jax_build_model  # noqa: E402
+from repro.optim import adamw as jadamw  # noqa: E402
+from repro.optim.schedule import warmup_cosine as jwarmup_cosine  # noqa: E402
+from repro.runtime import train as jtrain  # noqa: E402
+from repro_torch import _bridge  # noqa: E402
+from repro_torch.checkpointing import checkpoint as ckpt  # noqa: E402
+from repro_torch.checkpointing.manager import CheckpointManager  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.data import pipeline  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.model_zoo import build_model  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.optim.schedule import warmup_cosine  # noqa: E402
+from repro_torch.runtime import train as train_rt  # noqa: E402
+from repro_torch import tree as tree_mod  # noqa: E402
+from repro_torch.runtime.fault_tolerance import (  # noqa: E402
+    RestartPolicy, StragglerMonitor, run_with_restarts)
+
+# One train step against jax.value_and_grad: fp32 holds the algorithm; bf16
+# differs by where each framework rounds (torch per op, XLA fused in fp32),
+# as the forward tests state. In bf16 a grad leaf is held to 2e-2, or to
+# BF16_FLOOR_MULT x the reference's own bf16 distance from its fp32 grads
+# on the same weights where that is larger: at mamba2-370m the reference's
+# bf16 grads are 2-3.4% from its fp32 ones (the port's as far), so no
+# implementation is within 2e-2 of them there.
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+BF16_FLOOR_MULT = 1.5
+ADAMW_RTOL = 1e-6
+SCHEDULE_TOL = 1e-7
+TRAIN_ARCHS = ("deepseek-7b", "deepseek-moe-16b", "mamba2-370m")
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _cfgs(arch, dtype="bfloat16"):
+    kw = dict(param_dtype=dtype, activ_dtype=dtype)
+    return (jax_get_config(arch, reduced=True).replace(**kw),
+            get_config(arch, reduced=True).replace(**kw))
+
+
+def _rel(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            for path, leaf in _leaves(tree[k]):
+                yield (k,) + path, leaf
+    else:
+        yield (), tree
+
+
+def _to_f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x).astype(np.float32)
+
+
+# --------------------------------------------------------------------------
+# schedule and data
+# --------------------------------------------------------------------------
+
+
+def test_warmup_cosine_matches_reference():
+    kw = dict(peak_lr=3e-4, warmup_steps=100, total_steps=1000)
+    for step in [*range(0, 130), 400, 999, 1000, 1500]:
+        want = float(jwarmup_cosine(step, **kw))
+        got = warmup_cosine(torch.tensor(step, dtype=torch.int32), **kw)
+        assert got.dtype == torch.float32
+        assert abs(float(got) - want) <= SCHEDULE_TOL * abs(want) + 1e-30, step
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "seamless-m4t-large-v2",
+                                  "llama-3.2-vision-90b"],
+                         ids=["dense", "encdec", "vlm"])
+def test_batch_for_step_is_bitwise_the_reference(arch):
+    cfg = get_config(arch, reduced=True)
+    jcfg = jax_get_config(arch, reduced=True)
+    dc = pipeline.DataConfig(cfg.vocab_size, 12, 3, seed=5)
+    jdc = jpipeline.DataConfig(cfg.vocab_size, 12, 3, seed=5)
+    for step in (0, 7):
+        got = pipeline.batch_for_step(dc, step, cfg, device="cpu")
+        want = jpipeline.batch_for_step(jdc, step, jcfg)
+        assert sorted(got) == sorted(want)
+        for name, arr in want.items():
+            back = _bridge.params_to_numpy(got[name])
+            assert back.dtype == np.asarray(arr).dtype, name
+            assert back.tobytes() == np.asarray(arr).tobytes(), name
+
+
+def test_data_iterator_state_round_trip():
+    dc = pipeline.DataConfig(vocab_size=100, seq_len=16, global_batch=4)
+    it = pipeline.DataIterator(dc, device="cpu")
+    next(it)
+    next(it)
+    saved = it.state()
+    want = next(it)
+    it2 = pipeline.DataIterator(dc, device="cpu")
+    it2.restore(saved)
+    assert torch.equal(next(it2)["tokens"], want["tokens"])
+
+
+def test_data_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dc = pipeline.DataConfig(vocab_size=10, seq_len=4, global_batch=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.batch_for_step(dc, 0)
+
+
+# --------------------------------------------------------------------------
+# AdamW
+# --------------------------------------------------------------------------
+
+
+def _adamw_pair(moment_dtype, seed=0, grads="normal"):
+    """fp32 REDUCED deepseek-7b params (stacked per-layer norms among them)
+    and three steps of seeded gradients, large enough to be clipped:
+    ``normal`` draws, or ``dyadic`` ones (multiples of 1/16 in [-1/2, 1/2],
+    whose squares sum exactly in fp32 in any order)."""
+    jcfg, _ = _cfgs("deepseek-7b", "float32")
+    jp = jax_build_model(jcfg).init(jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed)
+
+    def draw(p):
+        if grads == "dyadic":
+            return (rng.integers(-8, 9, p.shape) / 16).astype(np.float32)
+        return (rng.standard_normal(p.shape) * 0.3).astype(np.float32)
+
+    steps = [jax.tree.map(draw, _np(jp)) for _ in range(3)]
+    cfg = dict(moment_dtype=moment_dtype, lr=1e-2, grad_clip=1.0)
+    return jp, steps, cfg
+
+
+@pytest.mark.parametrize("grads", ["normal", "dyadic"])
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16", "int8"])
+def test_apply_updates_matches_reference(moment_dtype, grads):
+    """Three clipped AdamW steps from one state: params within 1e-6 in
+    relative norm per leaf, and the moments.
+
+    The update's arithmetic is the reference's, one rounding per
+    operation as ``apply_updates`` runs op by op: where the gradients'
+    squares sum exactly in fp32 (``dyadic``), the global norm, and so the
+    clip factor, is the same number in both packages, and every moment,
+    int8 ``q`` and its scale included, is bitwise the reference's. With ``normal`` gradients the two frameworks
+    sum the norm in another order, the clip factor may differ in its last
+    bit, and a moment may round to its neighbouring bf16 or int8 value:
+    int8 ``q`` then differs by at most 1 in at most 1e-4 of the elements.
+    """
+    jp, steps, cfg = _adamw_pair(moment_dtype, grads=grads)
+    jcfg, tcfg = jadamw.AdamWConfig(**cfg), adamw.AdamWConfig(**cfg)
+    jopt = jadamw.init_opt_state(jp, jcfg)
+    state = _bridge.params_from_numpy(
+        _np({"params": jp, "opt": jopt}), "cpu")
+    tp, topt = state["params"], state["opt"]
+    for g in steps:
+        jp, jopt, jm = jadamw.apply_updates(jp, jax.tree.map(jnp.asarray, g),
+                                            jopt, jcfg)
+        tp, topt, tm = adamw.apply_updates(
+            tp, _bridge.params_from_numpy(g, "cpu"), topt, tcfg)
+        assert abs(float(tm["grad_norm"]) - float(jm["grad_norm"])) <= \
+            ADAMW_RTOL * float(jm["grad_norm"])
+        assert float(jm["grad_norm"]) > 1.0        # the clip is active
+        if grads == "dyadic":
+            assert float(tm["grad_norm"]) == float(jm["grad_norm"])
+    assert int(topt["count"]) == int(jopt["count"]) == 3
+    for (path, got), (_, want) in zip(_leaves(tp), _leaves(_np(jp))):
+        assert _rel(_to_f32(got), want) <= ADAMW_RTOL, path
+    for name in ("m", "v"):
+        got_leaves = list(_leaves(_bridge.params_to_numpy(topt[name])))
+        want_leaves = list(_leaves(_np(jopt[name])))
+        assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
+        for (path, got), (_, want) in zip(got_leaves, want_leaves):
+            want = np.asarray(want)
+            assert got.dtype == want.dtype, path
+            if grads == "dyadic":
+                assert got.tobytes() == want.tobytes(), path
+            elif path[-1] == "q":
+                diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+                assert diff.max() <= 1 and (diff > 0).mean() <= 1e-4, path
+            elif got.dtype == np.float32:
+                assert _rel(got, want) <= ADAMW_RTOL, path
+            else:     # bf16: an element may round to its neighbour (2^-8)
+                assert _rel(got.astype(np.float32),
+                            want.astype(np.float32)) <= 1e-5, path
+
+
+def test_stacked_norm_scales_are_decayed_like_the_reference():
+    """Weight decay follows the leaf's rank, as in the reference: a stacked
+    per-layer norm scale (layers, d) is decayed, final_norm (d,) is not."""
+    _, tcfg = _cfgs("deepseek-7b", "float32")
+    params = build_model(tcfg).init(torch.Generator().manual_seed(0))
+    zeros = _zero_like(params)
+    cfg = adamw.AdamWConfig(lr=0.1, weight_decay=0.5, grad_clip=0.0)
+    before = _clone(params)
+    adamw.apply_updates(params, zeros, adamw.init_opt_state(params, cfg), cfg)
+    stacked = params["groups"]["g0"]["b0"]["norm"]["scale"]
+    assert stacked.dim() == 2
+    assert torch.allclose(stacked, before["groups"]["g0"]["b0"]["norm"]["scale"]
+                          * (1 - 0.1 * 0.5))
+    assert torch.equal(params["final_norm"]["scale"],
+                       before["final_norm"]["scale"])
+
+
+def _zero_like(tree):
+    if isinstance(tree, dict):
+        return {k: _zero_like(v) for k, v in tree.items()}
+    return torch.zeros_like(tree)
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16", "int8"])
+def test_sliced_update_equals_unsliced_bitwise(moment_dtype, monkeypatch):
+    jp, grads, cfg = _adamw_pair(moment_dtype, seed=1)
+    cfg = adamw.AdamWConfig(**cfg)
+    runs = []
+    for limit in (1 << 30, 1000):       # whole leaves; slices of <= 1000
+        monkeypatch.setattr(adamw, "SLICE_ELEMENTS", limit)
+        params = _bridge.params_from_numpy(_np(jp), "cpu")
+        opt = adamw.init_opt_state(params, cfg)
+        for g in grads:
+            params, opt, _ = adamw.apply_updates(
+                params, _bridge.params_from_numpy(g, "cpu"), opt, cfg)
+        runs.append((params, opt))
+    assert len(adamw._slices(torch.zeros(2, 64, 128), 1000)) == 2
+    for (path, a), (_, b) in zip(_leaves(dict(enumerate(runs[0]))),
+                                 _leaves(dict(enumerate(runs[1])))):
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+
+
+def test_int8_moments_keep_a_whole_leaf_scale():
+    p = {"w": torch.zeros(4, 3)}
+    cfg = adamw.AdamWConfig(moment_dtype="int8", weight_decay=0.0)
+    opt = adamw.init_opt_state(p, cfg)
+    assert opt["m"]["w"]["q"].dtype == torch.int8
+    assert opt["m"]["w"]["scale"].shape == ()
+    g = {"w": torch.arange(12, dtype=torch.float32).reshape(4, 3)}
+    adamw.apply_updates(p, g, opt, cfg)
+    assert int(opt["m"]["w"]["q"].abs().max()) == 127
+
+
+# --------------------------------------------------------------------------
+# checkpoints
+# --------------------------------------------------------------------------
+
+
+def _tree(seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return {"params": {"w": torch.randn(33, 17, generator=g).bfloat16(),
+                       "b": torch.arange(7, dtype=torch.int32)},
+            "opt": {"m": torch.randn(33, 17, generator=g),
+                    "q": {"q": torch.randint(-127, 128, (5, 3), generator=g,
+                                             dtype=torch.int8),
+                          "scale": torch.tensor(0.25)},
+                    "count": torch.tensor(3, dtype=torch.int32)},
+            "step": torch.tensor(42, dtype=torch.int32)}
+
+
+def _same(a, b):
+    if isinstance(a, dict):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            _same(a[k], b[k])
+    elif isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.view(-1).view(torch.uint8).tolist() == \
+            b.view(-1).view(torch.uint8).tolist() if a.numel() else True
+    else:
+        assert type(a) is type(b) and a == b
+
+
+def test_checkpoint_round_trip_bitwise(tmp_path):
+    tree = {**_tree(), "data": {"step": 9}}
+    ckpt.save(tree, str(tmp_path / "step_1"))
+    _same(tree, ckpt.restore(tree, str(tmp_path / "step_1")))
+
+
+def test_checkpoint_sharded_files(tmp_path):
+    tree = {"a": torch.zeros(1 << 18), "b": torch.ones(1 << 18)}
+    ckpt.save(tree, str(tmp_path / "s"), shard_bytes=1 << 19)
+    assert len([f for f in os.listdir(tmp_path / "s")
+                if f.startswith("arrays")]) >= 2
+    assert torch.equal(ckpt.restore(tree, str(tmp_path / "s"))["b"], tree["b"])
+
+
+def test_checkpoint_corruption_detected(tmp_path):
+    tree = _tree()
+    path = str(tmp_path / "s")
+    ckpt.save(tree, path)
+    shard = next(f for f in os.listdir(path) if f.startswith("arrays"))
+    with np.load(os.path.join(path, shard)) as z:
+        data = {k: z[k].copy() for k in z.files}
+    data[sorted(data)[0]][0] ^= 0xFF
+    np.savez(os.path.join(path, shard), **data)
+    with pytest.raises(IOError, match="corruption"):
+        ckpt.restore(tree, path)
+
+
+def test_manager_retention_and_resume(tmp_path):
+    mgr = CheckpointManager(str(tmp_path), keep=2, async_save=False)
+    for s in (10, 20, 30, 40):
+        mgr.save(s, {"x": torch.tensor(s)})
+    assert mgr.steps() == [30, 40]
+    restored, at = mgr.restore({"x": torch.tensor(0)})
+    assert at == 40 and int(restored["x"]) == 40
+    restored, _ = mgr.restore({"x": torch.tensor(0)}, step=30)
+    assert int(restored["x"]) == 30
+    empty = CheckpointManager(str(tmp_path / "empty"), async_save=False)
+    assert empty.restore({"x": torch.tensor(0)}) == (None, None)
+
+
+def test_async_saver_snapshots_before_returning(tmp_path):
+    mgr = CheckpointManager(str(tmp_path), keep=3, async_save=True)
+    tree = _tree()
+    want = _clone(tree)
+    mgr.save(5, tree)
+    tree["params"]["w"].add_(1)          # an in-place update after submit
+    mgr.wait()
+    restored, at = mgr.restore(tree)
+    assert at == 5
+    _same(want, restored)
+
+
+def _train_tree_jax():
+    """A reference tree with bf16, fp32, int8 {q, scale} and scalar leaves,
+    and the data cursor as a Python int."""
+    k = jax.random.PRNGKey(3)
+    return {"state": {
+        "params": {"w": jax.random.normal(k, (9, 5), jnp.bfloat16),
+                   "n": jnp.ones((4,), jnp.float32)},
+        "opt": {"m": {"w": {"q": jnp.asarray(np.arange(-22, 23)[:45].reshape(
+                                 9, 5), jnp.int8),
+                            "scale": jnp.asarray(0.125, jnp.float32)}},
+                "count": jnp.asarray(7, jnp.int32)},
+        "step": jnp.asarray(7, jnp.int32)},
+        "data": {"step": 7}}
+
+
+def test_checkpoint_written_by_jax_restores_bitwise_in_the_port(tmp_path):
+    jtree = _train_tree_jax()
+    jckpt.save(jtree, str(tmp_path / "step_00000007"))
+    like = _bridge.params_from_numpy(_np(jtree["state"]), "cpu")
+    got = ckpt.restore({"state": like, "data": {"step": 0}},
+                       str(tmp_path / "step_00000007"))
+    assert got["data"]["step"] == 7 and isinstance(got["data"]["step"], int)
+    back = _bridge.params_to_numpy(got["state"])
+    for (path, a), (_, b) in zip(_leaves(back), _leaves(_np(jtree["state"]))):
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        assert a.tobytes() == b.tobytes(), path
+
+
+def test_checkpoint_written_by_the_port_restores_bitwise_in_jax(tmp_path):
+    jtree = _train_tree_jax()
+    tree = {"state": _bridge.params_from_numpy(_np(jtree["state"]), "cpu"),
+            "data": {"step": 7}}
+    mgr = CheckpointManager(str(tmp_path), async_save=False)
+    mgr.save(7, tree)
+    with open(tmp_path / "step_00000007" / "manifest.json") as f:
+        leaves = json.load(f)["leaves"]
+    assert leaves["data/step"]["dtype"] == "int64"
+    assert leaves["state/params/w"]["dtype"] == "bfloat16"
+    from repro.checkpointing.manager import CheckpointManager as JaxManager
+    got, at = JaxManager(str(tmp_path), async_save=False).restore(jtree)
+    assert at == 7
+    assert int(got["data"]["step"]) == 7   # JAX restores the int64 as int32
+    for (path, a), (_, b) in zip(_leaves(_np(got["state"])),
+                                 _leaves(_np(jtree["state"]))):
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        assert a.tobytes() == b.tobytes(), path
+
+
+# --------------------------------------------------------------------------
+# one train step against jax.value_and_grad
+# --------------------------------------------------------------------------
+
+
+def _step_pair(arch, dtype, *, seq=16, batch=2, remat=None):
+    jcfg, tcfg = _cfgs(arch, dtype)
+    jm, tm = jax_build_model(jcfg), build_model(tcfg)
+    opts = dict(remat_policy=remat, warmup_steps=2, total_steps=10)
+    jstate = jtrain.init_train_state(jm, jax.random.PRNGKey(0),
+                                     jtrain.TrainOptions(**opts))
+    tstate = _bridge.params_from_numpy(_np(jstate), "cpu")
+    jbatch = jpipeline.batch_for_step(
+        jpipeline.DataConfig(jcfg.vocab_size, seq, batch), 0, jcfg)
+    tbatch = pipeline.batch_for_step(
+        pipeline.DataConfig(tcfg.vocab_size, seq, batch), 0, tcfg, device="cpu")
+    return jm, tm, jstate, tstate, jbatch, tbatch, opts
+
+
+def _reference_loss_and_grads(jm, params, batch, remat, routing=None):
+    """jax.value_and_grad of the reference's train loss (build_train_step's
+    loss_fn): cross-entropy plus the aux loss. With a list ``routing``, each
+    MoE layer's top-k expert ids are appended to it, in layer order."""
+    def loss_fn(p):
+        inputs = {k: v for k, v in batch.items() if k != "labels"}
+        logits, _, aux = jm.apply(p, inputs, mode="train", remat_policy=remat)
+        ce = jtrain.cross_entropy(logits, batch["labels"])
+        return ce + aux, (ce, aux)
+
+    route = jmoe._route
+
+    def recording_route(*args, **kw):
+        out = route(*args, **kw)
+        jax.debug.callback(lambda ids: routing.append(np.asarray(ids)),
+                           out[0], ordered=True)
+        return out
+
+    with mock.patch.object(jmoe, "_route", recording_route
+                           if routing is not None else route):
+        (_, (ce, aux)), grads = jax.jit(jax.value_and_grad(
+            loss_fn, has_aux=True))(params)
+    return float(ce), float(aux), grads
+
+
+def _replayed_routing(ids):
+    """The port's ``moe._route`` with the reference's expert ids, layer by
+    layer: weights and aux loss from the port's own router probabilities at
+    those ids, as ``_route`` computes them. A bf16 rounding difference can
+    flip a near-tie between two experts, which moves their grads far more
+    than any rounding does; replayed, both packages route alike."""
+    queue = iter(ids)
+
+    def route(x2d, router_w, cfg):
+        m = cfg.moe
+        idx = torch.from_numpy(np.array(next(queue))).long()
+        probs = torch.softmax(x2d.float() @ router_w, dim=-1)
+        p = probs.gather(1, idx)
+        w = p / p.sum(-1, keepdim=True).clamp_min(1e-9)
+        n = idx.numel()
+        f_e = torch.zeros(m.num_experts).scatter_add_(
+            0, idx.reshape(-1), torch.full((n,), 1.0 / n))
+        aux = m.num_experts * torch.sum(f_e * probs.mean(0)) * m.router_aux_coef
+        return idx, w.to(x2d.dtype), aux
+    return mock.patch.object(moe, "_route", route)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_grads_match_value_and_grad(arch, dtype):
+    jm, tm, jstate, tstate, jbatch, tbatch, opts = _step_pair(arch, dtype)
+    routing = [] if arch == "deepseek-moe-16b" else None
+    ce, aux, jgrads = _reference_loss_and_grads(jm, jstate["params"], jbatch,
+                                                None, routing)
+    opts = train_rt.TrainOptions(**{**opts, "remat_policy": None})
+    with (_replayed_routing(routing) if routing else contextlib.nullcontext()):
+        grads, metrics = train_rt.build_grad_fn(tm, opts)(tstate["params"],
+                                                          tbatch)
+    tol = GRAD_TOL[dtype]
+    limits = dict.fromkeys(("/".join(p) for p, _ in _leaves(grads)), tol)
+    if dtype == "bfloat16":       # the reference's own bf16 noise
+        jcfg32 = _cfgs(arch, "float32")[0]
+        p32 = jax.tree.map(lambda x: x.astype(jnp.float32), jstate["params"])
+        _, _, jgrads32 = _reference_loss_and_grads(
+            jax_build_model(jcfg32), p32, jbatch, None,
+            [] if routing else None)
+        for (path, a), (_, b) in zip(_leaves(_np(jgrads)), _leaves(_np(jgrads32))):
+            floor = _rel(np.asarray(a, np.float32), b)
+            limits["/".join(path)] = max(tol, BF16_FLOOR_MULT * floor)
+    assert abs(float(metrics["loss"]) - ce) <= tol * abs(ce)
+    if arch == "deepseek-moe-16b":
+        assert aux > 0
+        assert abs(float(metrics["aux_loss"]) - aux) <= tol * abs(aux)
+    worst = {}
+    for (path, got), (_, want) in zip(_leaves(grads), _leaves(_np(jgrads))):
+        worst["/".join(path)] = _rel(_to_f32(got), np.asarray(want, np.float32))
+    assert len(worst) == len(list(_leaves(tstate["params"])))
+    bad = {k: (v, limits[k]) for k, v in worst.items() if v > limits[k]}
+    assert not bad, bad
+    # the whole step: its metrics are the reference's
+    jstep = jax.jit(jtrain.build_train_step(jm, jtrain.TrainOptions(
+        remat_policy=None, warmup_steps=2, total_steps=10)))
+    _, jmet = jstep(jstate, jbatch)
+    new, met = train_rt.build_train_step(tm, opts)(tstate, tbatch)
+    assert int(new["step"]) == 1 and int(new["opt"]["count"]) == 1
+    for name in ("loss", "grad_norm"):
+        assert abs(float(met[name]) - float(jmet[name])) <= \
+            tol * abs(float(jmet[name])), name
+    assert float(met["lr"]) == float(jmet["lr"])
+
+
+def test_grad_dtypes_follow_the_reference():
+    """Gradients have the params' dtype with one microbatch, fp32 with
+    more, as the reference's accumulation into fp32 zeros makes them."""
+    _, tm, _, tstate, _, tbatch, opts = _step_pair("deepseek-7b", "bfloat16",
+                                                   batch=4)
+    for k, want in ((1, torch.bfloat16), (2, torch.float32)):
+        o = train_rt.TrainOptions(**{**opts, "microbatches": k})
+        grads, _ = train_rt.build_grad_fn(tm, o)(tstate["params"], tbatch)
+        assert {g.dtype for _, g in _leaves(grads)} == {want}
+
+
+def test_microbatches_equal_the_full_batch():
+    _, tm, _, tstate, _, tbatch, opts = _step_pair("deepseek-7b", "float32",
+                                                   seq=32, batch=8)
+    out = {}
+    for k in (1, 2):
+        o = train_rt.TrainOptions(**{**opts, "microbatches": k})
+        out[k], _ = train_rt.build_grad_fn(tm, o)(tstate["params"], tbatch)
+    for (path, a), (_, b) in zip(_leaves(out[1]), _leaves(out[2])):
+        assert b.dtype == torch.float32
+        assert _rel(b.numpy(), a.numpy()) < 1e-5, path
+
+
+@pytest.mark.parametrize("remat", ["full", "dots", "minimal"])
+def test_remat_equals_no_remat(remat):
+    _, tm, _, tstate, _, tbatch, opts = _step_pair("deepseek-7b", "float32")
+    out = {}
+    for pol in (None, remat):
+        o = train_rt.TrainOptions(**{**opts, "remat_policy": pol})
+        out[pol] = train_rt.build_grad_fn(tm, o)(tstate["params"], tbatch)
+    (g0, m0), (g1, m1) = out[None], out[remat]
+    assert abs(float(m0["loss"]) - float(m1["loss"])) < 1e-6
+    for (path, a), (_, b) in zip(_leaves(g0), _leaves(g1)):
+        assert _rel(b.numpy(), a.numpy()) < 1e-6, path
+
+
+def test_remat_full_matches_the_reference_with_remat():
+    jm, tm, jstate, tstate, jbatch, tbatch, opts = _step_pair(
+        "deepseek-7b", "float32", remat="full")
+    ce, _, jgrads = _reference_loss_and_grads(jm, jstate["params"], jbatch,
+                                              "full")
+    grads, metrics = train_rt.build_grad_fn(
+        tm, train_rt.TrainOptions(**opts))(tstate["params"], tbatch)
+    assert abs(float(metrics["loss"]) - ce) <= 1e-4 * ce
+    for (path, got), (_, want) in zip(_leaves(grads), _leaves(_np(jgrads))):
+        assert _rel(got.numpy(), want) < GRAD_TOL["float32"], path
+
+
+def test_loss_decreases_over_steps():
+    cfg = get_config("deepseek-7b", reduced=True)
+    model = build_model(cfg)
+    opts = train_rt.TrainOptions(remat_policy=None, warmup_steps=2,
+                                 total_steps=30,
+                                 opt=adamw.AdamWConfig(lr=3e-3))
+    state = train_rt.init_train_state(model, torch.Generator().manual_seed(0),
+                                      opts)
+    step = train_rt.build_train_step(model, opts)
+    dc = pipeline.DataConfig(cfg.vocab_size, 32, 8)
+    losses = []
+    for i in range(20):
+        state, m = step(state, pipeline.batch_for_step(dc, i, cfg,
+                                                       device="cpu"))
+        losses.append(float(m["loss"]))
+    assert losses[-1] < losses[0]
+
+
+def test_mesh_raises_naming_a11():
+    model = build_model(get_config("deepseek-7b", reduced=True))
+    with pytest.raises(NotImplementedError, match="A11"):
+        train_rt.build_train_step(model, train_rt.TrainOptions(), mesh=object())
+    with pytest.raises(NotImplementedError, match="A11"):
+        launch_train.main(["--device", "cpu", "--mesh", "data,model",
+                           "--mesh-shape", "1,1"])
+
+
+# --------------------------------------------------------------------------
+# restarts and the launcher
+# --------------------------------------------------------------------------
+
+
+def test_restart_replays_to_identical_state(tmp_path):
+    """A failure-riddled run ends bit-identical to a clean run (determinism
+    of the data pipeline and checkpoint restore), on the CPU."""
+    cfg = get_config("deepseek-7b", reduced=True)
+    model = build_model(cfg)
+    opts = train_rt.TrainOptions(remat_policy=None, warmup_steps=1,
+                                 total_steps=30)
+    step = train_rt.build_train_step(model, opts)
+
+    def run(inject):
+        mgr = CheckpointManager(str(tmp_path / f"ck{inject}"),
+                                async_save=False)
+        state = train_rt.init_train_state(
+            model, torch.Generator().manual_seed(0), opts)
+        data = pipeline.DataIterator(pipeline.DataConfig(cfg.vocab_size, 16, 4),
+                                     model_cfg=cfg, device="cpu")
+        injected = {6, 11} if inject else set()
+
+        def hook(s):
+            if s in injected:
+                injected.discard(s)
+                raise RuntimeError("boom")
+
+        state, _, fails = run_with_restarts(
+            num_steps=15, state=state, data_iter=data, step_fn=step,
+            ckpt_manager=mgr, save_every=5,
+            policy=RestartPolicy(max_failures=4), fail_hook=hook)
+        return state, fails
+
+    clean, f0 = run(False)
+    faulty, f1 = run(True)
+    assert f0 == 0 and f1 == 2
+    for (path, a), (_, b) in zip(_leaves(clean), _leaves(faulty)):
+        assert torch.equal(a, b), path
+
+
+def test_restart_gives_up_after_policy(tmp_path):
+    cfg = get_config("deepseek-7b", reduced=True)
+    model = build_model(cfg)
+    opts = train_rt.TrainOptions(remat_policy=None)
+    state = train_rt.init_train_state(model, torch.Generator().manual_seed(0),
+                                      opts)
+    mgr = CheckpointManager(str(tmp_path), async_save=False)
+    data = pipeline.DataIterator(pipeline.DataConfig(cfg.vocab_size, 8, 2),
+                                 device="cpu")
+
+    def always(s):
+        raise RuntimeError("down")
+
+    with pytest.raises(RuntimeError):
+        run_with_restarts(num_steps=3, state=state, data_iter=data,
+                          step_fn=train_rt.build_train_step(model, opts),
+                          ckpt_manager=mgr, fail_hook=always,
+                          policy=RestartPolicy(max_failures=1))
+
+
+def test_straggler_monitor_flags_a_slow_worker():
+    mon = StragglerMonitor(threshold=1.5, window=10)
+    for _ in range(10):
+        mon.record("a", 1.0)
+        mon.record("b", 1.0)
+        mon.record("c", 3.0)
+    assert mon.stragglers() == ["c"]
+    assert mon.action("c") == "exclude"
+    solo = StragglerMonitor()
+    solo.record("a", 5.0)
+    assert solo.stragglers() == [] and solo.action("a") == "redispatch"
+
+
+def test_launcher_resumes_across_a_checkpoint_boundary(tmp_path):
+    """The contract of examples/train_lm.py: half the run, then the rest
+    resumed from its checkpoint, with the loss lower at the end than at the
+    start."""
+    common = ["--device", "cpu", "--reduced", "--batch", "8", "--seq", "32",
+              "--lr", "1e-3", "--ckpt-dir", str(tmp_path), "--save-every", "5"]
+    first = launch_train.main(["--steps", "10", *common])
+    second = launch_train.main(["--steps", "20", *common])
+    assert first["steps"] == 10 and second["steps"] == 10
+    assert second["loss_last"] < first["loss_first"]
+    assert "step_00000020" in os.listdir(tmp_path)
+
+
+def test_launcher_defaults_to_the_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+
+
+# options that only the reference's mesh path reads (ROADMAP.md A11)
+MESH_ONLY_OPTIONS = {"fsdp_experts"}
+
+
+def test_train_options_are_the_references():
+    got = {f.name: f.default for f in dataclasses.fields(train_rt.TrainOptions)
+           if f.name != "opt"}
+    want = {f.name: f.default for f in dataclasses.fields(jtrain.TrainOptions)
+            if f.name != "opt" and f.name not in MESH_ONLY_OPTIONS}
+    assert got == want
+    assert dataclasses.asdict(adamw.AdamWConfig()) == \
+        dataclasses.asdict(jadamw.AdamWConfig())
+
+
+def test_tree_walks_in_the_references_order():
+    tree = {"b": {"z": 1, "a": {"q": 2, "scale": 3}}, "a": 4, "c": {"y": 5}}
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    assert list(tree_mod.leaves_with_path(tree)) == \
+        [(tuple(k.key for k in path), leaf) for path, leaf in flat]
+    assert list(tree_mod.leaves(tree, adamw._is_q)) == [4, {"q": 2, "scale": 3}, 1, 5]
+    assert tree_mod.unflatten(tree, iter(jax.tree_util.tree_leaves(tree))) == tree
