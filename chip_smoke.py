@@ -13,7 +13,8 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             hold both of the first two, the flash backward ``HMMA``),
             ptxas's registers and spills per
             kernel and any line where ptxas says it serialized wgmma; the
-            host cost of encoding the gmm's tensor maps.
+            host cost of encoding the gmm's tensor maps; whether ``triton``
+            imports, and its version (no kernel of the port uses it).
 2. kernel:  the flash-attention kernel against its plain PyTorch version on
             the card, bf16, on the kernel-test grid (at head_dim 64/128, and
             again at 160 and 256), on deepseek-7b's serving
@@ -46,7 +47,8 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             and deepseek-moe-16b (B=2, S=2048, D=128, causal) within an
             elementwise, a worst-row and a whole-tensor limit that two
             injected faults (the last K/V tile's dK dropped; Delta left at
-            zero) are shown to exceed, sdpa's backward's errors beside them;
+            zero) are shown to exceed, also at zamba2-7b's (H=32, D=112),
+            sdpa's backward's errors beside them;
             the backward run twice bitwise equal; timings of the kernel, the
             plain version and the backward of
             ``F.scaled_dot_product_attention`` (a yardstick the port never
@@ -78,24 +80,40 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             (488 for 2 x 2048 tokens), each product's two forward faults
             shown to exceed the norm limit; timings beside the backward of
             ``torch.bmm``.
-   no_backward: the SSD scan's wrapper, given CUDA inputs that require grad
-            in grad mode, raises and launches nothing (its backward kernel
-            is queued).
+   ssd_bwd: the SSD backward kernel (states, chunks, reduce) against
+            autograd through the plain version in fp32: all six gradients on
+            the fp32 grid with a non-zero state cotangent, and at the
+            training shapes of zamba2-7b (H=112, P=64, N=64, G=2) and
+            mamba2-370m (H=32, P=64, N=128, G=1), B=2, L=2048, chunk 256, in
+            bf16, within an elementwise and a relative-norm limit by the
+            gradient's dtype that three planted faults (the state gradient
+            not carried into the previous chunk; d cum used without its
+            reverse scan; db from one head of each group) are shown to
+            exceed; the backward run twice bitwise equal; timings of the
+            kernel (its three kernels apart by torch.profiler) and the plain
+            backward beside the bound.
    train:   the training paths, through ``runtime.train`` at full width:
-            deepseek-7b (30 layers) and deepseek-moe-16b (8 of 28 layers),
-            B=2 x 2048 tokens of the reference's synthetic stream, remat
-            "full", bf16 moments. Step 1's loss, the worst leaf's gradient
-            norm and each leaf's whole gradient through the kernels against
-            the plain versions within 3 x a noise floor measured in the run
-            (MoE routing replayed), with faults planted in the flash
-            backward (a K/V tile's dK dropped; Delta zero) shown to fail
-            that gate where a whole leaf can see them; then 8
-            steps: losses finite and falling, each kernel's launches as
-            predicted (remat runs every forward launch twice), step time,
-            tokens/s, peak memory, model TFLOP/s, and the idle share of one
-            more step under torch.profiler. Then the restart loop at a
-            REDUCED size: a run with two injected failures ends bitwise
-            equal to a clean one.
+            deepseek-7b (30 layers), deepseek-moe-16b (8 of 28 layers),
+            mamba2-370m (48 layers) and zamba2-7b (81 SSM layers and 13
+            shared attention blocks), B=2 x 2048 tokens of the reference's
+            synthetic stream, remat "full", bf16 moments. Step 1's loss, the
+            worst leaf's gradient norm and each leaf's whole gradient
+            through the kernels against the plain versions within 3 x a
+            noise floor measured in the run (MoE routing replayed), with
+            faults planted in the flash backward (a K/V tile's dK dropped;
+            Delta zero) and in the SSD backward (d cum without its reverse
+            scan; db from one head; the state gradient not carried) shown
+            to fail that gate where a whole leaf can see them (on the SSM
+            paths, whose floors are wide, d cum's); on the SSM paths every
+            SSD call of the plain run replayed through the backward kernel
+            on its own inputs, within the ssd_bwd limits, each SSD fault
+            past them in some call; then 8 steps: losses finite, each
+            kernel's launches as predicted (remat runs every forward launch
+            twice), step time, tokens/s, peak memory, model TFLOP/s, and the
+            idle share of one more step under torch.profiler; the loss lower
+            at step 8 (on the SSM paths: over 8 steps on one batch). Then
+            the restart loop at a REDUCED size: a run with two injected
+            failures ends bitwise equal to a clean one.
 3. serve:   the main paths: ``ServeSession.generate`` at full width, random
             bf16 weights from a seeded generator, two batches of 4 prompts of
             2048 tokens, 64 new greedy tokens each, on deepseek-7b (30
@@ -250,6 +268,23 @@ SSD_MODEL_SHAPES = [
     ("mamba2-370m", 4, 2048, 32, 64, 128, 1, 256, "bfloat16"),
 ]
 SSD_TILE = 64              # the SSD kernel's (t, s) tile, the unit of a fault
+# the SSD backward (phase ssd_bwd): the fp32 grid above with a state
+# cotangent, and the training paths' shapes (B=2 x 2048) in bf16 with none.
+# Limits by the gradient's dtype against autograd through the plain version
+# in fp32, rounded to that dtype: the largest difference as a share of the
+# largest |plain| value, and the relative norm. A bf16 gradient is rounded
+# once on each side, so they differ by one ulp (2^-8 relative) where the
+# fp32 sums straddle a rounding boundary; the norm limit is one ulp on
+# average, since in a short vector (da_log: one value a head, summed with
+# cancellation) a single flipped element moves the norm by 2^-8 / sqrt(H)
+SSD_TRAIN_SHAPES = [
+    ("zamba2-7b", 2, 2048, 112, 64, 64, 2, 256, "bfloat16"),
+    ("mamba2-370m", 2, 2048, 32, 64, 128, 1, 256, "bfloat16"),
+]
+SSD_BWD_ELEM = {"float32": 1e-4, "bfloat16": 1e-2}
+SSD_BWD_RTOL = {"float32": 1e-4, "bfloat16": 2 ** -8}
+SSD_GRADS = ("dx", "ddt", "da_log", "db", "dc", "dd_skip")
+SSD_BWD_STAGES = ("ssd_bwd_states", "ssd_bwd_chunks", "ssd_bwd_reduce")
 # (name, E, C, d, f, dtype): the TestGMM grid of tests/test_kernels.py in
 # fp32 and bf16, two ragged shapes (the second not a multiple of 8 in d or
 # f: element-wise loads), and deepseek-moe-16b's expert products: 64
@@ -294,9 +329,10 @@ BWD_NO_KEYS = ("bwd_no_keys", 1, 64, 64, 2, 2, 64, {"kv_valid": 0, "causal": Fal
 # the training paths (phase train): full width, deepseek-7b at all 30
 # layers, deepseek-moe-16b cut to 8 of 28 (1 dense and 7 MoE layers, 4.6e9
 # parameters: 16.4e9 x 8 bytes of params, grads and bf16 moments do not fit
-# 80 GB); batches of TRAIN_BATCH x TRAIN_SEQ tokens of the reference's
+# 80 GB), mamba2-370m at all 48 and zamba2-7b at all 81 (6.67e9 x 8 bytes =
+# 53.4 GB, as deepseek-7b's 6.91e9 took 57.8 GB at peak); batches of TRAIN_BATCH x TRAIN_SEQ tokens of the reference's
 # synthetic stream, remat "full", bf16 moments, TRAIN_STEPS steps
-TRAIN_PATHS = ("deepseek-7b", "deepseek-moe-16b")
+TRAIN_PATHS = ("deepseek-7b", "deepseek-moe-16b", "mamba2-370m", "zamba2-7b")
 TRAIN_DEPTH_CUTS = {"deepseek-moe-16b": 8}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 8
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 1
@@ -307,10 +343,25 @@ TRAIN_LR, TRAIN_WARMUP = 1e-3, 1
 # rounding floor (phase flash_bwd holds that fault on dK itself)
 TRAIN_FAULTS = {"first_tile_dk_dropped": True, "last_tile_dk_dropped": False,
                 "delta_zero": True}
-# the flash backward at the training paths' attention (B=2, S=2048, D=128,
-# causal): deepseek-7b's 32 heads and deepseek-moe-16b's 16
+# and in the SSD backward (paths with SSM layers). There the gate's floors
+# are wide: at the reference's initialisation (dt = softplus of about N(0,
+# 1), no residual scaling by depth) a rounding difference in one layer grows
+# by about 1.5x a layer (measured on the CPU: 0.6% of every leaf's gradient
+# at 2 bf16 layers, 8% at 8), so at 48 and 81 layers every leaf's floor is
+# tens of percent. Only d cum without its reverse scan (ddt, hence dt_bias
+# and a_log, off by several times) must fail the gate there; the flash
+# faults, db from one head and the state gradient not carried are reported,
+# and are held instead per call (the plain run's SSD calls replayed through
+# the backward kernel, ``checking_ssd``) and in phases flash_bwd and ssd_bwd
+SSD_TRAIN_FAULTS = {"dcum_no_reverse_scan": True, "db_one_head": False,
+                    "state_grad_not_carried": False}
+# the flash backward at the training paths' attention (B=2, S=2048,
+# causal): deepseek-7b's 32 heads of 128, deepseek-moe-16b's 16, zamba2-7b's
+# shared block's 32 of 112 (its faults are held here: on the SSM paths the
+# step-1 gate's floors hide them, see SSD_TRAIN_FAULTS)
 FLASH_TRAIN_SHAPES = [("deepseek7b_train", 2, 2048, 2048, 32, 32, 128, {}),
-                      ("moe16b_train", 2, 2048, 2048, 16, 16, 128, {})]
+                      ("moe16b_train", 2, 2048, 2048, 16, 16, 128, {}),
+                      ("zamba2_train", 2, 2048, 2048, 32, 32, 112, {})]
 
 # the main paths in order, each with the decode steps its agreement phase
 # holds (None: no agreement and trace phases)
@@ -419,7 +470,8 @@ def attention_bound_ms(B, Sq, Sk, H, KVH, D, opts) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "moe_gmm", "ssd_scan")
+KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "moe_gmm", "ssd_scan",
+                  "ssd_scan_bwd")
 
 
 def ptxas_kernels(report: str) -> list[dict]:
@@ -484,6 +536,13 @@ def phase_card():
                     ss.wgmma_smem_bytes(kernel, n):
                 raise AssertionError(f"ssd wgmma_smem_bytes({kernel}, {n}) "
                                      "disagrees with the kernel")
+    for i, kernel in enumerate(("states", "chunks")):
+        for n in (16, 64, 128):
+            for ps in (16, 32, 64):
+                if ss._bwd_lib().ssd_scan_bwd_smem_bytes(i, n, ps) != \
+                        ss.bwd_smem_bytes(kernel, n, ps):
+                    raise AssertionError(f"ssd bwd_smem_bytes({kernel}, {n}, "
+                                         f"{ps}) disagrees with the kernel")
     for dtype, code in mg.DTYPES.items():
         if mg._lib().moe_gmm_smem_bytes(code) != mg.smem_bytes(dtype):
             raise AssertionError(f"gmm smem_bytes({dtype}) disagrees with the kernel")
@@ -500,7 +559,12 @@ def phase_card():
     if encode_ns < 0:
         raise AssertionError("cuTensorMapEncodeTiled refused the gmm tensor maps")
     del x, w
-    emit({"phase": "card", "card": card_line(),
+    try:
+        import triton
+        triton_version = triton.__version__
+    except ImportError as err:
+        triton_version = f"does not import: {err}"
+    emit({"phase": "card", "card": card_line(), "triton": triton_version,
           "kind": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "smem_bytes_d128": fa.smem_bytes(d=128),
@@ -514,6 +578,8 @@ def phase_card():
           "ssd_smem_bytes_n128": ss.smem_bytes(128),
           "ssd_wgmma_smem_bytes": {k: {n: ss.wgmma_smem_bytes(k, n) for n in (64, 128)}
                                    for k in ("chunk_state", "chunk_scan")},
+          "ssd_bwd_smem_bytes": {k: {n: ss.bwd_smem_bytes(k, n, 64) for n in (64, 128)}
+                                 for k in ("states", "chunks")},
           "gmm_smem_bytes_mma": mg.smem_bytes(torch.bfloat16),
           "gmm_smem_bytes_wgmma": {c: mg.wgmma_smem_bytes(c) for c in mg.WGMMA_TILES},
           "gmm_tensor_map_encode_ns_per_call": encode_ns})
@@ -1235,38 +1301,161 @@ def phase_gmm_bwd():
     return worst, timings
 
 
-def phase_no_backward():
-    """The SSD scan's wrapper, given CUDA inputs that require grad in grad
-    mode, raises (its kernel has no backward yet: ROADMAP.md A10) and
-    launches nothing: no silent route to the plain version either. The
-    flash and gmm kernels have backward kernels (phases flash_bwd and
-    gmm_bwd)."""
+def ssd_bwd_bound_ms(B, L, H, P, N, G, chunk, dtype) -> tuple[float, str]:
+    """Least time on the card for one SSD backward, per (b, h, chunk): C B^T
+    and dY U^T over the causal half (Q^2 N + Q^2 P), W^T dY, V B and V^T C
+    (Q^2 P + 2 Q^2 N), the state terms dY S_in, B Gs^T and U Gs (6 Q N P)
+    and the chunk's two state products (4 Q N P), at the peak for the
+    inputs' type; against x, dy and dx, dt and ddt (fp32), b, c, db and dc,
+    a_log, d_skip and their gradients (fp32) read or written once."""
+    esize = 2 if dtype == "bfloat16" else 4
+    Q = chunk
+    flops = B * H * (L // Q) * (Q * Q * (3 * N + 2 * P) + 10 * Q * N * P)
+    nbytes = (3 * B * L * H * P * esize + 2 * B * L * H * 4
+              + 4 * B * L * G * N * esize + 4 * H * 4)
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def ssd_grads_plain(args, dy, dstate, chunk):
+    """The six gradients of the plain SSD by autograd in fp32 (every input
+    an fp32 leaf), each rounded to its input's dtype."""
     import torch
-    counters = launch_counters()
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    with torch.enable_grad():
+        leaves = [a.detach().float().requires_grad_() for a in args]
+        y, state = ssd_scan_plain(*leaves, chunk=chunk)
+        outs, cots = (y, state), (dy.float(), dstate)
+        if dstate is None:
+            outs, cots = (y,), (dy.float(),)
+        grads = torch.autograd.grad(outs, leaves, cots)
+    return tuple(g.to(a.dtype) for g, a in zip(grads, args))
 
-    def t(*shape, dtype=torch.bfloat16):
-        return torch.randn(shape, device="cuda").to(dtype).requires_grad_()
 
-    f32 = torch.float32
-    calls = {
-        "ssd_scan": lambda: counters["ssd_scan"](
-            t(1, 64, 2, 64), t(1, 64, 2, dtype=f32), t(2, dtype=f32),
-            t(1, 64, 1, 64), t(1, 64, 1, 64), t(2, dtype=f32), chunk=64),
-    }
-    raises = {}
-    for name, call in calls.items():
-        before = counters[name].launches
-        with torch.enable_grad():
-            try:
-                call()
-                raises[name] = False
-            except RuntimeError as err:
-                raises[name] = "A10" in str(err)
-        raises[name] = raises[name] and counters[name].launches == before
-    torch.cuda.synchronize()
-    emit({"phase": "no_backward", "raises_on_requires_grad": raises})
-    if not all(raises.values()):
-        raise AssertionError(f"a wrapper took an input that requires grad: {raises}")
+def ssd_bwd_faults(args, dy, dstate, chunk) -> dict:
+    """The six gradients under three faults an SSD backward can have, from
+    the plain backward's stages:
+
+    - ``state_grad_not_carried``: the reverse state pass carries nothing
+      into the previous chunk (every chunk but the last sees a zero
+      gradient of its leaving state);
+    - ``dcum_no_reverse_scan``: d cum taken for d la, without the reverse
+      cumulative sum within the chunk (ddt and da_log);
+    - ``db_one_head``: db of each group from its first head only.
+    """
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    x, dt, a_log, b, c, d_skip = args
+    G = b.shape[2]
+    s_in, g = ss.bwd_states_plain(x, dt, a_log, b, c, dy, dstate, chunk=chunk)
+
+    def finish(g_, scan=True, one_head=False):
+        dx, xdu, dcum, db_h, dc_h, dd_p = ss.bwd_chunks_plain(
+            x, dt, a_log, b, c, d_skip, dy, s_in, g_, chunk=chunk)
+        if scan:
+            ddt, da_p = ss.bwd_log_decay_plain(dt, a_log, xdu, dcum, chunk=chunk)
+        else:
+            A = -torch.exp(a_log.float())
+            ddt = xdu + A * dcum
+            da_p = A * dt.float() * dcum          # summed over (B, L)
+        db, dc, da, dd = ss.bwd_reduce_plain(db_h, dc_h, da_p, dd_p, G)
+        if one_head:
+            Bb, L, H, N = db_h.shape
+            db = db_h.reshape(Bb, L, G, H // G, N)[:, :, :, 0]
+        return tuple(t.to(a.dtype) for t, a in
+                     zip((dx, ddt, da, db, dc, dd), (x, dt, a_log, b, c, d_skip)))
+
+    g_dropped = g.clone()
+    g_dropped[:, :-1] = 0
+    return {"state_grad_not_carried": finish(g_dropped),
+            "dcum_no_reverse_scan": finish(g, scan=False),
+            "db_one_head": finish(g, one_head=True)}
+
+
+def ssd_bwd_errors(got, want) -> dict:
+    """Per gradient: the largest difference as a share of the largest
+    |want| value, the relative norm, the largest difference, and whether
+    both are within the limits of the gradient's dtype."""
+    out = {}
+    for name, g, w in zip(SSD_GRADS, got, want):
+        dtype = str(w.dtype).split(".")[1]
+        d = (g.float() - w.float())
+        e = {"elem": d.abs().max().item() / max(w.float().abs().max().item(), 1e-30),
+             "norm": (d.norm() / w.float().norm().clamp_min(1e-30)).item(),
+             "max_abs": d.abs().max().item()}
+        e["ok"] = bool(e["elem"] <= SSD_BWD_ELEM[dtype] and
+                       e["norm"] <= SSD_BWD_RTOL[dtype])
+        out[name] = e
+    return out
+
+
+def phase_ssd_bwd():
+    """The SSD backward kernel against autograd through the plain version
+    in fp32 (see the module docstring)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    worst, failures, timings = 0.0, [], {}
+    train_shapes = {s[0] for s in SSD_TRAIN_SHAPES}
+    for name, B, L, H, P, N, G, chunk, dtype in SSD_GRID + SSD_TRAIN_SHAPES:
+        args = ssd_inputs(gen, B, L, H, P, N, G, dtype)
+        dy = torch.randn(B, L, H, P, generator=gen, device="cuda").to(args[0].dtype)
+        dstate = None if name in train_shapes else \
+            torch.randn(B, H, P, N, generator=gen, device="cuda")
+        got = ss.ssd_scan_bwd_cuda(*args, dy, dstate, chunk=chunk)
+        again = ss.ssd_scan_bwd_cuda(*args, dy, dstate, chunk=chunk)
+        torch.cuda.synchronize()
+        want = ssd_grads_plain(args, dy, dstate, chunk)
+        errs = ssd_bwd_errors(got, want)
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = all(bool(torch.isfinite(g).all()) for g in got) and \
+            all(e["ok"] for e in errs.values()) and repeat
+        worst = max([worst] + [e["max_abs"] for e in errs.values()])
+        line = {"phase": "ssd_bwd", "shape": name, "dtype": dtype,
+                "B_L_H_P_N_G_chunk": [B, L, H, P, N, G, chunk],
+                "state_cotangent": dstate is not None, "errors": errs,
+                "limits": {"elem": SSD_BWD_ELEM, "norm": SSD_BWD_RTOL},
+                "bitwise_repeat": repeat}
+        del again
+        if name in train_shapes:
+            # the limits must have the power to see each fault: some
+            # gradient outside its limits
+            line["faults"] = {}
+            for fault, grads in ssd_bwd_faults(args, dy, dstate, chunk).items():
+                f_errs = ssd_bwd_errors(grads, want)
+                seen = [g for g, e in f_errs.items() if not e["ok"]]
+                line["faults"][fault] = {"seen_by": seen, **{
+                    g: {"elem": e["elem"], "norm": e["norm"]}
+                    for g, e in f_errs.items()}}
+                if not seen:
+                    failures.append(f"{name}: limits miss {fault}")
+                del grads
+        emit({**line, "ok": ok})
+        if not ok:
+            failures.append(name)
+        if name in train_shapes and ok:
+            bound_ms, bound_by = ssd_bwd_bound_ms(B, L, H, P, N, G, chunk, dtype)
+            timings[name] = {
+                "ms": cuda_ms(lambda: ss.ssd_scan_bwd_cuda(*args, dy, chunk=chunk)),
+                "plain_ms": cuda_ms(lambda: ss.ssd_scan_bwd_plain(
+                    *args, dy, chunk=chunk), warmup=1, iters=3),
+                "autograd_plain_ms": cuda_ms(lambda: ssd_grads_plain(
+                    args, dy, None, chunk), warmup=1, iters=3),
+                "library_ms": None,     # no one PyTorch call computes it
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "stage_ms": device_ms_by_kernel(
+                    lambda: ss.ssd_scan_bwd_cuda(*args, dy, chunk=chunk),
+                    SSD_BWD_STAGES),
+                "fwd_ms": cuda_ms(lambda: ss.ssd_scan_cuda(*args, chunk=chunk)),
+            }
+            emit({"phase": "ssd_bwd_timing", "shape": name, **timings[name]})
+        del args, dy, dstate, got, want
+    if failures:
+        raise AssertionError(f"ssd backward checks failed: {failures}")
+    return worst, timings
 
 
 def _sync_s(fn):
@@ -1350,16 +1539,16 @@ def video_workflow(plan_name: str):
 
 def launch_counters():
     """Each kernel wrapper by name: the forward kernels count launches, the
-    backward wrappers count calls (three kernels each for the flash
-    backward, two launches of the gmm kernel for its backward)."""
+    backward wrappers count calls (three kernels each for the flash and SSD
+    backwards, two launches of the gmm kernel for its backward)."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
     from repro_torch.kernels.moe_gmm import gmm_bwd_cuda, gmm_cuda
-    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
     return {"flash_attention": flash_attention_cuda, "gmm": gmm_cuda,
             "ssd_scan": ssd_scan_cuda,
             "flash_attention_bwd": flash_attention_bwd_cuda,
-            "gmm_bwd": gmm_bwd_cuda}
+            "gmm_bwd": gmm_bwd_cuda, "ssd_scan_bwd": ssd_scan_bwd_cuda}
 
 
 def reset_launches():
@@ -1712,14 +1901,66 @@ def call_check(calls):
 
 
 def plain_ssd(x, dt, a_log, b, c, d_skip, *, chunk=128):
+    """The plain SSD on x, b and c cast to fp32 once: the same y (rounded
+    once to x's dtype) and state as the plain version on the bf16 inputs,
+    and under autograd each input's gradient rounded once, as the backward
+    kernel rounds it. (The plain version casts x per use and b and c after
+    repeating them per head, so autograd rounds each use's gradient to bf16
+    and sums a group's heads, 56 at zamba2-7b, in bf16.)"""
     from repro_torch.kernels.ssd_scan import ssd_scan_plain
-    return ssd_scan_plain(x, dt, a_log, b, c, d_skip, chunk=chunk)
+    y, state = ssd_scan_plain(x.float(), dt, a_log, b.float(), c.float(),
+                              d_skip, chunk=chunk)
+    return y.to(x.dtype), state
 
 
 def half_chunk_ssd(x, dt, a_log, b, c, d_skip, *, chunk=128):
     """The plain SSD in chunks of half the size: the same sums, in another
     order."""
     return plain_ssd(x, dt, a_log, b, c, d_skip, chunk=chunk // 2)
+
+
+def split_ssd(x, dt, a_log, b, c, d_skip, *, chunk=128):
+    """The plain SSD whose y and state are those of the wgmma variant's
+    decomposition at its precision (fp32 operands as bf16 hi + lo), with the
+    plain SSD's gradient: the forward's rounding alone."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_decomposed_plain
+    y, state = plain_ssd(x, dt, a_log, b, c, d_skip, chunk=chunk)
+    with torch.no_grad():
+        y_s, state_s = ssd_decomposed_plain(x, dt, a_log, b, c, d_skip,
+                                            chunk=chunk, split=True)
+    return y + (y_s - y).detach(), state + (state_s - state).detach()
+
+
+def checking_ssd(records):
+    """The plain SSD, whose backward also replays the call's backward
+    through the kernel on the call's own inputs and output gradient: per
+    call, into ``records``, the kernel's errors against autograd through the
+    plain version in fp32 (``ssd_bwd_errors``) and each ``ssd_bwd_faults``
+    fault's. Under remat the hook fires on the recomputed forward's output,
+    once per layer."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+
+    def ssd(x, dt, a_log, b, c, d_skip, *, chunk=128):
+        y, state = plain_ssd(x, dt, a_log, b, c, d_skip, chunk=chunk)
+        if y.requires_grad:
+            args = tuple(t.detach() for t in (x, dt, a_log, b, c, d_skip))
+
+            def check(dy):
+                dy = dy.contiguous()
+                want = ssd_grads_plain(args, dy, None, chunk)
+                with torch.no_grad():
+                    got = ss.ssd_scan_bwd_cuda(*args, dy, chunk=chunk)
+                    rec = {"kernel": ssd_bwd_errors(got, want)}
+                    for fault, grads in ssd_bwd_faults(args, dy, None, chunk).items():
+                        rec[fault] = ssd_bwd_errors(grads, want)
+                records.append(rec)
+
+            y.register_hook(check)
+        return y, state
+
+    return ssd
 
 
 def dropped_tile_ssd(x, dt, a_log, b, c, d_skip, *, chunk=128):
@@ -2142,14 +2383,16 @@ def expected_train_launches(cfg, steps: int) -> dict:
     return {"flash_attention": 2 * steps * fwd["flash_attention"],
             "flash_attention_bwd": steps * fwd["flash_attention"],
             "gmm": 2 * steps * fwd["gmm"], "gmm_bwd": steps * fwd["gmm"],
-            "ssd_scan": 2 * steps * fwd["ssd_scan"]}
+            "ssd_scan": 2 * steps * fwd["ssd_scan"],
+            "ssd_scan_bwd": steps * fwd["ssd_scan"]}
 
 
 def train_model_flops(model, B, S) -> float:
     """Model FLOPs of one train step (forward and backward, no recompute):
     6 x the parameters a token multiplies (the embedding lookup excluded;
     routed experts at top_k / E) x tokens, plus 3 x the forward's attention
-    products (4 B H D per attended pair, a layer)."""
+    products (4 B H D per attended pair, a layer) and 3 x the forward's SSD
+    products (``ssd_bound_ms``'s count, an SSM layer)."""
     from repro_torch.tree import leaves_with_path
     cfg = model.cfg
     n = 0
@@ -2163,7 +2406,15 @@ def train_model_flops(model, B, S) -> float:
     attn_layers = expected_launches(cfg)["flash_attention"]
     pairs = attended_pairs(S, S)
     attn = 3 * 4 * B * cfg.n_heads * cfg.head_dim_ * pairs * attn_layers
-    return 6 * n * B * S + attn
+    ssd = 0
+    ssm_layers = expected_launches(cfg)["ssd_scan"]
+    if ssm_layers:
+        from repro_torch.models.ssm import ssm_dims
+        s = cfg.ssm
+        H, Q = ssm_dims(cfg)[2], min(s.chunk_size, S)
+        ssd = 3 * ssm_layers * B * H * (S // Q) * (
+            Q * Q * (s.d_state + s.head_dim) + 4 * Q * s.d_state * s.head_dim)
+    return 6 * n * B * S + attn + ssd
 
 
 def planted_flash_bwd(fault):
@@ -2187,6 +2438,182 @@ def planted_flash_bwd(fault):
 
     bwd.launches = 0    # the kernel's wrapper counts on its module's name
     return mock.patch.object(fa, "flash_attention_bwd_cuda", bwd)
+
+
+def planted_ssd_bwd(fault):
+    """``ssd_scan_bwd_cuda`` with a fault of SSD_TRAIN_FAULTS planted: the
+    gradients ``ssd_bwd_faults`` gives for it, from the plain backward's
+    stages on the same inputs."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    def bwd(x, dt, a_log, b, c, d_skip, dy, dstate=None, *, chunk=128):
+        return ssd_bwd_faults((x, dt, a_log, b, c, d_skip), dy, dstate, chunk)[fault]
+
+    bwd.launches = 0    # the kernel's wrapper counts on its module's name
+    return mock.patch.object(ss, "ssd_scan_bwd_cuda", bwd)
+
+
+def phase_train(arch):
+    """A training path (TRAIN_PATHS) at full width on the card, through
+    ``runtime.train``: step 1's loss, the worst leaf's gradient norm and
+    each leaf's whole gradient (relative norm of its difference), kernels
+    against the plain versions from the same weights and batch, within
+    FLOOR_MULT x a noise floor measured in this run (the largest difference
+    of runs that differ from the plain one only in rounding: the naive
+    attention oracle with the grouped matmul summed in two halves of d, and
+    the attention with P in bf16; with SSM layers the plain SSD in half-size
+    chunks, and the plain SSD with the wgmma variant's forward rounding
+    (``split_ssd``); each leaf's gradient against its own floor), MoE
+    routing replayed from the plain run; the faults of TRAIN_FAULTS planted
+    in the flash backward (paths with attention) and of SSD_TRAIN_FAULTS in
+    the SSD backward (paths with SSM layers), each of those marked required
+    on the path shown to fail that gate; with SSM layers, every SSD call of
+    the plain run replayed through the backward kernel (``checking_ssd``),
+    within the ssd_bwd limits, with each fault of ``ssd_bwd_faults`` past
+    them in some call; then TRAIN_STEPS steps of ``build_train_step`` from
+    a fresh AdamW state: losses finite, the kernels' launches as
+    ``expected_train_launches`` predicts (every gmm and SSD forward launch
+    on its wgmma variant), step times, tokens/s, peak memory and model
+    TFLOP/s; then one more step under torch.profiler for the idle share.
+    Training must make progress: the loss lower at the last step than at
+    the first; with SSM layers, whose chaotic step-1 gradient at the
+    reference's initialisation gains nothing on fresh batches in so few
+    steps (the plain SSD's losses rise alike), TRAIN_STEPS steps on the
+    first batch from the same init must lower its loss."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.serve import (ServeOptions, build_decode_step,
+                                           build_prefill_step, cross_len)
+
+    prefill = build_prefill_step(model, ServeOptions())
+    decode = build_decode_step(model, ServeOptions())
+    B, S = prompts.shape
+    cache = model.init_cache(B, S + TRACE_DECODE_STEPS + 1,
+                             enc_len=cross_len(extras), device="cuda")
+    state = {}
+
+    def run_prefill():
+        state["tok"] = prefill(params, {"tokens": prompts, **extras},
+                               cache)[0].argmax(-1)[:, None]
+
+    def run_decode():
+        tok = state["tok"]
+        for i in range(TRACE_DECODE_STEPS):
+            tok, _, _ = decode(params, cache, tok, S + i)
+
+    with torch.inference_mode():
+        run_prefill()
+        run_decode()                    # warm-up of both windows
+        for name, fn, steps in (("prefill", run_prefill, 1),
+                                ("decode", run_decode, TRACE_DECODE_STEPS)):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+            kernels = [(e.key, _self_device_us(e) / 1e3 / steps, e.count // steps)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA]
+            busy_ms = sum(ms for _, ms, _ in kernels)
+            top = sorted(kernels, key=lambda k: -k[1])[:10]
+            emit({"phase": "trace", "arch": model.cfg.name,
+                  "window": name, "steps": steps,
+                  "wall_ms_per_step": wall_ms,
+                  "device_busy_ms_per_step": busy_ms if busy_ms else "not measured",
+                  "idle_share": 1 - busy_ms / wall_ms if busy_ms else "not measured",
+                  "kernel_launches_per_step": sum(n for _, _, n in kernels),
+                  "top_kernels": [{"name": k[:80], "ms_per_step": ms, "calls": n}
+                                  for k, ms, n in top]})
+
+
+def train_config(arch):
+    """A training path's configuration: full width, its depth cut to
+    TRAIN_DEPTH_CUTS where it has one."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    return cfg.replace(n_layers=TRAIN_DEPTH_CUTS[arch]) \
+        if arch in TRAIN_DEPTH_CUTS else cfg
+
+
+def expected_train_launches(cfg, steps: int) -> dict:
+    """Kernel launches (backward calls) of ``steps`` train steps with remat
+    "full": every forward launch twice (the forward and its recompute in the
+    backward), one backward call per forward call."""
+    fwd = expected_launches(cfg)
+    return {"flash_attention": 2 * steps * fwd["flash_attention"],
+            "flash_attention_bwd": steps * fwd["flash_attention"],
+            "gmm": 2 * steps * fwd["gmm"], "gmm_bwd": steps * fwd["gmm"],
+            "ssd_scan": 2 * steps * fwd["ssd_scan"],
+            "ssd_scan_bwd": steps * fwd["ssd_scan"]}
+
+
+def train_model_flops(model, B, S) -> float:
+    """Model FLOPs of one train step (forward and backward, no recompute):
+    6 x the parameters a token multiplies (the embedding lookup excluded;
+    routed experts at top_k / E) x tokens, plus 3 x the forward's attention
+    products (4 B H D per attended pair, a layer) and 3 x the forward's SSD
+    products (``ssd_bound_ms``'s count, an SSM layer)."""
+    from repro_torch.tree import leaves_with_path
+    cfg = model.cfg
+    n = 0
+    for path, spec in leaves_with_path(model.specs):
+        size = math.prod(spec.shape)
+        if path[0] == "embed":
+            continue
+        if "moe" in path and path[-1] in ("w_gate", "w_up", "w_down"):
+            size = size * cfg.moe.top_k // cfg.moe.num_experts
+        n += size
+    attn_layers = expected_launches(cfg)["flash_attention"]
+    pairs = attended_pairs(S, S)
+    attn = 3 * 4 * B * cfg.n_heads * cfg.head_dim_ * pairs * attn_layers
+    ssd = 0
+    ssm_layers = expected_launches(cfg)["ssd_scan"]
+    if ssm_layers:
+        from repro_torch.models.ssm import ssm_dims
+        s = cfg.ssm
+        H, Q = ssm_dims(cfg)[2], min(s.chunk_size, S)
+        ssd = 3 * ssm_layers * B * H * (S // Q) * (
+            Q * Q * (s.d_state + s.head_dim) + 4 * Q * s.d_state * s.head_dim)
+    return 6 * n * B * S + attn + ssd
+
+
+def planted_flash_bwd(fault):
+    """``flash_attention_bwd_cuda`` with a fault of TRAIN_FAULTS planted in
+    what the training path's backward gets: the first or the last K/V
+    tile's dK dropped (BWD_KV_TILE keys of every sequence), or Delta left
+    at zero (the naive formulas, as phase flash_bwd plants it)."""
+    from repro_torch.kernels import flash_attention as fa
+    real = fa.flash_attention_bwd_cuda
+
+    def bwd(q, k, v, out, dout, lse, **kw):
+        if fault == "delta_zero":
+            return attention_grads_naive(
+                q, k, v, dout, zero_delta=True,
+                **{o: kw[o] for o in ("causal", "window", "softcap", "scale")})
+        dq, dk, dv = real(q, k, v, out, dout, lse, **kw)
+        keys = slice(0, BWD_KV_TILE) if fault == "first_tile_dk_dropped" \
+            else slice(-BWD_KV_TILE, None)
+        dk[:, keys] = 0
+        return dq, dk, dv
+
+    bwd.launches = 0    # the kernel's wrapper counts on its module's name
+    return mock.patch.object(fa, "flash_attention_bwd_cuda", bwd)
+
+
+def planted_ssd_bwd(fault):
+    """``ssd_scan_bwd_cuda`` with a fault of SSD_TRAIN_FAULTS planted: the
+    gradients ``ssd_bwd_faults`` gives for it, from the plain backward's
+    stages on the same inputs."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    def bwd(x, dt, a_log, b, c, d_skip, dy, dstate=None, *, chunk=128):
+        return ssd_bwd_faults((x, dt, a_log, b, c, d_skip), dy, dstate, chunk)[fault]
+
+    bwd.launches = 0    # the kernel's wrapper counts on its module's name
+    return mock.patch.object(ss, "ssd_scan_bwd_cuda", bwd)
 
 
 def phase_train(arch):
@@ -2228,21 +2655,31 @@ def phase_train(arch):
                         model_cfg=cfg, device="cuda")
     first_batch = next(data)
     data.restore({"step": 0})
-    has_moe = expected_launches(cfg)["gmm"] > 0
+    fwd_launches = expected_launches(cfg)
+    has_moe = fwd_launches["gmm"] > 0
+    has_ssm = fwd_launches["ssd_scan"] > 0
+    faults_here = {}
+    if fwd_launches["flash_attention"]:
+        faults_here = TRAIN_FAULTS if not has_ssm else dict.fromkeys(TRAIN_FAULTS, False)
+    if has_ssm:
+        faults_here = {**faults_here, **SSD_TRAIN_FAULTS}
     grad_fn = train_rt.build_grad_fn(model, opts)
 
-    def run(attention=None, gmm=None, routing=None):
-        """Step 1's loss and gradients through the given attention and
-        grouped matmul (the kernels by default)."""
+    def run(attention=None, gmm=None, routing=None, ssd=None):
+        """Step 1's loss and gradients through the given attention, grouped
+        matmul and SSD (the kernels by default)."""
         with mock.patch.object(ops, "flash_attention",
                                attention or ops.flash_attention), \
                 mock.patch.object(ops, "gmm", gmm or ops.gmm), \
+                mock.patch.object(ops, "ssd_scan", ssd or ops.ssd_scan), \
                 (routing.patch() if routing else contextlib.nullcontext()):
             grads, metrics = grad_fn(params, first_batch)
         return float(metrics["loss"]), grads
 
     replay = RoutingReplay() if has_moe else None
-    plain_loss, plain = run(plain_attention, plain_gmm, replay)
+    ssd_calls = []
+    plain_loss, plain = run(plain_attention, plain_gmm, replay,
+                            checking_ssd(ssd_calls) if has_ssm else plain_ssd)
     plain_norms = {k: g.float().norm().item() for k, g in _flat(plain)}
 
     def compare(grads):
@@ -2256,10 +2693,14 @@ def phase_train(arch):
                        max(plain_norms[k], 1e-30)).item())
         return out
 
+    floor_runs = [("naive_split_d", naive_attention, split_d_gmm, plain_ssd),
+                  ("p_bf16", p_bf16_attention, plain_gmm, plain_ssd)]
+    if has_ssm:
+        floor_runs += [("ssd_half_chunk", plain_attention, plain_gmm, half_chunk_ssd),
+                       ("ssd_split", plain_attention, plain_gmm, split_ssd)]
     floors = {}
-    for name, attention, gmm in (("naive_split_d", naive_attention, split_d_gmm),
-                                 ("p_bf16", p_bf16_attention, plain_gmm)):
-        loss, grads = run(attention, gmm, replay)
+    for name, attention, gmm, ssd in floor_runs:
+        loss, grads = run(attention, gmm, replay, ssd)
         floors[name] = (abs(loss - plain_loss), compare(grads))
         del grads
     loss, grads = run(routing=replay)
@@ -2267,8 +2708,9 @@ def phase_train(arch):
     kernel_loss = loss
     del grads
     planted = {}
-    for fault in TRAIN_FAULTS:
-        with planted_flash_bwd(fault):
+    for fault in faults_here:
+        with (planted_flash_bwd(fault) if fault in TRAIN_FAULTS
+              else planted_ssd_bwd(fault)):
             loss, grads = run(routing=replay)
         planted[fault] = (abs(loss - plain_loss), compare(grads))
         del grads
@@ -2296,12 +2738,30 @@ def phase_train(arch):
     faults = {}
     for fault, result in planted.items():
         passes, ratio, leaf = gate(result)
-        faults[fault] = {"required": TRAIN_FAULTS[fault], "fails_the_gate": not passes,
+        faults[fault] = {"required": faults_here[fault], "fails_the_gate": not passes,
                          "grad_rel_diff_over_limit": ratio, "leaf": leaf,
                          "grad_rel_diff": result[1][leaf][1],
                          "grad_norm_rel_diff_worst": max(
                              v[0] for v in result[1].values())}
     faults_ok = all(f["fails_the_gate"] for f in faults.values() if f["required"])
+    calls_ok = True
+    if has_ssm:
+        # every SSD call of the plain run, its backward replayed through the
+        # kernel: within the ssd_bwd limits, and each fault past them in
+        # some call
+        kinds = ["kernel", *ssd_calls[0]] if ssd_calls else ["kernel"]
+        summary = {k: {g: {m: max(rec[k][g][m] for rec in ssd_calls)
+                           for m in ("elem", "norm")} for g in SSD_GRADS}
+                   for k in dict.fromkeys(kinds)}
+        ok_calls = sum(all(e["ok"] for e in rec["kernel"].values())
+                       for rec in ssd_calls)
+        seen = {k: sum(any(not e["ok"] for e in rec[k].values()) for rec in ssd_calls)
+                for k in summary if k != "kernel"}
+        calls_ok = len(ssd_calls) == fwd_launches["ssd_scan"] and \
+            ok_calls == len(ssd_calls) and all(seen.values())
+        emit({"phase": "train_ssd_calls", "arch": cfg.name, "calls": len(ssd_calls),
+              "kernel_within_limits": ok_calls, "faults_seen_in_calls": seen,
+              "worst_over_calls": summary, "ok": calls_ok})
     emit({"phase": "train_agree", "arch": cfg.name, "n_layers": cfg.n_layers,
           "routing": "replayed from the plain run" if has_moe else None,
           "plain_loss": plain_loss, "kernel_loss": kernel_loss,
@@ -2336,7 +2796,8 @@ def phase_train(arch):
     expected = expected_train_launches(cfg, TRAIN_STEPS)
     launches_ok = all(launches[k] == v for k, v in expected.items()) and \
         launches["gmm_by_variant"]["wgmma"] == launches["gmm"] and \
-        launches["gmm_bwd_by_variant"]["wgmma"] == 2 * launches["gmm_bwd"]
+        launches["gmm_bwd_by_variant"]["wgmma"] == 2 * launches["gmm_bwd"] and \
+        launches["ssd_by_variant"]["wgmma"] == launches["ssd_scan"]
     finite = all(math.isfinite(x) for x in losses)
     falls = losses[-1] < losses[0]
     # the first step of the main path repeats step 1 of the agreement runs
@@ -2355,17 +2816,36 @@ def phase_train(arch):
     busy_ms = sum(ms for _, ms, _ in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:10]
 
+    # with SSM layers a fresh batch carries no signal those layers' chaotic
+    # step-1 gradient can use in TRAIN_STEPS steps (the plain SSD's losses
+    # rise alike): training must instead fit one batch, from the same init
+    fit = []
+    if has_ssm:
+        del state, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        gen.manual_seed(0)
+        params = model.init(gen)
+        state = {"params": params, "opt": adamw.init_opt_state(params, opts.opt),
+                 "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+        for _ in range(TRAIN_STEPS):
+            state, metrics = step_fn(state, first_batch)
+            fit.append(float(metrics["loss"]))
+    trained = fit[-1] < fit[0] and all(math.isfinite(x) for x in fit) if fit \
+        else falls
+
     step_med = statistics.median(step_s[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = train_model_flops(model, TRAIN_BATCH, TRAIN_SEQ)
     cut = {"reduced": {"n_layers": [path_config(arch).n_layers, cfg.n_layers]}} \
         if arch in TRAIN_DEPTH_CUTS else {}
-    ok = agree_ok and faults_ok and launches_ok and finite and falls
+    ok = agree_ok and faults_ok and calls_ok and launches_ok and finite and trained
     emit({"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers, **cut,
           "d_model": cfg.d_model, "params": model.param_count(),
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
           "remat": opts.remat_policy, "moment_dtype": opts.opt.moment_dtype,
           "lr": lrs, "losses": losses, "loss_falls": falls,
+          "one_batch_losses": fit or None, "trained": trained,
           "step1_repeats_agree_run_bitwise": repeat,
           "step_s": step_s, "step_s_median_after_first": step_med,
           "tokens_per_s": tokens / step_med,
@@ -2377,6 +2857,7 @@ def phase_train(arch):
           "expected_launches": expected,
           "gmm_launches_by_variant": launches["gmm_by_variant"],
           "gmm_bwd_launches_by_variant": launches["gmm_bwd_by_variant"],
+          "ssd_launches_by_variant": launches["ssd_by_variant"],
           "traced_step_ms": traced_ms,
           "traced_device_busy_ms": busy_ms if busy_ms else "not measured",
           "traced_idle_share": 1 - busy_ms / traced_ms if busy_ms else "not measured",
@@ -2387,9 +2868,10 @@ def phase_train(arch):
     if not ok:
         raise AssertionError(
             f"{arch} training failed: agree {agree_ok}, planted faults seen "
-            f"{faults_ok} ({faults}), launches {launches_ok} "
-            f"({ {k: launches[k] for k in expected} } vs {expected}), finite "
-            f"{finite}, loss falls {falls} ({losses})")
+            f"{faults_ok} ({faults}), SSD calls {calls_ok}, launches "
+            f"{launches_ok} ({ {k: launches[k] for k in expected} } vs "
+            f"{expected}), finite {finite}, trained {trained} ({losses}; one "
+            f"batch {fit})")
     del state, params
     return launches
 
@@ -2471,7 +2953,7 @@ def main() -> int:
     ssd_err, ssd_t = phase_ssd()
     gmm_err, gmm_t = phase_gmm()
     gmm_bwd_err, gmm_bwd_t = phase_gmm_bwd()
-    phase_no_backward()
+    ssd_bwd_err, ssd_bwd_t = phase_ssd_bwd()
     launches = {}
     for arch in TRAIN_PATHS:
         launches[f"train:{arch}"] = phase_train(arch)
@@ -2580,6 +3062,18 @@ def main() -> int:
               at_train_down={**gmm_bwd_t["train_down"],
                              "shape": f"E=64 C={train_capacity()} d=1408 "
                                       "f=2048 bf16"}),
+        entry("ssd_scan_bwd", "src/repro_torch/csrc/ssd_scan_bwd.cu",
+              "src/repro/kernels/ssd_scan.py:70", ssd_bwd_err,
+              ssd_bwd_t["zamba2-7b"],
+              "B=2 L=2048 H=112 P=64 N=64 G=2 chunk=256 bf16 (zamba2-7b "
+              "training)",
+              "fp32 FMA on the CUDA cores, three kernels: the chunks' states "
+              "and their gradients per P-slice (sequential over chunks), every "
+              "gradient per (P-slice, chunk, head), the sums over heads and "
+              "slices; no atomics (bitwise repeatable); launches count calls",
+              at_mamba2={**ssd_bwd_t["mamba2-370m"],
+                         "shape": "B=2 L=2048 H=32 P=64 N=128 G=1 chunk=256 "
+                                  "bf16 (mamba2-370m training)"}),
     ]})
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

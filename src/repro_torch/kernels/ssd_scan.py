@@ -28,10 +28,22 @@ note gives the bound on the H100 and the designs. ``chunk_states_plain``,
 the wgmma variant's three stages in plain torch (with ``split=True`` at its
 precision), for the tests; no main path calls them.
 
+The backward is ``csrc/ssd_scan_bwd.cu`` (no Pallas counterpart: the
+reference differentiates ``ref.ssd_chunked``): three kernels launched by
+``ssd_scan_bwd_cuda``, fp32 FMA on the CUDA cores. ``states`` recomputes the
+state entering each chunk and, in reverse, the gradient of the state leaving
+it; ``chunks`` forms every per-step gradient of one chunk and one P-slice;
+``reduce`` sums the per-head and per-slice partials in a fixed order (no
+atomics: a backward repeats bitwise). ``ssd_scan_bwd_plain`` is the same
+decomposition in plain torch (``bwd_states_plain``, ``bwd_chunks_plain``,
+``bwd_log_decay_plain``, ``bwd_reduce_plain``), for the tests.
+
 ``ssd_scan_cuda`` routes by where the tensors lie: on the CPU it runs the
-plain version (the torch twin of ``ref.ssd_chunked``); on a CUDA tensor it
-launches the variant ``ssd_variant`` names or raises. Nothing falls back to
-another variant or to the plain version.
+plain version (the torch twin of ``ref.ssd_chunked``), which autograd
+differentiates; on a CUDA tensor it launches the variant ``ssd_variant``
+names or raises, and in grad mode with an input that requires grad it goes
+through ``SsdScanFn``, whose backward is the backward kernel. Nothing falls
+back to another variant or to the plain version.
 """
 from __future__ import annotations
 
@@ -41,7 +53,6 @@ import functools
 import torch
 
 from . import _build, ref
-from ._autograd import refuse_grad
 
 MAX_CHUNK = 256       # the kernels' scans: one step a thread (fma, 256 threads), two (wgmma, 128)
 MAX_STATE = 128       # widest N the kernels keep per thread
@@ -246,6 +257,112 @@ def ssd_decomposed_plain(x, dt, a_log, b, c, d_skip, *, chunk=128, split=False):
 
 
 # ---------------------------------------------------------------------------
+# The backward kernels' three stages in plain torch
+# ---------------------------------------------------------------------------
+
+
+def bwd_states_plain(x, dt, a_log, b, c, dy, dstate=None, *, chunk):
+    """Stage 1 of the backward: the state entering each chunk, s_in (B, nc,
+    H, P, N), and the gradient of the state leaving each chunk, g (B, nc, H,
+    P, N): g of the last chunk is ``dstate`` (zero if None), and in reverse
+    g_{c-1} = e^{tot_c} g_c + sum_t e^{cum_t} dy_t c_t^T."""
+    s_loc, tot = chunk_states_plain(x, dt, a_log, b, chunk=chunk)
+    s_in, _ = state_pass_plain(s_loc, tot)
+    cum = chunk_cumsum(dt, a_log, chunk)                         # (B,nc,Q,H)
+    ch = _heads(_by_chunk(c, chunk), x.shape[2])
+    dy_w = _by_chunk(dy, chunk) * torch.exp(cum)[..., None]
+    ds_loc = torch.einsum("bcthp,bcthn->bchpn", dy_w, ch)
+    G = torch.zeros_like(s_in[:, 0]) if dstate is None else dstate.float()
+    leaving = []
+    for ci in reversed(range(s_in.shape[1])):
+        leaving.append(G)
+        G = G * torch.exp(tot[:, ci])[..., None, None] + ds_loc[:, ci]
+    return s_in, torch.stack(leaving[::-1], 1)
+
+
+def bwd_chunks_plain(x, dt, a_log, b, c, d_skip, dy, s_in, g, *, chunk):
+    """Stage 2: every gradient of each chunk given its entering state s_in
+    and the gradient g of its leaving state, with u = dt x, W_ts = (c_t .
+    b_s) e^{cum_t - cum_s} and V_ts = (dy_t . u_s) e^{cum_t - cum_s} for
+    s <= t (the decay masked before it is exponentiated), M = (C B^T) o V:
+
+    - du_s = sum_t W_ts dy_t + e^{tot - cum_s} g b_s; dx = dt du + D dy;
+    - dc_t = sum_s V_ts b_s + e^{cum_t} s_in^T dy_t (per head);
+    - db_s = sum_t V_ts c_t + e^{tot - cum_s} g^T u_s (per head);
+    - d cum_t = sum_s M_ts - sum_t' M_t't + e^{cum_t} dy_t . (s_in c_t) - K_t,
+      K_s = e^{tot - cum_s} u_s . (g b_s), and the last step also gets
+      d tot = sum_s K_s + e^{tot} <g, s_in>;
+    - d_skip's partial sum dy . x.
+
+    Returns dx (x's dtype), x . du and d cum (B, L, H), db and dc per head
+    (B, L, H, N), and d_skip's partials (B, nc, H), all but dx in fp32.
+    ``bwd_log_decay_plain`` turns x . du and d cum into ddt and da_log's
+    partials (the kernel does it at the end of the same block)."""
+    B, L, H, P = x.shape
+    cum = chunk_cumsum(dt, a_log, chunk)                         # (B,nc,Q,H)
+    tot = cum[:, :, -1]
+    xs, dys, dts = (_by_chunk(t, chunk) for t in (x, dy, dt))
+    us = xs * dts[..., None]
+    bh, ch = (_heads(_by_chunk(t, chunk), H) for t in (b, c))
+    causal = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    ct = cum.transpose(2, 3)                                     # (B,nc,H,Q)
+    diff = torch.where(causal, ct[..., :, None] - ct[..., None, :], 0.0)
+    decay = torch.where(causal, torch.exp(diff), 0.0)            # (B,nc,H,t,s)
+    cb = torch.einsum("bcthn,bcshn->bchts", ch, bh)
+    w = cb * decay
+    v = torch.einsum("bcthp,bcshp->bchts", dys, us) * decay
+    m = cb * v
+    w_end = torch.exp(tot[:, :, None] - cum)                     # (B,nc,Q,H)
+    gb = torch.einsum("bcshn,bchpn->bcshp", bh, g)
+    du = torch.einsum("bchts,bcthp->bcshp", w, dys) + w_end[..., None] * gb
+    dx = dts[..., None] * du + d_skip.float()[:, None] * dys
+    dcs = torch.einsum("bcthp,bchpn->bcthn", dys, s_in) * torch.exp(cum)[..., None]
+    dc = torch.einsum("bchts,bcshn->bcthn", v, bh) + dcs
+    db = torch.einsum("bchts,bcthn->bcshn", v, ch) \
+        + w_end[..., None] * torch.einsum("bcshp,bchpn->bcshn", us, g)
+    k = w_end * (us * gb).sum(-1)                                # (B,nc,Q,H)
+    dcum = (m.sum(-1) - m.sum(-2)).transpose(2, 3) + (ch * dcs).sum(-1) - k
+    dcum[:, :, -1] += k.sum(2) + torch.exp(tot) * (g * s_in).sum((-1, -2))
+    return (dx.reshape(B, L, H, P).to(x.dtype), (xs * du).sum(-1).reshape(B, L, H),
+            dcum.reshape(B, L, H), db.reshape(B, L, H, -1),
+            dc.reshape(B, L, H, -1), (dys * xs).sum((2, 4)))
+
+
+def bwd_log_decay_plain(dt, a_log, xdu, dcum, *, chunk):
+    """The log-decay's gradient: d la = the reverse cumulative sum of d cum
+    within each chunk, ddt = x . du + A d la (B, L, H), and da_log's
+    partials A sum_r dt_r d la_r (B, nc, H)."""
+    B, L, H = dt.shape
+    A = -torch.exp(a_log.float())
+    dla = _by_chunk(dcum, chunk).flip(2).cumsum(2).flip(2)       # (B,nc,Q,H)
+    ddt = xdu + A * dla.reshape(B, L, H)
+    return ddt, A * (_by_chunk(dt, chunk) * dla).sum(2)
+
+
+def bwd_reduce_plain(db_h, dc_h, da_part, dd_part, G: int):
+    """Stage 3: db and dc summed over each group's heads (B, L, G, N), and
+    da_log's and d_skip's partials over their leading two axes (H,)."""
+    B, L, H, N = db_h.shape
+    db, dc = (t.reshape(B, L, G, H // G, N).sum(3) for t in (db_h, dc_h))
+    return db, dc, da_part.sum((0, 1)), dd_part.sum((0, 1))
+
+
+def ssd_scan_bwd_plain(x, dt, a_log, b, c, d_skip, dy, dstate=None, *, chunk=128):
+    """The backward kernels' function in plain torch, stage by stage:
+    gradients (dx, ddt, da_log, db, dc, dd_skip) of ``ssd_scan_plain`` for
+    the output gradient ``dy`` and the final state's ``dstate`` (None: zero),
+    each in its input's dtype."""
+    chunk = min(chunk, x.shape[1])
+    s_in, g = bwd_states_plain(x, dt, a_log, b, c, dy, dstate, chunk=chunk)
+    dx, xdu, dcum, db_h, dc_h, dd_part = bwd_chunks_plain(
+        x, dt, a_log, b, c, d_skip, dy, s_in, g, chunk=chunk)
+    ddt, da_part = bwd_log_decay_plain(dt, a_log, xdu, dcum, chunk=chunk)
+    db, dc, da, dd = bwd_reduce_plain(db_h, dc_h, da_part, dd_part, G=b.shape[2])
+    return (dx, ddt.to(dt.dtype), da.to(a_log.dtype), db.to(b.dtype),
+            dc.to(c.dtype), dd.to(d_skip.dtype))
+
+
+# ---------------------------------------------------------------------------
 # Launch
 # ---------------------------------------------------------------------------
 
@@ -296,17 +413,20 @@ def ssd_scan_cuda(x, dt, a_log, b, c, d_skip, *, chunk=128):
     ``ssd_variant`` names on the current stream; ``ssd_scan_cuda.launches``
     counts the wrapper's launches (one per call, whatever the variant
     launches inside) and ``ssd_scan_cuda.variant_launches`` them by variant.
-    On the card an input that requires grad, in grad mode, raises (no
-    backward).
+    On the card, in grad mode with an input that requires grad, the call
+    goes through ``SsdScanFn``, whose backward is the backward kernel.
     """
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a_log, b, c, d_skip, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"no SSD kernel for device {x.device}")
-    refuse_grad("ssd_scan", x, dt, a_log, b, c, d_skip)
     chunk = min(chunk, x.shape[1])
     variant = ssd_variant(x, b, chunk)
-    out = _launch(variant, x, dt, a_log, b, c, d_skip, chunk)
+    args = (x, dt, a_log, b, c, d_skip)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        out = SsdScanFn.apply(*args, chunk, variant)
+    else:
+        out = _launch(variant, *args, chunk)
     ssd_scan_cuda.launches += 1
     ssd_scan_cuda.variant_launches[variant] += 1
     return out
@@ -314,3 +434,115 @@ def ssd_scan_cuda(x, dt, a_log, b, c, d_skip, *, chunk=128):
 
 ssd_scan_cuda.launches = 0
 ssd_scan_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+
+class SsdScanFn(torch.autograd.Function):
+    """The forward kernel (the variant the wrapper picked), keeping its
+    inputs; the backward kernel for the six gradients. The backward
+    recomputes the chunks' states, so the forward saves nothing more."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, d_skip, chunk, variant):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a_log, b, c, d_skip)
+        ctx.chunk = chunk
+        return _launch(variant, x, dt, a_log, b, c, d_skip, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a_log, b, c, d_skip = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dstate = None if dstate is None else dstate.contiguous()
+        grads = ssd_scan_bwd_cuda(x, dt, a_log, b, c, d_skip, dy, dstate,
+                                  chunk=ctx.chunk)
+        return (*grads, None, None)
+
+
+def bwd_slice(p: int) -> int:
+    """Columns of P one block of the backward takes (P must be a multiple of
+    16): 64, 32 or 16, the widest that divides P."""
+    return next(ps for ps in (64, 32, 16) if p % ps == 0)
+
+
+def bwd_smem_bytes(kernel: str, n: int, ps: int) -> int:
+    """Dynamic shared memory of one backward block at state width ``n`` and
+    P-slice ``ps`` (rows of n and of ps padded by 4 floats): ``"states"``
+    holds cum and dt of a chunk, a 64-row tile of b (or c) and of u (or dy)
+    and the ps x n state slice; ``"chunks"`` five per-step vectors, 64-row
+    tiles of c, b, dy and u, the W and V tiles and the slices of the
+    entering state and of its gradient."""
+    ldn, ldp, ldw = n + 4, ps + 4, 64 + 4
+    if kernel == "states":
+        return 4 * (2 * MAX_CHUNK + 64 * ldn + 64 * ldp + ps * ldn)
+    return 4 * (5 * MAX_CHUNK + 2 * 64 * ldn + 2 * 64 * ldp + 2 * 64 * ldw
+                + 2 * ps * ldn)
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("ssd_scan_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan_bwd.argtypes = [p] * 21 + [i] * 8 + [p]
+    lib.ssd_scan_bwd.restype = i
+    lib.ssd_scan_bwd_smem_bytes.argtypes = [i, i, i]
+    lib.ssd_scan_bwd_smem_bytes.restype = i
+    return lib
+
+
+def ssd_scan_bwd_cuda(x, dt, a_log, b, c, d_skip, dy, dstate=None, *, chunk=128):
+    """Gradients (dx, ddt, da_log, db, dc, dd_skip) of ``ssd_scan`` for the
+    output gradient ``dy`` (x's shape and dtype) and the final state's
+    ``dstate`` ((B,H,P,N) fp32; None: zero), each in its input's dtype:
+    three kernels on the current stream (states, chunks, reduce), fp32
+    inside. ``ssd_scan_bwd_cuda.launches`` counts the calls. CUDA tensors
+    only; it takes what the forward's ``check_inputs`` takes."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no SSD backward kernel for device {x.device}; on "
+                         f"the CPU autograd differentiates the plain version")
+    check_inputs(x, dt, a_log, b, c, d_skip, chunk)
+    if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous() \
+            or dy.device != x.device:
+        raise ValueError("dy must be a contiguous tensor shaped like x, of "
+                         "its dtype, on its device")
+    B, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    if dstate is not None and (dstate.shape != (B, H, P, N) or not
+                               dstate.is_contiguous() or dstate.device != x.device
+                               or dstate.dtype != torch.float32):
+        raise ValueError(f"dstate must be contiguous fp32 {(B, H, P, N)} on "
+                         f"x's device")
+    chunk = min(chunk, L)
+    nc, nsl = L // chunk, P // bwd_slice(P)
+    dev, f32 = x.device, torch.float32
+    a32 = a_log.to(dev, f32).contiguous()
+    d32 = d_skip.to(dev, f32).contiguous()
+    dx, db, dc = torch.empty_like(x), torch.empty_like(b), torch.empty_like(c)
+    ddt = torch.empty(B, L, H, dtype=f32, device=dev)
+    da, dd = (torch.empty(H, dtype=f32, device=dev) for _ in range(2))
+    # scratch: the states, and the partials the reduce kernel sums
+    s_in, g = (torch.empty(B, nc, H, P, N, dtype=f32, device=dev) for _ in range(2))
+    ddt_part = torch.empty(nsl, B, L, H, dtype=f32, device=dev)
+    db_part, dc_part = (torch.empty(nsl, B, L, H, N, dtype=f32, device=dev)
+                        for _ in range(2))
+    da_part, dd_part = (torch.empty(nsl, B, nc, H, dtype=f32, device=dev)
+                        for _ in range(2))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_lib().ssd_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), a32.data_ptr(), b.data_ptr(),
+            c.data_ptr(), d32.data_ptr(), dy.data_ptr(),
+            None if dstate is None else dstate.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
+            dc.data_ptr(), dd.data_ptr(), s_in.data_ptr(), g.data_ptr(),
+            ddt_part.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
+            da_part.data_ptr(), dd_part.data_ptr(),
+            B, L, H, P, G, N, chunk, DTYPES[x.dtype], stream)
+    if err:
+        raise RuntimeError(f"ssd_scan backward kernel launch failed "
+                           f"(cudaError_t {err})")
+    ssd_scan_bwd_cuda.launches += 1
+    return (dx, ddt, da.to(a_log.device, a_log.dtype), db, dc,
+            dd.to(d_skip.device, d_skip.dtype))
+
+
+ssd_scan_bwd_cuda.launches = 0

@@ -5,8 +5,8 @@ The port of ``repro.launch.train``: the fault-tolerant training loop
 any architecture of the registry, with the reference's flags. ``--reduced``
 (the default, as in the reference) takes the small test config; ``--full``
 the published one. It runs on the card unless ``--device cpu`` asks for the
-CPU. On the card the ssm and hybrid families need the SSD backward kernel,
-which is not ported yet (ROADMAP.md A10): there their step raises.
+CPU. On the card every family's step takes its gradients through the
+hand-written backward kernels (flash attention, grouped GEMM, SSD scan).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
         --device cpu --steps 20 --batch 4 --seq 64 --ckpt-dir ckpt/deepseek

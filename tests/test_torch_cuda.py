@@ -114,45 +114,42 @@ def _requires_grad_inputs(kernel, device):
                                          t(1, 128, 2, 64)), {}
     if kernel == "gmm":
         return mg.gmm_cuda, (t(2, 64, 64), t(2, 64, 64)), {}
-    return ss.ssd_scan_cuda, (t(1, 64, 2, 64), t(1, 64, 2, dtype=f32),
-                              t(2, dtype=f32), t(1, 64, 1, 64),
-                              t(1, 64, 1, 64), t(2, dtype=f32)), {"chunk": 64}
+    dt = (0.1 * torch.rand(1, 128, 2, device=device)).requires_grad_()
+    return ss.ssd_scan_cuda, (t(1, 128, 2, 64), dt, t(2, dtype=f32),
+                              t(1, 128, 1, 64), t(1, 128, 1, 64),
+                              t(2, dtype=f32)), {"chunk": 64}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["flash_attention", "gmm", "ssd_scan"])
-def test_kernel_raises_where_it_would_drop_a_gradient(cuda, kernel):
-    """No kernel drops a gradient. The SSD scan has no backward kernel yet:
-    in grad mode an input that requires grad raises (naming ROADMAP.md A10)
-    and launches nothing. The flash and gmm kernels take the gradient
-    through their backward kernels: the output carries a ``grad_fn``, the
-    backward launches its kernel, and the gradients match autograd through
-    the plain version. Without grad mode each call launches its kernel, and
-    nothing falls back to the plain version."""
+def test_kernel_takes_the_gradient_through_its_backward_kernel(cuda, kernel):
+    """No kernel drops a gradient: in grad mode with inputs that require
+    grad, the output carries a ``grad_fn``, the backward launches its kernel
+    once, and the gradients match autograd through the plain version.
+    Without grad mode each call launches its kernel, and nothing falls back
+    to the plain version."""
     fn, args, kw = _requires_grad_inputs(kernel, cuda)
     before = fn.launches
-    if kernel == "ssd_scan":
-        with pytest.raises(RuntimeError, match="A10"):
-            fn(*args, **kw)
-        assert fn.launches == before
-    else:
-        bwd = fa.flash_attention_bwd_cuda if kernel == "flash_attention" \
-            else mg.gmm_bwd_cuda
-        bwd_before = bwd.launches
-        out = fn(*args, **kw)
-        assert out.grad_fn is not None and fn.launches == before + 1
-        dout = torch.randn_like(out)
-        got = torch.autograd.grad(out, args, dout)
-        torch.cuda.synchronize()
-        assert bwd.launches == bwd_before + 1
-        plain = fa.flash_attention_plain if kernel == "flash_attention" \
-            else mg.gmm_plain
-        leaves = [a.detach().float().requires_grad_() for a in args]
-        want = torch.autograd.grad(plain(*leaves, **kw), leaves, dout.float())
-        for g, w in zip(got, want):
-            assert g.dtype == torch.bfloat16
-            assert float((g.float() - w).norm() / w.norm()) < 1e-2
-        before = fn.launches
+    bwd = {"flash_attention": fa.flash_attention_bwd_cuda, "gmm": mg.gmm_bwd_cuda,
+           "ssd_scan": ss.ssd_scan_bwd_cuda}[kernel]
+    plain = {"flash_attention": fa.flash_attention_plain, "gmm": mg.gmm_plain,
+             "ssd_scan": ss.ssd_scan_plain}[kernel]
+    bwd_before = bwd.launches
+    out = fn(*args, **kw)
+    y = out[0] if kernel == "ssd_scan" else out
+    assert y.grad_fn is not None and fn.launches == before + 1
+    dout = torch.randn_like(y)
+    got = torch.autograd.grad(y, args, dout)
+    torch.cuda.synchronize()
+    assert bwd.launches == bwd_before + 1
+    leaves = [a.detach().float().requires_grad_() for a in args]
+    want_out = plain(*leaves, **kw)
+    want = torch.autograd.grad(want_out[0] if kernel == "ssd_scan" else want_out,
+                               leaves, dout.float())
+    for g, w, a in zip(got, want, args):
+        assert g.dtype == a.dtype
+        assert float((g.float() - w).norm() / w.norm()) < 1e-2
+    before = fn.launches
     with torch.no_grad():
         out = fn(*args, **kw)
     torch.cuda.synchronize()
@@ -271,18 +268,27 @@ def test_gmm_backward_vs_plain(cuda, dtype, tol, E, C, d, f):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,remat", [("deepseek-7b", "full"),
                                         ("deepseek-7b", "dots"),
-                                        ("deepseek-moe-16b", "full")])
+                                        ("deepseek-moe-16b", "full"),
+                                        ("mamba2-370m", "full"),
+                                        ("zamba2-7b", "full")])
 def test_train_step_on_the_card(cuda, arch, remat):
     """One train step at REDUCED with one attention head of 64 (the flash
     kernels' smallest head dim), with remat, on the card and on the CPU
     from the same state: the loss within 2e-2, every grad leaf finite, the
-    dense model's grads within 5e-2 in relative norm (bf16 rounds on each
-    side in other places), the backward kernels launched."""
+    backward kernels launched; the dense model's grads within 5e-2 in
+    relative norm (bf16 rounds on each side in other places), mamba2-370m's,
+    run in fp32, within 1e-3. (In bf16 a rounding difference grows by about
+    1.5x an SSM layer at the reference's initialisation, so zamba2-7b's 7
+    layers, which need bf16 for the flash kernel, are held by the loss.)"""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, batch_for_step
     from repro_torch.models.model_zoo import build_model
     from repro_torch.runtime import train as train_rt
-    cfg = get_config(arch, reduced=True).replace(n_heads=1, n_kv_heads=1)
+    cfg = get_config(arch, reduced=True)
+    if cfg.n_heads:
+        cfg = cfg.replace(n_heads=1, n_kv_heads=1)
+    if arch == "mamba2-370m":
+        cfg = cfg.replace(param_dtype="float32", activ_dtype="float32")
     model = build_model(cfg)
     opts = train_rt.TrainOptions(remat_policy=remat, warmup_steps=1,
                                  total_steps=10)
@@ -290,7 +296,7 @@ def test_train_step_on_the_card(cuda, arch, remat):
     dc = DataConfig(cfg.vocab_size, 64, 4)
     grads, losses = {}, {}
     before = {f: f.launches for f in (fa.flash_attention_bwd_cuda,
-                                      mg.gmm_bwd_cuda)}
+                                      mg.gmm_bwd_cuda, ss.ssd_scan_bwd_cuda)}
     for dev in ("cpu", "cuda"):
         p = _to(params, dev)
         g, m = train_rt.build_grad_fn(model, opts)(
@@ -298,13 +304,16 @@ def test_train_step_on_the_card(cuda, arch, remat):
         grads[dev], losses[dev] = g, float(m["loss"])
     torch.cuda.synchronize()
     assert abs(losses["cuda"] - losses["cpu"]) <= 2e-2 * abs(losses["cpu"])
-    assert fa.flash_attention_bwd_cuda.launches > before[fa.flash_attention_bwd_cuda]
-    if arch == "deepseek-moe-16b":
-        assert mg.gmm_bwd_cuda.launches > before[mg.gmm_bwd_cuda]
+    launched = {f for f, n in before.items() if f.launches > n}
+    assert (fa.flash_attention_bwd_cuda in launched) == (arch != "mamba2-370m")
+    assert (mg.gmm_bwd_cuda in launched) == (arch == "deepseek-moe-16b")
+    assert (ss.ssd_scan_bwd_cuda in launched) == (arch in ("mamba2-370m",
+                                                           "zamba2-7b"))
+    tol = {"deepseek-7b": 5e-2, "mamba2-370m": 1e-3}.get(arch)
     for (path, a), (_, b) in zip(_flat(grads["cuda"]), _flat(grads["cpu"])):
         assert bool(torch.isfinite(a).all()), path
-        if arch == "deepseek-7b":
-            assert _rel(a.cpu(), b) < 5e-2, path
+        if tol:
+            assert _rel(a.cpu(), b) < tol, path
 
 
 def _to(tree, dev):
@@ -400,6 +409,60 @@ def test_ssd_scan_wgmma_vs_plain(cuda, N, chunk, G):
                                atol=1e-4, rtol=1e-4)
     assert ((y.float() - y_p.float()).norm() / y_p.float().norm()).item() <= 1e-3
     assert ((state - state_p).norm() / state_p.norm()).item() <= 1e-4
+
+
+# the SSD backward's limits, by the gradient's dtype: the largest difference
+# as a share of the largest |plain| value, and the relative norm; bf16
+# gradients are rounded once on each side (one ulp is 2^-8 relative)
+SSD_BWD_ELEM = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SSD_BWD_NORM = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+
+
+# (L, chunk, P, N, G): several chunks, ragged tiles (chunk 100, 7), P-slices
+# of 64, 32 and 16 (P = 48), N up to 128, 1 to 4 groups
+SSD_BWD_GRID = [(256, 64, 64, 64, 2), (200, 100, 32, 64, 2), (21, 7, 16, 16, 1),
+                (384, 128, 64, 128, 1), (96, 32, 48, 32, 4)]
+# every shape behind the fma forward in both dtypes, and the shapes the
+# wgmma forward takes (bf16, P = 64, N = 64 or 128, chunk a multiple of 64)
+SSD_BWD_CASES = [("fma", dt, shape) for dt in (torch.float32, torch.bfloat16)
+                 for shape in SSD_BWD_GRID] + \
+    [("wgmma", torch.bfloat16, SSD_BWD_GRID[0]), ("wgmma", torch.bfloat16, SSD_BWD_GRID[3])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,dtype,shape", SSD_BWD_CASES)
+def test_ssd_scan_backward_vs_plain(cuda, variant, dtype, shape):
+    """The backward kernel behind each forward variant that takes the shape
+    (``SsdScanFn``), with a non-zero state cotangent: all six gradients
+    against autograd through the plain version in fp32, each rounded to its
+    input's dtype, within SSD_BWD_ELEM and SSD_BWD_NORM; one backward launch;
+    the backward run twice bitwise equal."""
+    (L, chunk, P, N, G), B, H = shape, 2, 8
+    args = list(_ssd_model_like(15, B, L, H, P, N, G, cuda))
+    for i in (0, 3, 4):
+        args[i] = args[i].to(dtype)
+    assert variant == "fma" or ss.ssd_variant(args[0], args[3], chunk) == "wgmma"
+    rng = np.random.default_rng(16)
+    dy = torch.from_numpy(rng.standard_normal((B, L, H, P), np.float32)).to(cuda, dtype)
+    ds = torch.from_numpy(rng.standard_normal((B, H, P, N), np.float32)).to(cuda)
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    before = ss.ssd_scan_bwd_cuda.launches
+    y, state = ss.SsdScanFn.apply(*leaves, chunk, variant)
+    got = torch.autograd.grad((y, state), leaves, (dy, ds))
+    again = ss.ssd_scan_bwd_cuda(*args, dy, ds, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ss.ssd_scan_bwd_cuda.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    f32 = [a.detach().float().requires_grad_() for a in args]
+    y_p, state_p = ss.ssd_scan_plain(*f32, chunk=chunk)
+    want = torch.autograd.grad((y_p, state_p), f32, (dy.float(), ds))
+    for name, g, w, a in zip(("dx", "ddt", "da_log", "db", "dc", "dd_skip"),
+                             got, want, args):
+        assert g.dtype == a.dtype and g.shape == a.shape, name
+        w = w.to(a.dtype).float()
+        d = (g.float() - w).abs().max().item()
+        assert d <= SSD_BWD_ELEM[a.dtype] * w.abs().max().item(), name
+        assert _rel(g, w) <= SSD_BWD_NORM[a.dtype], name
 
 
 @pytest.mark.cuda

@@ -19,7 +19,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
 from repro.kernels.moe_gmm import gmm_pallas  # noqa: E402
 from repro.kernels.ssd_scan import ssd_scan_pallas  # noqa: E402
-from repro_torch.kernels import _autograd, _build, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_gmm as mg  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
@@ -169,20 +169,6 @@ def test_cpu_wrapper_takes_plain_version_without_counting(monkeypatch):
 
 def _refuse_build(name):
     raise AssertionError(f"tried to build {name} on a CPU-only path")
-
-
-def test_refuse_grad_only_in_grad_mode_with_an_input_that_requires_grad():
-    """The CUDA wrappers' guard: an input that requires grad raises in grad
-    mode, and passes under no_grad and inference mode, or with no such
-    input."""
-    x, w = torch.zeros(2, 2), torch.zeros(2, 2, requires_grad=True)
-    _autograd.refuse_grad("k", x, x)
-    with pytest.raises(RuntimeError, match="A10"):
-        _autograd.refuse_grad("k", x, w)
-    with torch.no_grad():
-        _autograd.refuse_grad("k", x, w)
-    with torch.inference_mode():
-        _autograd.refuse_grad("k", x, w)
 
 
 @pytest.mark.parametrize("case", ["dtype", "head_dim", "contiguous", "gqa"])

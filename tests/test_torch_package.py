@@ -7,6 +7,8 @@ import sys
 from pathlib import Path
 from unittest import mock
 
+import math
+
 import numpy as np
 import pytest
 
@@ -63,7 +65,7 @@ def test_source_names_no_jax_or_repro_import(path):
 
 def test_build_layer_imports_no_torch():
     """``kernels/_build.py`` builds and loads with nvcc and ctypes alone; the
-    wrappers' autograd rule lives beside them (``kernels/_autograd.py``)."""
+    wrappers' ``torch.autograd.Function``s live in the kernel modules."""
     for line in Path(_build.__file__).read_text().splitlines():
         words = line.split()
         if words[:1] in (["import"], ["from"]) and len(words) > 1:
@@ -375,13 +377,19 @@ def test_chip_smoke_expects_the_train_launches(chip_smoke):
     """Remat "full" runs every forward launch twice a step (the forward and
     its recompute), and each backward wrapper once per forward call:
     deepseek-7b 30 attention layers, deepseek-moe-16b cut to 8 layers (1
-    dense, 7 MoE of 3 expert products)."""
-    for arch, attn, gmm in (("deepseek-7b", 30, 0), ("deepseek-moe-16b", 8, 21)):
+    dense, 7 MoE of 3 expert products), mamba2-370m 48 SSM layers, zamba2-7b
+    81 SSM layers and 13 shared attention blocks, all at full depth."""
+    for arch, attn, gmm, ssm in (("deepseek-7b", 30, 0, 0),
+                                 ("deepseek-moe-16b", 8, 21, 0),
+                                 ("mamba2-370m", 0, 0, 48),
+                                 ("zamba2-7b", 13, 0, 81)):
         cfg = chip_smoke.train_config(arch)
         assert chip_smoke.expected_train_launches(cfg, 8) == {
             "flash_attention": 16 * attn, "flash_attention_bwd": 8 * attn,
-            "gmm": 16 * gmm, "gmm_bwd": 8 * gmm, "ssd_scan": 0}
-    assert list(chip_smoke.TRAIN_PATHS) == ["deepseek-7b", "deepseek-moe-16b"]
+            "gmm": 16 * gmm, "gmm_bwd": 8 * gmm, "ssd_scan": 16 * ssm,
+            "ssd_scan_bwd": 8 * ssm}
+    assert list(chip_smoke.TRAIN_PATHS) == ["deepseek-7b", "deepseek-moe-16b",
+                                            "mamba2-370m", "zamba2-7b"]
 
 
 def test_chip_smoke_train_paths_cut_depth_not_width(chip_smoke):
@@ -402,6 +410,146 @@ def test_chip_smoke_backward_bounds(chip_smoke):
     assert by == "operations" and abs(ms - 0.1738) < 1e-3
     ms, by = chip_smoke.gmm_bwd_bound_ms(64, 488, 2048, 1408)
     assert by == "operations" and abs(ms - 4 * 64 * 488 * 2048 * 1408 / 989e9) < 1e-6
+
+
+def test_chip_smoke_ssd_bwd_bound(chip_smoke):
+    """The SSD backward's products at zamba2-7b's training shape (B=2,
+    L=2048, chunk 256): Q^2 (3N + 2P) + 10 Q N P a (b, h, chunk), 5.64e10
+    FLOPs, 0.057 ms at 989 TFLOP/s, against 0.18 GB moved (0.055 ms)."""
+    ms, by = chip_smoke.ssd_bwd_bound_ms(2, 2048, 112, 64, 64, 2, 256, "bfloat16")
+    flops = 2 * 112 * 8 * (256 ** 2 * (3 * 64 + 2 * 64) + 10 * 256 * 64 * 64)
+    assert abs(flops - 5.64e10) < 0.01e10
+    assert by == "operations" and abs(ms - 1e3 * flops / 989e12) < 1e-9
+    ms, by = chip_smoke.ssd_bwd_bound_ms(2, 2048, 32, 64, 128, 1, 256, "float32")
+    assert by == "operations" and ms > 0.1     # fp32 peak: 67 TFLOP/s
+
+
+def _ssd_args(seed, B, L, H, P, N, G, dtype=torch.bfloat16):
+    """Inputs as chip_smoke.ssd_inputs draws them, on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(B, L, H, P, generator=g) * 0.5).to(dtype)
+    dt = torch.exp(math.log(1e-3) + math.log(100.0) * torch.rand(B, L, H, generator=g))
+    a_log = torch.log(1.0 + 15.0 * torch.rand(H, generator=g))
+    b, c = ((torch.randn(B, L, G, N, generator=g) * 0.3).to(dtype) for _ in range(2))
+    dy = torch.randn(B, L, H, P, generator=g).to(dtype)
+    return (x, dt, a_log, b, c, torch.randn(H, generator=g)), dy
+
+
+def test_chip_smoke_ssd_bwd_faults_exceed_the_limits(chip_smoke):
+    """At a small bf16 shape with no state cotangent, as the training shapes
+    are held: the plain backward is within the ssd_bwd limits of autograd
+    through the plain version, and each planted fault moves some gradient
+    past them (the state gradient dropped moves dx, db, ddt and da_log, not
+    dc, which reads the entering state; the missing reverse scan ddt and
+    da_log; db from one head db alone)."""
+    from repro_torch.kernels import ssd_scan as ss
+    args, dy = _ssd_args(0, 2, 128, 8, 16, 16, 2)
+    want = chip_smoke.ssd_grads_plain(args, dy, None, 32)
+    plain = ss.ssd_scan_bwd_plain(*args, dy, chunk=32)
+    assert all(e["ok"] for e in chip_smoke.ssd_bwd_errors(plain, want).values())
+    seen = {f: {g for g, e in chip_smoke.ssd_bwd_errors(grads, want).items()
+                if not e["ok"]}
+            for f, grads in chip_smoke.ssd_bwd_faults(args, dy, None, 32).items()}
+    assert seen["state_grad_not_carried"] == {"dx", "ddt", "da_log", "db"}
+    assert seen["dcum_no_reverse_scan"] == {"ddt", "da_log"}
+    assert seen["db_one_head"] == {"db"}
+
+
+def test_chip_smoke_plain_ssd_rounds_each_gradient_once(chip_smoke):
+    """The train gate's plain SSD: y and the state bitwise the plain
+    version's on the bf16 inputs; under autograd dx and db are the fp32
+    gradients rounded once (the plain version on bf16 leaves sums a group's
+    heads' db in bf16)."""
+    from repro_torch.kernels import ssd_scan as ss
+    args, dy = _ssd_args(1, 1, 64, 8, 16, 16, 2)
+    for got, want in zip(chip_smoke.plain_ssd(*args, chunk=32),
+                         ss.ssd_scan_plain(*args, chunk=32)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    leaves = [a.clone().requires_grad_() for a in args]
+    grads = torch.autograd.grad(chip_smoke.plain_ssd(*leaves, chunk=32)[0],
+                                leaves, dy)
+    want = chip_smoke.ssd_grads_plain(args, dy, None, 32)
+    assert torch.equal(grads[0], want[0]) and torch.equal(grads[3], want[3])
+
+
+def test_chip_smoke_split_ssd_moves_only_the_forward(chip_smoke):
+    """The floor run at the wgmma variant's precision: y within its split
+    rounding of the plain one, the gradient exactly the plain SSD's."""
+    args, dy = _ssd_args(2, 1, 128, 4, 64, 64, 1)
+    leaves = [a.clone().requires_grad_() for a in args]
+    y_s, _ = chip_smoke.split_ssd(*leaves, chunk=64)
+    y_p, _ = chip_smoke.plain_ssd(*args, chunk=64)
+    assert (y_s.float() - y_p.float()).norm() <= 1e-3 * y_p.float().norm()
+    got = torch.autograd.grad(y_s, leaves, dy)
+    leaves_p = [a.clone().requires_grad_() for a in args]
+    want = torch.autograd.grad(chip_smoke.plain_ssd(*leaves_p, chunk=64)[0],
+                               leaves_p, dy)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("fault", ["dcum_no_reverse_scan", "db_one_head",
+                                   "state_grad_not_carried"])
+def test_chip_smoke_planted_ssd_faults_reach_the_autograd_function(chip_smoke,
+                                                                   monkeypatch, fault):
+    """The train phase's SSD faults replace what SsdScanFn's backward gets:
+    the faulty gradients in each input's dtype, against the plain
+    backward's where the fault leaves a gradient as it is."""
+    from types import SimpleNamespace
+    from repro_torch.kernels import ssd_scan as ss
+    args, dy = _ssd_args(3, 1, 128, 4, 16, 16, 2)
+    monkeypatch.setattr(ss, "ssd_scan_bwd_cuda", ss.ssd_scan_bwd_plain)
+    ctx = SimpleNamespace(saved_tensors=args, chunk=32)
+    want = ss.SsdScanFn.backward(ctx, dy, None)[:6]
+    with chip_smoke.planted_ssd_bwd(fault):
+        got = ss.SsdScanFn.backward(ctx, dy, None)[:6]
+    moved = {n for n, g, w in zip(chip_smoke.SSD_GRADS, got, want)
+             if not torch.allclose(g.float(), w.float(), rtol=1e-2, atol=1e-5)}
+    assert [g.dtype for g in got] == [a.dtype for a in args]
+    assert moved == {"dcum_no_reverse_scan": {"ddt", "da_log"},
+                     "db_one_head": {"db"},
+                     "state_grad_not_carried": moved}[fault] and moved
+    assert chip_smoke.SSD_TRAIN_FAULTS[fault] == (fault == "dcum_no_reverse_scan")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
+def test_chip_smoke_checking_ssd_replays_each_layers_backward(chip_smoke,
+                                                             monkeypatch, arch):
+    """The train gate's plain SSD checks every SSM layer's backward once
+    under remat "full" (the hook fires on the recomputed output), on the
+    layer's own inputs: the backward (here its plain version) within the
+    limits, each fault past them in some call; the gradients are the plain
+    SSD's."""
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.runtime import train as train_rt
+    monkeypatch.setattr(ss, "ssd_scan_bwd_cuda", ss.ssd_scan_bwd_plain)
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    grad_fn = train_rt.build_grad_fn(model, train_rt.TrainOptions(remat_policy="full"))
+    batch = batch_for_step(DataConfig(cfg.vocab_size, 32, 2), 0, cfg, device="cpu")
+    records = []
+    with mock.patch.object(ops, "ssd_scan", chip_smoke.checking_ssd(records)):
+        got, _ = grad_fn(params, batch)
+    with mock.patch.object(ops, "ssd_scan", chip_smoke.plain_ssd):
+        want, _ = grad_fn(params, batch)
+    assert len(records) == chip_smoke.expected_launches(cfg)["ssd_scan"] > 0
+    assert all(e["ok"] for rec in records for e in rec["kernel"].values())
+    for fault in ("state_grad_not_carried", "dcum_no_reverse_scan", "db_one_head"):
+        assert any(not e["ok"] for rec in records for e in rec[fault].values()), fault
+    for (_, a), (_, b) in zip(chip_smoke._flat(got), chip_smoke._flat(want)):
+        assert torch.equal(a, b)
+
+
+def test_chip_smoke_train_flops_count_the_ssd(chip_smoke):
+    """Model FLOPs of a training step add 3 x the forward's SSD products an
+    SSM layer to 6 x the parameters a token multiplies: mamba2-370m's 48
+    layers of 32 heads at B=2, S=2048, chunk 256."""
+    model = build_model(chip_smoke.train_config("mamba2-370m"))
+    flops = chip_smoke.train_model_flops(model, 2, 2048)
+    ssd = 3 * 48 * 2 * 32 * 8 * (256 ** 2 * (128 + 64) + 4 * 256 * 128 * 64)
+    embed = math.prod(model.specs["embed"].shape)
+    assert flops == 6 * (model.param_count() - embed) * 2 * 2048 + ssd
 
 
 @pytest.mark.parametrize("kw", [{}, {"window": 8, "softcap": 5.0},
