@@ -9,8 +9,9 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
 1. card:    the card's name and power limit, and the kernel build time
             (``nvcc`` builds every ``src/repro_torch/csrc/*.cu`` at once);
             per library its SASS census (``HGMMA`` wgmma, ``UTMALDG`` TMA
-            loads, ``HMMA`` mma.sync; the flash, gmm and SSD libraries must
-            hold both of the first two, the flash backward ``HMMA``),
+            loads, ``HMMA`` mma.sync; the flash, flash backward, gmm and
+            SSD libraries must hold both of the first two, and the flash
+            backward no ``HMMA``),
             ptxas's registers and spills per
             kernel and any line where ptxas says it serialized wgmma; the
             host cost of encoding the gmm's tensor maps; whether ``triton``
@@ -42,17 +43,18 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
    flash_bwd: the flash backward kernel against autograd through the
             plain version in fp32: first the forward's row log-sum-exp at
             every head dim within LSE_TOL; a call where no row has a key
-            (LSE -inf, every gradient 0); dQ, dK and dV on the grid at head
-            dims 64, 112 and 128 and at the training shapes of deepseek-7b
-            and deepseek-moe-16b (B=2, S=2048, D=128, causal) within an
-            elementwise, a worst-row and a whole-tensor limit that two
-            injected faults (the last K/V tile's dK dropped; Delta left at
-            zero) are shown to exceed, also at zamba2-7b's (H=32, D=112),
-            sdpa's backward's errors beside them;
-            the backward run twice bitwise equal; timings of the kernel, the
-            plain version and the backward of
-            ``F.scaled_dot_product_attention`` (a yardstick the port never
-            calls) beside the bound.
+            (LSE -inf, every gradient 0); dQ, dK and dV on the grid at every
+            head dim (64, 112, 128, 160, 256) and at the training shapes of
+            deepseek-7b and deepseek-moe-16b (B=2, S=2048, D=128, causal),
+            zamba2-7b (H=32, D=112), gemma2-9b (H=16, KVH=8, D=256, softcap
+            50) and stablelm-12b (H=32, KVH=8, D=160) within an elementwise,
+            a worst-row and a whole-tensor limit that two injected faults
+            (the last K/V tile's dK dropped; Delta left at zero) are shown to
+            exceed, sdpa's backward's errors beside them where it takes the
+            options; the backward run twice bitwise equal; timings of the
+            kernel (its kernels split by torch.profiler), the plain version
+            and the backward of ``F.scaled_dot_product_attention`` (a
+            yardstick the port never calls; no softcap) beside the bound.
    ssd:     the SSD-scan kernels against their plain version: the
             kernel-test grid in fp32 (the ``fma`` variant) within 1e-4 on y
             and on the state, and the prefill shapes of zamba2-7b and
@@ -74,12 +76,14 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             C-tile of one expert left unwritten) are shown to exceed; timings
             of the kernel, the plain version and ``torch.bmm`` (a yardstick
             the port never calls) there.
-   gmm_bwd: the grouped GEMM's backward (dx and dw, two launches of its
-            kernel) against the two einsums: the grid in fp32 and bf16, and
+   gmm_bwd: the grouped GEMM's backward (dx and dw, two kernel launches)
+            against the two einsums: the grid in fp32 and bf16, and
             deepseek-moe-16b's expert products at the training capacity
-            (488 for 2 x 2048 tokens), each product's two forward faults
-            shown to exceed the norm limit; timings beside the backward of
-            ``torch.bmm``.
+            (488 for 2 x 2048 tokens), there on the ``wgmma_bwd`` variant
+            with no memory allocated beyond dx and dw (no transposed copy),
+            each product's two forward faults shown to exceed the norm
+            limit; timings beside the backward of ``torch.bmm``, the call's
+            kernels split by torch.profiler.
    ssd_bwd: the SSD backward kernel (states, chunks, reduce) against
             autograd through the plain version in fp32: all six gradients on
             the fp32 grid with a non-zero state cotangent, and at the
@@ -94,8 +98,9 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             backward beside the bound.
    train:   the training paths, through ``runtime.train`` at full width:
             deepseek-7b (30 layers), deepseek-moe-16b (8 of 28 layers),
-            mamba2-370m (48 layers) and zamba2-7b (81 SSM layers and 13
-            shared attention blocks), B=2 x 2048 tokens of the reference's
+            mamba2-370m (48 layers), zamba2-7b (81 SSM layers and 13
+            shared attention blocks), gemma2-9b (32 of 42 layers) and
+            stablelm-12b (20 of 40), B=2 x 2048 tokens of the reference's
             synthetic stream, remat "full", bf16 moments. Step 1's loss, the
             worst leaf's gradient norm and each leaf's whole gradient
             through the kernels against the plain versions within 3 x a
@@ -109,9 +114,10 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             on its own inputs, within the ssd_bwd limits, each SSD fault
             past them in some call; then 8 steps: losses finite, each
             kernel's launches as predicted (remat runs every forward launch
-            twice), step time, tokens/s, peak memory, model TFLOP/s, and the
-            idle share of one more step under torch.profiler; the loss lower
-            at step 8 (on the SSM paths: over 8 steps on one batch). Then
+            twice), step time, tokens/s, peak memory (below 80 GB), model
+            TFLOP/s, and the idle share of one more step under
+            torch.profiler; the loss lower at step 8 (on the SSM paths: over
+            8 steps on one batch). Then
             the restart loop at a REDUCED size: a run with two injected
             failures ends bitwise equal to a clean one.
 3. serve:   the main paths: ``ServeSession.generate`` at full width, random
@@ -318,22 +324,32 @@ BWD_NORM_RTOL = 1e-2
 BWD_ROW_FLOOR = 1.0
 LSE_TOL = 1e-4             # the forward's row log-sum-exp (base 2), absolute
 BWD_KV_TILE = 64           # keys of the backward's K/V tile, a fault's unit
+BWD_KERNELS = ("dkdv", "dq")   # the flash backward's tiled kernels, by pass
 # the flash grid of phase 2 that the backward takes (no q_offset: training
-# passes none), again at head_dim 112, and a call where no row has a key
+# passes none), again at head_dims 112, 160 and 256, and a call where no row
+# has a key
 BWD_GRID = [(f"bwd_{name}", B, Sq, Sk, H, KVH, D, opts)
             for name, B, Sq, Sk, H, KVH, D, opts in GRID
             if not opts.get("q_offset")] + \
-    [(f"bwd_{name}_d112", B, Sq, Sk, H, KVH, 112, opts)
-     for name, B, Sq, Sk, H, KVH, _, opts in GRID[:7]]
+    [(f"bwd_{name}_d{d}", B, Sq, Sk, H, KVH, d, opts)
+     for d in (112, 160, 256) for name, B, Sq, Sk, H, KVH, _, opts in GRID[:7]]
 BWD_NO_KEYS = ("bwd_no_keys", 1, 64, 64, 2, 2, 64, {"kv_valid": 0, "causal": False})
 # the training paths (phase train): full width, deepseek-7b at all 30
 # layers, deepseek-moe-16b cut to 8 of 28 (1 dense and 7 MoE layers, 4.6e9
 # parameters: 16.4e9 x 8 bytes of params, grads and bf16 moments do not fit
 # 80 GB), mamba2-370m at all 48 and zamba2-7b at all 81 (6.67e9 x 8 bytes =
-# 53.4 GB, as deepseek-7b's 6.91e9 took 57.8 GB at peak); batches of TRAIN_BATCH x TRAIN_SEQ tokens of the reference's
-# synthetic stream, remat "full", bf16 moments, TRAIN_STEPS steps
-TRAIN_PATHS = ("deepseek-7b", "deepseek-moe-16b", "mamba2-370m", "zamba2-7b")
-TRAIN_DEPTH_CUTS = {"deepseek-moe-16b": 8}
+# 53.4 GB, as deepseek-7b's 6.91e9 took 57.8 GB at peak), gemma2-9b cut to
+# 32 of 42 (16 local/global pairs: 7.26e9 parameters, 0.92e9 of them the
+# 256 000-entry embedding; 24 layers peaked at 59.8 GB, and each layer adds
+# 0.198e9 x 8 bytes; 42 layers' 9.2e9 x 8 bytes do not fit) and
+# stablelm-12b to 20 of 40 (about 6.6e9; 12.1e9 x 8 bytes do not fit);
+# batches of TRAIN_BATCH x TRAIN_SEQ tokens of the reference's synthetic
+# stream, remat "full", bf16 moments, TRAIN_STEPS steps; the run's peak
+# device memory must stay below the card's 80 GB
+TRAIN_PATHS = ("deepseek-7b", "deepseek-moe-16b", "mamba2-370m", "zamba2-7b",
+               "gemma2-9b", "stablelm-12b")
+TRAIN_DEPTH_CUTS = {"deepseek-moe-16b": 8, "gemma2-9b": 32, "stablelm-12b": 20}
+TRAIN_PEAK_BYTES = 80e9
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 8
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 1
 # faults planted in the flash backward of a training run, and whether the
@@ -358,10 +374,14 @@ SSD_TRAIN_FAULTS = {"dcum_no_reverse_scan": True, "db_one_head": False,
 # the flash backward at the training paths' attention (B=2, S=2048,
 # causal): deepseek-7b's 32 heads of 128, deepseek-moe-16b's 16, zamba2-7b's
 # shared block's 32 of 112 (its faults are held here: on the SSM paths the
-# step-1 gate's floors hide them, see SSD_TRAIN_FAULTS)
+# step-1 gate's floors hide them, see SSD_TRAIN_FAULTS), gemma2-9b's 16 of
+# 256 over 8 (softcap 50, scale 224^-0.5; its local layers' 4096 window does
+# not bind at 2048) and stablelm-12b's 32 of 160 over 8
 FLASH_TRAIN_SHAPES = [("deepseek7b_train", 2, 2048, 2048, 32, 32, 128, {}),
                       ("moe16b_train", 2, 2048, 2048, 16, 16, 128, {}),
-                      ("zamba2_train", 2, 2048, 2048, 32, 32, 112, {})]
+                      ("zamba2_train", 2, 2048, 2048, 32, 32, 112, {}),
+                      ("gemma2_train", 2, 2048, 2048, 16, 8, 256, GEMMA2_OPTS),
+                      ("stablelm_train", 2, 2048, 2048, 32, 8, 160, {})]
 
 # the main paths in order, each with the decode steps its agreement phase
 # holds (None: no agreement and trace phases)
@@ -487,7 +507,7 @@ def ptxas_kernels(report: str) -> list[dict]:
 
 
 # the libraries whose kernels must be built from wgmma fed by TMA
-HOPPER_LIBRARIES = ("flash_attention", "moe_gmm", "ssd_scan")
+HOPPER_LIBRARIES = ("flash_attention", "flash_attention_bwd", "moe_gmm", "ssd_scan")
 
 
 def phase_card():
@@ -515,14 +535,15 @@ def phase_card():
         if not (census[name]["HGMMA"] and census[name]["UTMALDG"]):
             raise AssertionError(f"{name}: no HGMMA or no UTMALDG in its SASS "
                                  f"({census[name]})")
-    if not census["flash_attention_bwd"]["HMMA"]:    # mma.sync from cp.async
-        raise AssertionError("flash_attention_bwd: no HMMA in its SASS")
+    if census["flash_attention_bwd"]["HMMA"]:        # no mma.sync backward is left
+        raise AssertionError(f"flash_attention_bwd: HMMA in its SASS "
+                             f"({census['flash_attention_bwd']})")
     lib = fa._lib()
     for d in fa.HEAD_DIMS:
         if lib.flash_attention_smem_bytes(d) != fa.smem_bytes(d=d):
             raise AssertionError(f"smem_bytes({d}) disagrees with the kernel")
     for d in fa.BWD_HEAD_DIMS:
-        for i, kernel in enumerate(("dkdv", "dq")):
+        for i, kernel in enumerate(BWD_KERNELS):
             if fa._bwd_lib().flash_attention_bwd_smem_bytes(d, i) != \
                     fa.bwd_smem_bytes(d, kernel):
                 raise AssertionError(f"bwd_smem_bytes({d}, {kernel}) "
@@ -571,8 +592,11 @@ def phase_card():
           "smem_bytes_d112": fa.smem_bytes(d=112),
           "smem_bytes_d160": fa.smem_bytes(d=160),
           "smem_bytes_d256": fa.smem_bytes(d=256),
-          "bwd_smem_bytes": {d: {k: fa.bwd_smem_bytes(d, k) for k in fa.BWD_BLOCKS}
+          "bwd_smem_bytes": {d: {k: fa.bwd_smem_bytes(d, k) for k in BWD_KERNELS}
                              for d in fa.BWD_HEAD_DIMS},
+          "bwd_tiles": fa.BWD_TILES,
+          "bwd_blocks_per_sm": {d: {k: fa.bwd_blocks_per_sm(d, k) for k in BWD_KERNELS}
+                                for d in fa.BWD_HEAD_DIMS},
           "block_threads": {d: fa.block_threads(d) for d in fa.HEAD_DIMS},
           "ssd_smem_bytes_n64": ss.smem_bytes(64),
           "ssd_smem_bytes_n128": ss.smem_bytes(128),
@@ -582,6 +606,7 @@ def phase_card():
                                  for k in ("states", "chunks")},
           "gmm_smem_bytes_mma": mg.smem_bytes(torch.bfloat16),
           "gmm_smem_bytes_wgmma": {c: mg.wgmma_smem_bytes(c) for c in mg.WGMMA_TILES},
+          "gmm_bwd_tiles_at_train_capacity": mg.wgmma_bwd_tiles(train_capacity()),
           "gmm_tensor_map_encode_ns_per_call": encode_ns})
     return census
 
@@ -785,11 +810,13 @@ def ssd_faults(args, chunk):
 SSD_STAGES = ("chunk_state", "state_pass", "chunk_scan")   # the wgmma variant's kernels
 
 
-def device_ms_by_kernel(fn, names, iters: int = 5):
-    """Device ms per call of ``fn`` in each kernel whose name holds one of
-    ``names``, from torch.profiler over ``iters`` calls after one warm-up;
-    "not measured" where the profiler shows no device time."""
+def device_split(fn, iters: int = 5):
+    """Every kernel one call of ``fn`` runs on the card: name, device ms per
+    call and launches per call, from torch.profiler over ``iters`` calls
+    after one warm-up; "not measured" where the profiler shows no device
+    time."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -797,12 +824,21 @@ def device_ms_by_kernel(fn, names, iters: int = 5):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    out = dict.fromkeys(names, 0.0)
-    for e in prof.key_averages():
-        for name in names:
-            if name in e.key:
-                out[name] += _self_device_us(e) / 1e3 / iters
-    return out if any(out.values()) else "not measured"
+    out = [{"name": e.key[:100], "ms": _self_device_us(e) / 1e3 / iters,
+            "calls": e.count / iters}
+           for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sorted(out, key=lambda k: -k["ms"]) if any(k["ms"] for k in out) \
+        else "not measured"
+
+
+def device_ms_by_kernel(fn, names, iters: int = 5):
+    """Device ms per call of ``fn`` in each kernel whose name holds one of
+    ``names`` (``device_split`` summed by name); "not measured" where the
+    profiler shows no device time."""
+    split = device_split(fn, iters)
+    if split == "not measured":
+        return split
+    return {name: sum(k["ms"] for k in split if name in k["name"]) for name in names}
 
 
 def phase_ssd():
@@ -1148,15 +1184,19 @@ def phase_flash_bwd():
                 if all(within_bwd_limits(e) for e in by_grad.values()):
                     failures.append(f"{name}: limits miss {fault}")
             del dk_dropped, no_delta
-            # the library's backward against the same plain version
-            qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_()
-                          for t in (q, k, v))
-            lib = torch.autograd.grad(F.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=True), (qs, ks, vs), do.transpose(1, 2))
-            line["library_errors"] = {g: grad_errors(a.transpose(1, 2), b)
-                                      for g, a, b in zip(("dq", "dk", "dv"),
-                                                         lib, want)}
-            del qs, ks, vs, lib
+            # the library's backward against the same plain version (it
+            # takes no softcap: there it is timed only)
+            sdpa_kw = {"is_causal": True, "scale": kw["scale"],
+                       "enable_gqa": H != KVH}
+            if not kw["softcap"]:
+                qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_()
+                              for t in (q, k, v))
+                lib = torch.autograd.grad(F.scaled_dot_product_attention(
+                    qs, ks, vs, **sdpa_kw), (qs, ks, vs), do.transpose(1, 2))
+                line["library_errors"] = {g: grad_errors(a.transpose(1, 2), b)
+                                          for g, a, b in zip(("dq", "dk", "dv"),
+                                                             lib, want)}
+                del qs, ks, vs, lib
             again = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
             line["bitwise_repeat"] = all(torch.equal(a, b) for a, b in zip(got, again))
             if not line["bitwise_repeat"]:
@@ -1165,7 +1205,7 @@ def phase_flash_bwd():
             if ok:
                 qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_()
                               for t in (q, k, v))
-                sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+                sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, **sdpa_kw)
                 do_t = do.transpose(1, 2)
                 bound_ms, bound_by = attention_bwd_bound_ms(B, Sq, Sk, H, KVH, D, opts)
                 timings[name] = {
@@ -1176,11 +1216,14 @@ def phase_flash_bwd():
                     "library_ms": cuda_ms(lambda: torch.autograd.grad(
                         sdpa_out, (qs, ks, vs), do_t, retain_graph=True)),
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_note": "the backward of F.scaled_dot_product_attention",
+                    "library_note": "the backward of F.scaled_dot_product_attention"
+                                    + (" (no softcap)" if kw["softcap"] else ""),
                     "fwd_with_lse_ms": cuda_ms(lambda: fa._forward(
                         q, k, v, q_offset=0, with_lse=True, **kw)),
                     "library_fwd_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                        qs.detach(), ks.detach(), vs.detach(), is_causal=True)),
+                        qs.detach(), ks.detach(), vs.detach(), **sdpa_kw)),
+                    "device_split": device_split(lambda: fa.flash_attention_bwd_cuda(
+                        q, k, v, out, do, lse, **kw)),
                 }
                 emit({"phase": "flash_bwd_timing", "shape": name, **timings[name]})
                 del sdpa_out, qs, ks, vs
@@ -1209,15 +1252,17 @@ def train_capacity(arch="deepseek-moe-16b") -> int:
 
 
 def phase_gmm_bwd():
-    """The grouped GEMM's backward (two launches of its kernel: dx = dy w^T,
-    dw = x^T dy) against the two einsums in fp32: the kernel-test grid in
-    fp32 and bf16 within TOL * sqrt(contraction), and deepseek-moe-16b's
-    expert products at the training capacity in bf16 within KERNEL_TOL of
-    the largest |plain| value elementwise and GMM_NORM_RTOL in relative
-    norm, which the forward's two faults on each product must exceed; every
-    launch at the model shapes on the wgmma variant; timings beside the
-    bound, the plain version and the backward of ``torch.bmm`` (a yardstick
-    the port never calls)."""
+    """The grouped GEMM's backward (two kernel launches: dx = dy w^T, dw =
+    x^T dy) against the two einsums in fp32: the kernel-test grid in fp32
+    and bf16 within TOL * sqrt(contraction), and deepseek-moe-16b's expert
+    products at the training capacity in bf16 within KERNEL_TOL of the
+    largest |plain| value elementwise and GMM_NORM_RTOL in relative norm,
+    which the forward's two faults on each product must exceed; every launch
+    at the model shapes on the ``wgmma_bwd`` variant, with no device memory
+    beyond dx and dw allocated over the call (no transposed copy); timings
+    beside the bound, the plain version and the backward of ``torch.bmm`` (a
+    yardstick the port never calls), with the call's kernels split by
+    torch.profiler."""
     import torch
     from repro_torch.kernels.moe_gmm import gmm_bwd_cuda, gmm_bwd_plain
 
@@ -1240,12 +1285,20 @@ def phase_gmm_bwd():
         dy = (torch.randn(E, Cg, f, generator=gen, device="cuda")
               * (Cg ** -0.5 if model else 1.0)).to(dt_)
         before = dict(gmm_bwd_cuda.variant_launches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         got = gmm_bwd_cuda(x, w, dy)
         torch.cuda.synchronize()
+        # device memory the call allocated beyond its outputs: a transposed
+        # copy of x or w would show here
+        extra = torch.cuda.max_memory_allocated() - held - \
+            sum(g.untyped_storage().nbytes() for g in got)
         variants = {k: gmm_bwd_cuda.variant_launches[k] - before[k] for k in before}
         want = gmm_bwd_plain(x, w, dy)
         line = {"phase": "gmm_bwd", "shape": name, "dtype": dtype,
-                "E_C_d_f": [E, Cg, d, f], "variants": variants}
+                "E_C_d_f": [E, Cg, d, f], "variants": variants,
+                "bytes_beyond_outputs": extra}
         finite = all(bool(torch.isfinite(g).all()) for g in got)
         errs = {}
         for g, a, b, depth in (("dx", got[0], want[0], f), ("dw", got[1], want[1], Cg)):
@@ -1263,7 +1316,9 @@ def phase_gmm_bwd():
         ok = finite and all(e["ok"] for e in errs.values())
         line["errors"] = errs
         if model:
-            ok = ok and variants["wgmma"] == 2
+            # a transposed copy of x or w is 128 MB or more; 1 MiB allows for
+            # the allocator's rounding
+            ok = ok and variants["wgmma_bwd"] == 2 and extra < 2 ** 20
             # the norm limit must see a one-step and a one-tile fault of
             # each product: dx = gmm(dy, w^T), dw = gmm(x^T, dy)
             wt, xt = w.transpose(1, 2).contiguous(), x.transpose(1, 2).contiguous()
@@ -1292,6 +1347,7 @@ def phase_gmm_bwd():
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_note": "the backward of torch.bmm (dx and dw)",
                 "capacity": Cg,
+                "device_split": device_split(lambda: gmm_bwd_cuda(x, w, dy)),
             }
             emit({"phase": "gmm_bwd_timing", "shape": name, **timings[name]})
             del xs, ws, y
@@ -2473,165 +2529,14 @@ def phase_train(arch):
     them in some call; then TRAIN_STEPS steps of ``build_train_step`` from
     a fresh AdamW state: losses finite, the kernels' launches as
     ``expected_train_launches`` predicts (every gmm and SSD forward launch
-    on its wgmma variant), step times, tokens/s, peak memory and model
+    on its wgmma variant, every gmm backward launch on ``wgmma_bwd``), step
+    times, tokens/s, peak memory (below TRAIN_PEAK_BYTES) and model
     TFLOP/s; then one more step under torch.profiler for the idle share.
     Training must make progress: the loss lower at the last step than at
     the first; with SSM layers, whose chaotic step-1 gradient at the
     reference's initialisation gains nothing on fresh batches in so few
     steps (the plain SSD's losses rise alike), TRAIN_STEPS steps on the
     first batch from the same init must lower its loss."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.runtime.serve import (ServeOptions, build_decode_step,
-                                           build_prefill_step, cross_len)
-
-    prefill = build_prefill_step(model, ServeOptions())
-    decode = build_decode_step(model, ServeOptions())
-    B, S = prompts.shape
-    cache = model.init_cache(B, S + TRACE_DECODE_STEPS + 1,
-                             enc_len=cross_len(extras), device="cuda")
-    state = {}
-
-    def run_prefill():
-        state["tok"] = prefill(params, {"tokens": prompts, **extras},
-                               cache)[0].argmax(-1)[:, None]
-
-    def run_decode():
-        tok = state["tok"]
-        for i in range(TRACE_DECODE_STEPS):
-            tok, _, _ = decode(params, cache, tok, S + i)
-
-    with torch.inference_mode():
-        run_prefill()
-        run_decode()                    # warm-up of both windows
-        for name, fn, steps in (("prefill", run_prefill, 1),
-                                ("decode", run_decode, TRACE_DECODE_STEPS)):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-            kernels = [(e.key, _self_device_us(e) / 1e3 / steps, e.count // steps)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA]
-            busy_ms = sum(ms for _, ms, _ in kernels)
-            top = sorted(kernels, key=lambda k: -k[1])[:10]
-            emit({"phase": "trace", "arch": model.cfg.name,
-                  "window": name, "steps": steps,
-                  "wall_ms_per_step": wall_ms,
-                  "device_busy_ms_per_step": busy_ms if busy_ms else "not measured",
-                  "idle_share": 1 - busy_ms / wall_ms if busy_ms else "not measured",
-                  "kernel_launches_per_step": sum(n for _, _, n in kernels),
-                  "top_kernels": [{"name": k[:80], "ms_per_step": ms, "calls": n}
-                                  for k, ms, n in top]})
-
-
-def train_config(arch):
-    """A training path's configuration: full width, its depth cut to
-    TRAIN_DEPTH_CUTS where it has one."""
-    from repro_torch.configs.registry import get_config
-    cfg = get_config(arch)
-    return cfg.replace(n_layers=TRAIN_DEPTH_CUTS[arch]) \
-        if arch in TRAIN_DEPTH_CUTS else cfg
-
-
-def expected_train_launches(cfg, steps: int) -> dict:
-    """Kernel launches (backward calls) of ``steps`` train steps with remat
-    "full": every forward launch twice (the forward and its recompute in the
-    backward), one backward call per forward call."""
-    fwd = expected_launches(cfg)
-    return {"flash_attention": 2 * steps * fwd["flash_attention"],
-            "flash_attention_bwd": steps * fwd["flash_attention"],
-            "gmm": 2 * steps * fwd["gmm"], "gmm_bwd": steps * fwd["gmm"],
-            "ssd_scan": 2 * steps * fwd["ssd_scan"],
-            "ssd_scan_bwd": steps * fwd["ssd_scan"]}
-
-
-def train_model_flops(model, B, S) -> float:
-    """Model FLOPs of one train step (forward and backward, no recompute):
-    6 x the parameters a token multiplies (the embedding lookup excluded;
-    routed experts at top_k / E) x tokens, plus 3 x the forward's attention
-    products (4 B H D per attended pair, a layer) and 3 x the forward's SSD
-    products (``ssd_bound_ms``'s count, an SSM layer)."""
-    from repro_torch.tree import leaves_with_path
-    cfg = model.cfg
-    n = 0
-    for path, spec in leaves_with_path(model.specs):
-        size = math.prod(spec.shape)
-        if path[0] == "embed":
-            continue
-        if "moe" in path and path[-1] in ("w_gate", "w_up", "w_down"):
-            size = size * cfg.moe.top_k // cfg.moe.num_experts
-        n += size
-    attn_layers = expected_launches(cfg)["flash_attention"]
-    pairs = attended_pairs(S, S)
-    attn = 3 * 4 * B * cfg.n_heads * cfg.head_dim_ * pairs * attn_layers
-    ssd = 0
-    ssm_layers = expected_launches(cfg)["ssd_scan"]
-    if ssm_layers:
-        from repro_torch.models.ssm import ssm_dims
-        s = cfg.ssm
-        H, Q = ssm_dims(cfg)[2], min(s.chunk_size, S)
-        ssd = 3 * ssm_layers * B * H * (S // Q) * (
-            Q * Q * (s.d_state + s.head_dim) + 4 * Q * s.d_state * s.head_dim)
-    return 6 * n * B * S + attn + ssd
-
-
-def planted_flash_bwd(fault):
-    """``flash_attention_bwd_cuda`` with a fault of TRAIN_FAULTS planted in
-    what the training path's backward gets: the first or the last K/V
-    tile's dK dropped (BWD_KV_TILE keys of every sequence), or Delta left
-    at zero (the naive formulas, as phase flash_bwd plants it)."""
-    from repro_torch.kernels import flash_attention as fa
-    real = fa.flash_attention_bwd_cuda
-
-    def bwd(q, k, v, out, dout, lse, **kw):
-        if fault == "delta_zero":
-            return attention_grads_naive(
-                q, k, v, dout, zero_delta=True,
-                **{o: kw[o] for o in ("causal", "window", "softcap", "scale")})
-        dq, dk, dv = real(q, k, v, out, dout, lse, **kw)
-        keys = slice(0, BWD_KV_TILE) if fault == "first_tile_dk_dropped" \
-            else slice(-BWD_KV_TILE, None)
-        dk[:, keys] = 0
-        return dq, dk, dv
-
-    bwd.launches = 0    # the kernel's wrapper counts on its module's name
-    return mock.patch.object(fa, "flash_attention_bwd_cuda", bwd)
-
-
-def planted_ssd_bwd(fault):
-    """``ssd_scan_bwd_cuda`` with a fault of SSD_TRAIN_FAULTS planted: the
-    gradients ``ssd_bwd_faults`` gives for it, from the plain backward's
-    stages on the same inputs."""
-    from repro_torch.kernels import ssd_scan as ss
-
-    def bwd(x, dt, a_log, b, c, d_skip, dy, dstate=None, *, chunk=128):
-        return ssd_bwd_faults((x, dt, a_log, b, c, d_skip), dy, dstate, chunk)[fault]
-
-    bwd.launches = 0    # the kernel's wrapper counts on its module's name
-    return mock.patch.object(ss, "ssd_scan_bwd_cuda", bwd)
-
-
-def phase_train(arch):
-    """A training path (TRAIN_PATHS) at full width on the card, through
-    ``runtime.train``: step 1's loss, the worst leaf's gradient norm and
-    each leaf's whole gradient (relative norm of its difference), kernels
-    against the plain versions from the same weights and batch, within
-    FLOOR_MULT x a noise floor measured in this run (the largest difference
-    of runs that differ from the plain one only in rounding: the naive
-    attention oracle with the grouped matmul summed in two halves of d, and
-    the attention with P in bf16; each leaf's gradient against its own
-    floor), MoE routing replayed from the plain run; the faults of
-    TRAIN_FAULTS planted in the flash backward, each of those marked
-    required shown to fail that gate; then TRAIN_STEPS steps of ``build_train_step`` from a fresh AdamW state:
-    losses finite and lower at the last step than at the first, the kernels'
-    launches as ``expected_train_launches`` predicts (every gmm launch on
-    its wgmma variant), step times, tokens/s, peak memory and model
-    TFLOP/s; then one more step under torch.profiler for the idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2796,7 +2701,7 @@ def phase_train(arch):
     expected = expected_train_launches(cfg, TRAIN_STEPS)
     launches_ok = all(launches[k] == v for k, v in expected.items()) and \
         launches["gmm_by_variant"]["wgmma"] == launches["gmm"] and \
-        launches["gmm_bwd_by_variant"]["wgmma"] == 2 * launches["gmm_bwd"] and \
+        launches["gmm_bwd_by_variant"]["wgmma_bwd"] == 2 * launches["gmm_bwd"] and \
         launches["ssd_by_variant"]["wgmma"] == launches["ssd_scan"]
     finite = all(math.isfinite(x) for x in losses)
     falls = losses[-1] < losses[0]
@@ -2839,7 +2744,9 @@ def phase_train(arch):
     flops = train_model_flops(model, TRAIN_BATCH, TRAIN_SEQ)
     cut = {"reduced": {"n_layers": [path_config(arch).n_layers, cfg.n_layers]}} \
         if arch in TRAIN_DEPTH_CUTS else {}
-    ok = agree_ok and faults_ok and calls_ok and launches_ok and finite and trained
+    fits = peak < TRAIN_PEAK_BYTES
+    ok = agree_ok and faults_ok and calls_ok and launches_ok and finite and \
+        trained and fits
     emit({"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers, **cut,
           "d_model": cfg.d_model, "params": model.param_count(),
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
@@ -2871,7 +2778,7 @@ def phase_train(arch):
             f"{faults_ok} ({faults}), SSD calls {calls_ok}, launches "
             f"{launches_ok} ({ {k: launches[k] for k in expected} } vs "
             f"{expected}), finite {finite}, trained {trained} ({losses}; one "
-            f"batch {fit})")
+            f"batch {fit}), peak memory {peak} below {TRAIN_PEAK_BYTES:.0f}: {fits}")
     del state, params
     return launches
 
@@ -3045,19 +2952,36 @@ def main() -> int:
               "src/repro/kernels/flash_attention.py:82", flash_bwd_err,
               flash_bwd_t[FLASH_TRAIN_SHAPES[0][0]],
               "B=2 S=2048 H=KVH=32 D=128 causal bf16 (deepseek-7b training)",
-              "mma.sync from cp.async, three kernels: Delta, then dK and dV "
-              "per 64-key tile over the group's heads, then dQ per 64-row q "
-              "tile; no atomics (bitwise repeatable); launches count calls",
+              "TMA + wgmma, three kernels: Delta; dK and dV per 64-key tile "
+              "(and column part of at most 128 at head_dim 160 and 256) over "
+              "the group's heads, two consumer warpgroups (P^T and dV; dS^T "
+              "and dK, P^T dy crossing through shared memory) and a producer "
+              "warp; dQ per 64-row q tile, one consumer warpgroup and a "
+              "producer warp, two blocks an SM up to head_dim 128; no atomics "
+              "(bitwise repeatable); launches count calls",
               at_moe16b={**flash_bwd_t[FLASH_TRAIN_SHAPES[1][0]],
                          "shape": "B=2 S=2048 H=KVH=16 D=128 causal bf16 "
-                                  "(deepseek-moe-16b training)"}),
+                                  "(deepseek-moe-16b training)"},
+              at_d112_train={**flash_bwd_t[FLASH_TRAIN_SHAPES[2][0]],
+                             "shape": "B=2 S=2048 H=KVH=32 D=112 causal bf16 "
+                                      "(zamba2-7b training)"},
+              at_gemma2_train={**flash_bwd_t[FLASH_TRAIN_SHAPES[3][0]],
+                               "shape": "B=2 S=2048 H=16 KVH=8 D=256 causal, "
+                                        "softcap 50, scale 224^-0.5, bf16 "
+                                        "(gemma2-9b training)"},
+              at_d160_train={**flash_bwd_t[FLASH_TRAIN_SHAPES[4][0]],
+                             "shape": "B=2 S=2048 H=32 KVH=8 D=160 causal bf16 "
+                                      "(stablelm-12b training)"}),
         entry("gmm_bwd", "src/repro_torch/csrc/moe_gmm.cu",
               "src/repro/kernels/moe_gmm.py:47", gmm_bwd_err,
               gmm_bwd_t["train_gate_up"],
               f"E=64 C={train_capacity()} d=2048 f=1408 bf16 "
               "(deepseek-moe-16b training gate/up: dx and dw)",
-              "two launches of the grouped-GEMM kernel (dx = dy w^T, dw = "
-              "x^T dy) on contiguous transposes; launches count calls",
+              "wgmma_bwd: two launches of the grouped-GEMM wgmma kernel "
+              "instantiated for the operands' majorness, no transposed copy "
+              "(dx = dy w^T with w a K-major B; dw = x^T dy with x an MN-major "
+              "A through the transpose bit); mma / fma on transposes for "
+              "shapes TMA cannot address and fp32; launches count calls",
               launches_by_variant=by_variant("gmm_bwd_by_variant"),
               at_train_down={**gmm_bwd_t["train_down"],
                              "shape": f"E=64 C={train_capacity()} d=1408 "

@@ -524,6 +524,7 @@ int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* 
                              int q_offset, int kv_valid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_out);
+  if (cudaError_t err = hopper::bind_thread_device(q)) return static_cast<int>(err);
   if (D == 64)
     return launch<64>(q, k, v, o, lse, B, Sq, Sk, H, KVH, scale, causal, window,
                       softcap, q_offset, kv_valid, s);

@@ -4,12 +4,14 @@
 // Device side: mbarriers that complete on thread arrivals (local or from
 // another block of the cluster) and on TMA bytes, TMA tile loads
 // (cp.async.bulk.tensor, also multicast to the blocks of a cluster) from a
-// CUtensorMap into shared memory, cluster rank and barrier,
+// CUtensorMap into shared memory and TMA tile stores back with their bulk
+// groups, the async-proxy fence and named barriers, cluster rank and barrier,
 // wgmma shared-memory matrix descriptors for the 128-byte swizzle, the wgmma
 // fence / commit / wait and the m64nNk16 bf16 products (A from shared memory
 // or from registers; B K-major or MN-major through the transpose bit), and
 // setmaxnreg. Host side: cuTensorMapEncodeTiled, found through
-// cudaGetDriverEntryPoint so that a library needs no -lcuda at link time.
+// cudaGetDriverEntryPoint so that a library needs no -lcuda at link time,
+// and the calling thread's device binding.
 //
 // The shared-memory tile format everything here agrees on: a TMA box whose
 // inner dimension is 64 bf16 (128 bytes, the most the 128-byte swizzle takes)
@@ -143,6 +145,45 @@ __device__ __forceinline__ void tma_load_3d_multicast(void* dst, const CUtensorM
       : "memory");
 }
 
+// A box of shared memory (laid out as the map's box, swizzle included) to
+// global memory; parts past the tensor's edges are not written. Completes
+// in the issuing thread's bulk group.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read shared memory
+// (the source may then be overwritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// Wait until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Makes this thread's writes to shared memory visible to the async proxy
+// (a TMA store that reads them next).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` over `threads` threads (a multiple of 32).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n"
                :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
@@ -236,11 +277,13 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // register A operand of the k16 slice s of the next product.
 
 // ---- wgmma products (operand lists written out) ---------------------------
-// The shapes the kernels use: A from shared memory at N = 64 and 256 (the
-// gmm's decode and prefill tiles; the SSD's C S_in^T and C B^T at 64; flash's
-// S over 64-row K tiles) and 96 (flash's S over 96-row tiles); A from
-// registers at N = 64, 128, 192 and 256 (flash's O at head_dim 64, 112/128,
-// 160 and 256; the SSD's chunk states and W x at 64).
+// The shapes the kernels use: A from shared memory at N = 32 (the flash
+// backward's S^T and dP^T over 32-row q steps), 64 and 256 (the gmm's decode
+// and prefill tiles; the SSD's C S_in^T and C B^T at 64; flash's S over
+// 64-row K tiles and the backward's S and dP) and 96 (flash's S over 96-row
+// tiles); A from registers at N = 64, 128, 192 and 256 (flash's O and dQ at
+// head_dim 64, 112/128, 160 and 256, its dK and dV parts at 64 and 128; the
+// SSD's chunk states and W x at 64).
 
 // d (m64 x n64, fp32) += A (smem, desc a) * B (smem, desc b); TA / TB: 1 where
 // that operand is MN-major. scale_d 0 overwrites d.
@@ -261,6 +304,22 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (m64 x n32, fp32) += A (smem, desc a) * B (smem, desc b); TA / TB: 1 where
+// that operand is MN-major. scale_d 0 overwrites d.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
@@ -518,6 +577,22 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS;
+}
+
+// Makes the card that holds `p` current in the calling thread, once a
+// thread. Each kernel library links its own CUDA runtime, which finds no
+// current context in a thread that has used the card through neither it nor
+// PyTorch's own kernels yet (autograd's worker thread, where a backward and
+// a remat forward's recompute run, when it only takes cached memory): calls
+// there then fail with cudaErrorInvalidValue. Returns a cudaError_t value.
+inline cudaError_t bind_thread_device(const void* p) {
+  static thread_local bool bound = false;
+  if (bound) return cudaSuccess;
+  cudaPointerAttributes attr;
+  cudaError_t err = cudaPointerGetAttributes(&attr, p);
+  if (err == cudaSuccess) err = cudaSetDevice(attr.device);
+  bound = err == cudaSuccess;
+  return err;
 }
 
 inline int sm_count() {

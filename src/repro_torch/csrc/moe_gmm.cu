@@ -18,7 +18,8 @@
 //   decode, 4 tokens, C=8 (the capacity floor): 369 MB of expert weights
 //   = 0.110 ms against 3.0e9 FLOPs: bound by bytes.
 //
-// Three paths, chosen in Python (kernels/moe_gmm.py::gmm_variant):
+// Three paths, chosen in Python (kernels/moe_gmm.py::gmm_variant; the
+// backward's by gmm_bwd_variant):
 // * "wgmma", bf16 with d and f multiples of 8 (every model shape): TMA and
 //   wgmma, built from hopper.cuh.
 //   - A persistent grid (as many blocks as fit the card at once) walks the
@@ -33,10 +34,13 @@
 //     369 MB of expert weights is made. One group stays in flight; a stage
 //     goes back to the producer by one mbarrier arrival per consumer warp
 //     once the group that read it has completed.
-//   - The fp32 sum stays in registers and is rounded once to bf16 by guarded
-//     stores while the producer already loads the next tile.
+//   - The fp32 sum stays in registers and is rounded once to bf16 into a
+//     shared-memory output tile, which one thread stores by TMA (clipped at
+//     the ragged edges) while the consumers start the next tile and the
+//     producer loads it.
 //   - Tile per shape. C > 64 (prefill): 128 x 256 tiles (two consumer
-//     warpgroups of 64 x 256, 128 accumulators a thread), 4 stages of 48 KB,
+//     warpgroups of 64 x 256, 128 accumulators a thread), 3 stages of 48 KB
+//     beside the 64 KB output tile,
 //     and two blocks to a cluster on neighbouring C-tiles of one expert and
 //     f-tile: each loads half of the shared w tile by TMA multicast into
 //     both, and a stage is free once the consumers of both blocks have read
@@ -53,17 +57,33 @@
 //     nearly full. Swapping the operands (f as wgmma's M, C=8 as its N) would
 //     read the same bytes through another operand layout, so it was not
 //     taken.
-//   - The two tensor maps are encoded inside the C entry point, once per
-//     call (moe_gmm_encode_ns measures it).
-//   - Measured (chip_smoke.py, H100 80GB HBM3 at 700 W): 0.710 ms at the
-//     prefill gate/up shape (1.97x the bound, 1.36x torch.bmm's 0.523 ms),
-//     0.159 ms at decode (1.43x the bound, 1.10x torch.bmm's 0.144 ms);
-//     168 registers (64 at decode), no spills, no serialization. What still
-//     holds prefill back: each consumer warpgroup reads the whole 64 x 256 w
-//     tile from shared memory at every step, so with TMA's writes a stage
-//     costs about as many shared-memory bytes per cycle as the card moves;
-//     the epilogue's stores are not overlapped with the next tile's
-//     products.
+//   - The three tensor maps (x, w, out) are encoded inside the C entry
+//     point, once per call (moe_gmm_encode_ns measures it).
+//   - Measured (chip_smoke.py, H100 80GB HBM3 at 700 W): 0.602 ms at the
+//     prefill gate/up shape (1.67x the bound, 1.20x torch.bmm's 0.501 ms;
+//     0.710 with the epilogue's stores from registers), 0.159 ms at decode
+//     (1.43x the bound, 1.14x torch.bmm's 0.140 ms); 168 registers (62 at
+//     decode), no spills, no serialization. What still holds prefill back:
+//     each consumer warpgroup reads the whole 64 x 256 w tile from shared
+//     memory at every step, so with TMA's writes a stage costs about as many
+//     shared-memory bytes per cycle as the card moves.
+//   - The backward (training) runs on the same kernel, instantiated for the
+//     operands' majorness, so that no operand is copied transposed: dx = dy
+//     w^T reads dy as the forward reads x and w (E, d, f) as a K-major B (f
+//     is the contraction and the contiguous axis: wgmma's plain B); dw =
+//     x^T dy reads x (E, C, d) as an MN-major A through wgmma's transpose
+//     bit and dy (E, C, f) as an MN-major B, the sum over C zero-filled by
+//     TMA past its ragged end (488 at the training capacity). Two launches,
+//     dx then dw, on the prefill configuration (dx on decode's where C <=
+//     64). Before it the backward copied w^T (369 MB) and x^T (128 MB) and
+//     ran the forward twice: 2.90 ms at deepseek-moe-16b's training
+//     gate/up shape on an H100 80GB HBM3 at 700 W, 1.82 of it the copies
+//     (chip_smoke.py phase gmm_bwd, torch.profiler). dw's tiles are only 8
+//     steps deep (C = 488), so each tile's fill and epilogue weigh four
+//     times as much as in the forward: the epilogue through shared memory
+//     and a TMA store, overlapped with the next tile, took the backward
+//     from 0.95-1.00 ms to 0.68-0.70 (torch.bmm's backward 0.68-0.71 in
+//     the same run).
 // * "mma", other bf16 shapes (d or f not a multiple of 8, which TMA cannot
 //   address): one block per (f-tile 128, C-tile 128, expert), eight warps of
 //   mma.sync m16n8k16 fed by ldmatrix from two cp.async stages 32 deep;
@@ -337,36 +357,49 @@ struct Layout {
   static constexpr int B_BOXES = BN / hopper::BOX;
   static constexpr int B_BYTES = B_BOXES * B_BOX_BYTES;
   static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int OUT_BYTES = BM * BN * 2;                  // the bf16 output tile
   static constexpr int BARRIERS = 2 * STAGES * 8;
-  static constexpr int BYTES = STAGES * STAGE + BARRIERS + 1024;   // + alignment slack
+  static constexpr int BYTES = STAGES * STAGE + OUT_BYTES + BARRIERS + 1024;   // + alignment slack
   static constexpr int THREADS = 128 * (WGS + 1);
   static_assert(B_BOXES % CL == 0, "each block of a cluster loads its share of w");
 };
 
 // Persistent: cluster c takes tile groups c, c + clusters, ... of the
-// (expert, C-tile group, f-tile) order, f fastest, so clusters that run
-// together share x tiles and one expert's weights in L2. Block r of a
-// cluster computes C-tile CL * group + r; the CL blocks share the w tile, and
-// each loads 1/CL of it by TMA multicast into every block of the cluster,
-// which divides the w traffic from L2 by CL. A stage is therefore free only
-// once the consumers of every block of the cluster have read it: each
-// consumer warp arrives on the empty barrier of every block.
+// (expert, M-tile group, N-tile) order, N fastest, so clusters that run
+// together share A tiles and one expert's B in L2. Block r of a cluster
+// computes M-tile CL * group + r; the CL blocks share the B tile, and each
+// loads 1/CL of it by TMA multicast into every block of the cluster, which
+// divides the B traffic from L2 by CL. A stage is therefore free only once
+// the consumers of every block of the cluster have read it: each consumer
+// warp arrives on the empty barrier of every block.
 // The last warpgroup's first thread is the producer; the others multiply.
 // The ring runs on across tiles, so the producer loads the next tile while
 // the consumers store this one.
-template <int WGS, int BN, int STAGES, int CL>
+// out (E, M, N) = A (E, M, K) B (E, K, N), each operand read as stored:
+//   TA 0: A K-major (K contiguous), one box of 64 K x BM rows a stage;
+//   TA 1: A MN-major (M contiguous), WGS boxes of 64 M x 64 K rows;
+//   TB 1: B MN-major (N contiguous), BN / 64 boxes of 64 N x 64 K rows;
+//   TB 0: B K-major (K contiguous), one box of 64 K x BN / CL rows a block.
+// The forward is (TA, TB) = (0, 1): x (E, C, d), w (E, d, f). The backward's
+// dx = dy w^T is (0, 0): w (E, d, f) is B K-major as stored, f the
+// contraction; dw = x^T dy is (1, 1): x (E, C, d) is A MN-major and dy
+// (E, C, f) B MN-major, C the contraction.
+template <int WGS, int BN, int STAGES, int CL, int TA, int TB>
 __global__ void __launch_bounds__(Layout<WGS, BN, STAGES, CL>::THREADS, 1)
-gmm_wgmma_kernel(__grid_constant__ const CUtensorMap xmap,
-                 __grid_constant__ const CUtensorMap wmap, bf16* __restrict__ out,
-                 int E, int C, int f, int k_steps) {
+gmm_wgmma_kernel(__grid_constant__ const CUtensorMap amap,
+                 __grid_constant__ const CUtensorMap bmap,
+                 __grid_constant__ const CUtensorMap omap, int E, int M, int N, int k_steps) {
   using L = Layout<WGS, BN, STAGES, CL>;
+  constexpr int A_BOX_BYTES = 64 * hopper::BOX_ROW_BYTES;   // TA 1: 64 K rows of 64 M
+  constexpr int B_ROWS = BN / CL;                           // TB 0: N rows a block loads
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + STAGES * L::STAGE);
+  unsigned char* out_tile = base + STAGES * L::STAGE;   // 64-column boxes of BM rows
+  uint64_t* full = reinterpret_cast<uint64_t*>(out_tile + L::OUT_BYTES);
   uint64_t* empty = full + STAGES;
-  const int n_f = (f + BN - 1) / BN, n_c = (C + L::BM - 1) / L::BM;
-  const int n_g = (n_c + CL - 1) / CL;            // C-tile groups, one per cluster
+  const int n_f = (N + BN - 1) / BN, n_c = (M + L::BM - 1) / L::BM;
+  const int n_g = (n_c + CL - 1) / CL;            // M-tile groups, one per cluster
   const int groups = E * n_g * n_f;
   const int rank = CL > 1 ? (int)hopper::cluster_ctarank() : 0;
   const int cluster = blockIdx.x / CL, clusters = gridDim.x / CL;
@@ -384,8 +417,9 @@ gmm_wgmma_kernel(__grid_constant__ const CUtensorMap xmap,
   if (wgi == WGS) {                               // producer warpgroup
     if constexpr (WGS == 2) hopper::setmaxnreg_dec<40>();
     if (threadIdx.x == WGS * 128) {
-      hopper::tma_prefetch_map(&xmap);
-      hopper::tma_prefetch_map(&wmap);
+      hopper::tma_prefetch_map(&amap);
+      hopper::tma_prefetch_map(&bmap);
+      const uint16_t mask = (uint16_t)((1u << CL) - 1);
       int it = 0;
       for (int grp = cluster; grp < groups; grp += clusters) {
         const int ft = grp % n_f, ct = (grp / n_f) % n_g * CL + rank, e = grp / (n_f * n_g);
@@ -393,24 +427,39 @@ gmm_wgmma_kernel(__grid_constant__ const CUtensorMap xmap,
           const int s = it % STAGES;
           hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
           unsigned char* st = base + s * L::STAGE;
-          hopper::mbar_expect_tx(&full[s], L::STAGE);   // all of w lands here, 1/CL from each block
-          hopper::tma_load_3d(st, &xmap, &full[s], k * BKD, ct * L::BM, e);
+          hopper::mbar_expect_tx(&full[s], L::STAGE);   // all of B lands here, 1/CL from each block
+          if constexpr (TA == 0) {
+            hopper::tma_load_3d(st, &amap, &full[s], k * BKD, ct * L::BM, e);
+          } else {
 #pragma unroll
-          for (int i = 0; i < L::B_BOXES / CL; ++i) {
-            const int nb = rank * (L::B_BOXES / CL) + i;
-            unsigned char* dst = st + L::A_BYTES + nb * B_BOX_BYTES;
-            const int col = ft * BN + nb * hopper::BOX;
+            for (int b = 0; b < WGS; ++b)
+              hopper::tma_load_3d(st + b * A_BOX_BYTES, &amap, &full[s],
+                                  ct * L::BM + b * hopper::BOX, k * BKD, e);
+          }
+          if constexpr (TB == 1) {
+#pragma unroll
+            for (int i = 0; i < L::B_BOXES / CL; ++i) {
+              const int nb = rank * (L::B_BOXES / CL) + i;
+              unsigned char* dst = st + L::A_BYTES + nb * B_BOX_BYTES;
+              const int col = ft * BN + nb * hopper::BOX;
+              if constexpr (CL > 1)
+                hopper::tma_load_3d_multicast(dst, &bmap, &full[s], col, k * BKD, e, mask);
+              else
+                hopper::tma_load_3d(dst, &bmap, &full[s], col, k * BKD, e);
+            }
+          } else {
+            unsigned char* dst = st + L::A_BYTES + rank * B_ROWS * hopper::BOX_ROW_BYTES;
+            const int row = ft * BN + rank * B_ROWS;
             if constexpr (CL > 1)
-              hopper::tma_load_3d_multicast(dst, &wmap, &full[s], col, k * BKD, e,
-                                            (uint16_t)((1u << CL) - 1));
+              hopper::tma_load_3d_multicast(dst, &bmap, &full[s], k * BKD, row, e, mask);
             else
-              hopper::tma_load_3d(dst, &wmap, &full[s], col, k * BKD, e);
+              hopper::tma_load_3d(dst, &bmap, &full[s], k * BKD, row, e);
           }
         }
       }
     }
   } else {
-    // consumer warpgroup wgi: rows wgi * 64 .. + 63 of each C tile
+    // consumer warpgroup wgi: rows wgi * 64 .. + 63 of each M tile
     if constexpr (WGS == 2) hopper::setmaxnreg_inc<232>();
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     auto release = [&](int s) {                   // stage s is read: free it cluster-wide
@@ -431,14 +480,19 @@ gmm_wgmma_kernel(__grid_constant__ const CUtensorMap xmap,
       for (int k = 0; k < k_steps; ++k, ++it) {
         const int s = it % STAGES;
         hopper::mbar_wait(&full[s], (it / STAGES) & 1);
-        const unsigned char* a = base + s * L::STAGE + wgi * 64 * hopper::BOX_ROW_BYTES;
+        const unsigned char* a = base + s * L::STAGE;
         const unsigned char* b = base + s * L::STAGE + L::A_BYTES;
         hopper::fence_regs(acc);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BKD / 16; ++kk)     // x K-major, w MN-major
-          hopper::wgmma_ss<0, 1>(acc, hopper::desc_kmajor(a + 32 * kk),
-                                 hopper::desc_mnmajor(b + 2048 * kk, B_BOX_BYTES), 1);
+        for (int kk = 0; kk < BKD / 16; ++kk) {
+          const uint64_t da =
+              TA == 0 ? hopper::desc_kmajor(a + wgi * 64 * hopper::BOX_ROW_BYTES + 32 * kk)
+                      : hopper::desc_mnmajor(a + wgi * A_BOX_BYTES + 2048 * kk, A_BOX_BYTES);
+          const uint64_t db = TB == 1 ? hopper::desc_mnmajor(b + 2048 * kk, B_BOX_BYTES)
+                                      : hopper::desc_kmajor(b + 32 * kk);
+          hopper::wgmma_ss<TA, TB>(acc, da, db, 1);
+        }
         hopper::wgmma_commit();
         hopper::wgmma_wait<1>();                  // the previous stage is read
         hopper::fence_regs(acc);
@@ -448,52 +502,66 @@ gmm_wgmma_kernel(__grid_constant__ const CUtensorMap xmap,
       hopper::fence_regs(acc);
       release((it - 1) % STAGES);
 
-      // rows g and g + 8 of this warp's 16, columns 8j + 2t and + 1; a
-      // C-tile past the end (n_c not a multiple of CL) stores nothing
-      const int row = ct * L::BM + wgi * 64 + warp * 16 + lane / 4;
-      const int col0 = ft * BN + (lane % 4) * 2;
-      bf16* oe = out + (size_t)e * C * f;
+      // The tile leaves through shared memory: rounded to bf16 into the
+      // output tile (128-byte-swizzled boxes of 64 columns, as TMA stores
+      // them; rows g and g + 8 of this warp's 16, columns 8j + 2t and + 1),
+      // then one thread stores it by TMA and the consumers go on to the
+      // next tile while it drains. TMA clips rows and columns past M and N
+      // (an M-tile past the end, n_c not a multiple of CL, stores nothing).
+      if (threadIdx.x == 0) hopper::bulk_wait_read<0>();   // the last tile's store has read it
+      hopper::named_sync(1, 128 * WGS);
+      const int r = wgi * 64 + warp * 16 + lane / 4, t2 = (lane % 4) * 4;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
-        const int col = col0 + 8 * j;            // f % 8 == 0: col < f covers col + 1
-        if (col >= f) continue;
-        if (row < C)
-          *reinterpret_cast<uint32_t*>(oe + (size_t)row * f + col) =
-              pack_bf16(acc[4 * j], acc[4 * j + 1]);
-        if (row + 8 < C)
-          *reinterpret_cast<uint32_t*>(oe + (size_t)(row + 8) * f + col) =
-              pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+        unsigned char* row = out_tile + (j / 8) * L::BM * hopper::BOX_ROW_BYTES +
+                             r * hopper::BOX_ROW_BYTES + (((j % 8) ^ (r % 8)) * 16) + t2;
+        *reinterpret_cast<uint32_t*>(row) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(row + 8 * hopper::BOX_ROW_BYTES) =
+            pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+      hopper::fence_proxy_async();
+      hopper::named_sync(1, 128 * WGS);
+      if (threadIdx.x == 0) {
+#pragma unroll
+        for (int b = 0; b < BN / hopper::BOX; ++b)
+          hopper::tma_store_3d(&omap, out_tile + b * L::BM * hopper::BOX_ROW_BYTES,
+                               ft * BN + b * hopper::BOX, ct * L::BM, e);
+        hopper::bulk_commit();
       }
     }
+    if (threadIdx.x == 0) hopper::bulk_wait<0>();   // every store is done
   }
   // no block leaves while a peer may still multicast into it or arrive on
   // its barriers
   if constexpr (CL > 1) hopper::cluster_sync();
 }
 
-// x (E, C, d) and w (E, d, f) as 3-D maps, dims innermost first: x read in
-// (64 d x bm rows) boxes, w in (64 f x 64 d) boxes; both zero-filled past C,
-// d and f, and never past an expert.
-inline bool encode_maps(CUtensorMap* xm, CUtensorMap* wm, const void* x,
-                        const void* w, int E, int C, int d, int f, int bm) {
-  const uint64_t xd[3] = {(uint64_t)d, (uint64_t)C, (uint64_t)E};
-  const uint64_t xs[2] = {(uint64_t)d * 2, (uint64_t)C * d * 2};
-  const uint32_t xb[3] = {(uint32_t)BKD, (uint32_t)bm, 1};
-  const uint64_t wd[3] = {(uint64_t)f, (uint64_t)d, (uint64_t)E};
-  const uint64_t ws[2] = {(uint64_t)f * 2, (uint64_t)d * f * 2};
-  const uint32_t wb[3] = {(uint32_t)hopper::BOX, (uint32_t)BKD, 1};
-  return hopper::encode_bf16_map(xm, x, 3, xd, xs, xb) &&
-         hopper::encode_bf16_map(wm, w, 3, wd, ws, wb);
+// A contiguous bf16 (E, rows, cols) tensor as a 3-D map, dims innermost
+// first, read in boxes of 64 columns x box_rows rows of one expert;
+// zero-filled past rows and cols, and never past an expert.
+inline bool encode_3d(CUtensorMap* map, const void* p, int E, int rows, int cols,
+                      int box_rows) {
+  const uint64_t dims[3] = {(uint64_t)cols, (uint64_t)rows, (uint64_t)E};
+  const uint64_t strides[2] = {(uint64_t)cols * 2, (uint64_t)rows * cols * 2};
+  const uint32_t box[3] = {(uint32_t)hopper::BOX, (uint32_t)box_rows, 1};
+  return hopper::encode_bf16_map(map, p, 3, dims, strides, box);
 }
 
-template <int WGS, int BN, int STAGES, int CL>
-int launch(const void* x, const void* w, void* out, int E, int C, int d, int f,
-           cudaStream_t stream) {
+// The forward's maps: x (E, C, d) in (64 d x bm rows) boxes, w (E, d, f) in
+// (64 f x 64 d) boxes.
+inline bool encode_maps(CUtensorMap* xm, CUtensorMap* wm, const void* x,
+                        const void* w, int E, int C, int d, int f, int bm) {
+  return encode_3d(xm, x, E, C, d, bm) && encode_3d(wm, w, E, d, f, BKD);
+}
+
+// out (E, M, N) = A B over K, from the two maps the (TA, TB) layout reads.
+template <int WGS, int BN, int STAGES, int CL, int TA, int TB>
+int launch(const CUtensorMap& am, const CUtensorMap& bm, void* out, int E, int M, int N,
+           int K, cudaStream_t stream) {
   using L = Layout<WGS, BN, STAGES, CL>;
-  auto kernel = gmm_wgmma_kernel<WGS, BN, STAGES, CL>;
-  CUtensorMap xm, wm;
-  if (!encode_maps(&xm, &wm, x, w, E, C, d, f, L::BM))
-    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = gmm_wgmma_kernel<WGS, BN, STAGES, CL, TA, TB>;
+  CUtensorMap om;                                 // out in (64 N x BM rows) boxes
+  if (!encode_3d(&om, out, E, M, N, L::BM)) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -517,19 +585,19 @@ int launch(const void* x, const void* w, void* out, int E, int C, int d, int f,
     if (err != cudaSuccess) return static_cast<int>(err);
     if (max_clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  const int n_g = ((C + L::BM - 1) / L::BM + CL - 1) / CL;
-  const long groups = (long)E * n_g * ((f + BN - 1) / BN);
+  const int n_g = ((M + L::BM - 1) / L::BM + CL - 1) / CL;
+  const long groups = (long)E * n_g * ((N + BN - 1) / BN);
   cfg.gridDim = dim3(CL * (int)(groups < max_clusters ? groups : max_clusters));
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, xm, wm, static_cast<bf16*>(out), E,
-                                       C, f, (d + BKD - 1) / BKD);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, am, bm, om, E, M, N, (K + BKD - 1) / BKD);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The two configurations the C entry point chooses between: C > 64 (prefill)
-// takes 128 x 256 tiles from 4 stages of 48 KB, two blocks to a cluster
-// sharing each w tile; C <= 64 (decode) 64 x 64 tiles from 8 stages of 16 KB.
-constexpr int PREFILL_WGS = 2, PREFILL_BN = 256, PREFILL_STAGES = 4, PREFILL_CL = 2;
+// takes 128 x 256 tiles from 3 stages of 48 KB (and the 64 KB output tile),
+// two blocks to a cluster sharing each w tile; C <= 64 (decode) 64 x 64
+// tiles from 8 stages of 16 KB.
+constexpr int PREFILL_WGS = 2, PREFILL_BN = 256, PREFILL_STAGES = 3, PREFILL_CL = 2;
 constexpr int DECODE_WGS = 1, DECODE_BN = 64, DECODE_STAGES = 8, DECODE_CL = 1;
 using Prefill = Layout<PREFILL_WGS, PREFILL_BN, PREFILL_STAGES, PREFILL_CL>;
 using Decode = Layout<DECODE_WGS, DECODE_BN, DECODE_STAGES, DECODE_CL>;
@@ -554,6 +622,7 @@ int moe_gmm_fwd(const void* x, const void* w, void* out, int E, int C, int d,
                 int f, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (E < 1 || C < 1 || d < 1 || f < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (cudaError_t err = hopper::bind_thread_device(x)) return static_cast<int>(err);
   dim3 grid((f + BN - 1) / BN, (C + BM - 1) / BM, E);
   if (dtype == 0) {
     const bool vec = d % 8 == 0 && f % 8 == 0 &&
@@ -577,21 +646,63 @@ int moe_gmm_fwd(const void* x, const void* w, void* out, int E, int C, int d,
 }
 
 // The TMA + wgmma path: bf16 x (E,C,d), w (E,d,f), out (E,C,f), contiguous,
-// d and f multiples of 8, x and w 16-byte aligned (what TMA can address).
+// d and f multiples of 8, x, w and out 16-byte aligned (what TMA can
+// address).
 // A 64-row C tile (one consumer warpgroup) where C <= 64, else 128 rows.
 // Returns a cudaError_t value: 0 when the launch was accepted.
 int moe_gmm_wgmma_fwd(const void* x, const void* w, void* out, int E, int C,
                       int d, int f, void* stream) {
   if (E < 1 || C < 1 || d < 1 || f < 1 || d % 8 || f % 8 ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16 ||
-      reinterpret_cast<uintptr_t>(out) % 4)
+      reinterpret_cast<uintptr_t>(out) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (cudaError_t err = hopper::bind_thread_device(x)) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap xm, wm;
+  if (!wg::encode_maps(&xm, &wm, x, w, E, C, d, f, C <= 64 ? 64 : 128))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (C <= 64)
-    return wg::launch<wg::DECODE_WGS, wg::DECODE_BN, wg::DECODE_STAGES, wg::DECODE_CL>(
-        x, w, out, E, C, d, f, s);
-  return wg::launch<wg::PREFILL_WGS, wg::PREFILL_BN, wg::PREFILL_STAGES, wg::PREFILL_CL>(
-      x, w, out, E, C, d, f, s);
+    return wg::launch<wg::DECODE_WGS, wg::DECODE_BN, wg::DECODE_STAGES, wg::DECODE_CL, 0, 1>(
+        xm, wm, out, E, C, f, d, s);
+  return wg::launch<wg::PREFILL_WGS, wg::PREFILL_BN, wg::PREFILL_STAGES, wg::PREFILL_CL, 0, 1>(
+      xm, wm, out, E, C, f, d, s);
+}
+
+// The backward of out = x w on the same kernel, each operand read as stored
+// (no transposed copy): dx (E,C,d) = dy w^T over f, then dw (E,d,f) = x^T dy
+// over C. bf16, contiguous, d and f multiples of 8, every pointer 16-byte
+// aligned. dx takes the forward's tile by C (64 rows where C <= 64, else
+// 128); dw's rows are d, always the 128-row tile. Returns a cudaError_t
+// value: 0 when both launches were accepted.
+int moe_gmm_wgmma_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw,
+                      int E, int C, int d, int f, void* stream) {
+  if (E < 1 || C < 1 || d < 1 || f < 1 || d % 8 || f % 8 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(dx) |
+       reinterpret_cast<uintptr_t>(dw)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (cudaError_t err = hopper::bind_thread_device(x)) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using namespace wg;
+  CUtensorMap am, bm;
+  int err;
+  if (C <= 64) {
+    if (!encode_3d(&am, dy, E, C, f, 64) || !encode_3d(&bm, w, E, d, f, DECODE_BN / DECODE_CL))
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = launch<DECODE_WGS, DECODE_BN, DECODE_STAGES, DECODE_CL, 0, 0>(am, bm, dx, E, C, d,
+                                                                        f, s);
+  } else {
+    if (!encode_3d(&am, dy, E, C, f, 128) ||
+        !encode_3d(&bm, w, E, d, f, PREFILL_BN / PREFILL_CL))
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = launch<PREFILL_WGS, PREFILL_BN, PREFILL_STAGES, PREFILL_CL, 0, 0>(am, bm, dx, E, C,
+                                                                            d, f, s);
+  }
+  if (err) return err;
+  if (!encode_3d(&am, x, E, C, d, BKD) || !encode_3d(&bm, dy, E, C, f, BKD))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<PREFILL_WGS, PREFILL_BN, PREFILL_STAGES, PREFILL_CL, 1, 1>(am, bm, dw, E, d,
+                                                                           f, C, s);
 }
 
 // Dynamic shared memory of the wgmma path with `wgs` consumer warpgroups
@@ -602,15 +713,20 @@ int moe_gmm_wgmma_smem_bytes(int wgs) {
   return 0;
 }
 
-// Host nanoseconds per call to encode the two tensor maps of one wgmma
-// launch, averaged over `iters` encodings; -1 if the encoder refuses them.
+// Host nanoseconds per call to encode the three tensor maps of one wgmma
+// launch (x, w and the output, here laid over x's base), averaged over
+// `iters` encodings; -1 if the encoder refuses them.
 double moe_gmm_encode_ns(const void* x, const void* w, int E, int C, int d,
                          int f, int iters) {
-  CUtensorMap xm, wm;
-  if (!wg::encode_maps(&xm, &wm, x, w, E, C, d, f, C <= 64 ? 64 : 128)) return -1;
+  CUtensorMap xm, wm, om;
+  const int bm = C <= 64 ? 64 : 128;
+  if (!wg::encode_maps(&xm, &wm, x, w, E, C, d, f, bm) || !wg::encode_3d(&om, x, E, C, f, bm))
+    return -1;
   auto t0 = std::chrono::steady_clock::now();
-  for (int i = 0; i < iters; ++i)
-    wg::encode_maps(&xm, &wm, x, w, E, C, d, f, C <= 64 ? 64 : 128);
+  for (int i = 0; i < iters; ++i) {
+    wg::encode_maps(&xm, &wm, x, w, E, C, d, f, bm);
+    wg::encode_3d(&om, x, E, C, f, bm);
+  }
   auto t1 = std::chrono::steady_clock::now();
   return std::chrono::duration<double, std::nano>(t1 - t0).count() / iters;
 }

@@ -946,6 +946,7 @@ int ssd_scan_fwd(const void* x, const void* dt, const void* a_log,
                  int dtype, void* stream) {
   if (P % 16 || N % 16 || N > NMAX || Q < 1 || Q > QMAX || L % Q || H % G)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (cudaError_t err = hopper::bind_thread_device(x)) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<bf16>(x, dt, a_log, b, c, d_skip, y, state, B, L, H, P, G, N, Q, s);
@@ -976,6 +977,7 @@ int ssd_scan_wgmma_fwd(const void* x, const void* dt, const void* a_log,
   if (P != wg::P || Q % wg::ROWS || Q < wg::ROWS || Q > QMAX || L % Q || H % G ||
       (long long)B * (L / Q) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (cudaError_t err = hopper::bind_thread_device(x)) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N == 64)
     return wg::launch<64>(x, dt, a_log, b, c, d_skip, y, state, s_loc, tot, s_hi, s_lo,

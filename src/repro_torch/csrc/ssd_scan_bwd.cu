@@ -63,6 +63,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -745,6 +747,7 @@ int ssd_scan_bwd(const void* x, const void* dt, const void* a_log, const void* b
   if (B < 1 || L < 1 || H < 1 || G < 1 || P % 16 || P < 16 || N % 16 || N < 16 ||
       N > NMAX || Q < 1 || Q > QMAX || L % Q || H % G)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (cudaError_t err = hopper::bind_thread_device(x)) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_slices<bf16>(x, dt, a_log, b, c, d_skip, dy, dstate, dx, ddt, da, db,

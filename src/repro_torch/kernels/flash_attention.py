@@ -25,7 +25,9 @@ requires grad, the CUDA path is ``FlashAttentionFn``: the forward kernel also
 writes each row's log-sum-exp, and the backward is ``csrc/flash_attention_bwd.cu``
 (``flash_attention_bwd_cuda``), held against ``flash_attention_bwd_plain``,
 autograd through the plain version in fp32. Serving keeps the forward alone,
-with no log-sum-exp written.
+with no log-sum-exp written. The backward takes every head dim the forward
+takes, on the same primitives: producer warps feed tiles by TMA, consumer
+warpgroups run the products on ``wgmma`` (the tile plan: ``BWD_TILES``).
 """
 from __future__ import annotations
 
@@ -43,12 +45,21 @@ BOX = 64               # bf16 columns of one 128-byte-swizzled TMA box
 TILES = {64: (2, 96, 2, 128), 112: (2, 96, 2, 128), 128: (2, 96, 2, 128),
          160: (1, 96, 2, 32), 256: (1, 64, 2, 32)}
 HEAD_DIMS = tuple(TILES)
-# head dims the backward kernel takes (112 runs at 128); 160 and 256 wait for
-# ROADMAP.md B5, since their families are not on the card's training path
-BWD_HEAD_DIMS = (64, 112, 128)
-# backward kernel -> (rows a block owns, rows a step streams): dkdv owns 64
-# keys and streams 32 q rows; dq owns 64 q rows and streams 64 keys
-BWD_BLOCKS = {"dkdv": (64, 32), "dq": (64, 64)}
+# The backward's tile plan, the kernel's Tiles<D>: head_dim -> (the 64-column
+# boxes of each column part of dK and dV, q rows of a dkdv step, the dkdv
+# kernel's stages, the dq kernel's stages). A dkdv block owns 64 keys: two
+# consumer warpgroups (one forms P and owns dV, the other forms dS and owns
+# dK) and a producer warp streaming Q and dO tiles of a step's rows. A dq
+# block owns 64 q rows: one consumer warpgroup and a producer warp
+# streaming 32-row K and V tiles. dK and dV of a part take 64 fp32
+# registers a thread per two boxes, so at 160 (run at 192) and 256 their
+# columns are cut into parts of at most two boxes, one block each.
+BWD_TILES = {64: ((1,), 64, 3, 4), 112: ((2,), 64, 3, 4), 128: ((2,), 64, 3, 4),
+             160: ((2, 1), 64, 2, 4), 256: ((2, 2), 32, 2, 4)}
+BWD_HEAD_DIMS = tuple(BWD_TILES)
+BWD_ROWS = 64          # keys of a dkdv block, q rows of a dq block
+BWD_KEY_STEP = 32      # keys of a dq step
+SM_SMEM = 233472       # shared memory of one Hopper SM; each block reserves 1 KB more
 
 
 def head_dim_boxes(d: int) -> int:
@@ -114,13 +125,31 @@ def _bwd_lib() -> ctypes.CDLL:
 
 def bwd_smem_bytes(d: int, kernel: str) -> int:
     """Dynamic shared memory of one block of the backward's ``dkdv`` or
-    ``dq`` kernel at head_dim ``d``: the resident tiles (K and V, or Q and
-    dO) and two stages of the streamed ones, each row ``padded_head_dim(d)``
-    bf16 plus 8 of padding; the dkdv kernel also stages the LSE and Delta of
-    its q rows in fp32."""
-    own, step = BWD_BLOCKS[kernel]
-    row = (padded_head_dim(d) + 8) * 2
-    return (2 * own + 4 * step) * row + (4 * step * 4 if kernel == "dkdv" else 0)
+    ``dq`` kernel at head_dim ``d``: dkdv, the 64-row K and V tiles, its
+    stages of Q and dO tiles of a step's rows with their LSE and Delta in
+    fp32, and two buffers of P dy (64 keys x a step's rows, fp32); dq, the
+    64-row Q and dO tiles and its stages of 32-row K and V tiles; each row
+    ``padded_head_dim(d)`` bf16 in 128-byte boxes; 128 bytes of mbarriers;
+    1 KB of slack to align the tiles to the swizzle's 1024-byte atoms. Must
+    stay within the 232 448 bytes a block may use on Hopper."""
+    _, q_step, dkdv_stages, dq_stages = BWD_TILES[d]
+    row = padded_head_dim(d) * 2
+    if kernel == "dkdv":
+        tiles = 2 * BWD_ROWS * row + dkdv_stages * 2 * q_step * row
+        vectors = 2 * BWD_ROWS * q_step * 4 + dkdv_stages * 2 * q_step * 4
+        return tiles + vectors + 128 + 1024
+    return (2 * BWD_ROWS + 2 * dq_stages * BWD_KEY_STEP) * row + 128 + 1024
+
+
+def bwd_blocks_per_sm(d: int, kernel: str) -> int:
+    """Blocks of the backward's ``dkdv`` or ``dq`` kernel one SM holds at
+    head_dim ``d``: a dkdv block is nine warps (a thread may hold 168
+    registers), one an SM; dq blocks are five warps, two an SM wherever two
+    blocks' shared memory fits (ten warps: 168 registers again), else one
+    (255)."""
+    if kernel == "dkdv":
+        return 1
+    return 2 if 2 * (bwd_smem_bytes(d, kernel) + 1024) <= SM_SMEM else 1
 
 
 def check_inputs(q, k, v) -> None:
@@ -209,11 +238,8 @@ flash_attention_cuda.launches = 0
 
 
 def check_bwd_inputs(q, q_offset=0) -> None:
-    """Raise ``ValueError`` for what the backward kernel does not take."""
-    D = q.shape[-1]
-    if D not in BWD_HEAD_DIMS:
-        raise ValueError(f"head_dim {D}: the backward kernel takes "
-                         f"{BWD_HEAD_DIMS}; 160 and 256 are ROADMAP.md B5")
+    """Raise ``ValueError`` for what the backward kernel does not take (it
+    takes every head dim the forward takes)."""
     if q_offset:
         raise ValueError("the backward kernel takes q_offset 0 only "
                          "(training passes no offset)")
@@ -245,10 +271,10 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal=True,
                              window=0, softcap=0.0, scale=None, kv_valid=None):
     """Gradients (dq, dk, dv) of the attention ``out`` = flash(q, k, v) for
     the output gradient ``dout``, from the forward's ``lse`` (B, H, Sq), fp32,
-    base 2: three kernels on the current stream (Delta = rowsum(dout * out),
-    then dK and dV per K/V tile, then dQ per q tile).
+    base 2: kernels on the current stream (Delta = rowsum(dout * out), then
+    dK and dV per K/V tile and column part, then dQ per q tile).
     ``flash_attention_bwd_cuda.launches`` counts the calls. CUDA tensors
-    only; no q_offset; head_dim 64, 112 or 128.
+    only; no q_offset; every head dim of ``HEAD_DIMS``.
     """
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention backward kernel for device "

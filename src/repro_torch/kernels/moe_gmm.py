@@ -8,7 +8,8 @@ Counterpart of ``repro.kernels.moe_gmm`` (``gmm_pallas``). The kernels are in
   persistent grid over (expert, C-tile, f-tile) tiles; a producer thread
   feeds x and w tiles 64 deep by TMA into a ring of swizzled stages
   completed on mbarriers, and consumer warpgroups multiply them with
-  ``wgmma`` (x K-major, w MN-major through the transpose bit). Prefill
+  ``wgmma`` (x K-major, w MN-major through the transpose bit); the output
+  tile leaves through shared memory by a TMA store. Prefill
   (C > 64) takes 128 x 256 tiles, two blocks to a cluster sharing each w tile
   by TMA multicast; decode (C <= 64) 64 x 64 tiles (``WGMMA_TILES``).
 - ``"mma"``: bf16 shapes TMA cannot address (d or f not a multiple of 8):
@@ -25,9 +26,20 @@ version (the torch twin of ``ref.gmm_naive``), through which autograd
 differentiates; on a CUDA tensor it launches the chosen variant or raises.
 Nothing falls back to another variant or to the plain version. In grad mode,
 with an input that requires grad, the CUDA path is ``GmmFn``, whose backward
-(``gmm_bwd_cuda``) is two more launches of the same kernels: dx = dy w^T and
-dw = x^T dy, on transposed operands made contiguous first. Its plain version
-is ``gmm_bwd_plain``.
+is ``gmm_bwd_cuda``: dx = dy w^T and dw = x^T dy. ``gmm_bwd_variant`` picks
+its route from the shapes and the dtype:
+
+- ``"wgmma_bwd"``: where the forward takes ``"wgmma"`` (every model shape).
+  Two launches of the wgmma kernel instantiated for the operands' majorness,
+  each operand read as stored: dx reads w (E, d, f) as a K-major B (f is the
+  contraction and the contiguous axis), dw reads x (E, C, d) as an MN-major
+  A through wgmma's transpose bit and dy (E, C, f) as an MN-major B. No
+  transposed copy is made.
+- ``"mma"`` / ``"fma"``: bf16 shapes TMA cannot address, and fp32: the
+  forward's kernels on contiguous transposes (w^T is (E, f, d), x^T (E, d,
+  C)).
+
+Its plain version is ``gmm_bwd_plain``.
 """
 from __future__ import annotations
 
@@ -44,10 +56,11 @@ BLOCK_D = 32           # mma path: depth of one bf16 d tile (one pipeline stage)
 WGMMA_BLOCK_D = 64     # wgmma path: depth of one stage (one 128-byte box)
 # wgmma path, by C tile (64 rows where C <= 64, else 128): (f columns per
 # tile, stages in the ring)
-WGMMA_TILES = {64: (64, 8), 128: (256, 4)}
+WGMMA_TILES = {64: (64, 8), 128: (256, 3)}
 MAX_EXPERTS = 65535    # the grid's third dimension (mma / fma paths)
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 VARIANTS = ("wgmma", "mma", "fma")
+BWD_VARIANTS = ("wgmma_bwd", "mma", "fma")
 
 
 @functools.cache
@@ -60,6 +73,8 @@ def _lib() -> ctypes.CDLL:
     lib.moe_gmm_smem_bytes.restype = i
     lib.moe_gmm_wgmma_fwd.argtypes = [p, p, p, i, i, i, i, p]
     lib.moe_gmm_wgmma_fwd.restype = i
+    lib.moe_gmm_wgmma_bwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.moe_gmm_wgmma_bwd.restype = i
     lib.moe_gmm_wgmma_smem_bytes.argtypes = [i]
     lib.moe_gmm_wgmma_smem_bytes.restype = i
     lib.moe_gmm_encode_ns.argtypes = [p, p, i, i, i, i, i]
@@ -80,14 +95,31 @@ def gmm_variant(x, w) -> str:
     return "wgmma" if d % 8 == 0 and f % 8 == 0 else "mma"
 
 
+def gmm_bwd_variant(x, w) -> str:
+    """The backward's route for these operands, from their shapes and dtype:
+    ``"wgmma_bwd"`` where the forward takes ``"wgmma"`` (bf16, d and f
+    multiples of 8), else the forward's variant on transposed copies
+    (``"mma"`` for other bf16 shapes, ``"fma"`` for fp32)."""
+    variant = gmm_variant(x, w)
+    return "wgmma_bwd" if variant == "wgmma" else variant
+
+
+def wgmma_bwd_tiles(C: int) -> dict:
+    """Output rows of one wgmma block (``WGMMA_TILES``' key) in each product
+    of the backward: dx's rows are C, tiled as the forward's; dw's are d,
+    always the 128-row tile."""
+    return {"dx": 64 if C <= 64 else 128, "dw": 128}
+
+
 def wgmma_smem_bytes(block_c: int = 128) -> int:
     """Dynamic shared memory of one wgmma block: its stages of a
     (block_c x 64) x tile and a (64 x block_f) w tile in bf16
-    (``WGMMA_TILES``), one full and one empty mbarrier a stage, and 1 KB of
+    (``WGMMA_TILES``), the (block_c x block_f) bf16 output tile that the
+    TMA store reads, one full and one empty mbarrier a stage, and 1 KB of
     slack to align the ring to the 128-byte swizzle's 1024-byte atoms."""
     block_f, stages = WGMMA_TILES[block_c]
     stage = (block_c + block_f) * WGMMA_BLOCK_D * 2
-    return stages * stage + 2 * stages * 8 + 1024
+    return stages * stage + block_c * block_f * 2 + 2 * stages * 8 + 1024
 
 
 def smem_bytes(dtype: torch.dtype = torch.bfloat16) -> int:
@@ -197,11 +229,10 @@ class GmmFn(torch.autograd.Function):
 def gmm_bwd_cuda(x, w, dy):
     """Gradients (dx, dw) of y = x @ w per expert for the output gradient
     ``dy`` (E, C, f): dx = dy w^T (E, C, d) and dw = x^T dy (E, d, f), two
-    launches of the forward's kernels on contiguous transposes (w^T is (E,
-    f, d), x^T (E, d, C)), each on the variant ``gmm_variant`` names for its
-    operands. ``gmm_bwd_cuda.launches`` counts the calls (two kernel
-    launches each) and ``gmm_bwd_cuda.variant_launches`` the kernel launches
-    by variant. CUDA tensors only.
+    kernel launches on the route ``gmm_bwd_variant`` names.
+    ``gmm_bwd_cuda.launches`` counts the calls and
+    ``gmm_bwd_cuda.variant_launches`` the kernel launches by route. CUDA
+    tensors only.
     """
     if x.device.type != "cuda":
         raise ValueError(f"no grouped-GEMM backward kernel for device "
@@ -210,14 +241,35 @@ def gmm_bwd_cuda(x, w, dy):
     if dy.shape != (x.shape[0], x.shape[1], w.shape[2]):
         raise ValueError(f"dy {tuple(dy.shape)} does not match x "
                          f"{tuple(x.shape)} @ w {tuple(w.shape)}")
-    dx = _launch(dy, w.transpose(1, 2).contiguous(), gmm_bwd_cuda)
-    dw = _launch(x.transpose(1, 2).contiguous(), dy, gmm_bwd_cuda)
+    variant = gmm_bwd_variant(x, w)
+    if variant != "wgmma_bwd":
+        dx = _launch(dy, w.transpose(1, 2).contiguous(), gmm_bwd_cuda)
+        dw = _launch(x.transpose(1, 2).contiguous(), dy, gmm_bwd_cuda)
+        gmm_bwd_cuda.launches += 1
+        return dx, dw
+    check_inputs(x, w)
+    if dy.dtype != x.dtype or not dy.is_contiguous() or dy.data_ptr() % 16 \
+            or dy.device != x.device:
+        raise ValueError("dy must be a contiguous, 16-byte aligned tensor of "
+                         "x's dtype on its device")
+    E, C, d = x.shape
+    f = w.shape[2]
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().moe_gmm_wgmma_bwd(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+                                       dx.data_ptr(), dw.data_ptr(), E, C, d, f,
+                                       stream)
+    if err:
+        raise RuntimeError(f"moe_gmm backward kernel launch failed "
+                           f"(cudaError_t {err})")
+    gmm_bwd_cuda.variant_launches["wgmma_bwd"] += 2
     gmm_bwd_cuda.launches += 1
     return dx, dw
 
 
 gmm_bwd_cuda.launches = 0
-gmm_bwd_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)
+gmm_bwd_cuda.variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
 
 
 def gmm_bwd_plain(x, w, dy):

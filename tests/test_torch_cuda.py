@@ -232,11 +232,14 @@ def test_flash_attention_backward_of_a_row_with_no_key_is_zero(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,kw", [(160, {}), (256, {}), (128, {"q_offset": 4})])
+@pytest.mark.parametrize("D,kw", [(160, {"q_offset": 4}), (256, {"q_offset": 4}),
+                                  (128, {"q_offset": 4})])
 def test_flash_attention_backward_rejects_what_it_does_not_take(cuda, D, kw):
+    """Every head dim has a backward; a q_offset (never passed in training)
+    is refused before any launch."""
     q, k, v = (t.requires_grad_() for t in _qkv(25, 1, 64, 64, 2, 2, D, cuda))
     before = fa.flash_attention_cuda.launches
-    with pytest.raises(ValueError, match="B5" if D != 128 else "q_offset"):
+    with pytest.raises(ValueError, match="q_offset"):
         fa.flash_attention_cuda(q, k, v, **kw)
     assert fa.flash_attention_cuda.launches == before
 
@@ -263,6 +266,29 @@ def test_gmm_backward_vs_plain(cuda, dtype, tol, E, C, d, f):
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().cpu().numpy(),
                                    atol=tol * depth ** 0.5, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,f", [(64, 488, 2048, 1408), (64, 488, 1408, 2048)])
+def test_gmm_backward_makes_no_transposed_copy(cuda, E, C, d, f):
+    """At deepseek-moe-16b's training shapes the backward takes its
+    ``wgmma_bwd`` variant, which reads x, w and dy as stored: the call's
+    peak device memory is its inputs and its two outputs (a transposed copy
+    of w alone would add 369 MB)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(27)
+    x, w, dy = (torch.randn(s, generator=gen, device=cuda).to(torch.bfloat16)
+                for s in ((E, C, d), (E, d, f), (E, C, f)))
+    assert mg.gmm_bwd_variant(x, w) == "wgmma_bwd"
+    before = mg.gmm_bwd_cuda.variant_launches["wgmma_bwd"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    dx, dw = mg.gmm_bwd_cuda(x, w, dy)
+    torch.cuda.synchronize()
+    outputs = dx.untyped_storage().nbytes() + dw.untyped_storage().nbytes()
+    assert torch.cuda.max_memory_allocated() - held - outputs < 2 ** 20
+    assert mg.gmm_bwd_cuda.variant_launches["wgmma_bwd"] == before + 2
 
 
 @pytest.mark.cuda

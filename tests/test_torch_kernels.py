@@ -259,6 +259,39 @@ def test_smem_budget():
     assert all(fa.smem_bytes(d=d) <= 232448 for d in fa.HEAD_DIMS)
 
 
+@pytest.mark.parametrize("D", sorted(fa.BWD_TILES))
+def test_backward_tile_plan_fits_a_hopper_block(D):
+    """Each row of the backward's tile plan: dK and dV's column parts cover
+    the padded head dim in parts of at most two 64-column boxes (64 fp32
+    registers a thread for each of dK and dV), and both kernels' shared
+    memory fits the 232 448 bytes of a Hopper block: dkdv's 64-row K and V,
+    its stages of Q and dO tiles of a step's rows with their LSE and Delta,
+    two buffers of P dy; dq's 64-row Q and dO and its stages of 32-row K
+    and V. Two dq blocks share an SM up to head_dim 128."""
+    parts, q_step, dkdv_stages, dq_stages = fa.BWD_TILES[D]
+    assert sum(parts) == fa.head_dim_boxes(D) and max(parts) <= 2
+    assert q_step in (32, 64) and min(dkdv_stages, dq_stages) >= 2
+    row = fa.padded_head_dim(D) * 2
+    assert fa.bwd_smem_bytes(D, "dq") == (2 * 64 + 2 * dq_stages * 32) * row + 1152
+    assert fa.bwd_smem_bytes(D, "dkdv") == \
+        (2 * 64 + 2 * dkdv_stages * q_step) * row + \
+        (2 * 64 + 2 * dkdv_stages) * q_step * 4 + 1152
+    assert max(fa.bwd_smem_bytes(D, k) for k in ("dkdv", "dq")) <= 232448
+    assert fa.bwd_blocks_per_sm(D, "dkdv") == 1
+    assert fa.bwd_blocks_per_sm(D, "dq") == (2 if D <= 128 else 1)
+
+
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_check_bwd_inputs_takes_every_head_dim(D):
+    """The backward takes every head dim the forward does (``BWD_HEAD_DIMS``
+    is ``HEAD_DIMS``); only a q_offset is refused."""
+    assert fa.BWD_HEAD_DIMS == fa.HEAD_DIMS
+    q = torch.zeros(1, 8, 4, D, dtype=torch.bfloat16)
+    fa.check_bwd_inputs(q)
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.check_bwd_inputs(q, q_offset=3)
+
+
 @pytest.mark.parametrize("d,boxes,padded", [(64, 1, 64), (112, 2, 128),
                                             (128, 2, 128), (160, 3, 192),
                                             (256, 4, 256)])
@@ -674,14 +707,17 @@ def test_gmm_smem_budget():
     """The mma path: two stages of a (128 x 32) x tile and a (32 x 128) w
     tile in bf16 with 8 elements of row padding, within the 48 KB of static
     shared memory a block may use (the fma path likewise). The wgmma path:
-    prefill 4 stages of a (128 x 64) x tile and a (64 x 256) w tile, decode 8
-    stages of (64 x 64) and (64 x 64), each with two mbarriers a stage and
-    1 KB of alignment slack, within the 232 448 bytes of a Hopper block."""
+    prefill 3 stages of a (128 x 64) x tile and a (64 x 256) w tile beside
+    the (128 x 256) output tile, decode 8 stages of (64 x 64) and (64 x 64)
+    beside a (64 x 64) one, each with two mbarriers a stage and 1 KB of
+    alignment slack, within the 232 448 bytes of a Hopper block."""
     assert mg.smem_bytes(torch.bfloat16) == 2 * (128 * 40 + 32 * 136) * 2 == 37888
     assert mg.smem_bytes(torch.float32) == 16448
     assert max(mg.smem_bytes(t) for t in mg.DTYPES) <= 48 * 1024
-    assert mg.wgmma_smem_bytes(128) == 4 * (128 + 256) * 64 * 2 + 64 + 1024 == 197696
-    assert mg.wgmma_smem_bytes(64) == 8 * (64 + 64) * 64 * 2 + 128 + 1024 == 132224
+    assert mg.wgmma_smem_bytes(128) == \
+        3 * (128 + 256) * 64 * 2 + 128 * 256 * 2 + 48 + 1024 == 214064
+    assert mg.wgmma_smem_bytes(64) == \
+        8 * (64 + 64) * 64 * 2 + 64 * 64 * 2 + 128 + 1024 == 140416
     assert max(mg.wgmma_smem_bytes(c) for c in mg.WGMMA_TILES) <= 232448
 
 
@@ -712,6 +748,43 @@ def test_gmm_variant_follows_shapes_and_dtype(xs, ws, dtype, variant):
     w = torch.empty(ws, dtype=TDT[dtype], device="meta")
     assert mg.gmm_variant(x, w) == variant
     assert variant in mg.VARIANTS
+
+
+# deepseek-moe-16b's expert products at the training capacity (488: 2 x
+# 2048 tokens, top 6 of 64) and at decode's, kimi-k2's, fp32, and d or f
+# not a multiple of 8
+GMM_BWD_VARIANT_CASES = [
+    ((64, 488, 2048), (64, 2048, 1408), "bfloat16", "wgmma_bwd"),
+    ((64, 488, 1408), (64, 1408, 2048), "bfloat16", "wgmma_bwd"),
+    ((64, 8, 2048), (64, 2048, 1408), "bfloat16", "wgmma_bwd"),
+    ((4, 8, 7168), (4, 7168, 2048), "bfloat16", "wgmma_bwd"),
+    ((3, 100, 72), (3, 72, 200), "bfloat16", "wgmma_bwd"),
+    ((64, 488, 2048), (64, 2048, 1408), "float32", "fma"),
+    ((2, 37, 30), (2, 30, 50), "float32", "fma"),
+    ((2, 37, 30), (2, 30, 50), "bfloat16", "mma"),
+    ((2, 8, 64), (2, 64, 36), "bfloat16", "mma"),
+    ((2, 8, 36), (2, 36, 64), "bfloat16", "mma"),
+]
+
+
+@pytest.mark.parametrize("xs,ws,dtype,variant", GMM_BWD_VARIANT_CASES)
+def test_gmm_bwd_variant_follows_shapes_and_dtype(xs, ws, dtype, variant):
+    """The backward reads its operands as stored (``wgmma_bwd``) wherever
+    the forward takes wgmma, every model shape; fp32 and bf16 shapes TMA
+    cannot address keep the transposed copies onto fma and mma."""
+    x = torch.empty(xs, dtype=TDT[dtype], device="meta")
+    w = torch.empty(ws, dtype=TDT[dtype], device="meta")
+    assert mg.gmm_bwd_variant(x, w) == variant
+    assert variant in mg.BWD_VARIANTS
+
+
+@pytest.mark.parametrize("C", [8, 64, 65, 488, 968])
+def test_gmm_bwd_tiles_fit_a_hopper_block(C):
+    """dx's rows are C, tiled as the forward's; dw's are d, on the 128-row
+    tile; each tile the backward launches fits a Hopper block."""
+    tiles = mg.wgmma_bwd_tiles(C)
+    assert tiles == {"dx": 64 if C <= 64 else 128, "dw": 128}
+    assert all(mg.wgmma_smem_bytes(t) <= 232448 for t in tiles.values())
 
 
 def test_gmm_cpu_wrapper_counts_no_variant(monkeypatch):

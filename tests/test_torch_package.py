@@ -378,18 +378,22 @@ def test_chip_smoke_expects_the_train_launches(chip_smoke):
     its recompute), and each backward wrapper once per forward call:
     deepseek-7b 30 attention layers, deepseek-moe-16b cut to 8 layers (1
     dense, 7 MoE of 3 expert products), mamba2-370m 48 SSM layers, zamba2-7b
-    81 SSM layers and 13 shared attention blocks, all at full depth."""
+    81 SSM layers and 13 shared attention blocks, all at full depth;
+    gemma2-9b cut to 32 layers and stablelm-12b to 20."""
     for arch, attn, gmm, ssm in (("deepseek-7b", 30, 0, 0),
                                  ("deepseek-moe-16b", 8, 21, 0),
                                  ("mamba2-370m", 0, 0, 48),
-                                 ("zamba2-7b", 13, 0, 81)):
+                                 ("zamba2-7b", 13, 0, 81),
+                                 ("gemma2-9b", 32, 0, 0),
+                                 ("stablelm-12b", 20, 0, 0)):
         cfg = chip_smoke.train_config(arch)
         assert chip_smoke.expected_train_launches(cfg, 8) == {
             "flash_attention": 16 * attn, "flash_attention_bwd": 8 * attn,
             "gmm": 16 * gmm, "gmm_bwd": 8 * gmm, "ssd_scan": 16 * ssm,
             "ssd_scan_bwd": 8 * ssm}
     assert list(chip_smoke.TRAIN_PATHS) == ["deepseek-7b", "deepseek-moe-16b",
-                                            "mamba2-370m", "zamba2-7b"]
+                                            "mamba2-370m", "zamba2-7b",
+                                            "gemma2-9b", "stablelm-12b"]
 
 
 def test_chip_smoke_train_paths_cut_depth_not_width(chip_smoke):

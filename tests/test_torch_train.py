@@ -56,7 +56,8 @@ GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 BF16_FLOOR_MULT = 1.5
 ADAMW_RTOL = 1e-6
 SCHEDULE_TOL = 1e-7
-TRAIN_ARCHS = ("deepseek-7b", "deepseek-moe-16b", "mamba2-370m", "zamba2-7b")
+TRAIN_ARCHS = ("deepseek-7b", "deepseek-moe-16b", "mamba2-370m", "zamba2-7b",
+               "gemma2-9b", "stablelm-12b")
 
 
 def _np(tree):
