@@ -9,9 +9,10 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
 1. card:    the card's name and power limit, and the kernel build time
             (``nvcc`` builds every ``src/repro_torch/csrc/*.cu`` at once);
             per library its SASS census (``HGMMA`` wgmma, ``UTMALDG`` TMA
-            loads, ``HMMA`` mma.sync; the flash, flash backward, gmm and
-            SSD libraries must hold both of the first two, and the flash
-            backward no ``HMMA``),
+            loads, ``HMMA`` mma.sync; the flash, flash backward, gmm, SSD
+            and SSD backward libraries must hold both of the first two, and
+            the flash backward no ``HMMA``; the SSD backward's wgmma kernels
+            no spills and no serialized wgmma),
             ptxas's registers and spills per
             kernel and any line where ptxas says it serialized wgmma; the
             host cost of encoding the gmm's tensor maps; whether ``triton``
@@ -39,7 +40,9 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             and ``F.scaled_dot_product_attention`` (a yardstick the port
             never calls; it takes no softcap or window, and is timed
             without them, as the line says); the faults and timings also
-            at the gemma2, stablelm, VLM-cross and seamless shapes.
+            at the gemma2, stablelm, VLM-cross and seamless shapes; at
+            gemma2's two shapes also the kernel's errors with the softcap
+            off, against the plain version and an fp32-output reference.
    flash_bwd: the flash backward kernel against autograd through the
             plain version in fp32: first the forward's row log-sum-exp at
             every head dim within LSE_TOL; a call where no row has a key
@@ -84,18 +87,20 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             each product's two forward faults shown to exceed the norm
             limit; timings beside the backward of ``torch.bmm``, the call's
             kernels split by torch.profiler.
-   ssd_bwd: the SSD backward kernel (states, chunks, reduce) against
-            autograd through the plain version in fp32: all six gradients on
-            the fp32 grid with a non-zero state cotangent, and at the
-            training shapes of zamba2-7b (H=112, P=64, N=64, G=2) and
-            mamba2-370m (H=32, P=64, N=128, G=1), B=2, L=2048, chunk 256, in
-            bf16, within an elementwise and a relative-norm limit by the
-            gradient's dtype that three planted faults (the state gradient
-            not carried into the previous chunk; d cum used without its
-            reverse scan; db from one head of each group) are shown to
-            exceed; the backward run twice bitwise equal; timings of the
-            kernel (its three kernels apart by torch.profiler) and the plain
-            backward beside the bound.
+   ssd_bwd: the SSD backward kernels against autograd through the plain
+            version in fp32: all six gradients on the fp32 grid (the ``fma``
+            variant) with a non-zero state cotangent, and at the training
+            shapes of zamba2-7b (H=112, P=64, N=64, G=2) and mamba2-370m
+            (H=32, P=64, N=128, G=1), B=2, L=2048, chunk 256, in bf16, which
+            must take the ``wgmma`` variant (chunk_state, state_pass, rows,
+            cols, reduce), there with the ``fma`` variant (states, chunks,
+            reduce) held too, each within an elementwise and a relative-norm
+            limit by the gradient's dtype that three planted faults (the
+            state gradient not carried into the previous chunk; d cum used
+            without its reverse scan; db from one head of each group) are
+            shown to exceed; each backward run twice bitwise equal; timings
+            of both variants (their kernels apart by torch.profiler) and the
+            plain backward beside the bound.
    train:   the training paths, through ``runtime.train`` at full width:
             deepseek-7b (30 layers), deepseek-moe-16b (8 of 28 layers),
             mamba2-370m (48 layers), zamba2-7b (81 SSM layers and 13
@@ -111,10 +116,11 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             to fail that gate where a whole leaf can see them (on the SSM
             paths, whose floors are wide, d cum's); on the SSM paths every
             SSD call of the plain run replayed through the backward kernel
-            on its own inputs, within the ssd_bwd limits, each SSD fault
-            past them in some call; then 8 steps: losses finite, each
-            kernel's launches as predicted (remat runs every forward launch
-            twice), step time, tokens/s, peak memory (below 80 GB), model
+            (``wgmma``) on its own inputs, within the ssd_bwd limits, each
+            SSD fault past them in some call; then 8 steps: losses finite,
+            each kernel's launches as predicted (remat runs every forward
+            launch twice; every SSD launch, backward too, on ``wgmma``),
+            step time, tokens/s, peak memory (below 80 GB), model
             TFLOP/s, and the idle share of one more step under
             torch.profiler; the loss lower at step 8 (on the SSM paths: over
             8 steps on one batch). Then
@@ -290,7 +296,10 @@ SSD_TRAIN_SHAPES = [
 SSD_BWD_ELEM = {"float32": 1e-4, "bfloat16": 1e-2}
 SSD_BWD_RTOL = {"float32": 1e-4, "bfloat16": 2 ** -8}
 SSD_GRADS = ("dx", "ddt", "da_log", "db", "dc", "dd_skip")
-SSD_BWD_STAGES = ("ssd_bwd_states", "ssd_bwd_chunks", "ssd_bwd_reduce")
+# the SSD backward's kernels by variant, as torch.profiler names them
+SSD_BWD_STAGES = {"wgmma": ("chunk_state_kernel", "state_pass_kernel", "rows_kernel",
+                            "cols_kernel", "reduce_kernel"),
+                  "fma": ("ssd_bwd_states", "ssd_bwd_chunks", "ssd_bwd_reduce")}
 # (name, E, C, d, f, dtype): the TestGMM grid of tests/test_kernels.py in
 # fp32 and bf16, two ragged shapes (the second not a multiple of 8 in d or
 # f: element-wise loads), and deepseek-moe-16b's expert products: 64
@@ -507,7 +516,10 @@ def ptxas_kernels(report: str) -> list[dict]:
 
 
 # the libraries whose kernels must be built from wgmma fed by TMA
-HOPPER_LIBRARIES = ("flash_attention", "flash_attention_bwd", "moe_gmm", "ssd_scan")
+HOPPER_LIBRARIES = ("flash_attention", "flash_attention_bwd", "moe_gmm", "ssd_scan",
+                    "ssd_scan_bwd")
+# the SSD backward's wgmma kernels: ptxas must report no spills for them
+SSD_BWD_WGMMA_KERNELS = ("chunk_state_kernel", "rows_kernel", "cols_kernel")
 
 
 def phase_card():
@@ -535,6 +547,14 @@ def phase_card():
         if not (census[name]["HGMMA"] and census[name]["UTMALDG"]):
             raise AssertionError(f"{name}: no HGMMA or no UTMALDG in its SASS "
                                  f"({census[name]})")
+    bwd_report = _build.ptxas_report(libs["ssd_scan_bwd"]).read_text()
+    spills = [k for k in ptxas_kernels(bwd_report)
+              if any(n in k["kernel"] for n in SSD_BWD_WGMMA_KERNELS) and
+              k["spill_store_bytes"]]
+    serialized = [line for line in bwd_report.splitlines() if "serialized" in line]
+    if spills or serialized:
+        raise AssertionError(f"ssd_scan_bwd's wgmma kernels: spills {spills}, "
+                             f"serialized wgmma {serialized}")
     if census["flash_attention_bwd"]["HMMA"]:        # no mma.sync backward is left
         raise AssertionError(f"flash_attention_bwd: HMMA in its SASS "
                              f"({census['flash_attention_bwd']})")
@@ -564,6 +584,12 @@ def phase_card():
                         ss.bwd_smem_bytes(kernel, n, ps):
                     raise AssertionError(f"ssd bwd_smem_bytes({kernel}, {n}, "
                                          f"{ps}) disagrees with the kernel")
+    for i, kernel in enumerate(ss.BWD_WGMMA_KERNELS):
+        for n in (64, 128):
+            if ss._bwd_lib().ssd_scan_bwd_wgmma_smem_bytes(i, n) != \
+                    ss.bwd_wgmma_smem_bytes(kernel, n):
+                raise AssertionError(f"ssd bwd_wgmma_smem_bytes({kernel}, {n}) "
+                                     "disagrees with the kernel")
     for dtype, code in mg.DTYPES.items():
         if mg._lib().moe_gmm_smem_bytes(code) != mg.smem_bytes(dtype):
             raise AssertionError(f"gmm smem_bytes({dtype}) disagrees with the kernel")
@@ -604,6 +630,9 @@ def phase_card():
                                    for k in ("chunk_state", "chunk_scan")},
           "ssd_bwd_smem_bytes": {k: {n: ss.bwd_smem_bytes(k, n, 64) for n in (64, 128)}
                                  for k in ("states", "chunks")},
+          "ssd_bwd_wgmma_smem_bytes": {k: {n: ss.bwd_wgmma_smem_bytes(k, n)
+                                           for n in (64, 128)}
+                                       for k in ss.BWD_WGMMA_KERNELS},
           "gmm_smem_bytes_mma": mg.smem_bytes(torch.bfloat16),
           "gmm_smem_bytes_wgmma": {c: mg.wgmma_smem_bytes(c) for c in mg.WGMMA_TILES},
           "gmm_bwd_tiles_at_train_capacity": mg.wgmma_bwd_tiles(train_capacity()),
@@ -712,6 +741,21 @@ def phase_kernel():
                 "kernel_max_abs_err": (got.float() - exact).abs().max().item(),
                 "plain_max_abs_err": (want.float() - exact).abs().max().item()}
             del exact
+        if kw["softcap"]:
+            # the softcap's share of the kernel's error (gemma2-9b): the same
+            # inputs without it, against the plain version and against an
+            # fp32-output reference, beside the errors with it above
+            kw0 = {**kw, "softcap": 0.0}
+            got0 = flash_attention_cuda(q, k, v, **kw0)
+            want0 = flash_attention_plain(q, k, v, **kw0)
+            exact0 = flash_attention_plain(q.float(), k.float(), v.float(), **kw0)
+            row0, norm0 = rel_errors(got0, want0)
+            line["softcap_off"] = {
+                "max_abs_err": (got0.float() - want0.float()).abs().max().item(),
+                "row_rel_err": row0, "norm_rel_err": norm0,
+                "kernel_norm_rel_err_vs_fp32": rel_errors(got0, exact0)[1],
+                "plain_norm_rel_err_vs_fp32": rel_errors(want0, exact0)[1]}
+            del got0, want0, exact0
         emit({**line, "ok": ok})
         if not ok:
             failures.append(name)
@@ -1447,8 +1491,11 @@ def ssd_bwd_errors(got, want) -> dict:
 
 
 def phase_ssd_bwd():
-    """The SSD backward kernel against autograd through the plain version
-    in fp32 (see the module docstring)."""
+    """The SSD backward kernels against autograd through the plain version
+    in fp32 (see the module docstring): the variant ``ssd_bwd_variant``
+    picks on every shape, which must be wgmma at the training shapes, and
+    there the fma variant too, held to the same limits and timed beside
+    it."""
     import torch
     from repro_torch.kernels import ssd_scan as ss
 
@@ -1461,21 +1508,39 @@ def phase_ssd_bwd():
         dy = torch.randn(B, L, H, P, generator=gen, device="cuda").to(args[0].dtype)
         dstate = None if name in train_shapes else \
             torch.randn(B, H, P, N, generator=gen, device="cuda")
-        got = ss.ssd_scan_bwd_cuda(*args, dy, dstate, chunk=chunk)
-        again = ss.ssd_scan_bwd_cuda(*args, dy, dstate, chunk=chunk)
-        torch.cuda.synchronize()
+        variant = ss.ssd_bwd_variant(args[0], args[3], chunk)
+        if name in train_shapes and variant != "wgmma":
+            failures.append(f"{name}: the backward takes {variant}, not wgmma")
         want = ssd_grads_plain(args, dy, dstate, chunk)
-        errs = ssd_bwd_errors(got, want)
-        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
-        ok = all(bool(torch.isfinite(g).all()) for g in got) and \
-            all(e["ok"] for e in errs.values()) and repeat
-        worst = max([worst] + [e["max_abs"] for e in errs.values()])
+
+        def call(v, dstate=dstate):
+            """One backward of variant ``v``: the wrapper's own pick through
+            the wrapper (counted), the other through its launch function."""
+            if v == variant:
+                return ss.ssd_scan_bwd_cuda(*args, dy, dstate, chunk=chunk)
+            return ss._launch_bwd(v, *args, dy, dstate, chunk)
+
+        held = {}
+        for v in dict.fromkeys([variant, "fma" if name in train_shapes else variant]):
+            got, again = call(v), call(v)
+            torch.cuda.synchronize()
+            errs = ssd_bwd_errors(got, want)
+            repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+            held[v] = {"errors": errs, "bitwise_repeat": repeat,
+                       "ok": all(bool(torch.isfinite(g).all()) for g in got) and
+                       all(e["ok"] for e in errs.values()) and repeat}
+            if v == variant:
+                worst = max([worst] + [e["max_abs"] for e in errs.values()])
+            if not held[v]["ok"]:
+                failures.append(f"{name}: {v}")
+            del got, again
         line = {"phase": "ssd_bwd", "shape": name, "dtype": dtype,
                 "B_L_H_P_N_G_chunk": [B, L, H, P, N, G, chunk],
-                "state_cotangent": dstate is not None, "errors": errs,
-                "limits": {"elem": SSD_BWD_ELEM, "norm": SSD_BWD_RTOL},
-                "bitwise_repeat": repeat}
-        del again
+                "state_cotangent": dstate is not None, "variant": variant,
+                **held[variant],
+                "limits": {"elem": SSD_BWD_ELEM, "norm": SSD_BWD_RTOL}}
+        if "fma" in held and variant != "fma":
+            line["fma"] = held["fma"]
         if name in train_shapes:
             # the limits must have the power to see each fault: some
             # gradient outside its limits
@@ -1489,26 +1554,28 @@ def phase_ssd_bwd():
                 if not seen:
                     failures.append(f"{name}: limits miss {fault}")
                 del grads
+        ok = all(h["ok"] for h in held.values())
         emit({**line, "ok": ok})
-        if not ok:
-            failures.append(name)
         if name in train_shapes and ok:
             bound_ms, bound_by = ssd_bwd_bound_ms(B, L, H, P, N, G, chunk, dtype)
             timings[name] = {
-                "ms": cuda_ms(lambda: ss.ssd_scan_bwd_cuda(*args, dy, chunk=chunk)),
+                "ms": cuda_ms(lambda: call(variant, None)),
+                "fma_ms": cuda_ms(lambda: call("fma", None)),
                 "plain_ms": cuda_ms(lambda: ss.ssd_scan_bwd_plain(
                     *args, dy, chunk=chunk), warmup=1, iters=3),
                 "autograd_plain_ms": cuda_ms(lambda: ssd_grads_plain(
                     args, dy, None, chunk), warmup=1, iters=3),
                 "library_ms": None,     # no one PyTorch call computes it
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "stage_ms": device_ms_by_kernel(
-                    lambda: ss.ssd_scan_bwd_cuda(*args, dy, chunk=chunk),
-                    SSD_BWD_STAGES),
+                "variant": variant,
+                "stage_ms": device_ms_by_kernel(lambda: call(variant, None),
+                                                SSD_BWD_STAGES[variant]),
+                "fma_stage_ms": device_ms_by_kernel(lambda: call("fma", None),
+                                                    SSD_BWD_STAGES["fma"]),
                 "fwd_ms": cuda_ms(lambda: ss.ssd_scan_cuda(*args, chunk=chunk)),
             }
             emit({"phase": "ssd_bwd_timing", "shape": name, **timings[name]})
-        del args, dy, dstate, got, want
+        del args, dy, dstate, want
     if failures:
         raise AssertionError(f"ssd backward checks failed: {failures}")
     return worst, timings
@@ -1620,7 +1687,8 @@ def read_launches() -> dict:
     return {**{name: fn.launches for name, fn in counters.items()},
             "gmm_by_variant": dict(counters["gmm"].variant_launches),
             "gmm_bwd_by_variant": dict(counters["gmm_bwd"].variant_launches),
-            "ssd_by_variant": dict(counters["ssd_scan"].variant_launches)}
+            "ssd_by_variant": dict(counters["ssd_scan"].variant_launches),
+            "ssd_bwd_by_variant": dict(counters["ssd_scan_bwd"].variant_launches)}
 
 
 def phase_serve(arch):
@@ -2529,7 +2597,8 @@ def phase_train(arch):
     them in some call; then TRAIN_STEPS steps of ``build_train_step`` from
     a fresh AdamW state: losses finite, the kernels' launches as
     ``expected_train_launches`` predicts (every gmm and SSD forward launch
-    on its wgmma variant, every gmm backward launch on ``wgmma_bwd``), step
+    on its wgmma variant, every gmm backward launch on ``wgmma_bwd``, every
+    SSD backward launch on ``wgmma``), step
     times, tokens/s, peak memory (below TRAIN_PEAK_BYTES) and model
     TFLOP/s; then one more step under torch.profiler for the idle share.
     Training must make progress: the loss lower at the last step than at
@@ -2702,7 +2771,8 @@ def phase_train(arch):
     launches_ok = all(launches[k] == v for k, v in expected.items()) and \
         launches["gmm_by_variant"]["wgmma"] == launches["gmm"] and \
         launches["gmm_bwd_by_variant"]["wgmma_bwd"] == 2 * launches["gmm_bwd"] and \
-        launches["ssd_by_variant"]["wgmma"] == launches["ssd_scan"]
+        launches["ssd_by_variant"]["wgmma"] == launches["ssd_scan"] and \
+        launches["ssd_bwd_by_variant"]["wgmma"] == launches["ssd_scan_bwd"]
     finite = all(math.isfinite(x) for x in losses)
     falls = losses[-1] < losses[0]
     # the first step of the main path repeats step 1 of the agreement runs
@@ -2765,6 +2835,7 @@ def phase_train(arch):
           "gmm_launches_by_variant": launches["gmm_by_variant"],
           "gmm_bwd_launches_by_variant": launches["gmm_bwd_by_variant"],
           "ssd_launches_by_variant": launches["ssd_by_variant"],
+          "ssd_bwd_launches_by_variant": launches["ssd_bwd_by_variant"],
           "traced_step_ms": traced_ms,
           "traced_device_busy_ms": busy_ms if busy_ms else "not measured",
           "traced_idle_share": 1 - busy_ms / traced_ms if busy_ms else "not measured",
@@ -2991,10 +3062,16 @@ def main() -> int:
               ssd_bwd_t["zamba2-7b"],
               "B=2 L=2048 H=112 P=64 N=64 G=2 chunk=256 bf16 (zamba2-7b "
               "training)",
-              "fp32 FMA on the CUDA cores, three kernels: the chunks' states "
-              "and their gradients per P-slice (sequential over chunks), every "
-              "gradient per (P-slice, chunk, head), the sums over heads and "
-              "slices; no atomics (bitwise repeatable); launches count calls",
+              "wgmma (TMA + wgmma, five kernels: each chunk's local state and "
+              "state gradient; a sequential pass over the chunks on the CUDA "
+              "cores writing the states and their gradients as bf16 hi + lo; "
+              "a row pass per 64-row t tile (C B^T, dY X^T, V B) and a column "
+              "pass per 64-row s tile (B C^T, X dY^T, W^T dY, V^T C), fp32 "
+              "operands split into hi + lo; the reverse scan of d cum and the "
+              "sums over heads) for the model shapes; fma (fp32 FMA on the "
+              "CUDA cores: states, chunks, reduce) for fp32 and other shapes; "
+              "no atomics (bitwise repeatable); launches count calls",
+              launches_by_variant=by_variant("ssd_bwd_by_variant"),
               at_mamba2={**ssd_bwd_t["mamba2-370m"],
                          "shape": "B=2 L=2048 H=32 P=64 N=128 G=1 chunk=256 "
                                   "bf16 (mamba2-370m training)"}),

@@ -279,11 +279,12 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // ---- wgmma products (operand lists written out) ---------------------------
 // The shapes the kernels use: A from shared memory at N = 32 (the flash
 // backward's S^T and dP^T over 32-row q steps), 64 and 256 (the gmm's decode
-// and prefill tiles; the SSD's C S_in^T and C B^T at 64; flash's S over
+// and prefill tiles; the SSD's C S_in^T and C B^T at 64, and its backward's
+// C B^T, dY X^T, their transposes and the state terms; flash's S over
 // 64-row K tiles and the backward's S and dP) and 96 (flash's S over 96-row
 // tiles); A from registers at N = 64, 128, 192 and 256 (flash's O and dQ at
 // head_dim 64, 112/128, 160 and 256, its dK and dV parts at 64 and 128; the
-// SSD's chunk states and W x at 64).
+// SSD's chunk states and W x at 64, its backward's V B, W^T dY and V^T C).
 
 // d (m64 x n64, fp32) += A (smem, desc a) * B (smem, desc b); TA / TB: 1 where
 // that operand is MN-major. scale_d 0 overwrites d.

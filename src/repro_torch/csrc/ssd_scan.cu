@@ -50,7 +50,9 @@
 //   maps over (B,L,H,P) and (B,L,G,N), 128-byte swizzled 64-column boxes,
 //   so N = 128 is two boxes) into a ring of 2 stages on mbarriers, and one
 //   consumer warpgroup. Both kernels recompute cum with one device function
-//   (chunk_cum, explicit roundings), so they see bitwise the same decay.
+//   (chunk_cum, explicit roundings, in ssd_common.cuh with the split and the
+//   tensor maps, shared with the backward's wgmma kernels), so they see
+//   bitwise the same decay.
 //   Precision: a product of two bf16 values is exact in fp32, so C B^T loses
 //   nothing; but x * w, W and S_in are fp32, and one bf16 rounding of them
 //   (2^-9 relative) would exceed the 1e-4 state limit. Each such operand is
@@ -92,6 +94,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "ssd_common.cuh"
 
 namespace {
 
@@ -375,98 +378,23 @@ int launch(const void* x, const void* dt, const void* a_log, const void* b,
 
 namespace wg {
 
-constexpr int CONSUMERS = 128;              // one warpgroup: 64 rows of wgmma
-constexpr int THREADS = CONSUMERS + 32;     // and one producer warp
-constexpr int ROWS = 64;                    // steps of one s tile, rows of one t tile
-constexpr int STAGES = 2;                   // s tiles in the TMA ring
-constexpr int BOXB = ROWS * hopper::BOX_ROW_BYTES;   // one 64 x 64 bf16 box
-constexpr int P = 64;                       // the one head_dim this variant takes
-constexpr int PASS_THREADS = 256;           // state_pass: 4 entries a thread
-constexpr int PASS_ENTRIES = 4 * PASS_THREADS;
-constexpr float LOG2E = 1.4426950408889634f;
-
-// Barrier 0 is __syncthreads; the consumer warpgroup syncs on its own.
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" :: "n"(CONSUMERS) : "memory");
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-// Element (r, col) of a 64-column bf16 box as TMA lands it with the 128-byte
-// swizzle: 16-byte chunk c of row r at chunk c ^ (r % 8) (hopper.cuh).
-__device__ __forceinline__ float box_at(const unsigned char* box, int r, int col) {
-  const int off = r * hopper::BOX_ROW_BYTES + ((((col >> 3) ^ r) & 7) << 4) + ((col & 7) << 1);
-  return __bfloat162float(*reinterpret_cast<const bf16*>(box + off));
-}
-
-// 2^x by the special-function unit (ex2.approx: relative error ~2^-22).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (v0, v1) as hi + lo bf16 pairs: hi = bf16(v), lo = bf16(v - hi). v - hi is
-// exact in fp32, and hi + lo keeps about 16 significant bits of v.
-__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);   // .x (v0) low half
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(v0 - hf.x, v1 - hf.y));
-}
-
-// The chunk's dt and cum_s = sum_{r<=s} dt_r A for s < Q <= 256 into sDt and
-// sCum, by the 128 consumer threads, thread i taking steps 2i and 2i + 1.
-// chunk_state and chunk_scan both call it, and every rounding is explicit
-// (no contraction into FMAs can differ), so both see bitwise the same cum.
-__device__ void chunk_cum(const float* __restrict__ dtg, int dt_stride, float A,
-                          int Q, float* sDt, float* sCum, float* warp_tot) {
-  const int i = threadIdx.x, lane = i & 31, warp = i >> 5, s0 = 2 * i;
-  const float d0 = s0 < Q ? dtg[(size_t)s0 * dt_stride] : 0.f;
-  const float d1 = s0 + 1 < Q ? dtg[(size_t)(s0 + 1) * dt_stride] : 0.f;
-  const float a0 = __fmul_rn(d0, A), a1 = __fmul_rn(d1, A);
-  float v = __fadd_rn(a0, a1);
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float n = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v = __fadd_rn(v, n);
-  }
-  float before = __shfl_up_sync(0xffffffffu, v, 1);
-  if (lane == 0) before = 0.f;
-  if (lane == 31) warp_tot[warp] = v;
-  consumer_sync();
-  float base = 0.f;
-  for (int w = 0; w < warp; ++w) base = __fadd_rn(base, warp_tot[w]);
-  const float c0 = __fadd_rn(__fadd_rn(base, before), a0);
-  const float c1 = __fadd_rn(c0, a1);
-  if (s0 < Q) {
-    sDt[s0] = d0;
-    sCum[s0] = c0;
-  }
-  if (s0 + 1 < Q) {
-    sDt[s0 + 1] = d1;
-    sCum[s0 + 1] = c1;
-  }
-  consumer_sync();
-}
-
-// Shared memory of chunk_state: the ring of (x box, N/64 b boxes) stages,
-// then a full and an empty barrier a stage; + slack to align to 1024.
-template <int N>
-struct StateLayout {
-  static constexpr int NB = N / 64;
-  static constexpr int STAGE = (1 + NB) * BOXB;
-  static constexpr int BARRIER_OFFSET = STAGES * STAGE;
-  static constexpr int BYTES = BARRIER_OFFSET + 2 * STAGES * 8 + 1024;
-};
+using ssd::align1024;
+using ssd::box_at;
+using ssd::BOXB;
+using ssd::chunk_cum;
+using ssd::chunk_state_kernel;
+using ssd::CONSUMERS;
+using ssd::fast_exp2;
+using ssd::LOG2E;
+using ssd::P;
+using ssd::PASS_ENTRIES;
+using ssd::PASS_THREADS;
+using ssd::ROWS;
+using ssd::split_bf16;
+using ssd::split_fragments;
+using ssd::STAGES;
+using ssd::StateLayout;
+using ssd::THREADS;
 
 // Shared memory of chunk_scan: the t tile of C, the entering state's hi and
 // lo (each 64 rows x N), the ring of (x box, N/64 b boxes) stages, then the
@@ -480,125 +408,6 @@ struct ScanLayout {
   static constexpr int BARRIER_OFFSET = RING_OFFSET + STAGES * STAGE;
   static constexpr int BYTES = BARRIER_OFFSET + (2 + 2 * STAGES) * 8 + 1024;
 };
-
-// Block (chunk c, head h, batch b): s_loc[b,c,h] (P x N, fp32) = sum_s
-// x_s^T (dt_s e^{tot - cum_s}) b_s, and tot[b,c,h] = cum_{Q-1}.
-template <int N>
-__global__ void __launch_bounds__(THREADS)
-chunk_state_kernel(__grid_constant__ const CUtensorMap xmap,
-                   __grid_constant__ const CUtensorMap bmap,
-                   const float* __restrict__ dt, const float* __restrict__ a_log,
-                   float* __restrict__ s_loc, float* __restrict__ tot_out,
-                   int L, int H, int G, int Q) {
-  using Lay = StateLayout<N>;
-  constexpr int NB = Lay::NB;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  __shared__ float sDt[QMAX], sCum[QMAX], sW[QMAX], warp_tot[CONSUMERS / 32];
-  unsigned char* base = align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + Lay::BARRIER_OFFSET);
-  uint64_t* empty = full + STAGES;
-
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
-  const int g = h / (H / G);
-  const int l0 = c * Q, ntiles = Q / ROWS;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], CONSUMERS / 32);   // one arrival a warp
-    }
-    hopper::mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (hopper::warpgroup_index() == 1) {               // producer warp
-    if (threadIdx.x == CONSUMERS) {
-      hopper::tma_prefetch_map(&xmap);
-      hopper::tma_prefetch_map(&bmap);
-      for (int i = 0; i < ntiles; ++i) {
-        const int s = i % STAGES;
-        unsigned char* st = base + s * Lay::STAGE;
-        hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
-        hopper::mbar_expect_tx(&full[s], Lay::STAGE);
-        hopper::tma_load_4d(st, &xmap, &full[s], 0, h, l0 + i * ROWS, b);
-#pragma unroll
-        for (int nb = 0; nb < NB; ++nb)
-          hopper::tma_load_4d(st + (1 + nb) * BOXB, &bmap, &full[s], nb * hopper::BOX,
-                              g, l0 + i * ROWS, b);
-      }
-    }
-    return;
-  }
-
-  // consumer warpgroup: rows p0 and p0 + 8 of A = (x w)^T
-  const float A = -expf(a_log[h]);
-  chunk_cum(dt + ((size_t)b * L + l0) * H + h, H, A, Q, sDt, sCum, warp_tot);
-  const float tot = sCum[Q - 1];
-  for (int s = threadIdx.x; s < Q; s += CONSUMERS) sW[s] = sDt[s] * expf(tot - sCum[s]);
-  consumer_sync();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int p0 = warp * 16 + lane / 4, t4 = lane % 4;
-  float acc[NB][32];
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int k = 0; k < 32; ++k) acc[nb][k] = 0.f;
-
-  for (int i = 0; i < ntiles; ++i) {
-    const int s = i % STAGES;
-    const unsigned char* st = base + s * Lay::STAGE;
-    const float* w = sW + i * ROWS;
-    hopper::mbar_wait(&full[s], (i / STAGES) & 1);
-    // the A fragments of the four k16 slices: register e holds row
-    // p0 + 8 (e & 1), steps 16 kk + 2 t4 + 8 (e >> 1) and the next one
-    uint32_t ahi[4][4], alo[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = 16 * kk + 2 * t4 + 8 * (e >> 1), p = p0 + 8 * (e & 1);
-        split_bf16(box_at(st, r, p) * w[r], box_at(st, r + 1, p) * w[r + 1],
-                   ahi[kk][e], alo[kk][e]);
-      }
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) hopper::fence_regs(acc[nb]);
-    hopper::fence_regs(ahi);
-    hopper::fence_regs(alo);
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        const uint64_t bd = hopper::desc_mnmajor(st + (1 + nb) * BOXB + 2048 * kk, BOXB);
-        hopper::wgmma_rs<1>(acc[nb], ahi[kk], bd, 1);
-        hopper::wgmma_rs<1>(acc[nb], alo[kk], bd, 1);
-      }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) hopper::fence_regs(acc[nb]);
-    hopper::fence_regs(ahi);
-    hopper::fence_regs(alo);
-    __syncwarp();
-    if (lane == 0) hopper::mbar_arrive(&empty[s]);
-  }
-
-  // rows p0, p0 + 8; columns 64 nb + 8 j + 2 t4 and the next one
-  const size_t bch = ((size_t)b * nc + c) * H + h;
-  float* out = s_loc + bch * P * N;
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = nb * 64 + 8 * j + 2 * t4;
-      *reinterpret_cast<float2*>(out + (size_t)p0 * N + n) =
-          make_float2(acc[nb][4 * j], acc[nb][4 * j + 1]);
-      *reinterpret_cast<float2*>(out + (size_t)(p0 + 8) * N + n) =
-          make_float2(acc[nb][4 * j + 2], acc[nb][4 * j + 3]);
-    }
-  if (threadIdx.x == 0) tot_out[bch] = tot;
-}
 
 // Block (1024 state entries, head h, batch b): S <- e^{tot_c} S + s_loc_c
 // over the chunks; the state entering chunk c > 0 goes out as hi + lo bf16
@@ -796,16 +605,6 @@ chunk_scan_kernel(__grid_constant__ const CUtensorMap xmap,
             ? 0.f : sc[4 * j + e] * fast_exp2((ct - cs[sl]) * LOG2E) * ds[sl];
       }
   };
-  // W split into hi + lo A fragments: n8 blocks 2 kk and 2 kk + 1 of the
-  // accumulator layout are the k16 slice kk (hopper.cuh)
-  auto split = [&](const float (&sc)[32], uint32_t (&whi)[4][4], uint32_t (&wlo)[4][4]) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      split_bf16(sc[4 * j], sc[4 * j + 1], whi[j / 2][(j % 2) * 2], wlo[j / 2][(j % 2) * 2]);
-      split_bf16(sc[4 * j + 2], sc[4 * j + 3], whi[j / 2][(j % 2) * 2 + 1],
-                 wlo[j / 2][(j % 2) * 2 + 1]);
-    }
-  };
   auto release = [&](int js) {
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&empty[js % STAGES]);
@@ -820,7 +619,7 @@ chunk_scan_kernel(__grid_constant__ const CUtensorMap xmap,
   hopper::wgmma_wait<0>();
   hopper::fence_regs(sc);
   weights(sc, 0);
-  split(sc, whi, wlo);
+  split_fragments(sc, whi, wlo);
   for (int js = 1; js <= it; ++js) {
     hopper::mbar_wait(&full[js % STAGES], (js / STAGES) & 1);
     hopper::fence_regs(sc);
@@ -838,7 +637,7 @@ chunk_scan_kernel(__grid_constant__ const CUtensorMap xmap,
     hopper::fence_regs(whi);
     hopper::fence_regs(wlo);
     release(js - 1);
-    split(sc, whi, wlo);
+    split_fragments(sc, whi, wlo);
   }
   hopper::fence_regs(acc);
   hopper::fence_regs(whi);
@@ -863,26 +662,6 @@ chunk_scan_kernel(__grid_constant__ const CUtensorMap xmap,
   }
 }
 
-// A (B, L, heads, width) bf16 tensor as a 4-D map (width, heads, L, B) read
-// in boxes of 64 columns x 1 head x 64 steps x 1 batch.
-bool encode_steps_map(CUtensorMap* map, const void* p, int B, int L, int heads,
-                      int width) {
-  const uint64_t dims[4] = {(uint64_t)width, (uint64_t)heads, (uint64_t)L, (uint64_t)B};
-  const uint64_t strides[3] = {(uint64_t)width * 2, (uint64_t)heads * width * 2,
-                               (uint64_t)L * heads * width * 2};
-  const uint32_t box[4] = {(uint32_t)hopper::BOX, 1, (uint32_t)ROWS, 1};
-  return hopper::encode_bf16_map(map, p, 4, dims, strides, box);
-}
-
-// The (B, nc, H, P, N) bf16 entering states as a 3-D map (N, P, B nc H) read
-// in boxes of 64 columns x 64 rows x 1 matrix.
-bool encode_state_map(CUtensorMap* map, const void* p, int mats, int N) {
-  const uint64_t dims[3] = {(uint64_t)N, (uint64_t)P, (uint64_t)mats};
-  const uint64_t strides[2] = {(uint64_t)N * 2, (uint64_t)P * N * 2};
-  const uint32_t box[3] = {(uint32_t)hopper::BOX, (uint32_t)P, 1};
-  return hopper::encode_bf16_map(map, p, 3, dims, strides, box);
-}
-
 template <int N>
 int launch(const void* x, const void* dt, const void* a_log, const void* b,
            const void* c, const void* d_skip, void* y, void* state, void* s_loc,
@@ -890,9 +669,11 @@ int launch(const void* x, const void* dt, const void* a_log, const void* b,
            cudaStream_t stream) {
   const int nc = L / Q, mats = B * nc * H;
   CUtensorMap xm, bm, cm, him, lom;
-  if (!encode_steps_map(&xm, x, B, L, H, P) || !encode_steps_map(&bm, b, B, L, G, N) ||
-      !encode_steps_map(&cm, c, B, L, G, N) || !encode_state_map(&him, s_hi, mats, N) ||
-      !encode_state_map(&lom, s_lo, mats, N))
+  if (!ssd::encode_steps_map(&xm, x, B, L, H, P) ||
+      !ssd::encode_steps_map(&bm, b, B, L, G, N) ||
+      !ssd::encode_steps_map(&cm, c, B, L, G, N) ||
+      !ssd::encode_state_map(&him, s_hi, mats, N) ||
+      !ssd::encode_state_map(&lom, s_lo, mats, N))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool attr_set = false;
   if (!attr_set) {
@@ -909,7 +690,8 @@ int launch(const void* x, const void* dt, const void* a_log, const void* b,
   const float* dtp = static_cast<const float*>(dt);
   const float* alp = static_cast<const float*>(a_log);
   chunk_state_kernel<N><<<dim3(nc, H, B), THREADS, StateLayout<N>::BYTES, stream>>>(
-      xm, bm, dtp, alp, static_cast<float*>(s_loc), static_cast<float*>(tot), L, H, G, Q);
+      xm, bm, xm, bm, dtp, alp, static_cast<float*>(s_loc), nullptr,
+      static_cast<float*>(tot), L, H, G, Q, nc);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int PN = P * N;
@@ -958,8 +740,8 @@ int ssd_scan_fwd(const void* x, const void* dt, const void* a_log,
 // Dynamic shared memory of one block of the wgmma variant's chunk_state
 // (kernel 0) or chunk_scan (kernel 1) at state width N (0 if N is not built).
 int ssd_scan_wgmma_smem_bytes(int kernel, int N) {
-  if (N == 64) return kernel ? wg::ScanLayout<64>::BYTES : wg::StateLayout<64>::BYTES;
-  if (N == 128) return kernel ? wg::ScanLayout<128>::BYTES : wg::StateLayout<128>::BYTES;
+  if (N == 64) return kernel ? wg::ScanLayout<64>::BYTES : ssd::StateLayout<64>::BYTES;
+  if (N == 128) return kernel ? wg::ScanLayout<128>::BYTES : ssd::StateLayout<128>::BYTES;
   return 0;
 }
 

@@ -29,21 +29,41 @@ the wgmma variant's three stages in plain torch (with ``split=True`` at its
 precision), for the tests; no main path calls them.
 
 The backward is ``csrc/ssd_scan_bwd.cu`` (no Pallas counterpart: the
-reference differentiates ``ref.ssd_chunked``): three kernels launched by
-``ssd_scan_bwd_cuda``, fp32 FMA on the CUDA cores. ``states`` recomputes the
-state entering each chunk and, in reverse, the gradient of the state leaving
-it; ``chunks`` forms every per-step gradient of one chunk and one P-slice;
-``reduce`` sums the per-head and per-slice partials in a fixed order (no
-atomics: a backward repeats bitwise). ``ssd_scan_bwd_plain`` is the same
-decomposition in plain torch (``bwd_states_plain``, ``bwd_chunks_plain``,
-``bwd_log_decay_plain``, ``bwd_reduce_plain``), for the tests.
+reference differentiates ``ref.ssd_chunked``), launched by
+``ssd_scan_bwd_cuda`` in the variant ``ssd_bwd_variant`` names (the
+forward's rule, so a model shape takes ``wgmma`` both ways):
+
+- ``"wgmma"``: five kernels. ``chunk_state``, the forward's own kernel run
+  over two halves, forms each chunk's local state and local state gradient
+  on wgmma; ``state_pass`` carries the states forward and their gradients
+  back over the chunks on the CUDA cores and writes both as bf16 hi + lo;
+  ``rows`` (per 64-row t tile: C B^T,
+  dY X^T, V B) gives dc and d cum's row part, ``cols`` (per 64-row s tile:
+  B C^T, X dY^T, W^T dY, V^T C) dx, db and d cum's column part, both fed by
+  TMA; ``reduce`` takes d cum's reverse scan and sums db and dc over each
+  group's heads.
+- ``"fma"``: fp32 FMA on the CUDA cores, three kernels. ``states``
+  recomputes the state entering each chunk and, in reverse, the gradient of
+  the state leaving it; ``chunks`` forms every per-step gradient of one
+  chunk and one P-slice; ``reduce`` sums the per-head and per-slice
+  partials.
+
+Neither uses atomics: a backward repeats bitwise. ``ssd_scan_bwd_plain`` is
+the fma decomposition in plain torch (``bwd_states_plain``,
+``bwd_chunks_plain``, ``bwd_log_decay_plain``, ``bwd_reduce_plain``) and
+``ssd_scan_bwd_wgmma_plain`` the wgmma one (``bwd_chunk_states_plain``,
+``bwd_state_pass_plain``, ``bwd_rows_plain``, ``bwd_cols_plain``; with
+``split=True`` at its precision), for the tests; no main path calls them.
 
 ``ssd_scan_cuda`` routes by where the tensors lie: on the CPU it runs the
 plain version (the torch twin of ``ref.ssd_chunked``), which autograd
 differentiates; on a CUDA tensor it launches the variant ``ssd_variant``
 names or raises, and in grad mode with an input that requires grad it goes
 through ``SsdScanFn``, whose backward is the backward kernel. Nothing falls
-back to another variant or to the plain version.
+back to another variant or to the plain version. ``_launch`` and
+``_launch_bwd`` run a named variant (no dispatch, no count), so that the
+tests and ``chip_smoke.py`` can hold and time ``fma`` at the shapes that
+take ``wgmma``.
 """
 from __future__ import annotations
 
@@ -265,19 +285,11 @@ def bwd_states_plain(x, dt, a_log, b, c, dy, dstate=None, *, chunk):
     """Stage 1 of the backward: the state entering each chunk, s_in (B, nc,
     H, P, N), and the gradient of the state leaving each chunk, g (B, nc, H,
     P, N): g of the last chunk is ``dstate`` (zero if None), and in reverse
-    g_{c-1} = e^{tot_c} g_c + sum_t e^{cum_t} dy_t c_t^T."""
-    s_loc, tot = chunk_states_plain(x, dt, a_log, b, chunk=chunk)
-    s_in, _ = state_pass_plain(s_loc, tot)
-    cum = chunk_cumsum(dt, a_log, chunk)                         # (B,nc,Q,H)
-    ch = _heads(_by_chunk(c, chunk), x.shape[2])
-    dy_w = _by_chunk(dy, chunk) * torch.exp(cum)[..., None]
-    ds_loc = torch.einsum("bcthp,bcthn->bchpn", dy_w, ch)
-    G = torch.zeros_like(s_in[:, 0]) if dstate is None else dstate.float()
-    leaving = []
-    for ci in reversed(range(s_in.shape[1])):
-        leaving.append(G)
-        G = G * torch.exp(tot[:, ci])[..., None, None] + ds_loc[:, ci]
-    return s_in, torch.stack(leaving[::-1], 1)
+    g_{c-1} = e^{tot_c} g_c + sum_t e^{cum_t} dy_t c_t^T (the wgmma stages
+    ``bwd_chunk_states_plain`` and ``bwd_state_pass_plain`` in fp32)."""
+    s_loc, ds_loc, tot = bwd_chunk_states_plain(x, dt, a_log, b, c, dy, chunk=chunk)
+    s_in, g, _ = bwd_state_pass_plain(s_loc, ds_loc, tot, dstate)
+    return s_in, g
 
 
 def bwd_chunks_plain(x, dt, a_log, b, c, d_skip, dy, s_in, g, *, chunk):
@@ -357,6 +369,132 @@ def ssd_scan_bwd_plain(x, dt, a_log, b, c, d_skip, dy, dstate=None, *, chunk=128
     dx, xdu, dcum, db_h, dc_h, dd_part = bwd_chunks_plain(
         x, dt, a_log, b, c, d_skip, dy, s_in, g, chunk=chunk)
     ddt, da_part = bwd_log_decay_plain(dt, a_log, xdu, dcum, chunk=chunk)
+    db, dc, da, dd = bwd_reduce_plain(db_h, dc_h, da_part, dd_part, G=b.shape[2])
+    return (dx, ddt.to(dt.dtype), da.to(a_log.dtype), db.to(b.dtype),
+            dc.to(c.dtype), dd.to(d_skip.dtype))
+
+
+# ---------------------------------------------------------------------------
+# The wgmma backward's stages in plain torch
+# ---------------------------------------------------------------------------
+
+
+def bwd_chunk_states_plain(x, dt, a_log, b, c, dy, *, chunk, split=False):
+    """Stage 1 of the wgmma backward: each chunk's local state s_loc and tot
+    as ``chunk_states_plain`` gives them, and its local state gradient
+    ds_loc (B, nc, H, P, N) = sum_t (e^{cum_t} dy_t)^T c_t. ``split``: x w and
+    dy e^{cum} as the kernel's hi + lo operands."""
+    s_loc, tot = chunk_states_plain(x, dt, a_log, b, chunk=chunk, split=split)
+    cum = chunk_cumsum(dt, a_log, chunk)                         # (B,nc,Q,H)
+    dyw = _as_operand(_by_chunk(dy, chunk) * torch.exp(cum)[..., None], split)
+    ch = _heads(_by_chunk(c, chunk), x.shape[2])
+    return s_loc, torch.einsum("bcthp,bcthn->bchpn", dyw, ch), tot
+
+
+def bwd_state_pass_plain(s_loc, ds_loc, tot, dstate=None, *, split=False):
+    """Stage 2: the state entering each chunk, s_in, and the gradient of the
+    state leaving it, g (B, nc, H, P, N; g of the last chunk is ``dstate``,
+    zero if None), each as the kernel's hi + lo operand carries it with
+    ``split``; and d tot's state term e^{tot} <g, s_in> (B, nc, H), with g
+    in fp32 and s_in as carried."""
+    s_in, _ = state_pass_plain(s_loc, tot)
+    G = torch.zeros_like(s_loc[:, 0]) if dstate is None else dstate.float()
+    leaving = []
+    for ci in reversed(range(s_loc.shape[1])):
+        leaving.append(G)
+        G = G * torch.exp(tot[:, ci])[..., None, None] + ds_loc[:, ci]
+    g = torch.stack(leaving[::-1], 1)
+    s_in = _as_operand(s_in, split)
+    sg = torch.exp(tot) * (g * s_in).sum((-1, -2))
+    return s_in, _as_operand(g, split), sg
+
+
+def _bwd_pairs(x, dt, a_log, b, c, dy, chunk):
+    """What both passes form per (t, s) pair: cum (B, nc, Q, H), C B^T and
+    (dY X^T) dt_s, and the decay e^{cum_t - cum_s} masked to s <= t before
+    it is exponentiated, each (B, nc, H, t, s)."""
+    H = x.shape[2]
+    cum = chunk_cumsum(dt, a_log, chunk)
+    ct = cum.transpose(2, 3)                                     # (B,nc,H,Q)
+    causal = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    diff = torch.where(causal, ct[..., :, None] - ct[..., None, :], 0.0)
+    decay = torch.where(causal, torch.exp(diff), 0.0)
+    bh, ch = (_heads(_by_chunk(t, chunk), H) for t in (b, c))
+    cb = torch.einsum("bcthn,bcshn->bchts", ch, bh)
+    dts = _by_chunk(dt, chunk).transpose(2, 3)[..., None, :]    # (B,nc,H,1,s)
+    dyx = torch.einsum("bcthp,bcshp->bchts", _by_chunk(dy, chunk),
+                       _by_chunk(x, chunk)) * dts
+    return cum, cb, dyx, decay
+
+
+def bwd_rows_plain(x, dt, a_log, b, c, dy, s_in, *, chunk, split=False):
+    """Stage 3, the row pass: dc per head (B, L, H, N) = sum_s V_ts b_s +
+    e^{cum_t} s_in^T dy_t, and d cum's row part (B, L, H) = sum_s M_ts +
+    c_t . (e^{cum_t} s_in^T dy_t), with V = (dY X^T) dt_s o decay and M =
+    (C B^T) o V. ``split``: V as hi + lo (s_in comes carried from stage 2)."""
+    B, L, H, P = x.shape
+    cum, cb, dyx, decay = _bwd_pairs(x, dt, a_log, b, c, dy, chunk)
+    v = dyx * decay
+    bh, ch = (_heads(_by_chunk(t, chunk), H) for t in (b, c))
+    dcs = torch.einsum("bcthp,bchpn->bcthn", _by_chunk(dy, chunk), s_in) \
+        * torch.exp(cum)[..., None]
+    dc = torch.einsum("bchts,bcshn->bcthn", _as_operand(v, split), bh) + dcs
+    row = (cb * v).sum(-1).transpose(2, 3) + (ch * dcs).sum(-1)
+    return dc.reshape(B, L, H, -1), row.reshape(B, L, H)
+
+
+def bwd_cols_plain(x, dt, a_log, b, c, d_skip, dy, g, *, chunk, split=False):
+    """Stage 3, the column pass, with W = (C B^T) o decay, V = (dY X^T) dt_s
+    o decay, M = (C B^T) o V and u_s = dt_s x_s:
+
+    - du_s = sum_t W_ts dy_t + e^{tot - cum_s} g b_s; dx = dt du + D dy;
+    - db per head = sum_t V_ts c_t + e^{tot - cum_s} dt_s g^T x_s;
+    - d cum's column part = -sum_t M_ts - K_s, K_s = u_s . (e^{tot - cum_s}
+      g b_s).
+
+    Returns dx (x's dtype), x . du and the column part (B, L, H), db per
+    head (B, L, H, N), and per (B, nc, H) the chunk's sum of K_s (d tot's
+    term) and d_skip's partial dy . x. ``split``: W and V as hi + lo (g comes
+    carried from stage 2)."""
+    B, L, H, P = x.shape
+    cum, cb, dyx, decay = _bwd_pairs(x, dt, a_log, b, c, dy, chunk)
+    tot = cum[:, :, -1]
+    xs, dys, dts = (_by_chunk(t, chunk) for t in (x, dy, dt))
+    bh, ch = (_heads(_by_chunk(t, chunk), H) for t in (b, c))
+    w_end = torch.exp(tot[:, :, None] - cum)                     # (B,nc,Q,H)
+    du_state = w_end[..., None] * torch.einsum("bcshn,bchpn->bcshp", bh, g)
+    k = dts * (xs * du_state).sum(-1)                            # (B,nc,Q,H)
+    db_state = (dts * w_end)[..., None] * torch.einsum("bcshp,bchpn->bcshn", xs, g)
+    v = dyx * decay
+    du = torch.einsum("bchts,bcthp->bcshp", _as_operand(cb * decay, split), dys) \
+        + du_state
+    db = torch.einsum("bchts,bcthn->bcshn", _as_operand(v, split), ch) + db_state
+    dx = dts[..., None] * du + d_skip.float()[:, None] * dys
+    col = -(cb * v).sum(-2).transpose(2, 3) - k
+    return (dx.reshape(B, L, H, P).to(x.dtype), (xs * du).sum(-1).reshape(B, L, H),
+            col.reshape(B, L, H), db.reshape(B, L, H, -1), k.sum(2),
+            (dys * xs).sum((2, 4)))
+
+
+def ssd_scan_bwd_wgmma_plain(x, dt, a_log, b, c, d_skip, dy, dstate=None, *,
+                             chunk=128, split=False):
+    """The wgmma backward's function in plain torch, stage by stage (with
+    ``split``, at its precision): local states, the state pass, the row and
+    column passes, then d tot into each chunk's last step, the log-decay's
+    reverse scan and the sums over heads. Gradients as
+    ``ssd_scan_bwd_plain``."""
+    chunk = min(chunk, x.shape[1])
+    B, L, H, _ = x.shape
+    s_loc, ds_loc, tot = bwd_chunk_states_plain(x, dt, a_log, b, c, dy, chunk=chunk,
+                                                split=split)
+    s_in, g, sg = bwd_state_pass_plain(s_loc, ds_loc, tot, dstate, split=split)
+    dc_h, row = bwd_rows_plain(x, dt, a_log, b, c, dy, s_in, chunk=chunk, split=split)
+    dx, xdu, col, db_h, k_sum, dd_part = bwd_cols_plain(
+        x, dt, a_log, b, c, d_skip, dy, g, chunk=chunk, split=split)
+    dcum = (row + col).reshape(B, L // chunk, chunk, H)
+    dcum[:, :, -1] += k_sum + sg
+    ddt, da_part = bwd_log_decay_plain(dt, a_log, xdu, dcum.reshape(B, L, H),
+                                       chunk=chunk)
     db, dc, da, dd = bwd_reduce_plain(db_h, dc_h, da_part, dd_part, G=b.shape[2])
     return (dx, ddt.to(dt.dtype), da.to(a_log.dtype), db.to(b.dtype),
             dc.to(c.dtype), dd.to(d_skip.dtype))
@@ -459,14 +597,20 @@ class SsdScanFn(torch.autograd.Function):
 
 
 def bwd_slice(p: int) -> int:
-    """Columns of P one block of the backward takes (P must be a multiple of
-    16): 64, 32 or 16, the widest that divides P."""
+    """Columns of P one block of the fma backward takes (P must be a multiple
+    of 16): 64, 32 or 16, the widest that divides P."""
     return next(ps for ps in (64, 32, 16) if p % ps == 0)
 
 
+def ssd_bwd_variant(x, b, chunk: int) -> str:
+    """The backward kernel that takes these operands: ``ssd_variant``'s rule,
+    so a model shape takes ``"wgmma"`` both ways."""
+    return ssd_variant(x, b, chunk)
+
+
 def bwd_smem_bytes(kernel: str, n: int, ps: int) -> int:
-    """Dynamic shared memory of one backward block at state width ``n`` and
-    P-slice ``ps`` (rows of n and of ps padded by 4 floats): ``"states"``
+    """Dynamic shared memory of one fma backward block at state width ``n``
+    and P-slice ``ps`` (rows of n and of ps padded by 4 floats): ``"states"``
     holds cum and dt of a chunk, a 64-row tile of b (or c) and of u (or dy)
     and the ps x n state slice; ``"chunks"`` five per-step vectors, 64-row
     tiles of c, b, dy and u, the W and V tiles and the slices of the
@@ -478,6 +622,27 @@ def bwd_smem_bytes(kernel: str, n: int, ps: int) -> int:
                 + 2 * ps * ldn)
 
 
+BWD_WGMMA_KERNELS = ("chunk_state", "rows", "cols")
+
+
+def bwd_wgmma_smem_bytes(kernel: str, n: int) -> int:
+    """Dynamic shared memory of one wgmma backward block at state width
+    ``n``, in 64 x 64 bf16 boxes of 8 KB (n/64 boxes for a tile of b, c or a
+    state): ``"chunk_state"`` the forward's, run over (dy, c) too;
+    ``"rows"`` the t tile's c and dy, the entering state's hi
+    and lo, and a ring of 2 stages of an x box and a b tile; ``"cols"`` the
+    s tile's b, x and dy, the state gradient's hi and lo, and a ring of 2
+    stages of a dy box and a c tile. Then 8 bytes a barrier (a full and an
+    empty one a stage; rows and cols two more) and 1 KB of slack to align to
+    the 128-byte swizzle's 1024-byte atoms."""
+    if kernel == "chunk_state":             # the forward's own kernel
+        return wgmma_smem_bytes("chunk_state", n)
+    box, nb, stages = WGMMA_TILE * 128, n // 64, 2
+    ring = stages * (1 + nb) * box
+    tiles = {"rows": 3 * nb + 1, "cols": 3 * nb + 2}[kernel]
+    return tiles * box + ring + (2 + 2 * stages) * 8 + 1024
+
+
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("ssd_scan_bwd")
@@ -486,63 +651,118 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.ssd_scan_bwd.restype = i
     lib.ssd_scan_bwd_smem_bytes.argtypes = [i, i, i]
     lib.ssd_scan_bwd_smem_bytes.restype = i
+    lib.ssd_scan_bwd_wgmma.argtypes = [p] * 29 + [i] * 7 + [p]
+    lib.ssd_scan_bwd_wgmma.restype = i
+    lib.ssd_scan_bwd_wgmma_smem_bytes.argtypes = [i, i]
+    lib.ssd_scan_bwd_wgmma_smem_bytes.restype = i
     return lib
 
 
-def ssd_scan_bwd_cuda(x, dt, a_log, b, c, d_skip, dy, dstate=None, *, chunk=128):
-    """Gradients (dx, ddt, da_log, db, dc, dd_skip) of ``ssd_scan`` for the
-    output gradient ``dy`` (x's shape and dtype) and the final state's
-    ``dstate`` ((B,H,P,N) fp32; None: zero), each in its input's dtype:
-    three kernels on the current stream (states, chunks, reduce), fp32
-    inside. ``ssd_scan_bwd_cuda.launches`` counts the calls. CUDA tensors
-    only; it takes what the forward's ``check_inputs`` takes."""
-    if x.device.type != "cuda":
-        raise ValueError(f"no SSD backward kernel for device {x.device}; on "
-                         f"the CPU autograd differentiates the plain version")
+def check_bwd_inputs(variant: str, x, dt, a_log, b, c, d_skip, dy, dstate,
+                     chunk: int) -> None:
+    """Raise ``ValueError`` for what the backward variant does not take: the
+    forward's ``check_inputs``, dy shaped like x, dstate (B,H,P,N) fp32 or
+    None, and for ``wgmma`` its shapes and a 16-byte aligned dy (TMA)."""
     check_inputs(x, dt, a_log, b, c, d_skip, chunk)
     if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous() \
             or dy.device != x.device:
         raise ValueError("dy must be a contiguous tensor shaped like x, of "
                          "its dtype, on its device")
     B, L, H, P = x.shape
-    G, N = b.shape[2], b.shape[3]
+    N = b.shape[3]
     if dstate is not None and (dstate.shape != (B, H, P, N) or not
                                dstate.is_contiguous() or dstate.device != x.device
                                or dstate.dtype != torch.float32):
         raise ValueError(f"dstate must be contiguous fp32 {(B, H, P, N)} on "
                          f"x's device")
+    if variant == "wgmma":
+        if ssd_bwd_variant(x, b, min(chunk, L)) != "wgmma":
+            raise ValueError(f"the wgmma backward does not take P={P}, N={N}, "
+                             f"chunk {chunk}, {x.dtype}")
+        if dy.data_ptr() % 16:
+            raise ValueError("dy is not 16-byte aligned, which TMA needs")
+    elif variant != "fma":
+        raise ValueError(f"no SSD backward variant {variant!r}")
+
+
+def _launch_bwd(variant: str, x, dt, a_log, b, c, d_skip, dy, dstate, chunk: int):
+    """Run one backward variant on CUDA tensors (no dispatch, no launch
+    count): the wrapper's launch, also called directly to hold and time one
+    variant against the other."""
+    check_bwd_inputs(variant, x, dt, a_log, b, c, d_skip, dy, dstate, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"no SSD backward kernel for device {x.device}")
+    B, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
     chunk = min(chunk, L)
-    nc, nsl = L // chunk, P // bwd_slice(P)
-    dev, f32 = x.device, torch.float32
+    nc, dev, f32 = L // chunk, x.device, torch.float32
     a32 = a_log.to(dev, f32).contiguous()
     d32 = d_skip.to(dev, f32).contiguous()
     dx, db, dc = torch.empty_like(x), torch.empty_like(b), torch.empty_like(c)
     ddt = torch.empty(B, L, H, dtype=f32, device=dev)
     da, dd = (torch.empty(H, dtype=f32, device=dev) for _ in range(2))
-    # scratch: the states, and the partials the reduce kernel sums
-    s_in, g = (torch.empty(B, nc, H, P, N, dtype=f32, device=dev) for _ in range(2))
-    ddt_part = torch.empty(nsl, B, L, H, dtype=f32, device=dev)
-    db_part, dc_part = (torch.empty(nsl, B, L, H, N, dtype=f32, device=dev)
-                        for _ in range(2))
-    da_part, dd_part = (torch.empty(nsl, B, nc, H, dtype=f32, device=dev)
-                        for _ in range(2))
+    ptrs = [t.data_ptr() for t in (x, dt, a32, b, c, d32, dy)] + \
+        [None if dstate is None else dstate.data_ptr()] + \
+        [t.data_ptr() for t in (dx, ddt, da, db, dc, dd)]
+    # scratch: the chunk states, and the partials the last kernel sums
+    if variant == "wgmma":
+        s_loc, ds_loc = (torch.empty(B, nc, H, P, N, dtype=f32, device=dev)
+                         for _ in range(2))
+        tot = torch.empty(B, nc, H, dtype=f32, device=dev)
+        halves = [torch.empty(B, nc, H, P, N, dtype=torch.bfloat16, device=dev)
+                  for _ in range(4)]                    # s_hi, s_lo, g_hi, g_lo
+        sg_part = torch.empty(B, nc, H, P * N // 1024, dtype=f32, device=dev)
+        db_part, dc_part = (torch.empty(B, L, H, N, dtype=f32, device=dev)
+                            for _ in range(2))
+        dcum_row, dcum_col, xdu = (torch.empty(B, L, H, dtype=f32, device=dev)
+                                   for _ in range(3))
+        k_part, dd_part = (torch.empty(B, nc, chunk // WGMMA_TILE, H, dtype=f32,
+                                       device=dev) for _ in range(2))
+        scratch = [s_loc, ds_loc, tot, *halves, sg_part, db_part, dc_part, dcum_row,
+                   dcum_col, xdu, k_part, dd_part]
+    else:
+        nsl = P // bwd_slice(P)
+        s_in, g = (torch.empty(B, nc, H, P, N, dtype=f32, device=dev) for _ in range(2))
+        ddt_part = torch.empty(nsl, B, L, H, dtype=f32, device=dev)
+        db_part, dc_part = (torch.empty(nsl, B, L, H, N, dtype=f32, device=dev)
+                            for _ in range(2))
+        da_part, dd_part = (torch.empty(nsl, B, nc, H, dtype=f32, device=dev)
+                            for _ in range(2))
+        scratch = [s_in, g, ddt_part, db_part, dc_part, da_part, dd_part]
+    ptrs += [t.data_ptr() for t in scratch]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_lib().ssd_scan_bwd(
-            x.data_ptr(), dt.data_ptr(), a32.data_ptr(), b.data_ptr(),
-            c.data_ptr(), d32.data_ptr(), dy.data_ptr(),
-            None if dstate is None else dstate.data_ptr(),
-            dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
-            dc.data_ptr(), dd.data_ptr(), s_in.data_ptr(), g.data_ptr(),
-            ddt_part.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
-            da_part.data_ptr(), dd_part.data_ptr(),
-            B, L, H, P, G, N, chunk, DTYPES[x.dtype], stream)
+        if variant == "wgmma":
+            err = _bwd_lib().ssd_scan_bwd_wgmma(*ptrs, B, L, H, P, G, N, chunk, stream)
+        else:
+            err = _bwd_lib().ssd_scan_bwd(*ptrs, B, L, H, P, G, N, chunk,
+                                          DTYPES[x.dtype], stream)
     if err:
-        raise RuntimeError(f"ssd_scan backward kernel launch failed "
+        raise RuntimeError(f"ssd_scan {variant} backward kernel launch failed "
                            f"(cudaError_t {err})")
-    ssd_scan_bwd_cuda.launches += 1
     return (dx, ddt, da.to(a_log.device, a_log.dtype), db, dc,
             dd.to(d_skip.device, d_skip.dtype))
 
 
+def ssd_scan_bwd_cuda(x, dt, a_log, b, c, d_skip, dy, dstate=None, *, chunk=128):
+    """Gradients (dx, ddt, da_log, db, dc, dd_skip) of ``ssd_scan`` for the
+    output gradient ``dy`` (x's shape and dtype) and the final state's
+    ``dstate`` ((B,H,P,N) fp32; None: zero), each in its input's dtype, fp32
+    inside: the variant ``ssd_bwd_variant`` names, on the current stream
+    (``wgmma``: chunk_state, state_pass, rows, cols, reduce; ``fma``:
+    states, chunks, reduce). ``ssd_scan_bwd_cuda.launches`` counts the calls
+    and ``ssd_scan_bwd_cuda.variant_launches`` them by variant. CUDA tensors
+    only; it takes what the forward's ``check_inputs`` takes, and for
+    ``wgmma`` a 16-byte aligned dy."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no SSD backward kernel for device {x.device}; on "
+                         f"the CPU autograd differentiates the plain version")
+    variant = ssd_bwd_variant(x, b, min(chunk, x.shape[1]))
+    out = _launch_bwd(variant, x, dt, a_log, b, c, d_skip, dy, dstate, chunk)
+    ssd_scan_bwd_cuda.launches += 1
+    ssd_scan_bwd_cuda.variant_launches[variant] += 1
+    return out
+
+
 ssd_scan_bwd_cuda.launches = 0
+ssd_scan_bwd_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)

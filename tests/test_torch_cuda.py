@@ -449,20 +449,29 @@ SSD_BWD_NORM = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 SSD_BWD_GRID = [(256, 64, 64, 64, 2), (200, 100, 32, 64, 2), (21, 7, 16, 16, 1),
                 (384, 128, 64, 128, 1), (96, 32, 48, 32, 4)]
 # every shape behind the fma forward in both dtypes, and the shapes the
-# wgmma forward takes (bf16, P = 64, N = 64 or 128, chunk a multiple of 64)
-SSD_BWD_CASES = [("fma", dt, shape) for dt in (torch.float32, torch.bfloat16)
-                 for shape in SSD_BWD_GRID] + \
+# wgmma forward takes (bf16, P = 64, N = 64 or 128, chunk a multiple of 64);
+# the backward variant beside it: where the backward's own choice is wgmma,
+# fma too, so that it stays covered at the shapes that now take wgmma
+_SSD_BWD_FWD = [("fma", dt, shape) for dt in (torch.float32, torch.bfloat16)
+                for shape in SSD_BWD_GRID] + \
     [("wgmma", torch.bfloat16, SSD_BWD_GRID[0]), ("wgmma", torch.bfloat16, SSD_BWD_GRID[3])]
+SSD_BWD_CASES = [(fwd, bwd, dt, shape) for fwd, dt, shape in _SSD_BWD_FWD
+                 for bwd in ("wgmma", "fma")
+                 if bwd == "fma" or (dt == torch.bfloat16 and shape in
+                                     (SSD_BWD_GRID[0], SSD_BWD_GRID[3]))]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant,dtype,shape", SSD_BWD_CASES)
-def test_ssd_scan_backward_vs_plain(cuda, variant, dtype, shape):
-    """The backward kernel behind each forward variant that takes the shape
-    (``SsdScanFn``), with a non-zero state cotangent: all six gradients
-    against autograd through the plain version in fp32, each rounded to its
-    input's dtype, within SSD_BWD_ELEM and SSD_BWD_NORM; one backward launch;
-    the backward run twice bitwise equal."""
+@pytest.mark.parametrize("variant,bwd_variant,dtype,shape", SSD_BWD_CASES)
+def test_ssd_scan_backward_vs_plain(cuda, variant, bwd_variant, dtype, shape):
+    """The backward kernel of variant ``bwd_variant`` behind each forward
+    variant that takes the shape, with a non-zero state cotangent: all six
+    gradients against autograd through the plain version in fp32, each
+    rounded to its input's dtype, within SSD_BWD_ELEM and SSD_BWD_NORM; the
+    backward run twice bitwise equal. The variant ``ssd_bwd_variant`` names
+    runs through ``SsdScanFn`` (one backward launch of that variant, as the
+    counts show); the other is called through ``_launch_bwd``, which counts
+    nothing."""
     (L, chunk, P, N, G), B, H = shape, 2, 8
     args = list(_ssd_model_like(15, B, L, H, P, N, G, cuda))
     for i in (0, 3, 4):
@@ -471,13 +480,22 @@ def test_ssd_scan_backward_vs_plain(cuda, variant, dtype, shape):
     rng = np.random.default_rng(16)
     dy = torch.from_numpy(rng.standard_normal((B, L, H, P), np.float32)).to(cuda, dtype)
     ds = torch.from_numpy(rng.standard_normal((B, H, P, N), np.float32)).to(cuda)
-    leaves = [a.detach().clone().requires_grad_() for a in args]
     before = ss.ssd_scan_bwd_cuda.launches
-    y, state = ss.SsdScanFn.apply(*leaves, chunk, variant)
-    got = torch.autograd.grad((y, state), leaves, (dy, ds))
-    again = ss.ssd_scan_bwd_cuda(*args, dy, ds, chunk=chunk)
+    before_variant = dict(ss.ssd_scan_bwd_cuda.variant_launches)
+    if bwd_variant == ss.ssd_bwd_variant(args[0], args[3], chunk):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        y, state = ss.SsdScanFn.apply(*leaves, chunk, variant)
+        got = torch.autograd.grad((y, state), leaves, (dy, ds))
+        again = ss.ssd_scan_bwd_cuda(*args, dy, ds, chunk=chunk)
+        calls = 2
+    else:
+        got = ss._launch_bwd(bwd_variant, *args, dy, ds, chunk)
+        again = ss._launch_bwd(bwd_variant, *args, dy, ds, chunk)
+        calls = 0
     torch.cuda.synchronize()
-    assert ss.ssd_scan_bwd_cuda.launches == before + 2
+    assert ss.ssd_scan_bwd_cuda.launches == before + calls
+    assert ss.ssd_scan_bwd_cuda.variant_launches == {
+        **before_variant, bwd_variant: before_variant[bwd_variant] + calls}
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     f32 = [a.detach().float().requires_grad_() for a in args]
     y_p, state_p = ss.ssd_scan_plain(*f32, chunk=chunk)
@@ -489,6 +507,22 @@ def test_ssd_scan_backward_vs_plain(cuda, variant, dtype, shape):
         d = (g.float() - w).abs().max().item()
         assert d <= SSD_BWD_ELEM[a.dtype] * w.abs().max().item(), name
         assert _rel(g, w) <= SSD_BWD_NORM[a.dtype], name
+
+
+@pytest.mark.cuda
+def test_ssd_scan_backward_rejects_unaligned_dy(cuda):
+    """The wgmma backward reads dy by TMA: a dy 2 bytes into its storage is
+    refused on the card, before any launch."""
+    B, L, H, P, N, G = 1, 64, 2, 64, 64, 1
+    args = list(_ssd_model_like(17, B, L, H, P, N, G, cuda))
+    for i in (0, 3, 4):
+        args[i] = args[i].to(torch.bfloat16)
+    dy = torch.zeros(B * L * H * P + 1, dtype=torch.bfloat16,
+                     device=cuda)[1:].view(B, L, H, P)
+    before = ss.ssd_scan_bwd_cuda.launches
+    with pytest.raises(ValueError, match="aligned"):
+        ss.ssd_scan_bwd_cuda(*args, dy, chunk=64)
+    assert ss.ssd_scan_bwd_cuda.launches == before
 
 
 @pytest.mark.cuda

@@ -531,6 +531,82 @@ def test_ssd_check_inputs_rejects_unaligned_tma_operands():
     ss.check_inputs(x.clone(), torch.zeros(B, L, H), vec, b, b.clone(), vec, 64)
 
 
+@pytest.mark.parametrize("xs,bs,chunk,dtype,variant", SSD_VARIANT_CASES)
+def test_ssd_bwd_variant_follows_the_forwards_rule(xs, bs, chunk, dtype, variant):
+    """The backward takes the forward's variant at every shape: a model
+    shape is wgmma both ways."""
+    x = torch.empty(xs, dtype=TDT[dtype], device="meta")
+    b = torch.empty(bs, dtype=TDT[dtype], device="meta")
+    assert ss.ssd_bwd_variant(x, b, chunk) == variant == ss.ssd_variant(x, b, chunk)
+
+
+def test_ssd_bwd_wgmma_smem_budget():
+    """The wgmma backward's blocks at each state width the models use
+    (zamba2-7b N=64, mamba2-370m N=128), in 8 KB boxes: chunk_state a ring
+    of 2 stages (x or dy, and n/64 b or c boxes); rows the t tile's c and
+    dy, the entering state's hi and lo and a ring of x and b; cols the s
+    tile's b, x and dy, the state gradient's hi and lo and a ring of dy and
+    c; 8 bytes a barrier and 1 KB of alignment slack. Each fits one SM's
+    227 KB with its static arrays (3 KB: dt, cum and the weights of a
+    256-step chunk)."""
+    want = {("chunk_state", 64): 33824, ("chunk_state", 128): 50208,
+            ("rows", 64): 66608, ("rows", 128): 107568,
+            ("cols", 64): 74800, ("cols", 128): 115760}
+    for (kernel, n), nbytes in want.items():
+        assert kernel in ss.BWD_WGMMA_KERNELS
+        assert ss.bwd_wgmma_smem_bytes(kernel, n) == nbytes, (kernel, n)
+        assert nbytes + 3 * 1024 <= 232448
+
+
+def _ssd_bwd_args(dtype=torch.bfloat16, B=1, L=64, H=2, P=64, N=64, G=1):
+    x = torch.zeros(B, L, H, P, dtype=dtype)
+    b = torch.zeros(B, L, G, N, dtype=dtype)
+    vec = torch.zeros(H)
+    return x, torch.zeros(B, L, H), vec, b, b.clone(), vec
+
+
+def test_ssd_bwd_check_inputs_rejects_what_the_variant_does_not_take():
+    """The wgmma backward reads dy by TMA: a dy 2 bytes into its storage is
+    refused, an aligned copy taken; it refuses fp32 and P = 32, which only
+    fma takes; dy must match x, dstate be (B,H,P,N) fp32; no other variant."""
+    args = _ssd_bwd_args()
+    x = args[0]
+    dy = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)[1:].view(x.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        ss.check_bwd_inputs("wgmma", *args, dy, None, 64)
+    ss.check_bwd_inputs("wgmma", *args, dy.clone(), None, 64)
+    ss.check_bwd_inputs("fma", *args, dy, None, 64)
+    f32 = _ssd_bwd_args(torch.float32)
+    with pytest.raises(ValueError, match="wgmma backward does not take"):
+        ss.check_bwd_inputs("wgmma", *f32, torch.zeros_like(f32[0]), None, 64)
+    p32 = _ssd_bwd_args(P=32)
+    with pytest.raises(ValueError, match="wgmma backward does not take"):
+        ss.check_bwd_inputs("wgmma", *p32, torch.zeros_like(p32[0]), None, 64)
+    with pytest.raises(ValueError, match="dy must be"):
+        ss.check_bwd_inputs("wgmma", *args, torch.zeros_like(x, dtype=torch.float32),
+                            None, 64)
+    with pytest.raises(ValueError, match="dstate must be"):
+        ss.check_bwd_inputs("wgmma", *args, torch.zeros_like(x),
+                            torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16), 64)
+    with pytest.raises(ValueError, match="no SSD backward variant"):
+        ss.check_bwd_inputs("mma", *args, torch.zeros_like(x), None, 64)
+
+
+@pytest.mark.parametrize("variant", ["wgmma", "fma"])
+def test_ssd_bwd_launch_refuses_cpu_tensors(variant, monkeypatch):
+    """Neither backward variant launches on CPU tensors, and nothing is
+    built: on the CPU autograd differentiates the plain version."""
+    monkeypatch.setattr(_build, "load", _refuse_build)
+    args = _ssd_bwd_args()
+    with pytest.raises(ValueError, match="no SSD backward kernel"):
+        ss._launch_bwd(variant, *args, torch.zeros_like(args[0]), None, 64)
+    before = dict(ss.ssd_scan_bwd_cuda.variant_launches)
+    with pytest.raises(ValueError, match="autograd differentiates"):
+        ss.ssd_scan_bwd_cuda(*args, torch.zeros_like(args[0]), chunk=64)
+    assert ss.ssd_scan_bwd_cuda.variant_launches == before
+    assert set(before) == set(ss.VARIANTS)
+
+
 def test_split_bf16_keeps_sixteen_bits():
     """hi is v rounded to bf16, lo the remainder rounded to bf16; hi + lo
     is within 2^-16 of v, relative to |v|."""

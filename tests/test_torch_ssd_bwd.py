@@ -41,19 +41,23 @@ CASES = [
     (1, 64, 8, 16, 32, 2, 64),
     (2, 48, 4, 16, 16, 4, 16),
 ]
+# the wgmma backward's stages: CASES and one at its own operand widths
+# (P = 64, N = 128: two boxes of n) over two 128-step chunks
+WGMMA_CASES = CASES + [(1, 256, 2, 64, 128, 1, 128)]
 
 
-def _inputs(seed, B, L, H, P, N, G, *, state_grad=True):
+def _inputs(seed, B, L, H, P, N, G, *, state_grad=True, dt_scale=1.0):
     """x, dt, a_log, b, c, d_skip, dy and the final state's cotangent (zero
-    without ``state_grad``), as numpy fp32: dt from softplus, A in [1, 4].
-    The reference exponentiates its decay before masking it, so above the
-    diagonal e^{cum_t - cum_s} overflows once a chunk's |cum| passes about
-    88, and its where's gradient turns 0 * inf into NaN: dt is drawn small
-    enough (mean about 0.13) that a 64-step chunk stays well inside that."""
+    without ``state_grad``), as numpy fp32: dt from softplus (times
+    ``dt_scale``), A in [1, 4]. The reference exponentiates its decay before
+    masking it, so above the diagonal e^{cum_t - cum_s} overflows once a
+    chunk's |cum| passes about 88, and its where's gradient turns 0 * inf
+    into NaN: dt is drawn small enough (mean about 0.13) that a 64-step
+    chunk stays well inside that; a 128-step chunk takes half of it."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     x = (rng.standard_normal((B, L, H, P)) * 0.5).astype(f32)
-    dt = np.log1p(np.exp(rng.standard_normal((B, L, H)) - 2.0)).astype(f32)
+    dt = (np.log1p(np.exp(rng.standard_normal((B, L, H)) - 2.0)) * dt_scale).astype(f32)
     a_log = np.log(rng.uniform(1.0, 4.0, H)).astype(f32)
     b = (rng.standard_normal((B, L, G, N)) * 0.3).astype(f32)
     c = (rng.standard_normal((B, L, G, N)) * 0.3).astype(f32)
@@ -225,3 +229,88 @@ def test_bwd_smem_budget():
     assert ss.bwd_smem_bytes("states", 128, 64) == 87040
     assert ss.bwd_smem_bytes("chunks", 128, 64) + 32 <= 232448
     assert ss.bwd_smem_bytes("states", 128, 64) + 1056 <= 232448
+
+
+# ---------------------------------------------------------------------------
+# the wgmma backward's stages (local states, state pass, rows, cols)
+# ---------------------------------------------------------------------------
+
+
+def _wgmma_inputs(seed, B, L, H, P, N, G, chunk, dtype):
+    arrays, dy, ds = _inputs(seed, B, L, H, P, N, G,
+                             dt_scale=0.5 if chunk > 64 else 1.0)
+    return arrays, dy, ds, _torch_args(arrays, dy, ds, dtype)
+
+
+@pytest.mark.parametrize("B,L,H,P,N,G,chunk", WGMMA_CASES)
+def test_bwd_wgmma_stages_vs_jax_vjp_fp32(B, L, H, P, N, G, chunk):
+    """The wgmma backward's stages at its precision (every fp32 operand of a
+    tensor-core product as bf16 hi + lo: about 2^-17 relative) against
+    jax.vjp of the reference's ssd_chunked, within FP32_RTOL."""
+    arrays, dy, ds, (args, tdy, tds) = _wgmma_inputs(0, B, L, H, P, N, G, chunk,
+                                                     torch.float32)
+    got = ss.ssd_scan_bwd_wgmma_plain(*args, tdy, tds, chunk=chunk, split=True)
+    want = _jax_grads(arrays, dy, ds, chunk, jnp.float32)
+    for name, g, w, a in zip(NAMES, got, want, args):
+        assert g.shape == a.shape and g.dtype == a.dtype, name
+        assert _rel(_np(g), _np(w)) <= FP32_RTOL[name], name
+
+
+@pytest.mark.parametrize("B,L,H,P,N,G,chunk", WGMMA_CASES)
+def test_bwd_wgmma_stages_vs_jax_vjp_bf16(B, L, H, P, N, G, chunk):
+    """x, b, c and dy in bf16 (the wgmma variant's inputs): dx, db and dc
+    within BF16_RTOL of the reference's bf16 cotangents, ddt, da_log and
+    dd_skip within FP32_RTOL, from the stages at the kernel's precision."""
+    arrays, dy, ds, (args, tdy, tds) = _wgmma_inputs(1, B, L, H, P, N, G, chunk,
+                                                     torch.bfloat16)
+    got = ss.ssd_scan_bwd_wgmma_plain(*args, tdy, tds, chunk=chunk, split=True)
+    want = _jax_grads(arrays, dy, ds, chunk, jnp.bfloat16)
+    for name, g, w, a in zip(NAMES, got, want, args):
+        assert g.dtype == a.dtype, name
+        tol = BF16_RTOL if a.dtype == torch.bfloat16 else FP32_RTOL[name]
+        assert _rel(_np(g), _np(w)) <= tol, name
+
+
+@pytest.mark.parametrize("B,L,H,P,N,G,chunk", [CASES[2], CASES[4], WGMMA_CASES[-1]])
+def test_bwd_wgmma_passes_split_what_bwd_chunks_computes(B, L, H, P, N, G, chunk):
+    """Without the split the wgmma stages compute what the fma kernels'
+    stages do, in another order (fp32, relative norm 1e-5): the row pass dc
+    per head, the column pass dx, x . du and db per head; d cum's row part plus
+    its column part, with d tot (the chunk's K sums and e^{tot} <g, s_in>)
+    at each chunk's last step, is bwd_chunks_plain's d cum; the dy . x
+    partials are its d_skip partials."""
+    _, _, _, (args, tdy, tds) = _wgmma_inputs(2, B, L, H, P, N, G, chunk,
+                                              torch.float32)
+    x, dt, a_log, b, c, d_skip = args
+    s_loc, ds_loc, tot = ss.bwd_chunk_states_plain(x, dt, a_log, b, c, tdy, chunk=chunk)
+    s_in, g, sg = ss.bwd_state_pass_plain(s_loc, ds_loc, tot, tds)
+    want = ss.bwd_chunks_plain(x, dt, a_log, b, c, d_skip, tdy, s_in, g, chunk=chunk)
+    w_dx, w_xdu, w_dcum, w_db, w_dc, w_dd = want
+    dc_h, row = ss.bwd_rows_plain(x, dt, a_log, b, c, tdy, s_in, chunk=chunk)
+    dx, xdu, col, db_h, k_sum, dd = ss.bwd_cols_plain(x, dt, a_log, b, c, d_skip, tdy,
+                                                      g, chunk=chunk)
+    dcum = (row + col).reshape(B, L // chunk, chunk, H)
+    dcum[:, :, -1] += k_sum + sg
+    for name, got, w in (("dc", dc_h, w_dc), ("dx", dx, w_dx), ("x.du", xdu, w_xdu),
+                         ("db", db_h, w_db), ("dcum", dcum.reshape(B, L, H), w_dcum),
+                         ("dd_skip", dd, w_dd)):
+        assert got.shape == w.shape, name
+        assert _rel(got.numpy(), w.numpy()) <= 1e-5, name
+
+
+def test_bwd_wgmma_state_pass_carries_the_cotangent_and_zero_first_state():
+    """Stage 2: chunk 0 enters with a zero state, the last chunk's leaving
+    gradient is the cotangent (zero for None), and d tot's state term is
+    e^{tot} <g, s_in>, zero in chunk 0."""
+    _, _, _, (args, tdy, tds) = _wgmma_inputs(3, 1, 96, 2, 16, 16, 1, 32,
+                                              torch.float32)
+    x, dt, a_log, b, c, _ = args
+    s_loc, ds_loc, tot = ss.bwd_chunk_states_plain(x, dt, a_log, b, c, tdy, chunk=32)
+    s_in, g, sg = ss.bwd_state_pass_plain(s_loc, ds_loc, tot, tds)
+    assert s_in.shape == g.shape == (1, 3, 2, 16, 16) and sg.shape == (1, 3, 2)
+    assert torch.equal(s_in[:, 0], torch.zeros_like(s_in[:, 0]))
+    assert torch.equal(g[:, -1], tds)
+    assert torch.equal(sg[:, 0], torch.zeros_like(sg[:, 0]))
+    torch.testing.assert_close(sg, torch.exp(tot) * (g * s_in).sum((-1, -2)))
+    _, g0, _ = ss.bwd_state_pass_plain(s_loc, ds_loc, tot, None)
+    assert torch.equal(g0[:, -1], torch.zeros_like(tds))
