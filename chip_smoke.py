@@ -128,7 +128,7 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             failures ends bitwise equal to a clean one.
 3. serve:   the main paths: ``ServeSession.generate`` at full width, random
             bf16 weights from a seeded generator, two batches of 4 prompts of
-            2048 tokens, 64 new greedy tokens each, on deepseek-7b (30
+            2048 tokens, 48 new greedy tokens each, on deepseek-7b (30
             layers, d_model 4096), zamba2-7b (81 SSM layers and 13 shared
             attention blocks, d_model 3584), mamba2-370m (48 layers, d_model
             1024), deepseek-moe-16b (28 layers, d_model 2048, 27 MoE layers
@@ -145,7 +145,7 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             equal, per batch, one prefill's (one flash launch per attention
             block, the encoder's and cross-attention's included, one SSD
             launch per SSM layer, three grouped-GEMM launches per MoE layer)
-            plus 63 decode steps' (one flash launch per cross-attention
+            plus 47 decode steps' (one flash launch per cross-attention
             block, the grouped GEMMs again), and every grouped-GEMM and SSD
             launch must take its wgmma variant.
 4. agree:   every path but mamba2-370m's: one full-width prefill through
@@ -168,6 +168,25 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
 5. trace:   torch.profiler over one prefill and a few decode steps of each
             of those paths: device busy time, idle share and the kernels that
             take the most time.
+   mesh:    the mesh path on a one-rank NCCL group (an in-memory store) and
+            a (1, 1) DeviceMesh named (data, model): ``compressed_psum``
+            bitwise against compress then decompress; deepseek-moe-16b's
+            train path (8 of 28 layers, as phase train) through
+            ``jit_train_step`` for 3 steps, its state DTensors placed as
+            ``state_shardings`` says, each step's loss and grad norm and the
+            updated params bitwise equal to the local ``build_train_step``
+            from the same init and batches (the local path first shown to
+            repeat itself bitwise); the gmm kernel at the per-rank shapes
+            of expert parallelism (deepseek-moe-16b's prefill on (data 2,
+            model 2) and (data 1, model 8) meshes), ``wgmma`` required,
+            within phase gmm's model-shape limits, timed beside
+            ``torch.bmm`` and the bound; after phase 3's deepseek-moe-16b
+            path, its full-depth serve path through ``jit_prefill_step`` /
+            ``jit_decode_step`` (params on SERVING_RULES, the MoE layers on
+            the expert-parallel body) for one prefill of 4 x 2048 tokens and
+            8 greedy decode steps, logits and tokens bitwise equal to the
+            local steps'. Each mesh run's kernel launches are counted from
+            0 and must be the local path's.
 6. executor: ``RealExecutor.run`` over the video workflow (the reference's
             plans written out in VIDEO_PLANS) on full-width
             seamless-m4t-large-v2 and deepseek-7b: output shapes, outputs
@@ -267,7 +286,7 @@ EXECUTOR_SHAPES = [
 KV_TILE = 64               # keys of an injected fault: no more than the flash kernel's K/V tile (96 rows; 64 at D=256)
 LOCAL_FAULT_ROWS = 0.02    # a fault moving fewer rows than this share need not move the whole output's norm
 NUM_PATCHES = 4096         # the VLM's patches (llama-3.2-vision-90b's vision.num_patches)
-SERVE_BATCHES, SERVE_BATCH, PROMPT_LEN, MAX_NEW = 2, 4, 2048, 64
+SERVE_BATCHES, SERVE_BATCH, PROMPT_LEN, MAX_NEW = 2, 4, 2048, 48
 # (name, B, L, H, P, N, G, chunk, dtype): the TestSSDScan grid of
 # tests/test_kernels.py in fp32, and the models' prefill shapes in bf16
 SSD_GRID = [
@@ -2916,8 +2935,261 @@ def phase_train_restart():
         raise AssertionError("the restart check failed on the card")
 
 
+# the mesh phase: deepseek-moe-16b's serve and train paths through the mesh
+# entry points on a one-rank NCCL group, against the local path
+MESH_ARCH = "deepseek-moe-16b"
+MESH_DECODE_STEPS = 8
+MESH_TRAIN_STEPS = 3
+# the (data, model) meshes whose expert-parallel gmm shapes the phase times:
+# deepseek-moe-16b's prefill of SERVE_BATCH x PROMPT_LEN tokens split over
+# data, its experts over model
+EP_MESHES = ((2, 2), (1, 8))
+PSUM_ELEMENTS = 1 << 20
+
+
+def ep_gmm_shapes() -> list:
+    """(name, E_local, C * ep, d, f) of the gate/up and down products each
+    rank runs after the EP all-to-all, on each of EP_MESHES."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.moe import _capacity
+    cfg = get_config(MESH_ARCH)
+    m = cfg.moe
+    out = []
+    for dp, ep in EP_MESHES:
+        c = _capacity(SERVE_BATCH * PROMPT_LEN // dp, cfg) * ep
+        e = m.num_experts // ep
+        out += [(f"ep_{dp}x{ep}_gate_up", e, c, cfg.d_model, m.d_ff_expert),
+                (f"ep_{dp}x{ep}_down", e, c, m.d_ff_expert, cfg.d_model)]
+    return out
+
+
+def one_rank_mesh():
+    """A one-rank NCCL group (an in-memory store: no network) and a (1, 1)
+    DeviceMesh named (data, model) on it; any failure raises."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    return make_mesh((1, 1), ("data", "model"), device_type="cuda")
+
+
+def phase_mesh_psum():
+    """``compressed_psum`` on the one-rank group, bitwise against compress
+    then decompress (the mean over one rank is its own dequantized
+    payload), the residual too."""
+    import torch
+    from repro_torch.optim import compression
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    g = torch.randn(PSUM_ELEMENTS, generator=gen, device="cuda")
+    err = torch.randn(PSUM_ELEMENTS, generator=gen, device="cuda") * 1e-3
+    total, new_err = compression.compressed_psum(g, err)
+    q, scale, want_err = compression.compress(g, err)
+    ok = torch.equal(total, compression.decompress(q, scale)) and \
+        torch.equal(new_err, want_err)
+    emit({"phase": "mesh_psum", "elements": PSUM_ELEMENTS,
+          "bitwise_equal": ok, "ok": ok})
+    if not ok:
+        raise AssertionError("compressed_psum on one rank is not compress + decompress")
+
+
+def phase_mesh_serve(mesh, model, params, prompts):
+    """deepseek-moe-16b's serve path at full width and depth through
+    ``jit_prefill_step`` / ``jit_decode_step`` (params DTensors on
+    SERVING_RULES, the MoE layers on the EP body) against the local steps
+    on the same weights and prompts: the prefill's last logits, each greedy
+    decode step's logits and tokens, bitwise. Returns the mesh run's
+    launches."""
+    import torch
+    from repro_torch.runtime import serve
+
+    cfg = model.cfg
+    opts = serve.ServeOptions()
+    B, S = prompts.shape
+    max_len = S + MESH_DECODE_STEPS
+
+    def run(prefill, decode, p, cache):
+        with torch.inference_mode():
+            last, cache = prefill(p, {"tokens": prompts}, cache)
+            logits = [last.clone()]
+            tok = torch.argmax(last, -1)[:, None]
+            toks = [tok]
+            for idx in range(S, S + MESH_DECODE_STEPS):
+                tok, last, cache = decode(p, cache, tok, idx)
+                logits.append(last.clone())
+                toks.append(tok)
+        torch.cuda.synchronize()
+        return torch.stack(logits), torch.cat(toks, 1)
+
+    want = run(serve.build_prefill_step(model, opts),
+               serve.build_decode_step(model, opts), params,
+               model.init_cache(B, max_len, device="cuda"))
+    prefill, _ = serve.jit_prefill_step(model, opts, mesh, B, S)
+    decode, _ = serve.jit_decode_step(model, opts, mesh, B, max_len)
+    sharded = serve.shard_params(params, model, mesh)
+    cache = serve.mesh_cache(model, opts, mesh, B, max_len, device="cuda")
+    reset_launches()
+    (got, s) = _sync_s(lambda: run(prefill, decode, sharded, cache))
+    launches = read_launches()
+    pre, dec = expected_launches(cfg), expected_launches(cfg, "decode")
+    expected = {k: pre[k] + MESH_DECODE_STEPS * dec[k] for k in pre}
+    launches_ok = all(launches[k] == v for k, v in expected.items()) and \
+        launches["gmm_by_variant"]["wgmma"] == launches["gmm"] > 0
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    emit({"phase": "mesh_serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "mesh": {"data": 1, "model": 1}, "batch": B, "prompt_len": S,
+          "decode_steps": MESH_DECODE_STEPS, "logits_bitwise_equal": same,
+          "max_abs_logit_diff": (got[0] - want[0]).abs().max().item(),
+          "tokens_equal": torch.equal(got[1], want[1]), "mesh_run_s": s,
+          "launches": {k: launches[k] for k in expected},
+          "expected_launches": expected,
+          "gmm_launches_by_variant": launches["gmm_by_variant"],
+          "ok": same and launches_ok})
+    if not (same and launches_ok):
+        raise AssertionError(f"mesh serve path: bitwise {same}, launches "
+                             f"{launches_ok} ({launches})")
+    del sharded, cache
+    return launches
+
+
+def phase_mesh_train(mesh):
+    """deepseek-moe-16b's train path (TRAIN_DEPTH_CUTS' 8 layers, as phase
+    train) through ``jit_train_step`` on the (1, 1) mesh, MESH_TRAIN_STEPS
+    steps from the same seeded init and batches as the local
+    ``build_train_step``: each step's loss and grad norm and the updated
+    params, bitwise; the local path first run twice, to show it repeats
+    itself bitwise. Returns the mesh run's launches."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train as train_rt
+    from repro_torch.tree import leaves
+
+    cfg = train_config(MESH_ARCH)
+    model = build_model(cfg)
+    opts = train_rt.TrainOptions(
+        remat_policy="full", warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS,
+        opt=adamw.AdamWConfig(lr=TRAIN_LR, moment_dtype="bfloat16"))
+    dc = DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    batches = [batch_for_step(dc, i, cfg, device="cuda")
+               for i in range(MESH_TRAIN_STEPS)]
+
+    def fresh():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = model.init(gen)
+        scale_routed_experts(model, params)
+        return {"params": params, "opt": adamw.init_opt_state(params, opts.opt),
+                "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+
+    def run(step, state):
+        metrics = []
+        for b in batches:
+            state, met = step(state, b)
+            metrics.append((met["loss"].clone(), met["grad_norm"].clone()))
+        torch.cuda.synchronize()
+        return [p.to_local() if hasattr(p, "to_local") else p
+                for p in leaves(state["params"])], metrics
+
+    local_step = train_rt.build_train_step(model, opts)
+    want_p, want_m = run(local_step, fresh())
+    again_p, again_m = run(local_step, fresh())
+    repeats = all(torch.equal(a, b) for a, b in zip(want_p, again_p)) and \
+        all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(want_m, again_m))
+    del again_p, again_m
+    gc.collect()
+    torch.cuda.empty_cache()
+    b_abs = {k: torch.empty(v.shape, device="meta") for k, v in batches[0].items()}
+    mesh_step = train_rt.jit_train_step(model, opts, mesh, b_abs)
+    state = train_rt.distribute_train_state(fresh(), model, mesh, opts)
+    placed = train_rt.shd.spec_tree_of(state) == \
+        train_rt.state_shardings(model, mesh, opts)
+    reset_launches()
+    (got_p, got_m), s = _sync_s(lambda: run(mesh_step, state))
+    launches = read_launches()
+    del state
+    same_p = all(torch.equal(a, b) for a, b in zip(got_p, want_p))
+    same_m = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                 for a, b in zip(got_m, want_m))
+    expected = expected_train_launches(cfg, MESH_TRAIN_STEPS)
+    launches_ok = all(launches[k] == v for k, v in expected.items()) and \
+        launches["gmm_by_variant"]["wgmma"] == launches["gmm"] > 0 and \
+        launches["gmm_bwd_by_variant"]["wgmma_bwd"] == 2 * launches["gmm_bwd"]
+    ok = repeats and placed and same_p and same_m and launches_ok
+    emit({"phase": "mesh_train", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "mesh": {"data": 1, "model": 1}, "steps": MESH_TRAIN_STEPS,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "local_repeats_bitwise": repeats, "placed_as_state_shardings": placed,
+          "losses": [m[0].item() for m in got_m],
+          "grad_norms": [m[1].item() for m in got_m],
+          "metrics_bitwise_equal": same_m, "params_bitwise_equal": same_p,
+          "mesh_run_s": s, "launches": {k: launches[k] for k in expected},
+          "expected_launches": expected,
+          "gmm_launches_by_variant": launches["gmm_by_variant"],
+          "gmm_bwd_launches_by_variant": launches["gmm_bwd_by_variant"],
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"mesh train path: local repeats {repeats}, placed "
+                             f"{placed}, params {same_p}, metrics {same_m}, "
+                             f"launches {launches_ok} ({launches})")
+    del got_p, want_p
+    return launches
+
+
+def phase_mesh_gmm():
+    """The gmm kernel at the per-rank shapes of expert parallelism
+    (``ep_gmm_shapes``): the ``wgmma`` variant required, the model-shape
+    limits of phase gmm against the plain version, and CUDA-event times of
+    the kernel, the plain version and ``torch.bmm`` beside the bound."""
+    import torch
+    from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain, gmm_variant
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    worst, timings, failures = 0.0, {}, []
+    for name, E, C, d, f in ep_gmm_shapes():
+        x = torch.randn(E, C, d, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(E, d, f, generator=gen, device="cuda") * d ** -0.5).bfloat16()
+        variant = gmm_variant(x, w)
+        got = gmm_cuda(x, w)
+        torch.cuda.synchronize()
+        want = gmm_plain(x, w)
+        err = (got.float() - want.float()).abs().max().item()
+        norm = ((got.float() - want.float()).norm() / want.float().norm()).item()
+        ok = variant == "wgmma" and bool(torch.isfinite(got).all()) and \
+            torch.allclose(got.float(), want.float(), atol=KERNEL_TOL,
+                           rtol=KERNEL_TOL) and norm <= GMM_NORM_RTOL
+        line = {"phase": "mesh_gmm", "shape": name, "E_C_d_f": [E, C, d, f],
+                "variant": variant, "max_abs_err": err, "norm_rel_err": norm,
+                "tol": KERNEL_TOL, "norm_rtol": GMM_NORM_RTOL}
+        if ok:
+            bound_ms, bound_by = gmm_bound_ms(E, C, d, f, "bfloat16")
+            timings[name] = {
+                "ms": cuda_ms(lambda: gmm_cuda(x, w)),
+                "plain_ms": cuda_ms(lambda: gmm_plain(x, w), warmup=1, iters=5),
+                "library_ms": cuda_ms(lambda: torch.bmm(x, w)),
+                "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+                "shape": f"E={E} C={C} d={d} f={f} bf16 (deepseek-moe-16b "
+                         f"prefill, one rank of a (data, model) = "
+                         f"{name.split('_')[1].replace('x', ', ')} mesh)"}
+            line.update(timings[name])
+        else:
+            failures.append(name)
+        worst = max(worst, err)
+        emit({**line, "ok": ok})
+        del x, w, got, want
+    if failures:
+        raise AssertionError(f"gmm at the EP shapes failed: {failures}")
+    return worst, timings
+
+
 def main() -> int:
     import torch
+    import torch.distributed as dist
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2938,8 +3210,16 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     phase_train_restart()
+    mesh = one_rank_mesh()
+    phase_mesh_psum()
+    launches["mesh:train"] = phase_mesh_train(mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep_gmm_err, ep_gmm_t = phase_mesh_gmm()
     for arch, decode_steps in SERVE_PATHS:
         model, params, prompts, extras, launches[arch] = phase_serve(arch)
+        if arch == MESH_ARCH:
+            launches["mesh:serve"] = phase_mesh_serve(mesh, model, params, prompts)
         if decode_steps is not None:
             phase_agree(model, params, *agree_inputs(arch, prompts, extras),
                         decode_steps=decode_steps,
@@ -2951,6 +3231,7 @@ def main() -> int:
     launches["video_executor"] = phase_executor()
     gc.collect()
     torch.cuda.empty_cache()
+    dist.destroy_process_group()
 
     def entry(name, source, replaces, err, timing, shape, variant, **more):
         by_path = {arch: n[name] for arch, n in launches.items() if n[name]}
@@ -3018,7 +3299,9 @@ def main() -> int:
               at_prefill_down={**gmm_t["prefill_down"],
                                "shape": "E=64 C=968 d=1408 f=2048 bf16"},
               at_decode={**gmm_t["decode_gate_up"],
-                         "shape": "E=64 C=8 d=2048 f=1408 bf16"}),
+                         "shape": "E=64 C=8 d=2048 f=1408 bf16"},
+              max_abs_err_at_ep_shapes=ep_gmm_err,
+              **{f"at_{name}": t for name, t in ep_gmm_t.items()}),
         entry("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
               "src/repro/kernels/flash_attention.py:82", flash_bwd_err,
               flash_bwd_t[FLASH_TRAIN_SHAPES[0][0]],

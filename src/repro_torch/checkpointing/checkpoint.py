@@ -16,6 +16,13 @@ a tensor on its template's device; a Python int (the data cursor) is stored
 as numpy stores it (int64) and restores as an int. Writes are atomic (tmp
 dir + rename) and optionally asynchronous (``AsyncSaver``: a background
 thread; ``wait()`` joins). Restore validates the hashes.
+
+A sharded state (DTensor leaves, one process per device) is written as full
+tensors, as the reference writes its sharded arrays after
+``jax.device_get``, so its files equal an unsharded state's bit for bit:
+``checkpointing/manager.py`` gathers the leaves on every rank (a
+collective) and one rank writes. Restore cuts each DTensor
+template's own shard out of the full tensor, on its mesh and placements.
 """
 from __future__ import annotations
 
@@ -124,7 +131,14 @@ def _leaf_like(arr: np.ndarray, dtype: str, template):
         t = torch.from_numpy(np.array(arr).view(np.int16)).view(_TORCH[dtype])
     else:
         t = torch.from_numpy(np.array(arr))
-    return t.to(template.device)
+    mesh = getattr(template, "device_mesh", None)
+    if mesh is None:
+        return t.to(template.device)
+    from torch.distributed.tensor import DTensor
+    from ..runtime.sharding import local_part, spec_tree_of
+    part = local_part(t, spec_tree_of(template), mesh)
+    return DTensor.from_local(part.contiguous().to(template.to_local().device),
+                              mesh, template.placements, run_check=False)
 
 
 def restore(tree_like, directory: str, *, validate: bool = True):

@@ -2,6 +2,11 @@
 
 Counterpart of ``repro.checkpointing.manager``, with the same directory
 names (``step_00000100``), so either package resumes from the other's.
+
+Under ``torch.distributed`` (one process per device) every rank calls
+``save`` and ``restore``: the state's shards are gathered on every rank,
+rank 0 writes and collects old steps, and ``restore`` waits at a barrier
+for rank 0's write before any rank reads.
 """
 from __future__ import annotations
 
@@ -9,6 +14,9 @@ import os
 import re
 import shutil
 
+import torch.distributed as dist
+
+from ..runtime.sharding import gather_full
 from . import checkpoint
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -19,12 +27,17 @@ class CheckpointManager:
                  async_save: bool = True):
         self.directory = directory
         self.keep = keep
-        os.makedirs(directory, exist_ok=True)
+        self._grouped = dist.is_available() and dist.is_initialized()
+        self._writer = not self._grouped or dist.get_rank() == 0
+        if self._writer:
+            os.makedirs(directory, exist_ok=True)
         self._saver = checkpoint.AsyncSaver() if async_save else None
 
     # -- discovery ----------------------------------------------------------
     def steps(self) -> list[int]:
         out = []
+        if not os.path.isdir(self.directory):
+            return out
         for name in os.listdir(self.directory):
             m = _STEP_RE.match(name)
             if m and os.path.exists(
@@ -41,6 +54,9 @@ class CheckpointManager:
 
     # -- save/restore -------------------------------------------------------
     def save(self, step: int, tree):
+        tree = gather_full(tree)
+        if not self._writer:
+            return
         path = self._path(step)
         if self._saver is not None:
             self._saver.submit(tree, path)
@@ -50,6 +66,8 @@ class CheckpointManager:
 
     def restore(self, tree_like, step: int | None = None):
         self.wait()
+        if self._grouped:
+            dist.barrier()
         step = self.latest_step() if step is None else step
         if step is None:
             return None, None

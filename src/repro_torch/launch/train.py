@@ -11,16 +11,27 @@ hand-written backward kernels (flash attention, grouped GEMM, SSD scan).
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
         --device cpu --steps 20 --batch 4 --seq 64 --ckpt-dir ckpt/deepseek
 
-``--mesh`` (a sharded run) is ROADMAP.md A11 and raises.
+``--mesh data,model --mesh-shape 2,2`` runs the sharded train step
+(``runtime.train.jit_train_step``), one process per device, in the process
+group that ``torchrun`` describes in the environment (gloo with ``--device
+cpu``, NCCL on the cards, each process on the card of its local rank):
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch deepseek-moe-16b --reduced --device cpu --mesh data,model \\
+        --mesh-shape 2,2 --steps 4
+
+A process group that is already initialized is used as it is.
 """
 from __future__ import annotations
 
 import argparse
+import datetime
 import os
 import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from .._bridge import resolve_device
 from ..checkpointing.manager import CheckpointManager
@@ -29,6 +40,9 @@ from ..data.pipeline import DataConfig, DataIterator
 from ..models.model_zoo import build_model
 from ..optim.adamw import AdamWConfig
 from ..runtime import train as train_rt
+from .mesh import make_mesh
+
+GROUP_TIMEOUT = datetime.timedelta(seconds=120)
 from ..runtime.fault_tolerance import (RestartPolicy, StragglerMonitor,
                                        run_with_restarts)
 
@@ -56,11 +70,29 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: the sharded train step is ROADMAP.md A11; the port "
-            "trains on one device")
     device = resolve_device(args.device)
+    mesh, owns_group = None, False
+    if args.mesh:
+        axes = tuple(args.mesh.split(","))
+        shape = tuple(int(x) for x in args.mesh_shape.split(","))
+        if not dist.is_initialized():
+            dist.init_process_group("gloo" if device.type == "cpu" else "nccl",
+                                    timeout=GROUP_TIMEOUT)
+            owns_group = True
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(device)
+        mesh = make_mesh(shape, axes, device_type=device.type)
+    try:
+        return _run(args, device, mesh)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _run(args, device, mesh) -> dict:
+    lead = mesh is None or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     cfg = get_config(args.arch, reduced=args.reduced)
     model = build_model(cfg)
     opts = train_rt.TrainOptions(
@@ -71,7 +103,13 @@ def main(argv=None) -> dict:
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     state = train_rt.init_train_state(model, gen, opts)
-    step_fn = train_rt.build_train_step(model, opts)
+    if mesh is not None:
+        state = train_rt.distribute_train_state(state, model, mesh, opts)
+        batch_abs = {name: torch.empty((args.batch, args.seq), device="meta")
+                     for name in ("tokens", "labels")}
+        step_fn = train_rt.jit_train_step(model, opts, mesh, batch_abs)
+    else:
+        step_fn = train_rt.build_train_step(model, opts)
 
     data = DataIterator(DataConfig(vocab_size=cfg.vocab_size,
                                    seq_len=args.seq,
@@ -87,7 +125,7 @@ def main(argv=None) -> dict:
     if restored is not None:
         state = restored["state"]
         data.restore(restored["data"])
-        print(f"[train] resumed from step {at}")
+        say(f"[train] resumed from step {at}")
 
     mon = StragglerMonitor()
     t0 = time.time()
@@ -102,18 +140,20 @@ def main(argv=None) -> dict:
     state, history, failures = run_with_restarts(
         num_steps=args.steps, state=state, data_iter=data,
         step_fn=timed_step, ckpt_manager=ckpt, save_every=args.save_every,
-        policy=RestartPolicy(max_failures=3), log=print)
+        policy=RestartPolicy(max_failures=3), log=say)
     dt = time.time() - t0
     if not history:
-        print(f"[train] {args.arch}: nothing to do, the checkpoint is at "
-              f"step {int(state['step'])} of {args.steps}")
+        say(f"[train] {args.arch}: nothing to do, the checkpoint is at "
+            f"step {int(state['step'])} of {args.steps}")
         return {"loss_first": None, "loss_last": None, "steps": 0,
                 "failures": failures}
     losses = [h["loss"] for h in history]
-    print(f"[train] {args.arch} on {device}: {len(history)} steps in "
-          f"{dt:.1f}s ({dt / len(history):.2f}s/step)  "
-          f"loss {losses[0]:.3f} -> {losses[-1]:.3f}  "
-          f"failures survived: {failures}")
+    where = f"{device}" if mesh is None else \
+        f"a {'x'.join(map(str, mesh.shape))} mesh of {device.type}"
+    say(f"[train] {args.arch} on {where}: {len(history)} steps in "
+        f"{dt:.1f}s ({dt / len(history):.2f}s/step)  "
+        f"loss {losses[0]:.3f} -> {losses[-1]:.3f}  "
+        f"failures survived: {failures}")
     return {"loss_first": losses[0], "loss_last": losses[-1],
             "steps": len(history), "failures": failures}
 

@@ -2,9 +2,16 @@
 
 Counterpart of ``repro.models.common``. Models are (spec, apply) pairs over
 plain nested dicts of tensors. A ``ParamSpec`` tree is the single source of
-truth for the parameter layout; ``init_params`` draws it from an explicit
-``torch.Generator`` on that generator's device (``jax.random`` bits are not
-reproduced: parity runs on weights carried across by ``repro_torch._bridge``).
+truth for the parameter layout, from which come:
+
+- ``init_params``      concrete tensors, drawn from an explicit
+                       ``torch.Generator`` on that generator's device
+                       (``jax.random`` bits are not reproduced: parity runs on
+                       weights carried across by ``repro_torch._bridge``);
+- ``abstract_params``  meta-device tensors of the same shapes and dtypes
+                       (nothing allocated);
+- ``logical_axes``     per-leaf logical axis names, mapped to mesh axes by
+                       ``repro_torch.runtime.sharding``.
 """
 from __future__ import annotations
 
@@ -73,6 +80,17 @@ def init_params(spec_tree, generator: torch.Generator,
             node = node.setdefault(k, {})
         node[path[-1]] = t
     return out
+
+
+def abstract_params(spec_tree, default_dtype=torch.bfloat16):
+    """The spec tree as meta-device tensors: shapes and dtypes, no storage."""
+    return tree_map_specs(
+        lambda s: torch.empty(s.shape, dtype=s.dtype or default_dtype,
+                              device="meta"), spec_tree)
+
+
+def logical_axes(spec_tree):
+    return tree_map_specs(lambda s: s.axes, spec_tree)
 
 
 def param_count(spec_tree) -> int:

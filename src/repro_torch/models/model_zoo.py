@@ -6,7 +6,9 @@ import torch
 from .._bridge import resolve_device
 from ..configs.base import ModelConfig
 from . import transformer
-from .common import dtype_of, init_params, param_count
+from .common import (abstract_params, dtype_of, init_params, logical_axes,
+                     param_count)
+from .moe import LOCAL, DistContext
 
 
 class Model:
@@ -20,6 +22,14 @@ class Model:
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters on ``generator.device`` (seed it to reproduce)."""
         return init_params(self.specs, generator, dtype_of(self.cfg.param_dtype))
+
+    def abstract(self) -> dict:
+        """The parameters as meta-device tensors (shapes and dtypes only)."""
+        return abstract_params(self.specs, dtype_of(self.cfg.param_dtype))
+
+    def axes(self) -> dict:
+        """Each parameter's logical axis names (``runtime/sharding.py``)."""
+        return logical_axes(self.specs)
 
     def param_count(self) -> int:
         return param_count(self.specs)
@@ -51,10 +61,12 @@ class Model:
         return 0
 
     # -- execution ----------------------------------------------------------
-    def apply(self, params, inputs, *, mode="train", cache=None,
-              cache_index=None, remat_policy=None, scan_unroll: int = 1):
-        return transformer.forward(params, inputs, cfg=self.cfg, mode=mode,
-                                   cache=cache, cache_index=cache_index,
+    def apply(self, params, inputs, *, mode="train", dist: DistContext = LOCAL,
+              cache=None, cache_index=None, remat_policy=None,
+              scan_unroll: int = 1):
+        return transformer.forward(params, inputs, cfg=self.cfg, dist=dist,
+                                   mode=mode, cache=cache,
+                                   cache_index=cache_index,
                                    remat_policy=remat_policy,
                                    scan_unroll=scan_unroll)
 

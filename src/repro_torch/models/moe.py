@@ -1,10 +1,21 @@
-"""Fine-grained mixture-of-experts (DeepSeekMoE / Kimi-K2 style), local path.
+"""Fine-grained mixture-of-experts (DeepSeekMoE / Kimi-K2 style).
 
-Counterpart of the single-device path of ``repro.models.moe``: token-choice
-top-k routing with a fixed capacity, sort-based dispatch into an (E, C, d)
-buffer, the expert FFNs through the grouped matmul (``ops.gmm``: the CUDA
-kernel on the card), and a weighted combine. The expert-parallel path
-(``DistContext``, the all-to-all exchange) is ROADMAP.md A11.
+Counterpart of ``repro.models.moe``: token-choice top-k routing with a fixed
+capacity, sort-based dispatch into an (E, C, d) buffer, the expert FFNs
+through the grouped matmul (``ops.gmm``: the CUDA kernel on the card), and a
+weighted combine.
+
+Distribution (expert parallelism), one process per device: each rank runs
+``_moe_ep_body`` on its data shard's tokens (the same on every rank of the
+model axis, as the reference's ``P(data, None)`` in-spec gives them),
+builds an (E, C_local, d) dispatch buffer, and a tiled all-to-all over the
+model axis exchanges it for an (E_local, C_local * ep, d) buffer, which the
+grouped matmul takes at that per-shard shape. Expert weights arrive sharded
+on the model axis; with ``fsdp_experts`` also over the data axes, and are
+all-gathered there inside the body. The collectives are the differentiable
+ones of ``repro_torch.collectives``: each rank's backward reaches the
+experts of every rank it sent tokens to, and the caller sums the weights'
+gradients over the ranks that used them, as ``shard_map``'s transpose does.
 
 Nothing here reads a tensor back to the host: capacity comes from shapes,
 histograms are ``scatter_add_`` and every selection is ``torch.where``, so
@@ -12,11 +23,34 @@ a layer never waits for the card.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
+from .. import collectives
 from ..kernels import ops
 from .common import ParamSpec
 from .ffn import _act, apply_ffn
+
+
+@dataclass(frozen=True)
+class DistContext:
+    """How apply-fns should distribute themselves (None mesh = local)."""
+
+    mesh: object = None
+    data_axes: tuple = ("data",)     # batch axes (may include 'pod')
+    model_axis: str = "model"
+    fsdp_experts: bool = False       # expert weights FSDP'd over data axis
+    ep: bool = True                  # expert-parallel all-to-all on
+    # serving: expert weights stored 2D, EP over the model axis and f
+    # (expert_mlp) TP over the data axes; gate/up produce an f-sharded hidden
+    # locally, the down projection contracts f and psums over data
+    expert_tp: bool = False
+    # serving: cap per-expert capacity at decode time (0 = the default rule)
+    capacity_cap: int = 0
+
+
+LOCAL = DistContext()
 
 
 def moe_specs(cfg) -> dict:
@@ -41,10 +75,13 @@ def moe_specs(cfg) -> dict:
     return spec
 
 
-def _capacity(n_tokens: int, cfg) -> int:
+def _capacity(n_tokens: int, cfg, cap: int = 0) -> int:
     m = cfg.moe
     c = int(n_tokens * m.top_k * m.capacity_factor / m.num_experts) + 1
-    return max(8, -(-c // 8) * 8)  # round up to 8
+    c = max(8, -(-c // 8) * 8)  # round up to 8
+    if cap:
+        c = min(c, max(cap, 1))
+    return c
 
 
 def _route(x2d, router_w, cfg):
@@ -134,10 +171,68 @@ def _moe_local(x2d, p, cfg):
     return out.to(x2d.dtype), aux
 
 
-def apply_moe(p, x, *, cfg):
-    """x: (B, S, d) -> (out (B, S, d), aux_loss scalar)."""
+def expert_specs(dist: DistContext) -> dict:
+    """The assignments the EP body takes the expert weights in (the
+    reference's shard_map in-specs): (w_gate / w_up, w_down)."""
+    data = dist.data_axes if len(dist.data_axes) > 1 else dist.data_axes[0]
+    if dist.expert_tp:     # 2D: EP over model, f TP'd over data
+        return {"w": (dist.model_axis, None, data),
+                "wd": (dist.model_axis, data)}
+    if dist.fsdp_experts:
+        return {"w": (dist.model_axis, data), "wd": (dist.model_axis, None, data)}
+    return {"w": (dist.model_axis,), "wd": (dist.model_axis,)}
+
+
+def _moe_ep_body(x_local, router_w, wg, wu, wd, *, cfg, dist: DistContext):
+    """One rank's EP step: x_local (T_loc, d), the rank's data shard; the
+    expert weights in ``expert_specs(dist)``'s layout (E_loc, ...)."""
+    m = cfg.moe
+    T, d = x_local.shape
+    C = _capacity(T, cfg, dist.capacity_cap)
+    mesh, ax = dist.mesh, dist.model_axis
+    if dist.fsdp_experts and not dist.expert_tp:
+        wg = collectives.all_gather(wg, mesh, dist.data_axes, dim=1)
+        wu = collectives.all_gather(wu, mesh, dist.data_axes, dim=1)
+        wd = collectives.all_gather(wd, mesh, dist.data_axes, dim=2)
+
+    topk_idx, topk_w, aux = _route(x_local, router_w, cfg)
+    gather_idx, inv = _dispatch_indices(topk_idx, m.num_experts, C)
+    x_pad = torch.cat([x_local, x_local.new_zeros(1, d)])
+    x_e = x_pad[gather_idx]                              # (E, C, d)
+    # dispatch: split experts across shards, concat capacity
+    x_e = collectives.all_to_all(x_e, mesh, ax, split=0, concat=1)  # (E_loc, C*ep, d)
+    if dist.expert_tp:
+        # weights (E_loc, d, f_loc) / (E_loc, f_loc, d): gate/up emit an
+        # f-sharded hidden locally; down contracts f -> psum over data
+        act = _act(cfg.mlp_act)
+        g = ops.gmm(x_e, wg)
+        u = ops.gmm(x_e, wu)
+        h = (act(g.float()) * u.float()).to(x_e.dtype)
+        y_e = collectives.psum(ops.gmm(h, wd), mesh, dist.data_axes)
+    else:
+        y_e = _expert_ffn(x_e, wg, wu, wd, cfg)
+    # combine: reverse exchange
+    y_e = collectives.all_to_all(y_e, mesh, ax, split=1, concat=0)  # (E, C, d)
+    E = m.num_experts
+    y_flat = torch.cat([y_e.reshape(E * C, d), y_e.new_zeros(1, d)])
+    y_tok = y_flat[inv].reshape(T, m.top_k, d)
+    out = torch.einsum("tkd,tk->td", y_tok.float(), topk_w.float())
+    aux = collectives.pmean(aux, mesh, dist.data_axes)
+    aux = collectives.pmean(aux, mesh, ax)
+    return out.to(x_local.dtype), aux
+
+
+def apply_moe(p, x, *, cfg, dist: DistContext = LOCAL):
+    """x: (B, S, d) -> (out (B, S, d), aux_loss scalar). With a mesh (and
+    ``dist.ep``), x is the rank's data shard and the expert weights are in
+    ``expert_specs(dist)``'s layout."""
     B, S, d = x.shape
-    out, aux = _moe_local(x.reshape(B * S, d), p, cfg)
+    x2d = x.reshape(B * S, d)
+    if dist.mesh is None or not dist.ep:
+        out, aux = _moe_local(x2d, p, cfg)
+    else:
+        out, aux = _moe_ep_body(x2d, p["router"], p["w_gate"], p["w_up"],
+                                p["w_down"], cfg=cfg, dist=dist)
     if cfg.moe.num_shared:
         out = out + apply_ffn(p["shared"], x, cfg=cfg).reshape(B * S, d)
     return out.reshape(B, S, d), aux

@@ -32,7 +32,7 @@ from .attention import (apply_attention, attention_specs, compute_cross_kv,
 from .common import (ParamSpec, apply_norm, dtype_of, norm_spec, softcap,
                      stack_specs)
 from .ffn import apply_ffn, ffn_specs
-from .moe import apply_moe, moe_specs
+from .moe import LOCAL, DistContext, apply_moe, moe_specs
 from .ssm import apply_ssm, apply_ssm_decode, init_ssm_state, ssm_specs
 
 @dataclass(frozen=True)
@@ -250,7 +250,7 @@ def _maybe_remat(body, remat_policy: str | None, mode: str):
     return remat_body
 
 
-def _apply_block(bp, x, b: BlockDesc, *, cfg, mode, cache, cache_index,
+def _apply_block(bp, x, b: BlockDesc, *, cfg, dist, mode, cache, cache_index,
                  cross_states, shared_params, positions):
     """One residual block. Returns (x, new_cache|None, aux).
 
@@ -284,7 +284,7 @@ def _apply_block(bp, x, b: BlockDesc, *, cfg, mode, cache, cache_index,
         x = x + maybe_post(apply_ffn(bp["ffn"], h, cfg=cfg), bp)
     elif b.kind == "moe":
         h = apply_norm(bp["norm"], x, cfg)
-        out, aux = apply_moe(bp["moe"], h, cfg=cfg)
+        out, aux = apply_moe(bp["moe"], h, cfg=cfg, dist=dist)
         x = x + maybe_post(out, bp)
     elif b.kind == "ssm":
         h = apply_norm(bp["norm"], x, cfg)
@@ -317,7 +317,7 @@ def _apply_block(bp, x, b: BlockDesc, *, cfg, mode, cache, cache_index,
     return x, new_cache, aux
 
 
-def _apply_group(gp, x, gd: GroupDesc, *, cfg, mode, cache, cache_index,
+def _apply_group(gp, x, gd: GroupDesc, *, cfg, dist, mode, cache, cache_index,
                  cross_states, shared_params, positions, remat_policy=None):
     """Run the group's ``repeat`` stacked layers in order. Returns (x, aux,
     cache): aux is the blocks' auxiliary losses summed in layer order from an
@@ -336,9 +336,10 @@ def _apply_group(gp, x, gd: GroupDesc, *, cfg, mode, cache, cache_index,
                 key = f"b{j}"
                 bc = None if bc_all is None else bc_all.get(key)
                 x, _, aux_j = _apply_block(
-                    bp_all.get(key), x, b, cfg=cfg, mode=mode, cache=bc,
-                    cache_index=cache_index, cross_states=cross_states,
-                    shared_params=shared_params, positions=positions)
+                    bp_all.get(key), x, b, cfg=cfg, dist=dist, mode=mode,
+                    cache=bc, cache_index=cache_index,
+                    cross_states=cross_states, shared_params=shared_params,
+                    positions=positions)
                 if aux_j is not None:
                     aux = aux + aux_j
             return x, aux
@@ -347,8 +348,9 @@ def _apply_group(gp, x, gd: GroupDesc, *, cfg, mode, cache, cache_index,
     return x, aux, cache
 
 
-def forward(params, inputs, *, cfg, mode="train", cache=None,
-            cache_index=None, remat_policy=None, scan_unroll: int = 1):
+def forward(params, inputs, *, cfg, dist: DistContext = LOCAL, mode="train",
+            cache=None, cache_index=None, remat_policy=None,
+            scan_unroll: int = 1):
     """Run the model.
 
     remat_policy: None | 'full' | 'dots' | 'minimal', applied per layer in
@@ -365,6 +367,10 @@ def forward(params, inputs, *, cfg, mode="train", cache=None,
     A prefill writes the cross-attention K/V (of the encoder's states or the
     projected patches) into the cache's ck/cv leaves, which must have been
     made for that length (``enc_len``).
+
+    ``dist`` says how the MoE layers distribute themselves (the
+    expert-parallel path of ``models/moe.py`` when it has a mesh); every
+    other layer computes on the rank's own rows.
     """
     tokens = inputs["tokens"]
     B, Sq = tokens.shape
@@ -384,7 +390,7 @@ def forward(params, inputs, *, cfg, mode="train", cache=None,
         cross_states = inputs["patches"].to(x.dtype) @ \
             params["vision_proj"].to(x.dtype)
     if cfg.family == "encdec" and mode != "decode":
-        cross_states = encode(params, inputs["frames"], cfg=cfg,
+        cross_states = encode(params, inputs["frames"], cfg=cfg, dist=dist,
                               remat_policy=remat_policy)
 
     shared_params = params.get("shared")
@@ -393,7 +399,7 @@ def forward(params, inputs, *, cfg, mode="train", cache=None,
     for i, gd in enumerate(layer_plan(cfg)):
         gcache = None if cache is None else cache["groups"].get(f"g{i}")
         x, aux_g, ncache = _apply_group(
-            params["groups"][f"g{i}"], x, gd, cfg=cfg, mode=mode,
+            params["groups"][f"g{i}"], x, gd, cfg=cfg, dist=dist, mode=mode,
             cache=gcache, cache_index=cache_index, cross_states=cross_states,
             shared_params=shared_params, positions=positions,
             remat_policy=remat_policy)
@@ -411,7 +417,8 @@ def forward(params, inputs, *, cfg, mode="train", cache=None,
     return logits, new_cache, aux
 
 
-def encode(params, frames, *, cfg, remat_policy=None):
+def encode(params, frames, *, cfg, dist: DistContext = LOCAL,
+           remat_policy=None):
     """The encoder over the frame embeddings (B, S_enc, d_model):
     ``in_proj``, the non-causal stack of ``encoder_plan``, ``final_norm``.
     Returns the states that the decoder's cross-attention blocks attend to,
@@ -423,8 +430,9 @@ def encode(params, frames, *, cfg, remat_policy=None):
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     for i, gd in enumerate(encoder_plan(cfg)):
         h, _, _ = _apply_group(enc["groups"][f"g{i}"], h, gd, cfg=cfg,
-                               mode="train", cache=None, cache_index=None,
-                               cross_states=None, shared_params=None,
-                               positions=positions, remat_policy=remat_policy)
+                               dist=dist, mode="train", cache=None,
+                               cache_index=None, cross_states=None,
+                               shared_params=None, positions=positions,
+                               remat_policy=remat_policy)
     return apply_norm(enc["final_norm"], h, cfg)
 

@@ -19,6 +19,13 @@ Two differences of form, none of number:
   any slice is quantized, so they take two passes: the first finds the
   absmaxes, the second recomputes the moments and quantizes them.
 
+On a mesh each rank updates its own shard of each leaf (the update is
+elementwise), given ``split_axes``: per leaf, the mesh axes its shards are
+split over. The global norm then sums each element once across the mesh (a
+leaf's sums of squares are all-reduced over its split axes only, never over
+the axes that hold copies), and an int8 moment's absmax, like the
+reference's replicated scale, is the whole leaf's (an all-reduce by MAX).
+
 Weight decay applies where ``p.ndim >= 2``, as in the reference; stacked
 per-layer norm scales have a leading ``layers`` axis, so they are decayed
 too (ROADMAP.md C records this quirk of the reference, mirrored here).
@@ -29,6 +36,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import collectives
 from ..tree import leaves, unflatten
 
 SLICE_ELEMENTS = 1 << 25   # elements of a leaf updated at once (128 MB in fp32)
@@ -107,25 +115,51 @@ def _slices(p, limit: int):
     return [slice(i, min(i + rows, p.shape[0])) for i in range(0, p.shape[0], rows)]
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, mesh=None, split_axes=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32, summed leaf by
     leaf in the reference's order; a large leaf is squared NORM_ELEMENTS at
-    a time (a fixed cut, so the sum does not depend on SLICE_ELEMENTS)."""
-    total = None
-    for x in leaves(tree):
+    a time (a fixed cut, so the sum does not depend on SLICE_ELEMENTS).
+    With a mesh, the leaves are local shards and ``split_axes`` names, per
+    leaf, the mesh axes its shards are split over: each piece's sum is
+    all-reduced over those before the pieces are added in the same order."""
+    parts, owner = [], []
+    for i, x in enumerate(leaves(tree)):
         for s in _slices(x, NORM_ELEMENTS):
-            part = torch.sum(torch.square(x[s].to(torch.float32)))
-            total = part if total is None else total + part
+            parts.append(torch.sum(torch.square(x[s].to(torch.float32))))
+            owner.append(i)
+    if mesh is not None:
+        parts = _sum_over_splits(parts, owner, mesh, split_axes)
+    total = None
+    for part in parts:
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
+def _sum_over_splits(parts, owner, mesh, split_axes):
+    """Each part summed over its leaf's split axes: one all-reduce per
+    distinct set of axes, over the parts that share it."""
+    out = list(parts)
+    by_axes: dict[tuple, list[int]] = {}
+    for j, i in enumerate(owner):
+        if split_axes[i]:
+            by_axes.setdefault(tuple(split_axes[i]), []).append(j)
+    for axes, idx in by_axes.items():
+        summed = collectives.psum(torch.stack([parts[j] for j in idx]), mesh, axes)
+        for j, v in zip(idx, summed.unbind(0)):
+            out[j] = v
+    return out
+
+
 @torch.no_grad()
-def apply_updates(params, grads, opt_state, cfg: AdamWConfig, lr=None):
+def apply_updates(params, grads, opt_state, cfg: AdamWConfig, lr=None, *,
+                  mesh=None, split_axes=None):
     """One AdamW step, in place. Returns (params, opt_state, metrics): the
-    same dicts, their tensors overwritten, and a new ``count``."""
+    same dicts, their tensors overwritten, and a new ``count``. With a
+    mesh, every tree holds this rank's shards and ``split_axes`` lists, in
+    leaf order, the mesh axes each leaf's shards are split over."""
     lr = cfg.lr if lr is None else lr
     count = opt_state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, split_axes)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0) \
         if cfg.grad_clip else 1.0
     # bias corrections in fp32, as the reference takes them
@@ -154,9 +188,9 @@ def apply_updates(params, grads, opt_state, cfg: AdamWConfig, lr=None):
             return {"q": x["q"][s], "scale": x["scale"]}
         return x[s]
 
-    for p, g, m, v in zip(leaves(params), leaves(grads),
-                          leaves(opt_state["m"], _is_q),
-                          leaves(opt_state["v"], _is_q)):
+    for i, (p, g, m, v) in enumerate(zip(leaves(params), leaves(grads),
+                                         leaves(opt_state["m"], _is_q),
+                                         leaves(opt_state["v"], _is_q))):
         cuts = _slices(p, SLICE_ELEMENTS)
         if _is_q(m):
             # pass 1: the absmax of the whole new moments
@@ -165,6 +199,9 @@ def apply_updates(params, grads, opt_state, cfg: AdamWConfig, lr=None):
                 m_f, v_f = moments(g[s], part(m, s), part(v, s))
                 amax_m = torch.maximum(amax_m, m_f.abs().max())
                 amax_v = torch.maximum(amax_v, v_f.abs().max())
+            if mesh is not None and split_axes[i]:   # the whole leaf's absmax
+                amax_m, amax_v = collectives.pmax(
+                    torch.stack([amax_m, amax_v]), mesh, split_axes[i]).unbind(0)
             scale_m, scale_v = _absmax_scale(amax_m), _absmax_scale(amax_v)
             # pass 2: the same moments again, quantized; the params updated
             for s in cuts:

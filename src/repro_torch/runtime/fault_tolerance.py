@@ -1,7 +1,6 @@
-"""Fault tolerance: the restart loop and straggler detection.
+"""Fault tolerance: the restart loop, straggler detection, elastic remesh.
 
-Counterpart of sections 1 and 2 of ``repro.runtime.fault_tolerance``, as the
-port's own copy:
+Counterpart of ``repro.runtime.fault_tolerance``, as the port's own copy:
 
 1. **Checkpoint/restart**: ``run_with_restarts`` wraps a step loop; on any
    step failure it restores the latest checkpoint (and the data-pipeline
@@ -9,12 +8,14 @@ port's own copy:
 2. **Straggler mitigation**: ``StragglerMonitor`` tracks per-step,
    per-worker durations; workers beyond ``threshold x median`` are flagged,
    and the policy escalates from re-dispatching a shard to excluding it.
-
-The elastic remesh (``RemeshPlan``, ``plan_remesh``) comes with the mesh
-path (ROADMAP.md A11).
+3. **Elastic remesh**: ``plan_remesh`` picks the largest valid mesh after
+   losing devices; the train state then moves to it through a checkpoint
+   (full tensors on disk, re-sharded to the new mesh's placements on
+   restore).
 """
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 from statistics import median
@@ -111,3 +112,68 @@ class StragglerMonitor:
         n = len([d for d in self._durations.get(worker, [])
                  if d > self.threshold * overall])
         return "exclude" if n >= self.window // 2 else "redispatch"
+
+
+# ---------------------------------------------------------------------------
+# 3. Elastic remesh
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class RemeshPlan:
+    old_shape: tuple[int, ...]
+    new_shape: tuple[int, ...]
+    axis_names: tuple[str, ...]
+    devices_used: int
+    devices_lost: int
+    resharded_axes: tuple[str, ...]   # mesh axes whose size changed
+    batch_scale: float                # keep global batch: per-device batch x
+
+
+def plan_remesh(old_shape: tuple[int, ...], axis_names: tuple[str, ...],
+                devices_available: int, *, model_axis: str = "model",
+                min_model: int = 1) -> RemeshPlan:
+    """Largest valid mesh after losing devices.
+
+    Strategy (matches cluster-manager policy): keep the model axis if
+    possible (resharding TP state is the expensive case), shrink data/pod
+    axes first; fall back to halving the model axis.
+    """
+    old_total = math.prod(old_shape)
+    sizes = dict(zip(axis_names, old_shape))
+    model = sizes.get(model_axis, 1)
+    best = None
+    m = model
+    while m >= min_model:
+        rest = devices_available // m
+        if rest == 0:            # model axis alone no longer fits
+            m //= 2
+            continue
+        # distribute `rest` over the non-model axes, preferring powers of two
+        others = [a for a in axis_names if a != model_axis]
+        alloc = {}
+        rem = rest
+        for a in others[::-1]:          # shrink leading ('pod') axes last
+            take = 1
+            while take * 2 <= min(sizes[a], rem):
+                take *= 2
+            alloc[a] = take
+            rem //= take
+        new_shape = tuple(m if a == model_axis else alloc[a]
+                          for a in axis_names)
+        used = math.prod(new_shape)
+        if best is None or used > best[0]:
+            best = (used, new_shape)
+        if used == devices_available:
+            break
+        m //= 2
+    if best is None:             # fewer devices than any valid mesh
+        best = (1, tuple(1 for _ in axis_names))
+    used, new_shape = best
+    resharded = tuple(a for a, o, n in
+                      zip(axis_names, old_shape, new_shape) if o != n)
+    return RemeshPlan(old_shape=tuple(old_shape), new_shape=new_shape,
+                      axis_names=tuple(axis_names), devices_used=used,
+                      devices_lost=old_total - devices_available,
+                      resharded_axes=resharded,
+                      batch_scale=old_total / used)

@@ -1,4 +1,4 @@
-"""The train step: loss, microbatch accumulation, remat.
+"""The train step: loss, microbatch accumulation, remat, shardings.
 
 Counterpart of ``repro.runtime.train``. ``build_train_step`` returns a
 (state, batch) -> (state, metrics) function over a state of
@@ -6,8 +6,21 @@ Counterpart of ``repro.runtime.train``. ``build_train_step`` returns a
 state's tensors in place (``optim/adamw.py`` says why) and returns the same
 dict with a new ``step``. On the card the attention and grouped-GEMM kernels
 take their gradients through their backward kernels; on the CPU autograd
-differentiates their plain versions. The mesh path (sharded state,
-``state_shardings``, ``jit_train_step``) is ROADMAP.md A11.
+differentiates their plain versions.
+
+The mesh path, one process per device (``jit_train_step``): the state is a
+tree of DTensors placed by ``state_shardings`` (the rule table's
+assignments; moments as their params, int8 scales, ``count`` and ``step``
+replicated), so a rank holds the reference's share of it. A step takes the
+rank's batch shard, gathers each layer group's weights to full on use (the
+expert weights to their expert-parallel blocks, ``models/moe.py``), and
+back-propagates the rank's loss over the number of ranks; each weight's
+gather is differentiable, so its gradient arrives summed over every rank
+that used it and reduced to the rank's own shard (a reduce-scatter over the
+split dims, a sum over the axes that hold copies: the mean over the batch
+shards). AdamW then updates the shards in place. Tensor-parallel compute of
+the dense layers, which GSPMD derives in the reference, is not here: the
+dense layers compute whole on each rank's rows (ROADMAP.md A).
 """
 from __future__ import annotations
 
@@ -16,9 +29,13 @@ from typing import Callable
 
 import torch
 
+from .. import collectives
+from ..models.common import tree_map_specs
+from ..models.moe import LOCAL, DistContext, expert_specs
 from ..optim import adamw
 from ..optim.schedule import warmup_cosine
-from ..tree import leaves, unflatten
+from ..tree import leaves, leaves_with_path, unflatten
+from . import sharding as shd
 
 
 @dataclass(frozen=True)
@@ -28,6 +45,7 @@ class TrainOptions:
     opt: adamw.AdamWConfig = field(default_factory=adamw.AdamWConfig)
     warmup_steps: int = 100
     total_steps: int = 10_000
+    fsdp_experts: bool = True
     scan_unroll: int = 1                 # no effect: the layers are a loop
 
 
@@ -40,6 +58,14 @@ def cross_entropy(logits, labels):
     return torch.mean(lse - gold)
 
 
+def make_dist(mesh, opts: TrainOptions) -> DistContext:
+    if mesh is None:
+        return LOCAL
+    return DistContext(mesh=mesh, data_axes=shd.batch_axes(mesh),
+                       model_axis="model", fsdp_experts=opts.fsdp_experts,
+                       ep=True)
+
+
 def init_train_state(model, generator: torch.Generator, opts: TrainOptions):
     """Random params on ``generator``'s device, zero moments, step 0."""
     params = model.init(generator)
@@ -48,11 +74,56 @@ def init_train_state(model, generator: torch.Generator, opts: TrainOptions):
                                 device=generator.device)}
 
 
-def _check_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh path (sharded state, expert parallelism) is ROADMAP.md "
-            "A11; train on one device with mesh=None")
+def abstract_train_state(model, opts: TrainOptions):
+    """The train state as meta-device tensors (shapes and dtypes only)."""
+    params = model.abstract()
+    return {"params": params, "opt": adamw.init_opt_state(params, opts.opt),
+            "step": torch.zeros((), dtype=torch.int32, device="meta")}
+
+
+def state_shardings(model, mesh, opts: TrainOptions, rules=None):
+    """The assignment of every leaf of the train state (moments inherit
+    their params'; int8 scales, ``count`` and ``step`` are replicated)."""
+    p_shard = shd.tree_shardings(model.axes(), model.abstract(), mesh, rules)
+    if opts.opt.moment_dtype == "int8":
+        m_shard = tree_map_specs(lambda s: {"q": s, "scale": ()}, p_shard)
+    else:
+        m_shard = p_shard
+    return {"params": p_shard,
+            "opt": {"m": m_shard, "v": m_shard, "count": ()},
+            "step": ()}
+
+
+def batch_shardings(batch_abstract, mesh):
+    return {k: shd.data_spec(a.shape, mesh) for k, a in batch_abstract.items()}
+
+
+def distribute_train_state(state, model, mesh, opts: TrainOptions, rules=None):
+    """A full train state (the same on every rank) as DTensors placed by
+    ``state_shardings``: each rank keeps its own shard."""
+    return shd.distribute(state, state_shardings(model, mesh, opts, rules), mesh)
+
+
+def use_specs(model, dist: DistContext):
+    """The block of each weight a rank computes with: the whole weight,
+    but for the experts of an expert-parallel MoE layer (the reference's
+    shard_map in-specs, after the stacked ``layers`` dim)."""
+    ep = expert_specs(dist) if dist.mesh is not None and dist.ep else None
+
+    def one(path):
+        if ep is not None and len(path) > 1 and path[-2] == "moe" and \
+                path[-1] in ("w_gate", "w_up", "w_down"):
+            return (None, *ep["wd" if path[-1] == "w_down" else "w"])
+        return ()
+
+    return unflatten(model.specs,
+                     (one(path) for path, _ in leaves_with_path(model.specs)))
+
+
+def split_axes_of(spec_tree) -> list:
+    """Per leaf, in leaf order, the mesh axes its shards are split over."""
+    return [tuple(a for e in spec for a in shd.spec_axes(e))
+            for _, spec in leaves_with_path(spec_tree)]
 
 
 def build_grad_fn(model, opts: TrainOptions, mesh=None) -> Callable:
@@ -63,24 +134,42 @@ def build_grad_fn(model, opts: TrainOptions, mesh=None) -> Callable:
     along its leading axis and the gradients g / k are summed into fp32
     zeros, so they are fp32 (with k = 1 they have the params' dtype), and
     the metrics are the last microbatch's, as in the reference.
-    """
-    _check_mesh(mesh)
 
-    def loss_fn(params, batch):
+    With a mesh, ``params`` are this rank's local shards and ``stored``
+    their assignments, ``batch`` the whole batch (the same on every rank),
+    each microbatch of which a rank cuts to its rows by ``data_spec``, as
+    the reference shards each microbatch; the gradients are of the shards,
+    summed over the ranks, and the metrics the means over the batch
+    shards.
+    """
+    dist = make_dist(mesh, opts)
+    world = 1 if mesh is None else mesh.size()
+    use = None if mesh is None else use_specs(model, dist)
+
+    def loss_fn(params, batch, stored):
         inputs = {k: v for k, v in batch.items() if k != "labels"}
-        logits, _, aux = model.apply(params, inputs, mode="train",
+        if mesh is not None:
+            params = shd.gather_on_use(params, stored, use, mesh)
+        logits, _, aux = model.apply(params, inputs, mode="train", dist=dist,
                                      remat_policy=opts.remat_policy,
                                      scan_unroll=opts.scan_unroll)
         ce = cross_entropy(logits, batch["labels"])
-        return ce + aux, {"loss": ce.detach(), "aux_loss": aux.detach()}
+        if mesh is None:
+            return ce + aux, {"loss": ce.detach(), "aux_loss": aux.detach()}
+        # the rank's share of the mean over every rank's loss (ranks on the
+        # model axis hold copies); the metrics are the means themselves
+        every = mesh.mesh_dim_names
+        return (ce + aux) / world, {
+            "loss": collectives.pmean(ce.detach(), mesh, every),
+            "aux_loss": collectives.pmean(aux.detach(), mesh, every)}
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, stored=None):
         ps = list(leaves(params))
         for p in ps:
             p.requires_grad_(True)
         try:
             with torch.enable_grad():
-                loss, metrics = loss_fn(params, batch)
+                loss, metrics = loss_fn(params, batch, stored)
                 grads = torch.autograd.grad(loss, ps, allow_unused=True)
         finally:
             for p in ps:
@@ -89,17 +178,20 @@ def build_grad_fn(model, opts: TrainOptions, mesh=None) -> Callable:
                  for p, g in zip(ps, grads)]
         return unflatten(params, iter(grads)), metrics
 
-    def grad_fn(params, batch):
+    def rows(batch):   # the rows this rank computes
+        return batch if mesh is None else shd.local_batch(batch, mesh)
+
+    def grad_fn(params, batch, stored=None):
         k = opts.microbatches
         if k == 1:
-            return grads_of(params, batch)
+            return grads_of(params, rows(batch), stored)
         n = next(iter(batch.values())).shape[0]
         if n % k:
             raise ValueError(f"batch of {n} does not split into {k} microbatches")
         acc = None
         for i in range(k):
             mb = {name: t[i * n // k:(i + 1) * n // k] for name, t in batch.items()}
-            grads, metrics = grads_of(params, mb)
+            grads, metrics = grads_of(params, rows(mb), stored)
             if acc is None:
                 acc = [torch.zeros(g.shape, dtype=torch.float32, device=g.device)
                        for g in leaves(grads)]
@@ -114,8 +206,12 @@ def build_grad_fn(model, opts: TrainOptions, mesh=None) -> Callable:
 def build_train_step(model, opts: TrainOptions, mesh=None) -> Callable:
     """(state, batch) -> (state, metrics): one AdamW step at the learning
     rate of ``warmup_cosine(state["step"])``; metrics ``loss``, ``aux_loss``,
-    ``grad_norm`` and ``lr``, fp32 scalars."""
+    ``grad_norm`` and ``lr``, fp32 scalars. With a mesh the state is a tree
+    of DTensors (``distribute_train_state``) and the batch the global one,
+    the same on every rank: see the module's docstring."""
     grad_fn = build_grad_fn(model, opts, mesh)
+    if mesh is not None:
+        return _mesh_step(grad_fn, opts, mesh)
 
     def train_step(state, batch):
         grads, metrics = grad_fn(state["params"], batch)
@@ -130,3 +226,53 @@ def build_train_step(model, opts: TrainOptions, mesh=None) -> Callable:
         return new_state, {**metrics, **opt_metrics}
 
     return train_step
+
+
+def _mesh_step(grad_fn, opts: TrainOptions, mesh) -> Callable:
+    from torch.distributed.tensor import DTensor
+
+    def replicated(t):
+        return DTensor.from_local(t, mesh, shd.placements((), mesh),
+                                  run_check=False)
+
+    def train_step(state, batch):
+        stored = shd.spec_tree_of(state["params"])
+        params = shd.local_tree(state["params"])
+        opt = shd.local_tree(state["opt"])
+        step = state["step"].to_local()
+        grads, metrics = grad_fn(params, batch, stored)
+        lr = warmup_cosine(step, peak_lr=opts.opt.lr,
+                           warmup_steps=opts.warmup_steps,
+                           total_steps=opts.total_steps)
+        _, new_opt, opt_metrics = adamw.apply_updates(
+            params, grads, opt, opts.opt, lr=lr, mesh=mesh,
+            split_axes=split_axes_of(stored))
+        del grads
+        # params and moments were updated in place through their local
+        # tensors; the new count and step are new tensors
+        new_state = {"params": state["params"],
+                     "opt": {**state["opt"], "count": replicated(new_opt["count"])},
+                     "step": replicated(step + 1)}
+        return new_state, {**metrics, **opt_metrics}
+
+    return train_step
+
+
+def jit_train_step(model, opts: TrainOptions, mesh, batch_abstract,
+                   rules=None) -> Callable:
+    """The mesh train step (the reference's pjit'd step; nothing is
+    compiled here): it takes a state distributed to ``state_shardings``
+    with ``rules`` (``distribute_train_state``), which it checks, and a
+    batch of ``batch_abstract``'s shapes, whose rows a rank takes by
+    ``batch_shardings`` (all of them where the batch does not split over
+    the batch axes)."""
+    del batch_abstract   # the step cuts each batch as it comes
+    step = build_train_step(model, opts, mesh)
+    want = state_shardings(model, mesh, opts, rules)
+
+    def checked_step(state, batch):
+        if shd.spec_tree_of(state) != want:
+            raise ValueError("the train state is not placed as state_shardings says")
+        return step(state, batch)
+
+    return checked_step

@@ -52,6 +52,50 @@ def test_port_imports_neither_jax_nor_repro():
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
+# the mesh path's modules and what each must hold, each imported alone
+MESH_MODULES = {
+    "repro_torch.runtime.sharding": ("DEFAULT_RULES", "SERVING_RULES", "PRIORITY",
+                                     "spec_for_axes", "tree_shardings",
+                                     "batch_axes", "data_spec",
+                                     "cache_logical_axes", "mesh_axis_size",
+                                     "placements"),
+    "repro_torch.launch.mesh": ("make_mesh", "make_production_mesh"),
+    "repro_torch.optim.compression": ("init_error_state", "compress",
+                                      "decompress", "compressed_psum",
+                                      "compression_ratio"),
+    "repro_torch.collectives": ("all_gather", "all_to_all", "psum", "to_use"),
+    "repro_torch.models.moe": ("DistContext", "LOCAL", "_moe_ep_body"),
+    "repro_torch.runtime.train": ("make_dist", "abstract_train_state",
+                                  "state_shardings", "batch_shardings",
+                                  "jit_train_step"),
+    "repro_torch.runtime.serve": ("make_dist", "cache_shardings",
+                                  "abstract_cache", "jit_prefill_step",
+                                  "jit_decode_step"),
+    "repro_torch.runtime.fault_tolerance": ("RemeshPlan", "plan_remesh"),
+}
+
+_IMPORT_ONE = """
+import importlib, json, sys
+sys.path[:0] = [{src!r}]
+m = importlib.import_module({name!r})
+print(json.dumps({{"bad": sorted(n for n in sys.modules
+                              if n.split(".")[0] in ("jax", "jaxlib", "repro")),
+                  "missing": [a for a in {attrs!r} if not hasattr(m, a)]}}))
+"""
+
+
+def test_mesh_modules_import_neither_jax_nor_repro():
+    """Each module of the mesh path, imported alone in a fresh process,
+    holds its functions and loads neither ``jax`` nor ``repro``."""
+    for name, attrs in MESH_MODULES.items():
+        code = _IMPORT_ONE.format(src=str(ROOT / "src"), name=name, attrs=attrs)
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                              text=True, timeout=120, cwd=ROOT)
+        assert proc.returncode == 0, proc.stderr
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert got == {"bad": [], "missing": []}, (name, got)
+
+
 @pytest.mark.parametrize("path", sorted(
     p.relative_to(ROOT).as_posix()
     for p in [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py"]))
