@@ -180,13 +180,22 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             of expert parallelism (deepseek-moe-16b's prefill on (data 2,
             model 2) and (data 1, model 8) meshes), ``wgmma`` required,
             within phase gmm's model-shape limits, timed beside
-            ``torch.bmm`` and the bound; after phase 3's deepseek-moe-16b
-            path, its full-depth serve path through ``jit_prefill_step`` /
-            ``jit_decode_step`` (params on SERVING_RULES, the MoE layers on
-            the expert-parallel body) for one prefill of 4 x 2048 tokens and
-            8 greedy decode steps, logits and tokens bitwise equal to the
-            local steps'. Each mesh run's kernel launches are counted from
-            0 and must be the local path's.
+            ``torch.bmm`` and the bound; the flash kernel at the per-rank
+            shapes of tensor parallelism over a model axis of 4
+            (command-r-plus-104b's prefill, H=24 over KVH=2, D=128;
+            stablelm-12b's training backward, H=8 over KVH=2, D=160) within
+            phase 2's and phase flash_bwd's limits, timed beside sdpa and
+            the bound; after phase 3's deepseek-moe-16b and
+            command-r-plus-104b paths, each one's serve path (full depth;
+            command-r at its 4 layers) through ``jit_prefill_step`` /
+            ``jit_decode_step`` (params on SERVING_RULES, the dense layers
+            through the tensor-parallel code, the MoE layers on the
+            expert-parallel body, the cache on ``mesh_cache``) for one
+            prefill of 4 x 2048 tokens and 8 greedy decode steps, logits
+            and tokens bitwise equal to the local steps'. Each mesh run's
+            kernel launches are counted from 0 and must be the local
+            path's. Tensor parallelism over more than one card is
+            ``tests/_torch_tp_card.py``'s (four cards).
 6. executor: ``RealExecutor.run`` over the video workflow (the reference's
             plans written out in VIDEO_PLANS) on full-width
             seamless-m4t-large-v2 and deepseek-7b: output shapes, outputs
@@ -2935,9 +2944,17 @@ def phase_train_restart():
         raise AssertionError("the restart check failed on the card")
 
 
-# the mesh phase: deepseek-moe-16b's serve and train paths through the mesh
-# entry points on a one-rank NCCL group, against the local path
+# the mesh phase: deepseek-moe-16b's serve and train paths and
+# command-r-plus-104b's serve path through the mesh entry points (their
+# tensor-parallel code) on a one-rank NCCL group, against the local path
 MESH_ARCH = "deepseek-moe-16b"
+MESH_SERVE_ARCHS = (MESH_ARCH, "command-r-plus-104b")
+# the flash kernel at the per-rank shapes of tensor parallelism over a
+# model axis of 4: command-r-plus-104b's prefill (96 / 4 q heads over 8 / 4
+# kv heads) and stablelm-12b's training step (32 / 4 over 8 / 4, head_dim
+# 160), as phases 2 and flash_bwd hold and time them
+TP_FLASH_FWD = ("tp4_command_r_prefill", 4, 2048, 2048, 24, 2, 128, {})
+TP_FLASH_BWD = ("tp4_stablelm_train", 2, 2048, 2048, 8, 2, 160, {})
 MESH_DECODE_STEPS = 8
 MESH_TRAIN_STEPS = 3
 # the (data, model) meshes whose expert-parallel gmm shapes the phase times:
@@ -2996,12 +3013,13 @@ def phase_mesh_psum():
 
 
 def phase_mesh_serve(mesh, model, params, prompts):
-    """deepseek-moe-16b's serve path at full width and depth through
-    ``jit_prefill_step`` / ``jit_decode_step`` (params DTensors on
-    SERVING_RULES, the MoE layers on the EP body) against the local steps
-    on the same weights and prompts: the prefill's last logits, each greedy
-    decode step's logits and tokens, bitwise. Returns the mesh run's
-    launches."""
+    """A serve path (deepseek-moe-16b at full width and depth, command-r-plus-
+    104b at its DEPTH_CUTS depth) through ``jit_prefill_step`` /
+    ``jit_decode_step`` (params DTensors on SERVING_RULES, the dense layers
+    through the tensor-parallel code, the MoE layers on the EP body, the
+    cache on ``mesh_cache``) against the local steps on the same weights
+    and prompts: the prefill's last logits, each greedy decode step's
+    logits and tokens, bitwise. Returns the mesh run's launches."""
     import torch
     from repro_torch.runtime import serve
 
@@ -3036,7 +3054,8 @@ def phase_mesh_serve(mesh, model, params, prompts):
     pre, dec = expected_launches(cfg), expected_launches(cfg, "decode")
     expected = {k: pre[k] + MESH_DECODE_STEPS * dec[k] for k in pre}
     launches_ok = all(launches[k] == v for k, v in expected.items()) and \
-        launches["gmm_by_variant"]["wgmma"] == launches["gmm"] > 0
+        launches["flash_attention"] > 0 and \
+        launches["gmm_by_variant"]["wgmma"] == launches["gmm"]
     same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     emit({"phase": "mesh_serve", "arch": cfg.name, "n_layers": cfg.n_layers,
           "mesh": {"data": 1, "model": 1}, "batch": B, "prompt_len": S,
@@ -3187,6 +3206,100 @@ def phase_mesh_gmm():
     return worst, timings
 
 
+def phase_mesh_flash():
+    """The flash kernel at the per-rank shapes of tensor parallelism
+    (TP_FLASH_FWD forward, TP_FLASH_BWD backward): phase 2's and phase
+    flash_bwd's limits against the plain version, and CUDA-event times of
+    the kernel, the plain version and ``F.scaled_dot_product_attention``
+    (forward; the backward of it) beside the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    failures, timings = [], {}
+    name, B, Sq, Sk, H, KVH, D, opts = TP_FLASH_FWD
+    q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, KVH, D), rnd(B, Sk, KVH, D)
+    got = fa.flash_attention_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    err = (got.float() - want.float()).abs().max().item()
+    row_rel, norm_rel = rel_errors(got, want)
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(
+        got.float(), want.float(), atol=KERNEL_TOL, rtol=KERNEL_TOL) and \
+        row_rel <= ROW_RTOL and norm_rel <= NORM_RTOL
+    line = {"phase": "mesh_flash", "shape": name,
+            "B_Sq_Sk_H_KVH_D": [B, Sq, Sk, H, KVH, D], "max_abs_err": err,
+            "tol": KERNEL_TOL, "row_rel_err": row_rel, "row_rtol": ROW_RTOL,
+            "norm_rel_err": norm_rel, "norm_rtol": NORM_RTOL}
+    if ok:
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        bound_ms, bound_by = attention_bound_ms(B, Sq, Sk, H, KVH, D, opts)
+        timings[name] = {
+            "ms": cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True)),
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(
+                q, k, v, causal=True), warmup=1, iters=5),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            "shape": f"B={B} S={Sq} H={H} KVH={KVH} D={D} causal bf16 "
+                     "(command-r-plus-104b prefill, one rank of model 4)"}
+        line.update(timings[name])
+    else:
+        failures.append(name)
+    emit({**line, "ok": ok})
+    del q, k, v, got, want
+
+    name, B, Sq, Sk, H, KVH, D, opts = TP_FLASH_BWD
+    q, k, v, do = rnd(B, Sq, H, D), rnd(B, Sk, KVH, D), rnd(B, Sk, KVH, D), \
+        rnd(B, Sq, H, D)
+    kw = dict(causal=True, window=0, softcap=0.0, scale=None, kv_valid=None)
+    out, lse = fa._forward(q, k, v, q_offset=0, with_lse=True, **kw)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, do, **kw)
+    errs = {g: grad_errors(a, b) for g, a, b in zip(("dq", "dk", "dv"), got, want)}
+    ok = all(bool(torch.isfinite(g).all()) for g in got) and \
+        all(within_bwd_limits(e) for e in errs.values())
+    err = max(e["max_abs"] for e in errs.values())
+    line = {"phase": "mesh_flash_bwd", "shape": name,
+            "B_Sq_Sk_H_KVH_D": [B, Sq, Sk, H, KVH, D], "errors": errs,
+            "limits": {"elem": BWD_ELEM_TOL, "row": BWD_ROW_RTOL,
+                       "norm": BWD_NORM_RTOL}}
+    if ok:
+        qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_()
+                      for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                  enable_gqa=True)
+        do_t = do.transpose(1, 2)
+        bound_ms, bound_by = attention_bwd_bound_ms(B, Sq, Sk, H, KVH, D, opts)
+        timings[name] = {
+            "ms": cuda_ms(lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, out, do, lse, **kw)),
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, do, **kw), warmup=1, iters=3),
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                sdpa_out, (qs, ks, vs), do_t, retain_graph=True)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            "library_note": "the backward of F.scaled_dot_product_attention",
+            "shape": f"B={B} S={Sq} H={H} KVH={KVH} D={D} causal bf16 "
+                     "(stablelm-12b training, one rank of model 4)"}
+        line.update(timings[name])
+        del sdpa_out, qs, ks, vs
+    else:
+        failures.append(name)
+    emit({**line, "ok": ok})
+    del q, k, v, do, out, lse, got, want
+    if failures:
+        raise AssertionError(f"flash at the TP shapes failed: {failures}")
+    return timings
+
+
 def main() -> int:
     import torch
     import torch.distributed as dist
@@ -3216,10 +3329,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ep_gmm_err, ep_gmm_t = phase_mesh_gmm()
+    tp_flash_t = phase_mesh_flash()
     for arch, decode_steps in SERVE_PATHS:
         model, params, prompts, extras, launches[arch] = phase_serve(arch)
-        if arch == MESH_ARCH:
-            launches["mesh:serve"] = phase_mesh_serve(mesh, model, params, prompts)
+        if arch in MESH_SERVE_ARCHS:
+            launches[f"mesh:serve:{arch}"] = phase_mesh_serve(
+                mesh, model, params, prompts)
         if decode_steps is not None:
             phase_agree(model, params, *agree_inputs(arch, prompts, extras),
                         decode_steps=decode_steps,
@@ -3274,7 +3389,8 @@ def main() -> int:
               at_seamless_cross={
                   **flash_t[SEAMLESS_CROSS[0]],
                   "shape": f"B=4 Sq=1 Sk={ENC_LEN} H=KVH=16 D=64 non-causal "
-                           "bf16 (prefill and every decode step)"}),
+                           "bf16 (prefill and every decode step)"},
+              at_tp4_command_r=tp_flash_t[TP_FLASH_FWD[0]]),
         entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
               "src/repro/kernels/ssd_scan.py:70", ssd_err,
               ssd_t["zamba2-7b"],
@@ -3325,7 +3441,8 @@ def main() -> int:
                                         "(gemma2-9b training)"},
               at_d160_train={**flash_bwd_t[FLASH_TRAIN_SHAPES[4][0]],
                              "shape": "B=2 S=2048 H=32 KVH=8 D=160 causal bf16 "
-                                      "(stablelm-12b training)"}),
+                                      "(stablelm-12b training)"},
+              at_tp4_stablelm_train=tp_flash_t[TP_FLASH_BWD[0]]),
         entry("gmm_bwd", "src/repro_torch/csrc/moe_gmm.cu",
               "src/repro/kernels/moe_gmm.py:47", gmm_bwd_err,
               gmm_bwd_t["train_gate_up"],

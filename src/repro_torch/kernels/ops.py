@@ -41,6 +41,40 @@ def decode_attention(q, k, v, *, window=0, logit_softcap=0.0, scale=None,
     copies gives those fp32 sums; an einsum on the bf16 tensors themselves
     would round the scores to bf16.
     """
+    s = _decode_scores(q, k, window=window, logit_softcap=logit_softcap,
+                       scale=scale, q_offset=q_offset, kv_len=kv_len,
+                       bf16_kv=bf16_kv)
+    p = torch.softmax(s, dim=-1)
+    return _decode_pv(p, v, q, bf16_kv)
+
+
+def decode_attention_split(q, k, v, *, k_start: int, pmax, psum, window=0,
+                           logit_softcap=0.0, scale=None, q_offset, kv_len,
+                           causal: bool = True, bf16_kv: bool = True):
+    """``decode_attention`` over a cache split by position across ranks
+    (flash-decoding's layout): k, v are this rank's positions ``k_start``
+    onwards; q is every rank's same query. ``pmax`` and ``psum`` reduce a
+    tensor over the ranks (pmax need not be differentiable: decode is not).
+
+    The masks (causal, window, ``kv_len``) are on global positions; then
+    the global row max, the global sum of exp, P normalised and rounded to
+    V's dtype as the local path rounds it, and the ranks' PV products
+    summed. Each rank's partial softmax is not rescaled on its own: P is
+    rounded once, from the global max and sum. ``causal=False`` drops the
+    causal mask (cross-attention's cache)."""
+    s = _decode_scores(q, k, window=window, logit_softcap=logit_softcap,
+                       scale=scale, q_offset=q_offset, kv_len=kv_len,
+                       bf16_kv=bf16_kv, k_start=k_start, causal=causal)
+    m = pmax(s.amax(dim=-1, keepdim=True))
+    e = torch.exp(s - m)
+    p = e / psum(e.sum(dim=-1, keepdim=True))
+    return psum(_decode_pv(p, v, q, bf16_kv, out_dtype=torch.float32)).to(q.dtype)
+
+
+def _decode_scores(q, k, *, window, logit_softcap, scale, q_offset, kv_len,
+                   bf16_kv, k_start=0, causal=True):
+    """Masked fp32 scores (B, KVH, g, Sq, Sk) of q against keys at global
+    positions ``k_start`` onwards."""
     B, Sq, H, D = q.shape
     _, Sk, KVH, _ = k.shape
     g = H // KVH
@@ -61,17 +95,22 @@ def decode_attention(q, k, v, *, window=0, logit_softcap=0.0, scale=None,
     if isinstance(kv_len, torch.Tensor):
         kv_len = torch.broadcast_to(kv_len.to(dev), (B,))[:, None, None]
     q_pos = torch.broadcast_to(q_offset + torch.arange(Sq, device=dev), (B, Sq))
-    k_pos = torch.arange(Sk, device=dev)
-    m = k_pos[None, None, :] <= q_pos[..., None]
-    m &= k_pos[None, None, :] < kv_len
+    k_pos = torch.arange(k_start, k_start + Sk, device=dev)[None, None, :]
+    m = k_pos < kv_len
+    if causal:
+        m = m & (k_pos <= q_pos[..., None])
     if window:
-        m &= q_pos[..., None] - k_pos[None, None, :] < window
-    s = torch.where(m[:, None, None], s, ref.NEG_INF)
-    p = torch.softmax(s, dim=-1)
+        m = m & (q_pos[..., None] - k_pos < window)
+    return torch.where(m[:, None, None], s, ref.NEG_INF)
+
+
+def _decode_pv(p, v, q, bf16_kv, out_dtype=None):
+    """(B, KVH, g, Sq, Sk) probabilities times V -> (B, Sq, H, D)."""
+    B, Sq, H, D = q.shape
     if bf16_kv:
         p = p.to(v.dtype)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p.float(), v.float())
-    return o.reshape(B, Sq, H, D).to(q.dtype)
+    return o.reshape(B, Sq, H, D).to(out_dtype or q.dtype)
 
 
 def ssd_scan(x, dt, a_log, b, c, d_skip, *, chunk=128):

@@ -6,6 +6,7 @@ import functools
 import torch.nn.functional as F
 
 from .common import ParamSpec
+from .tp import TP
 
 
 def ffn_specs(cfg, d_ff: int | None = None, d_model: int | None = None) -> dict:
@@ -29,7 +30,9 @@ def _act(name: str):
             "gelu": functools.partial(F.gelu, approximate="tanh")}[name]
 
 
-def apply_ffn(p, x, *, cfg):
+def apply_ffn(p, x, *, cfg, tp: TP = TP()):
+    """Gated MLP. Tensor parallel (``tp``): the rank's gate/up columns and
+    down rows, the partial sums reduced over model before ``b_down``."""
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
     if cfg.use_bias:
@@ -37,6 +40,8 @@ def apply_ffn(p, x, *, cfg):
         u = u + p["b_up"]
     h = _act(cfg.mlp_act)(g) * u
     out = h @ p["w_down"]
+    if tp.split("w_down", 0):
+        out = tp.psum(out)
     if cfg.use_bias:
         out = out + p["b_down"]
     return out

@@ -31,6 +31,7 @@ from .. import collectives
 from ..kernels import ops
 from .common import ParamSpec
 from .ffn import _act, apply_ffn
+from .tp import TP
 
 
 @dataclass(frozen=True)
@@ -222,10 +223,11 @@ def _moe_ep_body(x_local, router_w, wg, wu, wd, *, cfg, dist: DistContext):
     return out.to(x_local.dtype), aux
 
 
-def apply_moe(p, x, *, cfg, dist: DistContext = LOCAL):
+def apply_moe(p, x, *, cfg, dist: DistContext = LOCAL, tp: TP = TP()):
     """x: (B, S, d) -> (out (B, S, d), aux_loss scalar). With a mesh (and
     ``dist.ep``), x is the rank's data shard and the expert weights are in
-    ``expert_specs(dist)``'s layout."""
+    ``expert_specs(dist)``'s layout; the shared experts are tensor parallel
+    by ``tp`` (the layer's view)."""
     B, S, d = x.shape
     x2d = x.reshape(B * S, d)
     if dist.mesh is None or not dist.ep:
@@ -234,5 +236,6 @@ def apply_moe(p, x, *, cfg, dist: DistContext = LOCAL):
         out, aux = _moe_ep_body(x2d, p["router"], p["w_gate"], p["w_up"],
                                 p["w_down"], cfg=cfg, dist=dist)
     if cfg.moe.num_shared:
-        out = out + apply_ffn(p["shared"], x, cfg=cfg).reshape(B * S, d)
+        out = out + apply_ffn(p["shared"], x, cfg=cfg,
+                              tp=tp.sub("shared")).reshape(B * S, d)
     return out.reshape(B, S, d), aux

@@ -28,12 +28,13 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from .attention import (apply_attention, attention_specs, compute_cross_kv,
-                        cross_kv_specs)
+                        cross_kv_specs, write_cache)
 from .common import (ParamSpec, apply_norm, dtype_of, norm_spec, softcap,
                      stack_specs)
 from .ffn import apply_ffn, ffn_specs
 from .moe import LOCAL, DistContext, apply_moe, moe_specs
 from .ssm import apply_ssm, apply_ssm_decode, init_ssm_state, ssm_specs
+from .tp import TP, embed_lookup, of as tp_of
 
 @dataclass(frozen=True)
 class BlockDesc:
@@ -251,12 +252,16 @@ def _maybe_remat(body, remat_policy: str | None, mode: str):
 
 
 def _apply_block(bp, x, b: BlockDesc, *, cfg, dist, mode, cache, cache_index,
-                 cross_states, shared_params, positions):
+                 cross_states, shared_params, positions, tp: TP = TP(),
+                 shared_tp: TP = TP()):
     """One residual block. Returns (x, new_cache|None, aux).
 
     Caches are written in place (attention and SSM alike). ``aux`` is the
     MoE router's load-balance loss; other blocks return None where the
-    reference adds 0.0 (exact, and one launch fewer per block)."""
+    reference adds 0.0 (exact, and one launch fewer per block). ``tp`` is
+    the block's tensor-parallel view (``shared_tp`` the shared block's
+    weights'): attention, MLP and shared experts compute the rank's block;
+    SSM blocks compute whole."""
     new_cache, aux = None, None
 
     def maybe_post(out, p):
@@ -264,27 +269,32 @@ def _apply_block(bp, x, b: BlockDesc, *, cfg, dist, mode, cache, cache_index,
 
     if b.kind in ("attn", "shared_attn"):
         p = shared_params if b.kind == "shared_attn" else bp
+        ptp = shared_tp.with_cache(tp.cache) if b.kind == "shared_attn" else tp
         h = apply_norm(p["norm"], x, cfg)
         out, new_cache = apply_attention(
             p["attn"], h, cfg=cfg, window=b.window, positions=positions,
-            cache=cache, cache_index=cache_index, causal=b.causal, mode=mode)
+            cache=cache, cache_index=cache_index, causal=b.causal, mode=mode,
+            tp=ptp.sub("attn"))
         x = x + maybe_post(out, p)
         if b.kind == "shared_attn":  # zamba2 shared block = attn + mlp
             h = apply_norm(p["ffn_norm"], x, cfg)
-            x = x + apply_ffn(p["ffn"], h, cfg=cfg)
+            x = x + apply_ffn(p["ffn"], h, cfg=cfg, tp=ptp.sub("ffn"))
     elif b.kind == "parallel":  # command-r: one norm, attn || ffn
         h = apply_norm(bp["norm"], x, cfg)
         out_a, new_cache = apply_attention(
             bp["attn"], h, cfg=cfg, window=b.window, positions=positions,
-            cache=cache, cache_index=cache_index, mode=mode)
-        out_f = apply_ffn(bp["ffn"], h, cfg=cfg)
+            cache=cache, cache_index=cache_index, mode=mode,
+            tp=tp.sub("attn"))
+        out_f = apply_ffn(bp["ffn"], h, cfg=cfg, tp=tp.sub("ffn"))
         x = x + out_a + out_f
     elif b.kind == "ffn":
         h = apply_norm(bp["norm"], x, cfg)
-        x = x + maybe_post(apply_ffn(bp["ffn"], h, cfg=cfg), bp)
+        x = x + maybe_post(apply_ffn(bp["ffn"], h, cfg=cfg,
+                                     tp=tp.sub("ffn")), bp)
     elif b.kind == "moe":
         h = apply_norm(bp["norm"], x, cfg)
-        out, aux = apply_moe(bp["moe"], h, cfg=cfg, dist=dist)
+        out, aux = apply_moe(bp["moe"], h, cfg=cfg, dist=dist,
+                             tp=tp.sub("moe"))
         x = x + maybe_post(out, bp)
     elif b.kind == "ssm":
         h = apply_norm(bp["norm"], x, cfg)
@@ -301,16 +311,17 @@ def _apply_block(bp, x, b: BlockDesc, *, cfg, dist, mode, cache, cache_index,
         else:
             kv = compute_cross_kv(bp["cross_kv"], cross_states)
             if cache is not None:
-                if cache["ck"].shape[1] != kv[0].shape[1]:
+                made = cache["ck"].shape[1] * \
+                    (tp.size if tp.cache_split("ck", 1) else 1)
+                if made != kv[0].shape[1]:
                     raise ValueError(
-                        f"cross cache made for {cache['ck'].shape[1]} "
-                        f"positions, the frames or patches have "
-                        f"{kv[0].shape[1]}")
-                cache["ck"].copy_(kv[0])
-                cache["cv"].copy_(kv[1])
+                        f"cross cache made for {made} positions, the frames "
+                        f"or patches have {kv[0].shape[1]}")
+                write_cache(cache, ("ck", "cv"), kv, 0, tp)
                 new_cache = cache
         out, _ = apply_attention(bp["attn"], h, cfg=cfg, cross_kv=kv,
-                                 positions=positions, mode=mode)
+                                 positions=positions, mode=mode,
+                                 tp=tp.sub("attn"))
         x = x + maybe_post(out, bp)
     else:
         raise ValueError(b.kind)
@@ -318,7 +329,8 @@ def _apply_block(bp, x, b: BlockDesc, *, cfg, dist, mode, cache, cache_index,
 
 
 def _apply_group(gp, x, gd: GroupDesc, *, cfg, dist, mode, cache, cache_index,
-                 cross_states, shared_params, positions, remat_policy=None):
+                 cross_states, shared_params, positions, remat_policy=None,
+                 tp: TP = TP(), shared_tp: TP = TP()):
     """Run the group's ``repeat`` stacked layers in order. Returns (x, aux,
     cache): aux is the blocks' auxiliary losses summed in layer order from an
     fp32 zero, as the reference's scan carries it. With ``remat_policy`` in
@@ -326,7 +338,8 @@ def _apply_group(gp, x, gd: GroupDesc, *, cfg, dist, mode, cache, cache_index,
 
     Every block writes its slice of the cache in place (the KV cache and the
     SSM conv buffer and state alike), so the blocks' returned caches are
-    discarded and the group's new cache is ``cache``.
+    discarded and the group's new cache is ``cache``. ``tp`` is the group's
+    per-layer tensor-parallel view.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp_all, bc_all in zip(_layers(gp, gd.repeat),
@@ -339,7 +352,7 @@ def _apply_group(gp, x, gd: GroupDesc, *, cfg, dist, mode, cache, cache_index,
                     bp_all.get(key), x, b, cfg=cfg, dist=dist, mode=mode,
                     cache=bc, cache_index=cache_index,
                     cross_states=cross_states, shared_params=shared_params,
-                    positions=positions)
+                    positions=positions, tp=tp.block(key), shared_tp=shared_tp)
                 if aux_j is not None:
                     aux = aux + aux_j
             return x, aux
@@ -368,14 +381,18 @@ def forward(params, inputs, *, cfg, dist: DistContext = LOCAL, mode="train",
     projected patches) into the cache's ck/cv leaves, which must have been
     made for that length (``enc_len``).
 
-    ``dist`` says how the MoE layers distribute themselves (the
-    expert-parallel path of ``models/moe.py`` when it has a mesh); every
-    other layer computes on the rank's own rows.
+    ``dist`` says how the layers distribute themselves: the MoE layers by
+    the expert-parallel path of ``models/moe.py`` when it has a mesh, the
+    attention, MLP and vocabulary tensor parallel over the model axis by
+    ``dist.use`` (``models/tp.py``), on the rank's own rows. With a
+    vocab-split output embedding the logits are the rank's vocabulary
+    block (``tp.vocab_split``).
     """
     tokens = inputs["tokens"]
     B, Sq = tokens.shape
     dev = tokens.device
-    x = params["embed"][tokens].to(dtype_of(cfg.activ_dtype))
+    root = tp_of(dist)
+    x = embed_lookup(params["embed"], tokens, root).to(dtype_of(cfg.activ_dtype))
     if cfg.embed_scale:   # the scale rounded to x's dtype, as the reference does
         x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
 
@@ -391,7 +408,7 @@ def forward(params, inputs, *, cfg, dist: DistContext = LOCAL, mode="train",
             params["vision_proj"].to(x.dtype)
     if cfg.family == "encdec" and mode != "decode":
         cross_states = encode(params, inputs["frames"], cfg=cfg, dist=dist,
-                              remat_policy=remat_policy)
+                              remat_policy=remat_policy, tp=root.block("encoder"))
 
     shared_params = params.get("shared")
     aux = torch.zeros((), dtype=torch.float32, device=dev)
@@ -402,7 +419,8 @@ def forward(params, inputs, *, cfg, dist: DistContext = LOCAL, mode="train",
             params["groups"][f"g{i}"], x, gd, cfg=cfg, dist=dist, mode=mode,
             cache=gcache, cache_index=cache_index, cross_states=cross_states,
             shared_params=shared_params, positions=positions,
-            remat_policy=remat_policy)
+            remat_policy=remat_policy, tp=root.group("groups", f"g{i}"),
+            shared_tp=root.sub("shared"))
         aux = aux + aux_g
         if ncache is not None:
             new_groups[f"g{i}"] = ncache
@@ -418,7 +436,7 @@ def forward(params, inputs, *, cfg, dist: DistContext = LOCAL, mode="train",
 
 
 def encode(params, frames, *, cfg, dist: DistContext = LOCAL,
-           remat_policy=None):
+           remat_policy=None, tp: TP = TP()):
     """The encoder over the frame embeddings (B, S_enc, d_model):
     ``in_proj``, the non-causal stack of ``encoder_plan``, ``final_norm``.
     Returns the states that the decoder's cross-attention blocks attend to,
@@ -433,6 +451,7 @@ def encode(params, frames, *, cfg, dist: DistContext = LOCAL,
                                dist=dist, mode="train", cache=None,
                                cache_index=None, cross_states=None,
                                shared_params=None, positions=positions,
-                               remat_policy=remat_policy)
+                               remat_policy=remat_policy,
+                               tp=tp.group("groups", f"g{i}"))
     return apply_norm(enc["final_norm"], h, cfg)
 

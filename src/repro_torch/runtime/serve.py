@@ -7,27 +7,33 @@ prefill, then a decode loop).
 The mesh path (``jit_prefill_step`` / ``jit_decode_step``), one process per
 device: the weights are DTensors placed by ``SERVING_RULES`` (dense weights
 split on the model axis only; experts EP over model, with ``expert_tp`` f
-over data too), gathered to full on use one layer group at a time (experts
-to their expert-parallel blocks); each rank computes on its batch shard
-with its own cache (``mesh_cache``: the batch split over the data axes),
-and the step returns the whole batch's tokens and logits on every rank.
-``cache_shardings`` gives the rule table's assignment of the cache
-(sequence- or head-parallel over model), which the tensor-parallel compute
-of a later slice will hold.
+over data too), moved on use one layer group at a time to the blocks a rank
+computes with (``train.use_specs``: heads, MLP columns and vocabulary
+tensor parallel over model, ``models/tp.py``; experts their
+expert-parallel blocks; SSM weights whole). Each rank computes on its
+batch shard with its own cache (``mesh_cache``): the attention leaves
+placed by ``cache_shardings`` (head-parallel over model where model
+divides ``kv_heads``, else sequence-parallel over the positions where it
+divides them), the SSM leaves split over the batch only. The step gathers
+the last position's logits over model where the vocabulary is split, and
+returns the whole batch's tokens and logits on every rank.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
 
 from .. import collectives
 from .._bridge import resolve_device
+from ..models import tp as tp_mod
 from ..models.common import dtype_of
 from ..models.model_zoo import Model
 from ..models.moe import LOCAL, DistContext
+from ..tree import leaves_with_path
 from . import sharding as shd
-from .train import use_specs
+from .train import tp_dist
 
 
 @dataclass(frozen=True)
@@ -67,31 +73,60 @@ def shard_params(params, model: Model, mesh, rules=shd.SERVING_RULES):
     return shd.distribute(params, specs, mesh)
 
 
+ATTENTION_CACHE = ("k", "v", "ck", "cv")
+
+
+def mesh_cache_specs(model: Model, cache_abstract, mesh, rules=None):
+    """The mesh steps' cache placements: the attention leaves'
+    ``cache_shardings``; the SSM leaves' batch dim (dim 1) split over the
+    data axes, nothing else (their model-axis split is ROADMAP.md A14)."""
+    want = cache_shardings(model, cache_abstract, mesh, rules)
+
+    def walk(meta, spec, name=""):
+        if isinstance(meta, dict):
+            return {k: walk(v, spec[k], k) for k, v in meta.items()}
+        if name in ATTENTION_CACHE:
+            return spec
+        return shd.spec_for_axes((None, "batch"), meta.shape, mesh)
+
+    return walk(cache_abstract, want)
+
+
 def mesh_cache(model: Model, opts: ServeOptions, mesh, batch: int,
                max_len: int, enc_len: int = 0, device=None):
-    """The mesh steps' cache: DTensors whose batch dim (dim 1) is split over
-    the data axes, each rank's shard zeroed on ``device`` (default
-    ``cuda``)."""
+    """The mesh steps' cache: DTensors placed by ``mesh_cache_specs``, each
+    rank's shard zeroed on ``device`` (default ``cuda``)."""
     from torch.distributed.tensor import DTensor
     device = resolve_device(device)
+    meta = abstract_cache(model, batch, max_len, enc_len,
+                          dtype_of(opts.kv_dtype))
 
-    def make(meta):
+    def make(meta, spec):
         if isinstance(meta, dict):
-            return {k: make(v) for k, v in meta.items()}
-        spec = shd.spec_for_axes((None, "batch"), meta.shape, mesh)
+            return {k: make(v, spec[k]) for k, v in meta.items()}
         t = torch.zeros(shd.local_part(meta, spec, mesh).shape,
                         dtype=meta.dtype, device=device)
         return DTensor.from_local(t, mesh, shd.placements(spec, mesh),
                                   run_check=False)
 
-    return make(abstract_cache(model, batch, max_len, enc_len,
-                               dtype_of(opts.kv_dtype)))
+    return make(meta, mesh_cache_specs(model, meta, mesh))
+
+
+def _meta(tree):
+    """A tree of DTensors as meta tensors of their global shapes."""
+    if isinstance(tree, dict):
+        return {k: _meta(v) for k, v in tree.items()}
+    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
 
 
 def _check_placements(tree, want, what: str):
     got = shd.spec_tree_of(tree)
     if got != want:
-        raise ValueError(f"{what} are not placed as the rule table says")
+        wrong = [path for path, spec in leaves_with_path(
+            got, is_leaf=lambda t: isinstance(t, tuple))
+            if spec != shd.tree_at(want, path)]
+        raise ValueError(f"{what} are not placed as the rule table says: "
+                         f"{['/'.join(p) for p in wrong]}")
 
 
 def _gathered_params(params, use, mesh):
@@ -100,12 +135,21 @@ def _gathered_params(params, use, mesh):
                              use, mesh)
 
 
-def _whole_batch(t, rows: int, mesh):
-    """A step's per-rank rows gathered into the batch of ``rows`` rows."""
-    spec = shd.data_spec((rows,), mesh)
+def _whole_batch(last, rows: int, dist: DistContext, cfg):
+    """A step's per-rank last logits (B_rank, V_rank) gathered into the
+    batch of ``rows`` rows and the whole vocabulary."""
+    if tp_mod.vocab_split(dist, cfg):
+        last = tp_mod.of(dist).gather(last, -1)
+    spec = shd.data_spec((rows,), dist.mesh)
     if not spec:
-        return t
-    return collectives.all_gather(t, mesh, shd.spec_axes(spec[0]), dim=0)
+        return last
+    return collectives.all_gather(last, dist.mesh, shd.spec_axes(spec[0]),
+                                  dim=0)
+
+
+def _on_cache(dist: DistContext, cache) -> DistContext:
+    """``dist`` with the placements of the mesh cache it computes on."""
+    return dataclasses.replace(dist, cache_specs=shd.spec_tree_of(cache))
 
 
 def _next_token(last, opts: ServeOptions, generator=None):
@@ -117,31 +161,32 @@ def _next_token(last, opts: ServeOptions, generator=None):
     return torch.argmax(last, dim=-1)[:, None]
 
 
-def build_prefill_step(model: Model, opts: ServeOptions, mesh=None):
+def build_prefill_step(model: Model, opts: ServeOptions, mesh=None,
+                       rules=shd.SERVING_RULES):
     """(params, inputs, cache) -> (last position's logits, cache). With a
-    mesh: DTensor params, the whole batch's inputs and a ``mesh_cache``;
-    the logits of the whole batch on every rank."""
-    dist = make_dist(mesh, opts)
-    use = None if mesh is None else use_specs(model, dist)
+    mesh: DTensor params placed by ``rules``, the whole batch's inputs and
+    a ``mesh_cache``; the logits of the whole batch on every rank."""
+    dist = tp_dist(model, make_dist(mesh, opts), rules)
 
     def prefill(params, inputs, cache):
         if mesh is None:
             logits, cache, _ = model.apply(params, inputs, mode="prefill",
                                            cache=cache, cache_index=0)
             return logits[:, -1], cache
+        d = _on_cache(dist, cache)
         logits, _, _ = model.apply(
-            _gathered_params(params, use, mesh), shd.local_batch(inputs, mesh),
-            mode="prefill", dist=dist, cache=shd.local_tree(cache),
-            cache_index=0)
+            _gathered_params(params, d.use, mesh),
+            shd.local_batch(inputs, mesh), mode="prefill", dist=d,
+            cache=shd.local_tree(cache), cache_index=0)
         rows = inputs["tokens"].shape[0]
-        return _whole_batch(logits[:, -1], rows, mesh), cache
+        return _whole_batch(logits[:, -1], rows, d, model.cfg), cache
 
     return prefill
 
 
-def build_decode_step(model: Model, opts: ServeOptions, mesh=None):
-    dist = make_dist(mesh, opts)
-    use = None if mesh is None else use_specs(model, dist)
+def build_decode_step(model: Model, opts: ServeOptions, mesh=None,
+                      rules=shd.SERVING_RULES):
+    dist = tp_dist(model, make_dist(mesh, opts), rules)
 
     def decode(params, cache, tokens, index, generator=None):
         """tokens: (B, 1); index: int position. -> (next, last, cache).
@@ -155,11 +200,12 @@ def build_decode_step(model: Model, opts: ServeOptions, mesh=None):
                                            cache_index=index)
             last = logits[:, -1]
         else:
+            d = _on_cache(dist, cache)
             logits, _, _ = model.apply(
-                _gathered_params(params, use, mesh),
+                _gathered_params(params, d.use, mesh),
                 shd.local_batch({"tokens": tokens}, mesh), mode="decode",
-                dist=dist, cache=shd.local_tree(cache), cache_index=index)
-            last = _whole_batch(logits[:, -1], tokens.shape[0], mesh)
+                dist=d, cache=shd.local_tree(cache), cache_index=index)
+            last = _whole_batch(logits[:, -1], tokens.shape[0], d, model.cfg)
         return _next_token(last, opts, generator), last, cache
 
     return decode
@@ -170,15 +216,17 @@ def jit_decode_step(model: Model, opts: ServeOptions, mesh, batch: int,
     """The mesh decode step and (params, cache) as meta tensors. The step
     takes params placed by ``rules`` (``shard_params``), a ``mesh_cache``,
     the whole batch's (B, 1) tokens and the position; it checks the
-    params' placements."""
-    decode = build_decode_step(model, opts, mesh)
+    params' and the cache's placements."""
+    decode = build_decode_step(model, opts, mesh, rules)
     p_abs = model.abstract()
     p_sh = shd.tree_shardings(model.axes(), p_abs, mesh, rules)
     cache_abs = abstract_cache(model, batch, max_len, enc_len,
                                dtype_of(opts.kv_dtype))
+    c_sh = mesh_cache_specs(model, cache_abs, mesh)
 
     def fn(params, cache, tokens, index):
         _check_placements(params, p_sh, "params")
+        _check_placements(cache, c_sh, "cache leaves")
         return decode(params, cache, tokens, index)
 
     return fn, (p_abs, cache_abs)
@@ -189,7 +237,7 @@ def jit_prefill_step(model: Model, opts: ServeOptions, mesh, batch: int,
     """The mesh prefill step and (params, inputs, cache) as meta tensors;
     the step takes what ``jit_decode_step``'s does, with the whole batch's
     inputs."""
-    prefill = build_prefill_step(model, opts, mesh)
+    prefill = build_prefill_step(model, opts, mesh, rules)
     enc_len = model.enc_len_for(seq_len)
     p_abs = model.abstract()
     p_sh = shd.tree_shardings(model.axes(), p_abs, mesh, rules)
@@ -201,6 +249,9 @@ def jit_prefill_step(model: Model, opts: ServeOptions, mesh, batch: int,
 
     def fn(params, inputs, cache):
         _check_placements(params, p_sh, "params")
+        # the cache is the decode's, of its own length
+        _check_placements(cache, mesh_cache_specs(model, _meta(cache), mesh),
+                          "cache leaves")
         return prefill(params, inputs, cache)
 
     return fn, (p_abs, in_abs, cache_abs)

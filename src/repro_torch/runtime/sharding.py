@@ -320,7 +320,8 @@ def _gathered(tree, fn, path=()):
     return fn(path, tree)
 
 
-def _at(tree, path):
+def tree_at(tree, path):
+    """The subtree of ``tree`` at the key ``path``."""
     for k in path:
         tree = tree[k]
     return tree
@@ -333,4 +334,4 @@ def gather_on_use(local, stored, use, mesh):
     dicts, one layer group at a time inside them, when the forward reads
     it."""
     return _gathered(local, lambda path, t: collectives.to_use(
-        t, _at(stored, path), _at(use, path), mesh))
+        t, tree_at(stored, path), tree_at(use, path), mesh))

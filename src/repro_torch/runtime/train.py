@@ -12,24 +12,28 @@ The mesh path, one process per device (``jit_train_step``): the state is a
 tree of DTensors placed by ``state_shardings`` (the rule table's
 assignments; moments as their params, int8 scales, ``count`` and ``step``
 replicated), so a rank holds the reference's share of it. A step takes the
-rank's batch shard, gathers each layer group's weights to full on use (the
-expert weights to their expert-parallel blocks, ``models/moe.py``), and
-back-propagates the rank's loss over the number of ranks; each weight's
-gather is differentiable, so its gradient arrives summed over every rank
-that used it and reduced to the rank's own shard (a reduce-scatter over the
-split dims, a sum over the axes that hold copies: the mean over the batch
-shards). AdamW then updates the shards in place. Tensor-parallel compute of
-the dense layers, which GSPMD derives in the reference, is not here: the
-dense layers compute whole on each rank's rows (ROADMAP.md A).
+rank's batch shard, moves each layer group's weights on use to the blocks
+it computes with (``use_specs``: the dense layers' blocks of heads, MLP
+columns and vocabulary over the model axis, ``models/tp.py``; the expert
+weights their expert-parallel blocks, ``models/moe.py``; every other dim
+gathered whole), and back-propagates the rank's loss over the number of
+ranks; each weight's move is differentiable, so its gradient arrives summed
+over every rank that used it and reduced to the rank's own shard (a
+reduce-scatter over the split dims, a sum over the axes that hold copies:
+the mean over the batch shards). With the vocabulary split, the loss is
+the vocab-parallel cross-entropy. AdamW then updates the shards in place.
+The SSM blocks compute whole on each rank (ROADMAP.md A14).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
 
 from .. import collectives
+from ..models import tp as tp_mod
 from ..models.common import tree_map_specs
 from ..models.moe import LOCAL, DistContext, expert_specs
 from ..optim import adamw
@@ -49,12 +53,28 @@ class TrainOptions:
     scan_unroll: int = 1                 # no effect: the layers are a loop
 
 
-def cross_entropy(logits, labels):
+def cross_entropy(logits, labels, vocab=None):
     """logits: (B, S, V); labels: (B, S) int. Mean NLL in fp32: the
-    log-sum-exp minus the gold logit."""
+    log-sum-exp minus the gold logit.
+
+    ``vocab``: the ``models/tp.py`` view over which the logits are split by
+    vocabulary (the rank's block of V), or None. Split, the log-sum-exp is
+    the global max (not differentiated: it cancels) plus the log of the
+    psum of the ranks' exp-sums, and the gold logit comes from the rank
+    that holds it, psummed."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    labels = labels.long()
+    if vocab is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return torch.mean(lse - gold)
+    m = vocab.pmax(logits.amax(dim=-1))
+    lse = torch.log(vocab.psum(torch.exp(logits - m[..., None]).sum(-1))) + m
+    n = logits.shape[-1]
+    local = labels - vocab.rank * n
+    own = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = vocab.psum(torch.where(own, gold, gold.new_zeros(())))
     return torch.mean(lse - gold)
 
 
@@ -104,20 +124,59 @@ def distribute_train_state(state, model, mesh, opts: TrainOptions, rules=None):
     return shd.distribute(state, state_shardings(model, mesh, opts, rules), mesh)
 
 
-def use_specs(model, dist: DistContext):
-    """The block of each weight a rank computes with: the whole weight,
-    but for the experts of an expert-parallel MoE layer (the reference's
-    shard_map in-specs, after the stacked ``layers`` dim)."""
-    ep = expert_specs(dist) if dist.mesh is not None and dist.ep else None
+# the logical axes whose model-axis assignment a rank computes with
+TP_AXES = ("heads", "kv_heads", "mlp", "vocab")
 
-    def one(path):
+
+def use_specs(model, dist: DistContext, rules=None):
+    """The block of each weight a rank computes with, as GSPMD uses the
+    reference's shardings: the experts of an expert-parallel MoE layer in
+    the EP body's layout (the reference's shard_map in-specs, after the
+    stacked ``layers`` dim); every other weight with the model-axis
+    assignment of its TP_AXES dims as ``rules`` store it (tensor parallel,
+    ``models/tp.py``), whole on every other dim (an FSDP dim is gathered
+    on use)."""
+    if dist.mesh is None:
+        return unflatten(model.specs, (() for _ in leaves(model.specs)))
+    ep = expert_specs(dist) if dist.ep else None
+    stored = shd.tree_shardings(model.axes(), model.abstract(), dist.mesh,
+                                rules)
+    ax = dist.model_axis
+
+    def one(path, axes):
         if ep is not None and len(path) > 1 and path[-2] == "moe" and \
                 path[-1] in ("w_gate", "w_up", "w_down"):
             return (None, *ep["wd" if path[-1] == "w_down" else "w"])
-        return ()
+        spec = shd.tree_at(stored, path)
+        spec = spec + (None,) * (len(axes) - len(spec))
+        out = [ax if name in TP_AXES and ax in shd.spec_axes(entry) else None
+               for name, entry in zip(axes, spec)]
+        while out and out[-1] is None:
+            out.pop()
+        return tuple(out)
 
-    return unflatten(model.specs,
-                     (one(path) for path, _ in leaves_with_path(model.specs)))
+    return unflatten(model.specs, (
+        one(path, spec.axes) for path, spec in leaves_with_path(model.specs)))
+
+
+@dataclass(frozen=True)
+class TPDistContext(DistContext):
+    """A mesh's ``DistContext`` with what tensor parallelism reads
+    (``models/tp.py``): the block of each weight a rank computes with
+    (``use_specs``) and each cache leaf's placement, as trees like the
+    params' and the cache's."""
+
+    use: object = None
+    cache_specs: object = None
+
+
+def tp_dist(model, dist: DistContext, rules=None) -> DistContext:
+    """``dist`` with the use blocks its forward computes with."""
+    if dist.mesh is None:
+        return dist
+    return TPDistContext(**{f.name: getattr(dist, f.name)
+                            for f in dataclasses.fields(dist)},
+                         use=use_specs(model, dist, rules))
 
 
 def split_axes_of(spec_tree) -> list:
@@ -126,7 +185,7 @@ def split_axes_of(spec_tree) -> list:
             for _, spec in leaves_with_path(spec_tree)]
 
 
-def build_grad_fn(model, opts: TrainOptions, mesh=None) -> Callable:
+def build_grad_fn(model, opts: TrainOptions, mesh=None, rules=None) -> Callable:
     """(params, batch) -> (grads, metrics): the step's gradients, a tree
     like ``params``, and ``{"loss": ce, "aux_loss": aux}`` fp32 scalars.
 
@@ -140,11 +199,12 @@ def build_grad_fn(model, opts: TrainOptions, mesh=None) -> Callable:
     each microbatch of which a rank cuts to its rows by ``data_spec``, as
     the reference shards each microbatch; the gradients are of the shards,
     summed over the ranks, and the metrics the means over the batch
-    shards.
+    shards. ``rules`` is the rule table the state is stored by.
     """
-    dist = make_dist(mesh, opts)
+    dist = tp_dist(model, make_dist(mesh, opts), rules)
     world = 1 if mesh is None else mesh.size()
-    use = None if mesh is None else use_specs(model, dist)
+    use = getattr(dist, "use", None)
+    vocab = tp_mod.of(dist) if tp_mod.vocab_split(dist, model.cfg) else None
 
     def loss_fn(params, batch, stored):
         inputs = {k: v for k, v in batch.items() if k != "labels"}
@@ -153,7 +213,7 @@ def build_grad_fn(model, opts: TrainOptions, mesh=None) -> Callable:
         logits, _, aux = model.apply(params, inputs, mode="train", dist=dist,
                                      remat_policy=opts.remat_policy,
                                      scan_unroll=opts.scan_unroll)
-        ce = cross_entropy(logits, batch["labels"])
+        ce = cross_entropy(logits, batch["labels"], vocab)
         if mesh is None:
             return ce + aux, {"loss": ce.detach(), "aux_loss": aux.detach()}
         # the rank's share of the mean over every rank's loss (ranks on the
@@ -203,13 +263,14 @@ def build_grad_fn(model, opts: TrainOptions, mesh=None) -> Callable:
     return grad_fn
 
 
-def build_train_step(model, opts: TrainOptions, mesh=None) -> Callable:
+def build_train_step(model, opts: TrainOptions, mesh=None, rules=None) -> Callable:
     """(state, batch) -> (state, metrics): one AdamW step at the learning
     rate of ``warmup_cosine(state["step"])``; metrics ``loss``, ``aux_loss``,
     ``grad_norm`` and ``lr``, fp32 scalars. With a mesh the state is a tree
     of DTensors (``distribute_train_state``) and the batch the global one,
-    the same on every rank: see the module's docstring."""
-    grad_fn = build_grad_fn(model, opts, mesh)
+    the same on every rank: see the module's docstring; ``rules`` the rule
+    table the state is stored by."""
+    grad_fn = build_grad_fn(model, opts, mesh, rules)
     if mesh is not None:
         return _mesh_step(grad_fn, opts, mesh)
 
@@ -267,7 +328,7 @@ def jit_train_step(model, opts: TrainOptions, mesh, batch_abstract,
     ``batch_shardings`` (all of them where the batch does not split over
     the batch axes)."""
     del batch_abstract   # the step cuts each batch as it comes
-    step = build_train_step(model, opts, mesh)
+    step = build_train_step(model, opts, mesh, rules)
     want = state_shardings(model, mesh, opts, rules)
 
     def checked_step(state, batch):

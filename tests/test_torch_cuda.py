@@ -6,6 +6,11 @@ Imports torch and the port only, so it also runs where JAX is absent:
 
 Without a card every test here skips: a CUDA kernel has no CPU mode.
 """
+import json
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -598,3 +603,24 @@ def test_gmm_kernel_rejects_fp16(cuda):
     w = torch.zeros(2, 16, 8, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="kernel takes"):
         mg.gmm_cuda(x, w)
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_on_four_cards(tmp_path):
+    """``tests/_torch_tp_card.py``'s equality part under the torch launcher
+    on four cards (NCCL): command-r-plus-104b (4 layers) and
+    deepseek-moe-16b (8 layers) at full width on the (1, 4) and (2, 2)
+    meshes, serving tokens equal to one card's and logits, step-1 loss and
+    gradients within the run's noise floor times FLOOR_MULT."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    out = tmp_path / "tp_card.json"
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "4",
+         "tests/_torch_tp_card.py", "--part", "equality", "--out", str(out)],
+        cwd=root, capture_output=True, text=True, timeout=1800)
+    assert proc.returncode == 0, (proc.stdout[-4000:], proc.stderr[-4000:])
+    lines = [line for line in json.loads(out.read_text())
+             if line.get("part") == "equality"]
+    assert len(lines) == 8 and all(line["ok"] for line in lines), lines

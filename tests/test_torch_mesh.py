@@ -4,9 +4,10 @@ The reference runs on four host devices in one subprocess
 (``tests/_torch_mesh_ref.py``, ``XLA_FLAGS`` set there), the port as four
 ranks of a gloo group on a (data 2, model 2) ``DeviceMesh`` in another
 (``tests/_torch_mesh_ranks.py``, a ``FileStore`` under the test's temporary
-directory, so no port is opened). Both start from the same inputs, made
-here, and run at the same time, once per module; every group and join has a
-timeout, so a hang fails the tests instead of the suite.
+directory, so no port is opened). Both start from the same inputs and run
+at the same time, once per session for this file and
+``tests/test_torch_tp.py`` (``tests/_torch_mesh_runs.py``); every group and
+join has a timeout, so a hang fails the tests instead of the suite.
 
 Held: ``compressed_psum`` against the reference's inside ``shard_map``; the
 expert-parallel ``apply_moe`` (reduced deepseek-moe-16b, capacity factor
@@ -17,10 +18,6 @@ the port's local one on the full batch; the sharded serve steps against the
 local tokens; a sharded state's checkpoint against the local state's.
 """
 import json
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,11 +26,10 @@ torch = pytest.importorskip("torch")
 
 import _torch_mesh_ref as ref_side  # noqa: E402
 import _torch_mesh_ranks as rank_side  # noqa: E402
+from _torch_mesh_runs import RANKS, mesh_runs  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 
-ROOT = Path(__file__).resolve().parents[1]
-RUN_TIMEOUT_S = 300
 # the MoE layer's tolerance of tests/test_torch_models.py (bf16: its
 # DECODE_TOL), elementwise, for outputs and fp32 gradients; bf16 gradients
 # by relative norm at the train step tests' GRAD_TOL (tests/test_torch_train.py:
@@ -52,49 +48,12 @@ GAP_MULT = 1.05
 # serving: fp32 logits of a rank's rows against the whole batch's (another
 # summation order; a router near-tie may flip one expert), relative norm
 SERVE_LOGIT_RTOL = 1e-3
-RANKS = range(4)
 DATA_ROWS = (0, 2)          # ranks (data 0, model 0) and (data 1, model 0)
-
-
-def _run(cmd, env, log):
-    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
-                            stderr=subprocess.STDOUT)
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("mesh")
-    inputs = tmp / "inputs.npz"
-    np.savez(inputs, **ref_side.make_inputs())
-    base = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
-    ranks_dir = tmp / "ranks"
-    ranks_dir.mkdir()
-    procs = {}
-    with open(tmp / "ref.log", "w") as ref_log, \
-            open(tmp / "ranks.log", "w") as ranks_log:
-        procs["reference"] = _run(
-            [sys.executable, "tests/_torch_mesh_ref.py", str(inputs),
-             str(tmp / "ref.npz")],
-            dict(base, XLA_FLAGS="--xla_force_host_platform_device_count=4"),
-            ref_log)
-        procs["ranks"] = _run(
-            [sys.executable, "tests/_torch_mesh_ranks.py", str(inputs),
-             str(ranks_dir)], base, ranks_log)
-        codes = {}
-        for name, p in procs.items():
-            try:
-                codes[name] = p.wait(timeout=RUN_TIMEOUT_S)
-            except subprocess.TimeoutExpired:
-                for q in procs.values():
-                    q.kill()
-                    q.wait()
-                codes[name] = "timed out"
-    logs = {n: (tmp / f"{'ref' if n == 'reference' else n}.log").read_text()[-4000:]
-            for n in procs}
-    assert codes == {"reference": 0, "ranks": 0}, (codes, logs)
-    return {"ref": np.load(tmp / "ref.npz"),
-            "ranks": [np.load(ranks_dir / f"rank{r}.npz") for r in RANKS],
-            "inputs": np.load(inputs), "ckpt": ranks_dir / "ckpt"}
+    return mesh_runs(tmp_path_factory)
 
 
 def _rel(got, want) -> float:
