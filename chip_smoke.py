@@ -204,6 +204,19 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             per-task times; every attention call of a run through the plain
             attention replayed through the kernel, as in phase 4.
 
+   dryrun:  the dry-run (``repro_torch.launch.dryrun``) of deepseek-7b's
+            train step (B=2 x 2048, remat full, bf16 moments, the local
+            path) and its serve prefill (4 x 2048), traced on meta tensors
+            in a child process on the host (the card hidden from it) while
+            the kernel phases run, is held against the card in phases
+            train and 3: its kernel calls per kernel must equal the
+            launches torch.profiler counts (and the wrappers count) in one
+            traced step or prefill, its peak live bytes must be within 10%
+            of ``torch.cuda.max_memory_allocated`` over that step or
+            prefill, and its FLOPs are printed beside ``train_model_flops``
+            as a ratio (remat makes them differ by design), each on a
+            ``dryrun_check`` line beside the card's name and power limit.
+
 Then a ``kernels`` line (one entry per kernel of the paths), the card's
 ``nvidia-smi`` name and power limit, and last the device line. Any failure
 raises, so the script never prints the last line after a failed phase.
@@ -215,6 +228,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -389,6 +403,17 @@ TRAIN_DEPTH_CUTS = {"deepseek-moe-16b": 8, "gemma2-9b": 32, "stablelm-12b": 20}
 TRAIN_PEAK_BYTES = 80e9
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 8
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 1
+# the paths the dry-run (repro_torch.launch.dryrun, on meta tensors in a
+# child process) predicts and the card is held to: name -> (arch, kind)
+DRYRUN_PATHS = {"train:deepseek-7b": ("deepseek-7b", "train"),
+                "serve:deepseek-7b": ("deepseek-7b", "prefill")}
+DRYRUN_PEAK_RTOL = 0.10    # predicted peak live bytes vs max_memory_allocated
+DRYRUN_TIMEOUT_S = 300
+DRYRUN: dict = {}          # the child process and its records
+# per kernel wrapper on DRYRUN_PATHS, the kernel each call launches exactly
+# once, by which the profiler's launches count the calls
+PROFILED_KERNELS = {"flash_attention": "flash_fwd_kernel",
+                    "flash_attention_bwd": "flash_bwd_dq_kernel"}
 # faults planted in the flash backward of a training run, and whether the
 # step-1 gate must fail on each. The last K/V tile's dK is reported only:
 # under causal attention its 64 keys are seen by the last 64 queries alone
@@ -502,29 +527,24 @@ def cuda_ms(fn, warmup: int = 2, iters: int = 10) -> float:
     return statistics.median(times)
 
 
-def attended_pairs(Sq, Sk, *, causal=True, window=0, q_offset=0, kv_valid=None):
-    """(q, k) pairs the masks leave for these inputs: the work the data needs."""
-    kv_valid = Sk if kv_valid is None else min(kv_valid, Sk)
-    total = 0
-    for i in range(Sq):
-        qp = q_offset + i
-        hi = min(kv_valid, qp + 1) if causal else kv_valid
-        lo = max(0, qp - window + 1) if window else 0
-        total += max(0, hi - lo)
-    return total
+def bound_ms(cost, peak=PEAK_BF16_FLOPS) -> tuple[float, str]:
+    """Least time on the card for a call of (FLOPs, HBM bytes) ``cost`` (a
+    kernel module's count), and what sets it: the operations at ``peak`` or
+    the bytes at the HBM rate."""
+    flops, nbytes = cost
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def attention_bound_ms(B, Sq, Sk, H, KVH, D, opts) -> tuple[float, str]:
-    """Least time on the card and what sets it: operations at the bf16 peak
-    or bytes (each input read once, the output written once) at HBM rate."""
-    pairs = attended_pairs(Sq, Sk, causal=opts.get("causal", True),
-                           window=opts.get("window", 0),
-                           q_offset=opts.get("q_offset", 0),
-                           kv_valid=opts.get("kv_valid"))
-    flops = 4 * B * H * D * pairs
-    nbytes = 2 * (2 * B * Sq * H * D + 2 * B * Sk * KVH * D)   # q, o, k, v in bf16
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    """The forward's bound: ``flash_attention.attention_cost`` (4 B H D an
+    attended pair; q, k, v, o in bf16 read or written once) at the bf16
+    peak or HBM rate."""
+    from repro_torch.kernels import flash_attention as fa
+    return bound_ms(fa.attention_cost(
+        B, Sq, Sk, H, KVH, D, causal=opts.get("causal", True),
+        window=opts.get("window", 0), q_offset=opts.get("q_offset", 0),
+        kv_valid=opts.get("kv_valid")))
 
 
 KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "moe_gmm", "ssd_scan",
@@ -816,17 +836,12 @@ def phase_kernel():
 
 
 def ssd_bound_ms(B, L, H, P, N, G, chunk, dtype) -> tuple[float, str]:
-    """Least time on the card for one SSD scan: the causal half of C.B^T and
-    of W.u (Q^2 (N + P)) plus the state term and update (4 Q N P) per (b, h,
-    chunk), at the peak for the inputs' type; against x and y, dt (fp32), b
-    and c, a_log and d_skip (fp32) read or written once and the fp32 state."""
-    esize = 2 if dtype == "bfloat16" else 4
-    flops = B * H * (L // chunk) * (chunk ** 2 * (N + P) + 4 * chunk * N * P)
-    nbytes = (2 * B * L * H * P * esize + B * L * H * 4
-              + 2 * B * L * G * N * esize + 2 * H * 4 + B * H * P * N * 4)
-    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    """One SSD scan's bound: ``ssd_scan.ssd_cost`` at the peak for the
+    inputs' type or the HBM rate."""
+    from repro_torch.kernels import ssd_scan as ss
+    bf16 = dtype == "bfloat16"
+    return bound_ms(ss.ssd_cost(B, L, H, P, N, G, chunk, 2 if bf16 else 4),
+                    PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
 
 
 def ssd_inputs(gen, B, L, H, P, N, G, dtype):
@@ -1009,15 +1024,12 @@ def phase_ssd():
 
 
 def gmm_bound_ms(E, C, d, f, dtype) -> tuple[float, str]:
-    """Least time on the card for one grouped matmul: 2 E C d f operations
-    at the peak for the inputs' type, against x, w and the output read or
-    written once."""
-    esize = 2 if dtype == "bfloat16" else 4
-    flops = 2 * E * C * d * f
-    nbytes = esize * (E * C * d + E * d * f + E * C * f)
-    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    """One grouped matmul's bound: ``moe_gmm.gmm_cost`` at the peak for the
+    inputs' type or the HBM rate."""
+    from repro_torch.kernels import moe_gmm as mg
+    bf16 = dtype == "bfloat16"
+    return bound_ms(mg.gmm_cost(E, C, d, f, 2 if bf16 else 4),
+                    PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
 
 
 def gmm_faults(x, w):
@@ -1097,16 +1109,13 @@ def phase_gmm():
 
 
 def attention_bwd_bound_ms(B, Sq, Sk, H, KVH, D, opts) -> tuple[float, str]:
-    """Least time on the card for one attention backward: the five products
-    (S, dP, dV, dK, dQ), 10 B H D FLOPs an attended pair, at the bf16 peak,
-    against q, k, v, o, dO, LSE read and dQ, dK, dV written once."""
-    pairs = attended_pairs(Sq, Sk, causal=opts.get("causal", True),
-                           window=opts.get("window", 0),
-                           kv_valid=opts.get("kv_valid"))
-    flops = 10 * B * H * D * pairs
-    nbytes = 2 * (6 * B * Sq * H * D + 4 * B * Sk * KVH * D) + 4 * B * H * Sq
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    """One attention backward's bound: ``flash_attention.attention_bwd_cost``
+    (the five products, 10 B H D an attended pair; q, k, v, o, dO, LSE read
+    and dQ, dK, dV written once) at the bf16 peak or HBM rate."""
+    from repro_torch.kernels import flash_attention as fa
+    return bound_ms(fa.attention_bwd_cost(
+        B, Sq, Sk, H, KVH, D, causal=opts.get("causal", True),
+        window=opts.get("window", 0), kv_valid=opts.get("kv_valid")))
 
 
 def attention_grads_naive(q, k, v, dout, *, causal=True, window=0, softcap=0.0,
@@ -1309,12 +1318,10 @@ def phase_flash_bwd():
 
 
 def gmm_bwd_bound_ms(E, C, d, f) -> tuple[float, str]:
-    """Least time on the card for dx and dw of one bf16 grouped matmul: 4 E
-    C d f operations, against x, w, dy read and dx, dw written once."""
-    flops = 4 * E * C * d * f
-    nbytes = 2 * (2 * E * C * d + 2 * E * d * f + E * C * f)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    """The bound of dx and dw of one bf16 grouped matmul:
+    ``moe_gmm.gmm_bwd_cost`` at the bf16 peak or HBM rate."""
+    from repro_torch.kernels import moe_gmm as mg
+    return bound_ms(mg.gmm_bwd_cost(E, C, d, f))
 
 
 def train_capacity(arch="deepseek-moe-16b") -> int:
@@ -1430,20 +1437,12 @@ def phase_gmm_bwd():
 
 
 def ssd_bwd_bound_ms(B, L, H, P, N, G, chunk, dtype) -> tuple[float, str]:
-    """Least time on the card for one SSD backward, per (b, h, chunk): C B^T
-    and dY U^T over the causal half (Q^2 N + Q^2 P), W^T dY, V B and V^T C
-    (Q^2 P + 2 Q^2 N), the state terms dY S_in, B Gs^T and U Gs (6 Q N P)
-    and the chunk's two state products (4 Q N P), at the peak for the
-    inputs' type; against x, dy and dx, dt and ddt (fp32), b, c, db and dc,
-    a_log, d_skip and their gradients (fp32) read or written once."""
-    esize = 2 if dtype == "bfloat16" else 4
-    Q = chunk
-    flops = B * H * (L // Q) * (Q * Q * (3 * N + 2 * P) + 10 * Q * N * P)
-    nbytes = (3 * B * L * H * P * esize + 2 * B * L * H * 4
-              + 4 * B * L * G * N * esize + 4 * H * 4)
-    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    """One SSD backward's bound: ``ssd_scan.ssd_bwd_cost`` at the peak for
+    the inputs' type or the HBM rate."""
+    from repro_torch.kernels import ssd_scan as ss
+    bf16 = dtype == "bfloat16"
+    return bound_ms(ss.ssd_bwd_cost(B, L, H, P, N, G, chunk, 2 if bf16 else 4),
+                    PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
 
 
 def ssd_grads_plain(args, dy, dstate, chunk):
@@ -1784,8 +1783,23 @@ def phase_serve(arch):
         cache = model.init_cache(SERVE_BATCH, prompt_len + MAX_NEW,
                                  enc_len=enc_len, device="cuda")
         with torch.inference_mode():
-            _, s = _sync_s(lambda: prefill(params, {"tokens": p, **ex}, cache))
+            s = _sync_s(lambda: prefill(params, {"tokens": p, **ex}, cache))[1]
         pre_s.append(s)
+        del cache
+    if f"serve:{arch}" in DRYRUN_PATHS:
+        # one prefill over a cache of the prompt's length, as the dry-run
+        # traces it, under the profiler
+        from torch.profiler import ProfilerActivity, profile
+        cache = model.init_cache(SERVE_BATCH, prompt_len, enc_len=enc_len,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with torch.inference_mode(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prefill(params, {"tokens": prompts[0], **extras[0]}, cache)
+            torch.cuda.synchronize()
+        check_dryrun(f"serve:{arch}", prof, torch.cuda.max_memory_allocated())
         del cache
     prefill_ms = 1e3 * statistics.median(pre_s)
     decode_ms = (1e3 * statistics.median(gen_s) - prefill_ms) / (MAX_NEW - 1)
@@ -2541,32 +2555,146 @@ def expected_train_launches(cfg, steps: int) -> dict:
 
 def train_model_flops(model, B, S) -> float:
     """Model FLOPs of one train step (forward and backward, no recompute):
-    6 x the parameters a token multiplies (the embedding lookup excluded;
-    routed experts at top_k / E) x tokens, plus 3 x the forward's attention
-    products (4 B H D per attended pair, a layer) and 3 x the forward's SSD
-    products (``ssd_bound_ms``'s count, an SSM layer)."""
-    from repro_torch.tree import leaves_with_path
+    6 x the parameters a token multiplies (``active_param_count``: routed
+    experts at top_k / E; the embedding lookup excluded) x tokens, plus 3 x
+    the forward's attention products (``attention_cost``, a layer) and 3 x
+    the forward's SSD products (``ssd_cost``, an SSM layer)."""
+    from repro_torch.kernels.flash_attention import attention_cost
+    from repro_torch.kernels.ssd_scan import ssd_cost
+    from repro_torch.models.ssm import ssm_dims
     cfg = model.cfg
-    n = 0
-    for path, spec in leaves_with_path(model.specs):
-        size = math.prod(spec.shape)
-        if path[0] == "embed":
-            continue
-        if "moe" in path and path[-1] in ("w_gate", "w_up", "w_down"):
-            size = size * cfg.moe.top_k // cfg.moe.num_experts
-        n += size
-    attn_layers = expected_launches(cfg)["flash_attention"]
-    pairs = attended_pairs(S, S)
-    attn = 3 * 4 * B * cfg.n_heads * cfg.head_dim_ * pairs * attn_layers
+    n = model.active_param_count() - math.prod(model.specs["embed"].shape)
+    layers = expected_launches(cfg)
+    attn = 3 * layers["flash_attention"] * attention_cost(
+        B, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)[0]
     ssd = 0
-    ssm_layers = expected_launches(cfg)["ssd_scan"]
-    if ssm_layers:
-        from repro_torch.models.ssm import ssm_dims
+    if layers["ssd_scan"]:
         s = cfg.ssm
-        H, Q = ssm_dims(cfg)[2], min(s.chunk_size, S)
-        ssd = 3 * ssm_layers * B * H * (S // Q) * (
-            Q * Q * (s.d_state + s.head_dim) + 4 * Q * s.d_state * s.head_dim)
+        ssd = 3 * layers["ssd_scan"] * ssd_cost(
+            B, S, ssm_dims(cfg)[2], s.head_dim, s.d_state, s.n_groups,
+            min(s.chunk_size, S))[0]
     return 6 * n * B * S + attn + ssd
+
+
+def train_options() -> dict:
+    """The training paths' ``TrainOptions`` (remat full, bf16 moments)."""
+    from repro_torch.optim import adamw
+    return dict(remat_policy="full", warmup_steps=TRAIN_WARMUP,
+                total_steps=TRAIN_STEPS,
+                opt=adamw.AdamWConfig(lr=TRAIN_LR, moment_dtype="bfloat16"))
+
+
+def dryrun_child(out: str) -> int:
+    """The dry-run of DRYRUN_PATHS on meta tensors (the local path, this
+    script's shapes and depths), its records written to ``out``. Runs in a
+    child process on the host: it touches no card."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+    records = {}
+    for name, (arch, kind) in DRYRUN_PATHS.items():
+        if kind == "train":
+            trace = dryrun.lower_cell(
+                train_config(arch), ShapeCell(name, TRAIN_SEQ, TRAIN_BATCH, kind),
+                opts_over=train_options())
+        else:
+            trace = dryrun.lower_cell(
+                path_config(arch), ShapeCell(name, PROMPT_LEN, SERVE_BATCH, kind))
+        records[name] = dryrun.record(trace)
+    Path(out).write_text(json.dumps(records))
+    return 0
+
+
+def start_dryrun() -> None:
+    """Start ``dryrun_child`` in a child process (the card hidden from it,
+    one thread, at the lowest CPU priority: the phases on the card come
+    first), writing into a temporary directory; ``dryrun_record`` collects
+    it and ``stop_dryrun`` ends it."""
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    log = open(tmp / "dryrun.log", "w")
+    DRYRUN.update(tmp=tmp, out=tmp / "dryrun.json", log=log,
+                  t0=time.perf_counter(),
+                  proc=subprocess.Popen(
+                      [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun",
+                       str(tmp / "dryrun.json")],
+                      cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+                      preexec_fn=lambda: os.nice(19)))
+
+
+def stop_dryrun() -> None:
+    import shutil
+    proc = DRYRUN.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    if "log" in DRYRUN:
+        DRYRUN["log"].close()
+        shutil.rmtree(DRYRUN["tmp"], ignore_errors=True)
+
+
+def dryrun_record(name: str) -> dict:
+    """The dry-run's record of path ``name``, waiting for the child."""
+    if "records" not in DRYRUN:
+        proc = DRYRUN["proc"]
+        code = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        DRYRUN["log"].flush()
+        if code:
+            tail = Path(DRYRUN["log"].name).read_text()[-3000:]
+            raise AssertionError(f"the dry-run child exited {code}: {tail}")
+        DRYRUN["records"] = json.loads(DRYRUN["out"].read_text())
+        emit({"phase": "dryrun", "child_s": time.perf_counter() - DRYRUN["t0"],
+              "trace_s": {n: r["lower_s"] for n, r in DRYRUN["records"].items()}})
+    return DRYRUN["records"][name]
+
+
+def profiled_launches(prof) -> dict:
+    """Calls of each kernel wrapper in a torch.profiler run, from the
+    launches of the one kernel each call runs once (PROFILED_KERNELS)."""
+    from torch.autograd import DeviceType
+    out = dict.fromkeys(PROFILED_KERNELS, 0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for name, kernel in PROFILED_KERNELS.items():
+                if kernel in e.key:
+                    out[name] += e.count
+    return {k: n for k, n in out.items() if n}
+
+
+def check_dryrun(path: str, prof, peak: int, model_flops=None) -> None:
+    """Hold the dry-run's record of ``path`` against one traced run on the
+    card: (a) its kernel calls equal to the profiler's launches and the
+    wrappers' counts, (b) its peak live bytes within DRYRUN_PEAK_RTOL of
+    ``max_memory_allocated`` (``peak``), (c) its FLOPs over ``model_flops``
+    (printed only)."""
+    rec = dryrun_record(path)
+    predicted = rec["kernel_calls"]
+    counted = {k: v for k, v in read_launches().items()
+               if k in launch_counters() and v}
+    missing = set(predicted) - set(PROFILED_KERNELS)
+    profiled = profiled_launches(prof)
+    calls_ok = not missing and predicted == profiled == counted
+    ratio = rec["peak_bytes_per_device"] / peak
+    peak_ok = abs(ratio - 1) <= DRYRUN_PEAK_RTOL
+    emit({"phase": "dryrun_check", "path": path, "card": card_line(),
+          "kernel_calls_predicted": predicted, "launches_profiled": profiled,
+          "launches_counted": counted, "calls_equal": calls_ok,
+          "peak_predicted": rec["peak_bytes_per_device"],
+          "max_memory_allocated": peak, "peak_ratio": ratio,
+          "peak_rtol": DRYRUN_PEAK_RTOL, "memory_predicted": rec["memory"],
+          "flops_predicted": rec["flops_per_device"],
+          "model_flops": model_flops,
+          "flops_ratio": rec["flops_per_device"] / model_flops
+          if model_flops else None,
+          "hbm_bytes_predicted": rec["hbm_bytes_per_device"],
+          "trace_s": rec["lower_s"], "ok": calls_ok and peak_ok})
+    if not (calls_ok and peak_ok):
+        raise AssertionError(
+            f"dry-run of {path} against the card: calls {predicted} vs "
+            f"profiled {profiled}, counted {counted} (no profiler name for "
+            f"{sorted(missing)}); peak {rec['peak_bytes_per_device']} vs "
+            f"{peak} (ratio {ratio:.4f}, limit {DRYRUN_PEAK_RTOL})")
 
 
 def planted_flash_bwd(fault):
@@ -2650,9 +2778,7 @@ def phase_train(arch):
     torch.cuda.reset_peak_memory_stats()
     params = model.init(gen)
     scale_routed_experts(model, params)
-    opts = train_rt.TrainOptions(
-        remat_policy="full", warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS,
-        opt=adamw.AdamWConfig(lr=TRAIN_LR, moment_dtype="bfloat16"))
+    opts = train_rt.TrainOptions(**train_options())
     data = DataIterator(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH),
                         model_cfg=cfg, device="cuda")
     first_batch = next(data)
@@ -2806,14 +2932,20 @@ def phase_train(arch):
     # the first step of the main path repeats step 1 of the agreement runs
     repeat = losses[0] == kernel_loss
 
-    # one more step under the profiler, off the main path's count
+    # one more step under the profiler, off the main path's count; its
+    # launches and peak memory are what the dry-run predicts
     batch = next(data)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, _ = step_fn(state, batch)
         torch.cuda.synchronize()
         traced_ms = 1e3 * (time.perf_counter() - t0)
+    if f"train:{arch}" in DRYRUN_PATHS:
+        check_dryrun(f"train:{arch}", prof, torch.cuda.max_memory_allocated(),
+                     train_model_flops(model, TRAIN_BATCH, TRAIN_SEQ))
     kernels = [(e.key, _self_device_us(e) / 1e3, e.count)
                for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(ms for _, ms, _ in kernels)
@@ -3302,13 +3434,22 @@ def phase_mesh_flash():
 
 def main() -> int:
     import torch
-    import torch.distributed as dist
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    start_dryrun()
+    try:
+        return run_phases()
+    finally:
+        stop_dryrun()
+
+
+def run_phases() -> int:
+    import torch
+    import torch.distributed as dist
 
     census = phase_card()
     flash_err, flash_t = phase_kernel()
@@ -3484,4 +3625,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun"]:
+        sys.exit(dryrun_child(sys.argv[2]))
     sys.exit(main())

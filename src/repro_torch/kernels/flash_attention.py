@@ -28,6 +28,14 @@ autograd through the plain version in fp32. Serving keeps the forward alone,
 with no log-sum-exp written. The backward takes every head dim the forward
 takes, on the same primitives: producer warps feed tiles by TMA, consumer
 warpgroups run the products on ``wgmma`` (the tile plan: ``BWD_TILES``).
+
+On ``meta`` tensors both wrappers take the kernel's path without launching
+it: they return outputs (and the forward's log-sum-exp, the backward's
+Delta scratch) of the kernel's shapes and dtypes, and a running census
+(``repro_torch.census``) records each call with its cost from
+``attention_cost`` and ``attention_bwd_cost``, the counts the bounds in
+``chip_smoke.py`` read too. On CPU tensors under a census the plain versions
+run as one forward and one backward call (``census.plain_kernel``).
 """
 from __future__ import annotations
 
@@ -35,8 +43,10 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
+from .. import census
 from . import _build, ref
 
 BOX = 64               # bf16 columns of one 128-byte-swizzled TMA box
@@ -152,6 +162,53 @@ def bwd_blocks_per_sm(d: int, kernel: str) -> int:
     return 2 if 2 * (bwd_smem_bytes(d, kernel) + 1024) <= SM_SMEM else 1
 
 
+def attended_pairs(Sq, Sk, *, causal=True, window=0, q_offset=0,
+                   kv_valid=None) -> int:
+    """(q, k) pairs the masks leave for these inputs: the work the data needs."""
+    kv_valid = Sk if kv_valid is None else min(int(kv_valid), Sk)
+    qp = np.arange(q_offset, q_offset + Sq, dtype=np.int64)
+    hi = np.minimum(kv_valid, qp + 1) if causal else np.full(Sq, kv_valid)
+    lo = np.maximum(0, qp - window + 1) if window else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def attention_cost(B, Sq, Sk, H, KVH, D, *, causal=True, window=0, q_offset=0,
+                   kv_valid=None, with_lse=False) -> tuple[int, int]:
+    """(FLOPs, HBM bytes) of one forward call: S = Q K^T and O = P V, 4 B H D
+    an attended pair; q, k, v read and the output written once in bf16, and
+    the rows' log-sum-exp in fp32 where it is written."""
+    pairs = attended_pairs(Sq, Sk, causal=causal, window=window,
+                           q_offset=q_offset, kv_valid=kv_valid)
+    nbytes = 2 * (2 * B * Sq * H * D + 2 * B * Sk * KVH * D)
+    return 4 * B * H * D * pairs, nbytes + (4 * B * H * Sq if with_lse else 0)
+
+
+def attention_bwd_cost(B, Sq, Sk, H, KVH, D, *, causal=True, window=0,
+                       kv_valid=None) -> tuple[int, int]:
+    """(FLOPs, HBM bytes) of one backward call: the five products (S, dP,
+    dV, dK, dQ), 10 B H D an attended pair; q, k, v, o, dO and the LSE read
+    and dQ, dK, dV written once."""
+    pairs = attended_pairs(Sq, Sk, causal=causal, window=window,
+                           kv_valid=kv_valid)
+    nbytes = 2 * (6 * B * Sq * H * D + 4 * B * Sk * KVH * D) + 4 * B * H * Sq
+    return 10 * B * H * D * pairs, nbytes
+
+
+def _cost(q, k, opts, with_lse=False):
+    B, Sq, H, D = q.shape
+    return attention_cost(B, Sq, k.shape[1], H, k.shape[2], D,
+                          causal=opts["causal"], window=opts["window"],
+                          q_offset=opts["q_offset"], kv_valid=opts["kv_valid"],
+                          with_lse=with_lse)
+
+
+def _bwd_cost(q, k, opts):
+    B, Sq, H, D = q.shape
+    return attention_bwd_cost(B, Sq, k.shape[1], H, k.shape[2], D,
+                              causal=opts["causal"], window=opts["window"],
+                              kv_valid=opts["kv_valid"])
+
+
 def check_inputs(q, k, v) -> None:
     """Raise ``ValueError`` for what the kernel does not take."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -186,29 +243,32 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
 def _forward(q, k, v, *, causal, window, softcap, scale, q_offset,
              kv_valid, with_lse: bool):
     """Launch the forward kernel: (out, the rows' base-2 log-sum-exp (B, H,
-    Sq) fp32 or None)."""
-    check_inputs(q, k, v)
-    B, Sq, H, D = q.shape
-    _, Sk, KVH, _ = k.shape
-    scale = D ** -0.5 if scale is None else float(scale)
-    kv_valid = Sk if kv_valid is None else min(int(kv_valid), Sk)
-    out = torch.empty_like(q)
-    lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device) \
-        if with_lse else None
-    if out.numel() == 0:
+    Sq) fp32 or None). On meta tensors the outputs alone, unlaunched."""
+    opts = dict(causal=causal, window=window, q_offset=q_offset,
+                kv_valid=kv_valid)
+    with census.kernel("flash_attention", lambda: _cost(q, k, opts, with_lse)):
+        check_inputs(q, k, v)
+        B, Sq, H, D = q.shape
+        _, Sk, KVH, _ = k.shape
+        scale = D ** -0.5 if scale is None else float(scale)
+        kv_valid = Sk if kv_valid is None else min(int(kv_valid), Sk)
+        out = torch.empty_like(q)
+        lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device) \
+            if with_lse else None
+        if out.numel() == 0 or q.is_meta:
+            return out, lse
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _lib().flash_attention_fwd_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(),
+                B, Sq, Sk, H, KVH, D, scale, int(causal), int(window),
+                float(softcap), int(q_offset), kv_valid, stream)
+        if err:
+            raise RuntimeError(f"flash_attention kernel launch failed "
+                               f"(cudaError_t {err})")
+        flash_attention_cuda.launches += 1
         return out, lse
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().flash_attention_fwd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            B, Sq, Sk, H, KVH, D, scale, int(causal), int(window),
-            float(softcap), int(q_offset), kv_valid, stream)
-    if err:
-        raise RuntimeError(f"flash_attention kernel launch failed "
-                           f"(cudaError_t {err})")
-    flash_attention_cuda.launches += 1
-    return out, lse
 
 
 def flash_attention_cuda(q, k, v, *, causal=True, window=0, softcap=0.0,
@@ -216,18 +276,26 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, softcap=0.0,
     """q: (B, Sq, H, D); k, v: (B, Sk, KVH, D) -> (B, Sq, H, D).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel on the
-    current stream; ``flash_attention_cuda.launches`` counts the launches. On
-    the card, in grad mode with an input that requires grad, the call goes
+    current stream; ``flash_attention_cuda.launches`` counts the launches.
+    Meta tensors take the kernel's path unlaunched (the module's docstring).
+    On the card, in grad mode with an input that requires grad, the call goes
     through ``FlashAttentionFn``, whose backward is the backward kernel.
     """
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap, scale=scale,
-                                     q_offset=q_offset, kv_valid=kv_valid)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention kernel for device {q.device}")
     opts = dict(causal=causal, window=window, softcap=softcap, scale=scale,
                 q_offset=q_offset, kv_valid=kv_valid)
+    if q.device.type == "cpu":
+        if census.active() is None:
+            return flash_attention_plain(q, k, v, **opts)
+        bwd_opts = {n: o for n, o in opts.items() if n != "q_offset"}
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+        return census.plain_kernel(
+            "flash_attention", lambda: _cost(q, k, opts, with_lse=grad),
+            lambda *qkv: flash_attention_plain(*qkv, **opts), (q, k, v),
+            lambda qkv, grads: flash_attention_bwd_plain(*qkv, grads[0],
+                                                         **bwd_opts),
+            lambda: _bwd_cost(q, k, opts))
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         check_bwd_inputs(q, q_offset)
         return FlashAttentionFn.apply(q, k, v, opts)
@@ -253,17 +321,19 @@ class FlashAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, opts):
         out, lse = _forward(q, k, v, **opts, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.opts = opts
+        ctx.opts, ctx.site = opts, census.site()
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         o = ctx.opts
-        dq, dk, dv = flash_attention_bwd_cuda(
-            q, k, v, out, dout.contiguous(), lse, causal=o["causal"],
-            window=o["window"], softcap=o["softcap"], scale=o["scale"],
-            kv_valid=o["kv_valid"])
+        with census.at(ctx.site), \
+                census.kernel("flash_attention_bwd", lambda: _bwd_cost(q, k, o)):
+            dq, dk, dv = flash_attention_bwd_cuda(
+                q, k, v, out, dout.contiguous(), lse, causal=o["causal"],
+                window=o["window"], softcap=o["softcap"], scale=o["scale"],
+                kv_valid=o["kv_valid"])
         return dq, dk, dv, None
 
 
@@ -274,43 +344,48 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal=True,
     base 2: kernels on the current stream (Delta = rowsum(dout * out), then
     dK and dV per K/V tile and column part, then dQ per q tile).
     ``flash_attention_bwd_cuda.launches`` counts the calls. CUDA tensors
-    only; no q_offset; every head dim of ``HEAD_DIMS``.
+    (meta tensors: the outputs alone, unlaunched); no q_offset; every head
+    dim of ``HEAD_DIMS``.
     """
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no flash-attention backward kernel for device "
                          f"{q.device}; on the CPU autograd differentiates the "
                          f"plain version")
-    check_inputs(q, k, v)
-    check_bwd_inputs(q)
-    for name, t in (("out", out), ("dout", dout)):
-        if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous() \
-                or t.data_ptr() % 16 or t.device != q.device:
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             f"bf16 tensor shaped like q on its device")
-    B, Sq, H, D = q.shape
-    _, Sk, KVH, _ = k.shape
-    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or \
-            not lse.is_contiguous():
-        raise ValueError(f"lse must be contiguous fp32 (B, H, Sq) = "
-                         f"{(B, H, Sq)}, got {tuple(lse.shape)} {lse.dtype}")
-    scale = D ** -0.5 if scale is None else float(scale)
-    kv_valid = Sk if kv_valid is None else min(int(kv_valid), Sk)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if q.numel() == 0 or k.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_lib().flash_attention_bwd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KVH, D, scale,
-            int(causal), int(window), float(softcap), kv_valid, stream)
-    if err:
-        raise RuntimeError(f"flash_attention backward kernel launch failed "
-                           f"(cudaError_t {err})")
-    flash_attention_bwd_cuda.launches += 1
-    return dq, dk, dv
+    opts = dict(causal=causal, window=window, kv_valid=kv_valid)
+    with census.kernel("flash_attention_bwd", lambda: _bwd_cost(q, k, opts)):
+        check_inputs(q, k, v)
+        check_bwd_inputs(q)
+        for name, t in (("out", out), ("dout", dout)):
+            if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous() \
+                    or t.data_ptr() % 16 or t.device != q.device:
+                raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                                 f"bf16 tensor shaped like q on its device")
+        B, Sq, H, D = q.shape
+        _, Sk, KVH, _ = k.shape
+        if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or \
+                not lse.is_contiguous():
+            raise ValueError(f"lse must be contiguous fp32 (B, H, Sq) = "
+                             f"{(B, H, Sq)}, got {tuple(lse.shape)} {lse.dtype}")
+        scale = D ** -0.5 if scale is None else float(scale)
+        kv_valid = Sk if kv_valid is None else min(int(kv_valid), Sk)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        if q.numel() == 0 or k.numel() == 0:
+            return dq.zero_(), dk.zero_(), dv.zero_()
+        delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+        if q.is_meta:
+            return dq, dk, dv
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _bwd_lib().flash_attention_bwd_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KVH, D, scale,
+                int(causal), int(window), float(softcap), kv_valid, stream)
+        if err:
+            raise RuntimeError(f"flash_attention backward kernel launch failed "
+                               f"(cudaError_t {err})")
+        flash_attention_bwd_cuda.launches += 1
+        return dq, dk, dv
 
 
 flash_attention_bwd_cuda.launches = 0

@@ -40,6 +40,13 @@ its route from the shapes and the dtype:
   C)).
 
 Its plain version is ``gmm_bwd_plain``.
+
+On ``meta`` tensors both wrappers take the kernel's path without launching
+it: they return outputs of the kernel's shapes and dtypes, and a running
+census (``repro_torch.census``) records each call with its cost from
+``gmm_cost`` and ``gmm_bwd_cost``, the counts the bounds in
+``chip_smoke.py`` read too. On CPU tensors under a census the plain versions
+run as one forward and one backward call (``census.plain_kernel``).
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ import functools
 
 import torch
 
+from .. import census
 from . import _build, ref
 
 BLOCK_C = 128          # mma / fma paths: rows of the capacity buffer per block
@@ -132,6 +140,22 @@ def smem_bytes(dtype: torch.dtype = torch.bfloat16) -> int:
     return (16 * (BLOCK_C + 1) + 16 * BLOCK_F) * 4
 
 
+def gmm_cost(E, C, d, f, esize: int = 2) -> tuple[int, int]:
+    """(FLOPs, HBM bytes) of one call: 2 E C d f operations; x, w and the
+    output read or written once, ``esize`` bytes an element."""
+    return 2 * E * C * d * f, esize * (E * C * d + E * d * f + E * C * f)
+
+
+def gmm_bwd_cost(E, C, d, f, esize: int = 2) -> tuple[int, int]:
+    """(FLOPs, HBM bytes) of one backward call, dx and dw: 4 E C d f
+    operations; x, w, dy read and dx, dw written once."""
+    return 4 * E * C * d * f, esize * (2 * E * C * d + 2 * E * d * f + E * C * f)
+
+
+def _cost(x, w, cost=gmm_cost):
+    return cost(*x.shape, w.shape[2], x.element_size())
+
+
 def check_inputs(x, w) -> None:
     """Raise ``ValueError`` for what the kernel does not take."""
     if x.dim() != 3 or w.dim() != 3:
@@ -168,6 +192,8 @@ def _launch(x, w, counter):
     f = w.shape[2]
     variant = gmm_variant(x, w)
     out = torch.empty(E, C, f, dtype=x.dtype, device=x.device)
+    if x.is_meta:
+        return out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if variant == "wgmma":
@@ -188,13 +214,19 @@ def gmm_cuda(x, w):
 
     CPU tensors take the plain version. CUDA tensors launch the kernel that
     ``gmm_variant`` names on the current stream; ``gmm_cuda.launches`` counts
-    the launches and ``gmm_cuda.variant_launches`` them by variant. On the
-    card, in grad mode with an input that requires grad, the call goes
+    the launches and ``gmm_cuda.variant_launches`` them by variant. Meta
+    tensors take the kernel's path unlaunched (the module's docstring). On
+    the card, in grad mode with an input that requires grad, the call goes
     through ``GmmFn``, whose backward is ``gmm_bwd_cuda``.
     """
     if x.device.type == "cpu":
-        return gmm_plain(x, w)
-    if x.device.type != "cuda":
+        if census.active() is None:
+            return gmm_plain(x, w)
+        return census.plain_kernel(
+            "gmm", lambda: _cost(x, w), gmm_plain, (x, w),
+            lambda xw, grads: gmm_bwd_plain(*xw, grads[0]),
+            lambda: _cost(x, w, gmm_bwd_cost))
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no grouped-GEMM kernel for device {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return GmmFn.apply(x, w)
@@ -202,8 +234,10 @@ def gmm_cuda(x, w):
 
 
 def _forward(x, w):
-    out = _launch(x, w, gmm_cuda)
-    gmm_cuda.launches += 1
+    with census.kernel("gmm", lambda: _cost(x, w)):
+        out = _launch(x, w, gmm_cuda)
+    if not out.is_meta:
+        gmm_cuda.launches += 1
     return out
 
 
@@ -218,12 +252,15 @@ class GmmFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
+        ctx.site = census.site()
         return _forward(x, w)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        return gmm_bwd_cuda(x, w, dy.contiguous())
+        with census.at(ctx.site), \
+                census.kernel("gmm_bwd", lambda: _cost(x, w, gmm_bwd_cost)):
+            return gmm_bwd_cuda(x, w, dy.contiguous())
 
 
 def gmm_bwd_cuda(x, w, dy):
@@ -232,40 +269,44 @@ def gmm_bwd_cuda(x, w, dy):
     kernel launches on the route ``gmm_bwd_variant`` names.
     ``gmm_bwd_cuda.launches`` counts the calls and
     ``gmm_bwd_cuda.variant_launches`` the kernel launches by route. CUDA
-    tensors only.
+    tensors (meta tensors: dx and dw alone, unlaunched).
     """
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no grouped-GEMM backward kernel for device "
                          f"{x.device}; on the CPU autograd differentiates the "
                          f"plain version")
     if dy.shape != (x.shape[0], x.shape[1], w.shape[2]):
         raise ValueError(f"dy {tuple(dy.shape)} does not match x "
                          f"{tuple(x.shape)} @ w {tuple(w.shape)}")
-    variant = gmm_bwd_variant(x, w)
-    if variant != "wgmma_bwd":
-        dx = _launch(dy, w.transpose(1, 2).contiguous(), gmm_bwd_cuda)
-        dw = _launch(x.transpose(1, 2).contiguous(), dy, gmm_bwd_cuda)
+    with census.kernel("gmm_bwd", lambda: _cost(x, w, gmm_bwd_cost)):
+        variant = gmm_bwd_variant(x, w)
+        if variant != "wgmma_bwd":
+            dx = _launch(dy, w.transpose(1, 2).contiguous(), gmm_bwd_cuda)
+            dw = _launch(x.transpose(1, 2).contiguous(), dy, gmm_bwd_cuda)
+            if not x.is_meta:
+                gmm_bwd_cuda.launches += 1
+            return dx, dw
+        check_inputs(x, w)
+        if dy.dtype != x.dtype or not dy.is_contiguous() or dy.data_ptr() % 16 \
+                or dy.device != x.device:
+            raise ValueError("dy must be a contiguous, 16-byte aligned tensor of "
+                             "x's dtype on its device")
+        E, C, d = x.shape
+        f = w.shape[2]
+        dx, dw = torch.empty_like(x), torch.empty_like(w)
+        if x.is_meta:
+            return dx, dw
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _lib().moe_gmm_wgmma_bwd(x.data_ptr(), w.data_ptr(),
+                                           dy.data_ptr(), dx.data_ptr(),
+                                           dw.data_ptr(), E, C, d, f, stream)
+        if err:
+            raise RuntimeError(f"moe_gmm backward kernel launch failed "
+                               f"(cudaError_t {err})")
+        gmm_bwd_cuda.variant_launches["wgmma_bwd"] += 2
         gmm_bwd_cuda.launches += 1
         return dx, dw
-    check_inputs(x, w)
-    if dy.dtype != x.dtype or not dy.is_contiguous() or dy.data_ptr() % 16 \
-            or dy.device != x.device:
-        raise ValueError("dy must be a contiguous, 16-byte aligned tensor of "
-                         "x's dtype on its device")
-    E, C, d = x.shape
-    f = w.shape[2]
-    dx, dw = torch.empty_like(x), torch.empty_like(w)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().moe_gmm_wgmma_bwd(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
-                                       dx.data_ptr(), dw.data_ptr(), E, C, d, f,
-                                       stream)
-    if err:
-        raise RuntimeError(f"moe_gmm backward kernel launch failed "
-                           f"(cudaError_t {err})")
-    gmm_bwd_cuda.variant_launches["wgmma_bwd"] += 2
-    gmm_bwd_cuda.launches += 1
-    return dx, dw
 
 
 gmm_bwd_cuda.launches = 0

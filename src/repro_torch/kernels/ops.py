@@ -71,6 +71,15 @@ def decode_attention_split(q, k, v, *, k_start: int, pmax, psum, window=0,
     return psum(_decode_pv(p, v, q, bf16_kv, out_dtype=torch.float32)).to(q.dtype)
 
 
+def decode_attention_cost(B, Sq, Sk, H, KVH, D) -> tuple[int, int]:
+    """(FLOPs, HBM bytes) of one ``decode_attention`` over a cache of Sk
+    positions: the score and PV products, 4 B H D Sq Sk; the bf16 cache's K
+    and V read and q and the output read or written once. Its ops are plain
+    torch, which a census (``launch/op_cost.py``) counts one by one; this is
+    the kernel-sized count the reference's dry-run models decode with."""
+    return 4 * B * H * D * Sq * Sk, 2 * (2 * B * Sk * KVH * D + 2 * B * Sq * H * D)
+
+
 def _decode_scores(q, k, *, window, logit_softcap, scale, q_offset, kv_len,
                    bf16_kv, k_start=0, causal=True):
     """Masked fp32 scores (B, KVH, g, Sq, Sk) of q against keys at global

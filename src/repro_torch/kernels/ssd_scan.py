@@ -64,6 +64,14 @@ back to another variant or to the plain version. ``_launch`` and
 ``_launch_bwd`` run a named variant (no dispatch, no count), so that the
 tests and ``chip_smoke.py`` can hold and time ``fma`` at the shapes that
 take ``wgmma``.
+
+On ``meta`` tensors ``_launch``, ``_launch_bwd`` and the wrappers take the
+kernels' path without launching them: they return outputs (and allocate the
+scratch) of the kernels' shapes and dtypes, and a running census
+(``repro_torch.census``) records each call with its cost from ``ssd_cost``
+and ``ssd_bwd_cost``, the counts the bounds in ``chip_smoke.py`` read too.
+On CPU tensors under a census the plain versions run as one forward and one
+backward call (``census.plain_kernel``).
 """
 from __future__ import annotations
 
@@ -72,6 +80,7 @@ import functools
 
 import torch
 
+from .. import census
 from . import _build, ref
 
 MAX_CHUNK = 256       # the kernels' scans: one step a thread (fma, 256 threads), two (wgmma, 128)
@@ -132,6 +141,37 @@ def wgmma_smem_bytes(kernel: str, n: int) -> int:
     if kernel == "chunk_state":
         return ring + 2 * stages * 8 + 1024
     return 3 * nb * box + ring + (2 + 2 * stages) * 8 + 1024
+
+
+def ssd_cost(B, L, H, P, N, G, chunk, esize: int = 2) -> tuple[int, int]:
+    """(FLOPs, HBM bytes) of one scan, per (b, h, chunk) the causal half of
+    C B^T and of W u (Q^2 (N + P)) plus the state term and update (4 Q N
+    P); x and y, dt (fp32), b and c, a_log and d_skip (fp32) read or written
+    once and the fp32 final state, ``esize`` bytes an element of x, b, c."""
+    flops = B * H * (L // chunk) * (chunk ** 2 * (N + P) + 4 * chunk * N * P)
+    nbytes = (2 * B * L * H * P * esize + B * L * H * 4
+              + 2 * B * L * G * N * esize + 2 * H * 4 + B * H * P * N * 4)
+    return flops, nbytes
+
+
+def ssd_bwd_cost(B, L, H, P, N, G, chunk, esize: int = 2) -> tuple[int, int]:
+    """(FLOPs, HBM bytes) of one backward, per (b, h, chunk): C B^T and dY
+    U^T over the causal half (Q^2 N + Q^2 P), W^T dY, V B and V^T C (Q^2 P +
+    2 Q^2 N), the state terms dY S_in, B Gs^T and U Gs (6 Q N P) and the
+    chunk's two state products (4 Q N P); x, dy and dx, dt and ddt (fp32),
+    b, c, db and dc, a_log, d_skip and their gradients (fp32) read or
+    written once."""
+    Q = chunk
+    flops = B * H * (L // Q) * (Q * Q * (3 * N + 2 * P) + 10 * Q * N * P)
+    nbytes = (3 * B * L * H * P * esize + 2 * B * L * H * 4
+              + 4 * B * L * G * N * esize + 4 * H * 4)
+    return flops, nbytes
+
+
+def _cost(x, b, chunk, cost=ssd_cost):
+    B, L, H, P = x.shape
+    return cost(B, L, H, P, b.shape[3], b.shape[2], min(chunk, L),
+                x.element_size())
 
 
 def check_inputs(x, dt, a_log, b, c, d_skip, chunk: int) -> None:
@@ -508,39 +548,45 @@ def ssd_scan_bwd_wgmma_plain(x, dt, a_log, b, c, d_skip, dy, dstate=None, *,
 def _launch(variant: str, x, dt, a_log, b, c, d_skip, chunk: int):
     """Run one variant on CUDA tensors (no dispatch, no launch count): the
     wrapper's launch, also called directly to time one variant against the
-    other."""
-    check_inputs(x, dt, a_log, b, c, d_skip, chunk)
-    B, L, H, P = x.shape
-    G, N = b.shape[2], b.shape[3]
-    if variant == "wgmma" and ssd_variant(x, b, chunk) != "wgmma":
-        raise ValueError(f"the wgmma variant does not take P={P}, N={N}, "
-                         f"chunk {chunk}, {x.dtype}")
-    a_log = a_log.to(x.device, torch.float32).contiguous()
-    d_skip = d_skip.to(x.device, torch.float32).contiguous()
-    y = torch.empty_like(x)
-    state = torch.empty(B, H, P, N, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    other. On meta tensors the outputs alone, unlaunched."""
+    with census.kernel("ssd_scan", lambda: _cost(x, b, chunk)):
+        check_inputs(x, dt, a_log, b, c, d_skip, chunk)
+        B, L, H, P = x.shape
+        G, N = b.shape[2], b.shape[3]
+        if variant == "wgmma" and ssd_variant(x, b, chunk) != "wgmma":
+            raise ValueError(f"the wgmma variant does not take P={P}, N={N}, "
+                             f"chunk {chunk}, {x.dtype}")
+        a_log = a_log.to(x.device, torch.float32).contiguous()
+        d_skip = d_skip.to(x.device, torch.float32).contiguous()
+        y = torch.empty_like(x)
+        state = torch.empty(B, H, P, N, dtype=torch.float32, device=x.device)
         if variant == "wgmma":
             nc = L // chunk
             s_loc = torch.empty(B, nc, H, P, N, dtype=torch.float32, device=x.device)
             tot = torch.empty(B, nc, H, dtype=torch.float32, device=x.device)
             s_hi = torch.empty(B, nc, H, P, N, dtype=torch.bfloat16, device=x.device)
             s_lo = torch.empty_like(s_hi)
-            err = _lib().ssd_scan_wgmma_fwd(
-                x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-                c.data_ptr(), d_skip.data_ptr(), y.data_ptr(), state.data_ptr(),
-                s_loc.data_ptr(), tot.data_ptr(), s_hi.data_ptr(), s_lo.data_ptr(),
-                B, L, H, P, G, N, chunk, stream)
-        else:
-            err = _lib().ssd_scan_fwd(
-                x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-                c.data_ptr(), d_skip.data_ptr(), y.data_ptr(), state.data_ptr(),
-                B, L, H, P, G, N, chunk, DTYPES[x.dtype], stream)
-    if err:
-        raise RuntimeError(f"ssd_scan {variant} kernel launch failed "
-                           f"(cudaError_t {err})")
-    return y, state
+        if x.is_meta:
+            return y, state
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            if variant == "wgmma":
+                err = _lib().ssd_scan_wgmma_fwd(
+                    x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+                    c.data_ptr(), d_skip.data_ptr(), y.data_ptr(),
+                    state.data_ptr(), s_loc.data_ptr(), tot.data_ptr(),
+                    s_hi.data_ptr(), s_lo.data_ptr(), B, L, H, P, G, N, chunk,
+                    stream)
+            else:
+                err = _lib().ssd_scan_fwd(
+                    x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+                    c.data_ptr(), d_skip.data_ptr(), y.data_ptr(),
+                    state.data_ptr(), B, L, H, P, G, N, chunk, DTYPES[x.dtype],
+                    stream)
+        if err:
+            raise RuntimeError(f"ssd_scan {variant} kernel launch failed "
+                               f"(cudaError_t {err})")
+        return y, state
 
 
 def ssd_scan_cuda(x, dt, a_log, b, c, d_skip, *, chunk=128):
@@ -551,22 +597,32 @@ def ssd_scan_cuda(x, dt, a_log, b, c, d_skip, *, chunk=128):
     ``ssd_variant`` names on the current stream; ``ssd_scan_cuda.launches``
     counts the wrapper's launches (one per call, whatever the variant
     launches inside) and ``ssd_scan_cuda.variant_launches`` them by variant.
+    Meta tensors take the kernels' path unlaunched (the module's docstring).
     On the card, in grad mode with an input that requires grad, the call
     goes through ``SsdScanFn``, whose backward is the backward kernel.
     """
+    args = (x, dt, a_log, b, c, d_skip)
     if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, a_log, b, c, d_skip, chunk=chunk)
-    if x.device.type != "cuda":
+        if census.active() is None:
+            return ssd_scan_plain(*args, chunk=chunk)
+        return census.plain_kernel(
+            "ssd_scan", lambda: _cost(x, b, chunk),
+            lambda *a: ssd_scan_plain(*a, chunk=chunk), args,
+            lambda a, grads: ssd_scan_bwd_plain(
+                *a, torch.zeros_like(x) if grads[0] is None else grads[0],
+                grads[1], chunk=chunk),
+            lambda: _cost(x, b, chunk, ssd_bwd_cost))
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no SSD kernel for device {x.device}")
     chunk = min(chunk, x.shape[1])
     variant = ssd_variant(x, b, chunk)
-    args = (x, dt, a_log, b, c, d_skip)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         out = SsdScanFn.apply(*args, chunk, variant)
     else:
         out = _launch(variant, *args, chunk)
-    ssd_scan_cuda.launches += 1
-    ssd_scan_cuda.variant_launches[variant] += 1
+    if not x.is_meta:
+        ssd_scan_cuda.launches += 1
+        ssd_scan_cuda.variant_launches[variant] += 1
     return out
 
 
@@ -583,16 +639,18 @@ class SsdScanFn(torch.autograd.Function):
     def forward(ctx, x, dt, a_log, b, c, d_skip, chunk, variant):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, dt, a_log, b, c, d_skip)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.site = chunk, census.site()
         return _launch(variant, x, dt, a_log, b, c, d_skip, chunk)
 
     @staticmethod
     def backward(ctx, dy, dstate):
         x, dt, a_log, b, c, d_skip = ctx.saved_tensors
-        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
-        dstate = None if dstate is None else dstate.contiguous()
-        grads = ssd_scan_bwd_cuda(x, dt, a_log, b, c, d_skip, dy, dstate,
-                                  chunk=ctx.chunk)
+        with census.at(ctx.site), census.kernel(
+                "ssd_scan_bwd", lambda: _cost(x, b, ctx.chunk, ssd_bwd_cost)):
+            dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+            dstate = None if dstate is None else dstate.contiguous()
+            grads = ssd_scan_bwd_cuda(x, dt, a_log, b, c, d_skip, dy, dstate,
+                                      chunk=ctx.chunk)
         return (*grads, None, None)
 
 
@@ -688,60 +746,70 @@ def check_bwd_inputs(variant: str, x, dt, a_log, b, c, d_skip, dy, dstate,
 def _launch_bwd(variant: str, x, dt, a_log, b, c, d_skip, dy, dstate, chunk: int):
     """Run one backward variant on CUDA tensors (no dispatch, no launch
     count): the wrapper's launch, also called directly to hold and time one
-    variant against the other."""
-    check_bwd_inputs(variant, x, dt, a_log, b, c, d_skip, dy, dstate, chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"no SSD backward kernel for device {x.device}")
-    B, L, H, P = x.shape
-    G, N = b.shape[2], b.shape[3]
-    chunk = min(chunk, L)
-    nc, dev, f32 = L // chunk, x.device, torch.float32
-    a32 = a_log.to(dev, f32).contiguous()
-    d32 = d_skip.to(dev, f32).contiguous()
-    dx, db, dc = torch.empty_like(x), torch.empty_like(b), torch.empty_like(c)
-    ddt = torch.empty(B, L, H, dtype=f32, device=dev)
-    da, dd = (torch.empty(H, dtype=f32, device=dev) for _ in range(2))
-    ptrs = [t.data_ptr() for t in (x, dt, a32, b, c, d32, dy)] + \
-        [None if dstate is None else dstate.data_ptr()] + \
-        [t.data_ptr() for t in (dx, ddt, da, db, dc, dd)]
-    # scratch: the chunk states, and the partials the last kernel sums
-    if variant == "wgmma":
-        s_loc, ds_loc = (torch.empty(B, nc, H, P, N, dtype=f32, device=dev)
-                         for _ in range(2))
-        tot = torch.empty(B, nc, H, dtype=f32, device=dev)
-        halves = [torch.empty(B, nc, H, P, N, dtype=torch.bfloat16, device=dev)
-                  for _ in range(4)]                    # s_hi, s_lo, g_hi, g_lo
-        sg_part = torch.empty(B, nc, H, P * N // 1024, dtype=f32, device=dev)
-        db_part, dc_part = (torch.empty(B, L, H, N, dtype=f32, device=dev)
-                            for _ in range(2))
-        dcum_row, dcum_col, xdu = (torch.empty(B, L, H, dtype=f32, device=dev)
-                                   for _ in range(3))
-        k_part, dd_part = (torch.empty(B, nc, chunk // WGMMA_TILE, H, dtype=f32,
-                                       device=dev) for _ in range(2))
-        scratch = [s_loc, ds_loc, tot, *halves, sg_part, db_part, dc_part, dcum_row,
-                   dcum_col, xdu, k_part, dd_part]
-    else:
-        nsl = P // bwd_slice(P)
-        s_in, g = (torch.empty(B, nc, H, P, N, dtype=f32, device=dev) for _ in range(2))
-        ddt_part = torch.empty(nsl, B, L, H, dtype=f32, device=dev)
-        db_part, dc_part = (torch.empty(nsl, B, L, H, N, dtype=f32, device=dev)
-                            for _ in range(2))
-        da_part, dd_part = (torch.empty(nsl, B, nc, H, dtype=f32, device=dev)
-                            for _ in range(2))
-        scratch = [s_in, g, ddt_part, db_part, dc_part, da_part, dd_part]
-    ptrs += [t.data_ptr() for t in scratch]
+    variant against the other. On meta tensors the outputs alone (and the
+    scratch), unlaunched."""
+    with census.kernel("ssd_scan_bwd",
+                       lambda: _cost(x, b, chunk, ssd_bwd_cost)):
+        check_bwd_inputs(variant, x, dt, a_log, b, c, d_skip, dy, dstate, chunk)
+        if x.device.type not in ("cuda", "meta"):
+            raise ValueError(f"no SSD backward kernel for device {x.device}")
+        B, L, H, P = x.shape
+        G, N = b.shape[2], b.shape[3]
+        chunk = min(chunk, L)
+        nc, dev, f32 = L // chunk, x.device, torch.float32
+        a32 = a_log.to(dev, f32).contiguous()
+        d32 = d_skip.to(dev, f32).contiguous()
+        dx, db, dc = torch.empty_like(x), torch.empty_like(b), torch.empty_like(c)
+        ddt = torch.empty(B, L, H, dtype=f32, device=dev)
+        da, dd = (torch.empty(H, dtype=f32, device=dev) for _ in range(2))
+        ptrs = [t.data_ptr() for t in (x, dt, a32, b, c, d32, dy)] + \
+            [None if dstate is None else dstate.data_ptr()] + \
+            [t.data_ptr() for t in (dx, ddt, da, db, dc, dd)]
+        # scratch: the chunk states, and the partials the last kernel sums
+        if variant == "wgmma":
+            s_loc, ds_loc = (torch.empty(B, nc, H, P, N, dtype=f32, device=dev)
+                             for _ in range(2))
+            tot = torch.empty(B, nc, H, dtype=f32, device=dev)
+            halves = [torch.empty(B, nc, H, P, N, dtype=torch.bfloat16, device=dev)
+                      for _ in range(4)]                    # s_hi, s_lo, g_hi, g_lo
+            sg_part = torch.empty(B, nc, H, P * N // 1024, dtype=f32, device=dev)
+            db_part, dc_part = (torch.empty(B, L, H, N, dtype=f32, device=dev)
+                                for _ in range(2))
+            dcum_row, dcum_col, xdu = (torch.empty(B, L, H, dtype=f32, device=dev)
+                                       for _ in range(3))
+            k_part, dd_part = (torch.empty(B, nc, chunk // WGMMA_TILE, H, dtype=f32,
+                                           device=dev) for _ in range(2))
+            scratch = [s_loc, ds_loc, tot, *halves, sg_part, db_part, dc_part, dcum_row,
+                       dcum_col, xdu, k_part, dd_part]
+        else:
+            nsl = P // bwd_slice(P)
+            s_in, g = (torch.empty(B, nc, H, P, N, dtype=f32, device=dev) for _ in range(2))
+            ddt_part = torch.empty(nsl, B, L, H, dtype=f32, device=dev)
+            db_part, dc_part = (torch.empty(nsl, B, L, H, N, dtype=f32, device=dev)
+                                for _ in range(2))
+            da_part, dd_part = (torch.empty(nsl, B, nc, H, dtype=f32, device=dev)
+                                for _ in range(2))
+            scratch = [s_in, g, ddt_part, db_part, dc_part, da_part, dd_part]
+        if not x.is_meta:
+            ptrs += [t.data_ptr() for t in scratch]
+            _bwd_launch(variant, ptrs, B, L, H, P, G, N, chunk, x.dtype, dev)
+        return (dx, ddt, da.to(a_log.device, a_log.dtype), db, dc,
+                dd.to(d_skip.device, d_skip.dtype))
+
+
+def _bwd_launch(variant, ptrs, B, L, H, P, G, N, chunk, dtype, dev):
+    """The backward variant's kernels on the card, over ``_launch_bwd``'s
+    tensors' pointers."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if variant == "wgmma":
             err = _bwd_lib().ssd_scan_bwd_wgmma(*ptrs, B, L, H, P, G, N, chunk, stream)
         else:
             err = _bwd_lib().ssd_scan_bwd(*ptrs, B, L, H, P, G, N, chunk,
-                                          DTYPES[x.dtype], stream)
+                                          DTYPES[dtype], stream)
     if err:
         raise RuntimeError(f"ssd_scan {variant} backward kernel launch failed "
                            f"(cudaError_t {err})")
-    return (dx, ddt, da.to(a_log.device, a_log.dtype), db, dc,
-            dd.to(d_skip.device, d_skip.dtype))
 
 
 def ssd_scan_bwd_cuda(x, dt, a_log, b, c, d_skip, dy, dstate=None, *, chunk=128):
@@ -752,15 +820,17 @@ def ssd_scan_bwd_cuda(x, dt, a_log, b, c, d_skip, dy, dstate=None, *, chunk=128)
     (``wgmma``: chunk_state, state_pass, rows, cols, reduce; ``fma``:
     states, chunks, reduce). ``ssd_scan_bwd_cuda.launches`` counts the calls
     and ``ssd_scan_bwd_cuda.variant_launches`` them by variant. CUDA tensors
-    only; it takes what the forward's ``check_inputs`` takes, and for
-    ``wgmma`` a 16-byte aligned dy."""
-    if x.device.type != "cuda":
+    (meta tensors: the gradients alone, unlaunched); it takes what the
+    forward's ``check_inputs`` takes, and for ``wgmma`` a 16-byte aligned
+    dy."""
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no SSD backward kernel for device {x.device}; on "
                          f"the CPU autograd differentiates the plain version")
     variant = ssd_bwd_variant(x, b, min(chunk, x.shape[1]))
     out = _launch_bwd(variant, x, dt, a_log, b, c, d_skip, dy, dstate, chunk)
-    ssd_scan_bwd_cuda.launches += 1
-    ssd_scan_bwd_cuda.variant_launches[variant] += 1
+    if not x.is_meta:
+        ssd_scan_bwd_cuda.launches += 1
+        ssd_scan_bwd_cuda.variant_launches[variant] += 1
     return out
 
 

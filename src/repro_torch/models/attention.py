@@ -164,11 +164,12 @@ def _seq_split_decode(q, k, v, tp: TP, cfg, *, scale, window, q_offset,
     every rank's heads are gathered, attend to the whole cache through the
     ranks' slices, and the rank keeps its own heads' outputs."""
     heads_split = tp.split("wq", 1)
-    q_all = tp.gather(q, 2) if heads_split else q
-    o = ops.decode_attention_split(
-        q_all, k, v, k_start=tp.rank * k.shape[1], pmax=tp.pmax, psum=tp.psum,
-        window=window, logit_softcap=cfg.attn_logit_softcap, scale=scale,
-        q_offset=q_offset, kv_len=kv_len, causal=causal)
+    with tp.at():
+        q_all = tp.gather(q, 2) if heads_split else q
+        o = ops.decode_attention_split(
+            q_all, k, v, k_start=tp.rank * k.shape[1], pmax=tp.pmax,
+            psum=tp.psum, window=window, logit_softcap=cfg.attn_logit_softcap,
+            scale=scale, q_offset=q_offset, kv_len=kv_len, causal=causal)
     if not heads_split:
         return o
     hq = q.shape[2]
@@ -181,7 +182,8 @@ def _out(p, o, cfg, tp: TP = TP()):
     B, S = o.shape[:2]
     out = o.reshape(B, S, -1) @ p["wo"].reshape(-1, p["wo"].shape[-1])
     if tp.split("wo", 0):
-        out = tp.psum(out)
+        with tp.at("wo"):
+            out = tp.psum(out)
     if cfg.use_bias:
         out = out + p["bo"]
     return out

@@ -83,10 +83,14 @@ def init_params(spec_tree, generator: torch.Generator,
 
 
 def abstract_params(spec_tree, default_dtype=torch.bfloat16):
-    """The spec tree as meta-device tensors: shapes and dtypes, no storage."""
-    return tree_map_specs(
-        lambda s: torch.empty(s.shape, dtype=s.dtype or default_dtype,
-                              device="meta"), spec_tree)
+    """The spec tree as meta-device tensors: shapes and dtypes, no storage;
+    keyed in sorted order, as ``init_params`` keys its tensors, so that a
+    step reads them in the order it reads real ones."""
+    if isinstance(spec_tree, dict):
+        return {k: abstract_params(spec_tree[k], default_dtype)
+                for k in sorted(spec_tree)}
+    return torch.empty(spec_tree.shape, dtype=spec_tree.dtype or default_dtype,
+                       device="meta")
 
 
 def logical_axes(spec_tree):

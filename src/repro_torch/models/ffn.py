@@ -41,7 +41,8 @@ def apply_ffn(p, x, *, cfg, tp: TP = TP()):
     h = _act(cfg.mlp_act)(g) * u
     out = h @ p["w_down"]
     if tp.split("w_down", 0):
-        out = tp.psum(out)
+        with tp.at("w_down"):
+            out = tp.psum(out)
     if cfg.use_bias:
         out = out + p["b_down"]
     return out

@@ -1,10 +1,13 @@
 """Model facade: build a (specs, init, apply, cache) bundle from a config."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .._bridge import resolve_device
 from ..configs.base import ModelConfig
+from ..tree import leaves_with_path
 from . import transformer
 from .common import (abstract_params, dtype_of, init_params, logical_axes,
                      param_count)
@@ -33,6 +36,18 @@ class Model:
 
     def param_count(self) -> int:
         return param_count(self.specs)
+
+    def active_param_count(self) -> int:
+        """The parameters a token multiplies through (the reference's MoE
+        discount for model FLOPs): the routed experts' at top_k / E."""
+        m = self.cfg.moe
+        total = 0
+        for path, spec in leaves_with_path(self.specs):
+            size = math.prod(spec.shape)
+            if path[-2:-1] == ("moe",) and path[-1] in ("w_gate", "w_up", "w_down"):
+                size = size * m.top_k // m.num_experts
+            total += size
+        return total
 
     # -- inputs -------------------------------------------------------------
     def extra_inputs(self, batch: int, seq_len: int, *, device=None) -> dict:

@@ -233,8 +233,9 @@ def apply_moe(p, x, *, cfg, dist: DistContext = LOCAL, tp: TP = TP()):
     if dist.mesh is None or not dist.ep:
         out, aux = _moe_local(x2d, p, cfg)
     else:
-        out, aux = _moe_ep_body(x2d, p["router"], p["w_gate"], p["w_up"],
-                                p["w_down"], cfg=cfg, dist=dist)
+        with tp.at():
+            out, aux = _moe_ep_body(x2d, p["router"], p["w_gate"], p["w_up"],
+                                    p["w_down"], cfg=cfg, dist=dist)
     if cfg.moe.num_shared:
         out = out + apply_ffn(p["shared"], x, cfg=cfg,
                               tp=tp.sub("shared")).reshape(B * S, d)

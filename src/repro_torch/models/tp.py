@@ -19,12 +19,15 @@ is its share; the psums' backward sums the shares where they meet a split
 weight, and ``collectives.to_use`` sums a replicated weight's gradient over
 the ranks. Where ``model`` has size 1, or there is no mesh, nothing is
 split and no collective runs: the local path's arithmetic, bitwise.
+
+A ``TP`` also carries the path of the module it views (``groups/g0/attn``),
+the site at which a census (``repro_torch.census``) records its collectives.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import collectives
+from .. import census, collectives
 from ..runtime.sharding import spec_axes
 
 
@@ -39,34 +42,37 @@ def unstack(tree):
 class TP:
     """One module's tensor-parallel view: ``specs`` maps its weights to
     their use assignments, ``cache`` its cache leaves to their placements
-    (per layer: no ``layers`` entry)."""
+    (per layer: no ``layers`` entry); ``path`` is the module's, from the
+    params' root."""
 
-    def __init__(self, dist=None, specs=None, cache=None):
+    def __init__(self, dist=None, specs=None, cache=None, path=()):
         self.dist, self.specs, self.cache = dist, specs or {}, cache or {}
+        self.path = path
         mesh = getattr(dist, "mesh", None)
         self.size = 1 if mesh is None or specs is None else \
             collectives.axis_size(mesh, dist.model_axis)
 
-    def _child(self, specs, cache) -> "TP":
-        return TP(self.dist, specs if self.size > 1 else None, cache)
+    def _child(self, specs, cache, path) -> "TP":
+        return TP(self.dist, specs if self.size > 1 else None, cache, path)
 
     def sub(self, key: str) -> "TP":
         """The view of submodule ``key``, on the same cache leaves."""
-        return self._child(self.specs.get(key), self.cache)
+        return self._child(self.specs.get(key), self.cache, self.path + (key,))
 
     def block(self, key: str) -> "TP":
         """The view of block ``key``, with its own cache leaves."""
-        return self._child(self.specs.get(key), self.cache.get(key))
+        return self._child(self.specs.get(key), self.cache.get(key),
+                           self.path + (key,))
 
     def group(self, *path: str) -> "TP":
         """The per-layer view of the stacked group at ``path``."""
         specs, cache = self.specs, self.cache
         for k in path:
             specs, cache = (specs or {}).get(k), (cache or {}).get(k)
-        return self._child(unstack(specs), unstack(cache))
+        return self._child(unstack(specs), unstack(cache), self.path + path)
 
     def with_cache(self, cache) -> "TP":
-        return self._child(self.specs, cache)
+        return self._child(self.specs, cache, self.path)
 
     def _on(self, spec, dim: int) -> bool:
         return self.size > 1 and spec is not None and dim < len(spec) and \
@@ -97,6 +103,11 @@ class TP:
         return collectives.all_gather(x, self.dist.mesh, self.dist.model_axis,
                                       dim)
 
+    def at(self, leaf: str = ""):
+        """The census's site of this module (and ``leaf``, the weight
+        whose product a collective reduces)."""
+        return census.at(self.path + ((leaf,) if leaf else ()))
+
 
 def of(dist) -> TP:
     """The whole model's view under ``dist`` (no mesh: nothing split)."""
@@ -119,4 +130,5 @@ def embed_lookup(table, tokens, tp: TP):
     local = tokens - tp.rank * n
     own = (local >= 0) & (local < n)
     rows = table[local.clamp(0, n - 1)]
-    return tp.psum(torch.where(own[..., None], rows, rows.new_zeros(())))
+    with census.at(("embed",)):
+        return tp.psum(torch.where(own[..., None], rows, rows.new_zeros(())))

@@ -348,11 +348,13 @@ def _apply_group(gp, x, gd: GroupDesc, *, cfg, dist, mode, cache, cache_index,
             for j, b in enumerate(gd.blocks):
                 key = f"b{j}"
                 bc = None if bc_all is None else bc_all.get(key)
-                x, _, aux_j = _apply_block(
-                    bp_all.get(key), x, b, cfg=cfg, dist=dist, mode=mode,
-                    cache=bc, cache_index=cache_index,
-                    cross_states=cross_states, shared_params=shared_params,
-                    positions=positions, tp=tp.block(key), shared_tp=shared_tp)
+                btp = tp.block(key)
+                with btp.at():
+                    x, _, aux_j = _apply_block(
+                        bp_all.get(key), x, b, cfg=cfg, dist=dist, mode=mode,
+                        cache=bc, cache_index=cache_index,
+                        cross_states=cross_states, shared_params=shared_params,
+                        positions=positions, tp=btp, shared_tp=shared_tp)
                 if aux_j is not None:
                     aux = aux + aux_j
             return x, aux

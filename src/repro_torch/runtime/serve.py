@@ -25,7 +25,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .. import collectives
+from .. import census, collectives
 from .._bridge import resolve_device
 from ..models import tp as tp_mod
 from ..models.common import dtype_of
@@ -112,13 +112,6 @@ def mesh_cache(model: Model, opts: ServeOptions, mesh, batch: int,
     return make(meta, mesh_cache_specs(model, meta, mesh))
 
 
-def _meta(tree):
-    """A tree of DTensors as meta tensors of their global shapes."""
-    if isinstance(tree, dict):
-        return {k: _meta(v) for k, v in tree.items()}
-    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
-
-
 def _check_placements(tree, want, what: str):
     got = shd.spec_tree_of(tree)
     if got != want:
@@ -138,13 +131,14 @@ def _gathered_params(params, use, mesh):
 def _whole_batch(last, rows: int, dist: DistContext, cfg):
     """A step's per-rank last logits (B_rank, V_rank) gathered into the
     batch of ``rows`` rows and the whole vocabulary."""
-    if tp_mod.vocab_split(dist, cfg):
-        last = tp_mod.of(dist).gather(last, -1)
-    spec = shd.data_spec((rows,), dist.mesh)
-    if not spec:
-        return last
-    return collectives.all_gather(last, dist.mesh, shd.spec_axes(spec[0]),
-                                  dim=0)
+    with census.at(("logits",)):
+        if tp_mod.vocab_split(dist, cfg):
+            last = tp_mod.of(dist).gather(last, -1)
+        spec = shd.data_spec((rows,), dist.mesh)
+        if not spec:
+            return last
+        return collectives.all_gather(last, dist.mesh, shd.spec_axes(spec[0]),
+                                      dim=0)
 
 
 def _on_cache(dist: DistContext, cache) -> DistContext:
@@ -249,8 +243,9 @@ def jit_prefill_step(model: Model, opts: ServeOptions, mesh, batch: int,
 
     def fn(params, inputs, cache):
         _check_placements(params, p_sh, "params")
-        # the cache is the decode's, of its own length
-        _check_placements(cache, mesh_cache_specs(model, _meta(cache), mesh),
+        # the cache is the decode's, of its own length (a DTensor's shape
+        # is its global one)
+        _check_placements(cache, mesh_cache_specs(model, cache, mesh),
                           "cache leaves")
         return prefill(params, inputs, cache)
 

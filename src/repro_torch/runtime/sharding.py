@@ -26,7 +26,7 @@ from typing import Mapping, NamedTuple, Sequence
 
 import torch
 
-from .. import collectives
+from .. import census, collectives
 
 # Candidate mesh-axis assignments per logical axis, in priority order.
 # Each candidate is a tuple of mesh axes the dim is sharded over (jointly).
@@ -333,5 +333,9 @@ def gather_on_use(local, stored, use, mesh):
     ``collectives.to_use``, differentiably; eagerly outside the ``groups``
     dicts, one layer group at a time inside them, when the forward reads
     it."""
-    return _gathered(local, lambda path, t: collectives.to_use(
-        t, tree_at(stored, path), tree_at(use, path), mesh))
+    def move(path, t):
+        with census.at(path):
+            return collectives.to_use(t, tree_at(stored, path),
+                                      tree_at(use, path), mesh)
+
+    return _gathered(local, move)

@@ -32,7 +32,7 @@ from typing import Callable
 
 import torch
 
-from .. import collectives
+from .. import census, collectives
 from ..models import tp as tp_mod
 from ..models.common import tree_map_specs
 from ..models.moe import LOCAL, DistContext, expert_specs
@@ -68,13 +68,14 @@ def cross_entropy(logits, labels, vocab=None):
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[..., None])[..., 0]
         return torch.mean(lse - gold)
-    m = vocab.pmax(logits.amax(dim=-1))
-    lse = torch.log(vocab.psum(torch.exp(logits - m[..., None]).sum(-1))) + m
-    n = logits.shape[-1]
-    local = labels - vocab.rank * n
-    own = (local >= 0) & (local < n)
-    gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
-    gold = vocab.psum(torch.where(own, gold, gold.new_zeros(())))
+    with census.at(("loss",)):
+        m = vocab.pmax(logits.amax(dim=-1))
+        lse = torch.log(vocab.psum(torch.exp(logits - m[..., None]).sum(-1))) + m
+        n = logits.shape[-1]
+        local = labels - vocab.rank * n
+        own = (local >= 0) & (local < n)
+        gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        gold = vocab.psum(torch.where(own, gold, gold.new_zeros(())))
     return torch.mean(lse - gold)
 
 
@@ -219,9 +220,10 @@ def build_grad_fn(model, opts: TrainOptions, mesh=None, rules=None) -> Callable:
         # the rank's share of the mean over every rank's loss (ranks on the
         # model axis hold copies); the metrics are the means themselves
         every = mesh.mesh_dim_names
-        return (ce + aux) / world, {
-            "loss": collectives.pmean(ce.detach(), mesh, every),
-            "aux_loss": collectives.pmean(aux.detach(), mesh, every)}
+        with census.at(("metrics",)):
+            return (ce + aux) / world, {
+                "loss": collectives.pmean(ce.detach(), mesh, every),
+                "aux_loss": collectives.pmean(aux.detach(), mesh, every)}
 
     def grads_of(params, batch, stored=None):
         ps = list(leaves(params))
@@ -305,9 +307,10 @@ def _mesh_step(grad_fn, opts: TrainOptions, mesh) -> Callable:
         lr = warmup_cosine(step, peak_lr=opts.opt.lr,
                            warmup_steps=opts.warmup_steps,
                            total_steps=opts.total_steps)
-        _, new_opt, opt_metrics = adamw.apply_updates(
-            params, grads, opt, opts.opt, lr=lr, mesh=mesh,
-            split_axes=split_axes_of(stored))
+        with census.at(("optimizer",)):
+            _, new_opt, opt_metrics = adamw.apply_updates(
+                params, grads, opt, opts.opt, lr=lr, mesh=mesh,
+                split_axes=split_axes_of(stored))
         del grads
         # params and moments were updated in place through their local
         # tensors; the new count and step are new tensors

@@ -2,6 +2,7 @@
 
     python -m torch.distributed.run --nproc-per-node 4 tests/_torch_tp_card.py \\
         [--part equality|full|all] [--out tp_card.json]
+    PYTHONPATH=src python tests/_torch_tp_card.py --part predict [--out ...]
 
 (``torchrun --nproc-per-node 4 ...`` is the same launcher.) Imports torch,
 the port and ``chip_smoke.py``'s checking helpers; no JAX.
@@ -31,6 +32,12 @@ or one step). No card holds these models whole to shard them, so each rank
 draws its own block of every weight (``draw_block_params``: each block from
 a generator seeded by the leaf and the block's index, so a replicated leaf
 is the same on every rank); no equality is claimed at full depth.
+
+(c) ``predict``, one process on the CPU, no card and no group: the dry-run
+(``repro_torch.launch.dryrun``, meta tensors, rank 0 of a fake group of 4)
+of (b)'s paths on (1, 4): one prefill (its cache of the prompt's 2048
+positions; (b)'s holds 2096) and one train step, each with its peak live
+bytes a rank, its collectives' on-link bytes a rank by op, and its FLOPs.
 
 Rank 0 prints one JSON object a line and writes them all to ``--out``.
 """
@@ -708,15 +715,54 @@ def full_train(out, arch, mesh):
     DEV.free()
 
 
+def predict(out_path: str) -> None:
+    """Part (c): the dry-run of the full-depth paths on (1, 4)."""
+    import chip_smoke as cs
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shd
+    mesh = shd.MeshShape(("data", "model"), FULL_MESH)
+    out = Out(0, out_path)
+    train_opts = dict(remat_policy="full", warmup_steps=cs.TRAIN_WARMUP,
+                      total_steps=FULL_TRAIN_STEPS,
+                      opt=adamw.AdamWConfig(lr=cs.TRAIN_LR, moment_dtype="bfloat16"))
+    paths = [(a, ShapeCell("prefill", FULL_PROMPT, FULL_BATCH, "prefill"),
+              shd.SERVING_RULES, None) for a in FULL_SERVE] + \
+        [(a, ShapeCell("train", FULL_TRAIN_SEQ, FULL_TRAIN_BATCH, "train"),
+          None, train_opts) for a in FULL_TRAIN]
+    try:
+        for arch, cell, rules, opts_over in paths:
+            trace = dryrun.lower_cell(get_config(arch), cell, mesh, rules=rules,
+                                      opts_over=opts_over)
+            rec = dryrun.record(trace)
+            out.emit({"part": "predict", "what": cell.kind, "arch": arch,
+                      "mesh": {"data": 1, "model": 4},
+                      "batch": cell.global_batch, "seq": cell.seq_len,
+                      "peak_bytes": rec["peak_bytes_per_device"],
+                      "collective_bytes": rec["collective_bytes_per_device"],
+                      "collectives": {op: c for op, c in rec["collectives"].items()
+                                      if c["count"]},
+                      "flops": rec["flops_per_device"],
+                      "kernel_calls": rec["kernel_calls"],
+                      "trace_s": rec["lower_s"]})
+    finally:
+        out.close()
+
+
 def main():
-    import torch
-    import torch.distributed as dist
     parser = argparse.ArgumentParser()
-    parser.add_argument("--part", choices=("equality", "full", "all"), default="all")
+    parser.add_argument("--part", choices=("equality", "full", "all", "predict"),
+                        default="all")
     parser.add_argument("--out", default="")
     parser.add_argument("--rehearse", action="store_true",
                         help="four CPU processes on gloo, REDUCED, small shapes")
     args = parser.parse_args()
+    if args.part == "predict":
+        return predict(args.out)
+    import torch
+    import torch.distributed as dist
     global DEV
     DEV = Dev(args.rehearse)
     rank = int(os.environ["RANK"])

@@ -163,6 +163,44 @@ def test_kernel_takes_the_gradient_through_its_backward_kernel(cuda, kernel):
                                              else (out,)))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_attention", "gmm", "ssd_scan"])
+def test_meta_path_gives_a_launch_shapes_and_dtypes(cuda, kernel):
+    """The wrapper's meta path (the dry-run's) returns what a launch
+    returns, forward (the flash forward's log-sum-exp and the SSD's final
+    state too) and backward, in shapes and dtypes, and launches nothing."""
+    torch.manual_seed(0)
+    fn, args, kw = _requires_grad_inputs(kernel, cuda)
+    meta = [torch.empty_like(a, device="meta").requires_grad_() for a in args]
+
+    def run(inputs):
+        out = fn(*inputs, **kw)
+        y = out[0] if kernel == "ssd_scan" else out
+        grads = torch.autograd.grad(y, inputs, torch.ones_like(y))
+        with torch.no_grad():
+            if kernel == "flash_attention":
+                extra = fa._forward(*inputs, causal=True, window=0, softcap=0.0,
+                                    scale=None, q_offset=0, kv_valid=None,
+                                    with_lse=True)
+            elif kernel == "ssd_scan":
+                extra = fn(*inputs, **kw)
+            else:
+                extra = (fn(*inputs),)
+        return [(tuple(t.shape), t.dtype) for t in (*_tuple(out), *grads, *extra)]
+
+    want = run(args)
+    torch.cuda.synchronize()
+    counters = (fn, {"flash_attention": fa.flash_attention_bwd_cuda,
+                     "gmm": mg.gmm_bwd_cuda, "ssd_scan": ss.ssd_scan_bwd_cuda}[kernel])
+    before = [c.launches for c in counters]
+    assert run(meta) == want
+    assert [c.launches for c in counters] == before
+
+
+def _tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
 def _rel(got, want) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm())
 

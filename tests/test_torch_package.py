@@ -72,6 +72,11 @@ MESH_MODULES = {
                                   "abstract_cache", "jit_prefill_step",
                                   "jit_decode_step"),
     "repro_torch.runtime.fault_tolerance": ("RemeshPlan", "plan_remesh"),
+    "repro_torch.census": ("kernel", "collective", "at", "plain_kernel"),
+    "repro_torch.launch.op_cost": ("OpCensus", "COLLECTIVES", "_traffic_factor"),
+    "repro_torch.launch.dryrun": ("input_specs", "lower_cell", "run_cell",
+                                  "save_record", "main"),
+    "repro_torch.launch.perf_probe": ("probe", "main"),
 }
 
 _IMPORT_ONE = """
@@ -287,6 +292,7 @@ def test_chip_smoke_fails_without_a_card(chip_smoke, no_cuda, capsys):
 
 
 def test_chip_smoke_counts_the_work_the_masks_leave(chip_smoke):
+    from repro_torch.kernels import flash_attention as fa
     for kw in ({}, {"window": 5}, {"q_offset": 9, "kv_valid": 10},
                {"causal": False}):
         Sq, Sk = (1, 16) if "q_offset" in kw else (12, 12)
@@ -294,7 +300,7 @@ def test_chip_smoke_counts_the_work_the_masks_leave(chip_smoke):
         mask = ref._mask(torch.arange(Sq)[None] + kw.get("q_offset", 0),
                          torch.arange(Sk)[None], causal=kw.get("causal", True),
                          window=kw.get("window", 0), kv_len=kv_len)
-        assert chip_smoke.attended_pairs(Sq, Sk, **kw) == int(mask.sum())
+        assert fa.attended_pairs(Sq, Sk, **kw) == int(mask.sum())
     ms, by = chip_smoke.attention_bound_ms(4, 2048, 2048, 32, 32, 128, {})
     assert by == "operations" and abs(ms - 0.139) < 0.001
 
@@ -546,7 +552,7 @@ def test_chip_smoke_planted_ssd_faults_reach_the_autograd_function(chip_smoke,
     from repro_torch.kernels import ssd_scan as ss
     args, dy = _ssd_args(3, 1, 128, 4, 16, 16, 2)
     monkeypatch.setattr(ss, "ssd_scan_bwd_cuda", ss.ssd_scan_bwd_plain)
-    ctx = SimpleNamespace(saved_tensors=args, chunk=32)
+    ctx = SimpleNamespace(saved_tensors=args, chunk=32, site=())
     want = ss.SsdScanFn.backward(ctx, dy, None)[:6]
     with chip_smoke.planted_ssd_bwd(fault):
         got = ss.SsdScanFn.backward(ctx, dy, None)[:6]
@@ -637,7 +643,7 @@ def test_chip_smoke_planted_faults_reach_the_autograd_function(chip_smoke,
         return chip_smoke.attention_grads_naive(q, k, v, dout, **kw)
 
     monkeypatch.setattr(fa, "flash_attention_bwd_cuda", kernel)
-    ctx = SimpleNamespace(saved_tensors=(q, k, v, q, None), opts=opts)
+    ctx = SimpleNamespace(saved_tensors=(q, k, v, q, None), opts=opts, site=())
     want = fa.FlashAttentionFn.backward(ctx, do)[:3]
     with chip_smoke.planted_flash_bwd(fault):
         got = fa.FlashAttentionFn.backward(ctx, do)[:3]
