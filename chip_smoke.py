@@ -196,8 +196,12 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             kernel launches are counted from 0 and must be the local
             path's. Tensor parallelism over more than one card is
             ``tests/_torch_tp_card.py``'s (four cards).
-6. executor: ``RealExecutor.run`` over the video workflow (the reference's
-            plans written out in VIDEO_PLANS) on full-width
+6. executor: the video workflow planned by the port's ``repro_torch.core``
+            (``Murakkab.paper_cluster()``: the MIN_COST declarative job and
+            the baseline lowered for the first paper video; each plan's rows
+            and the planner's simulated makespan and energy of the MIN_COST
+            job printed, with the host seconds they took), then
+            ``RealExecutor.run`` over both plans on full-width
             seamless-m4t-large-v2 and deepseek-7b: output shapes, outputs
             bitwise equal across two runs, summaries equal across the
             MIN_COST and baseline plans, the flash launches of each run, and
@@ -462,38 +466,6 @@ AGREE_PROMPTS = {"gemma2-9b": (1, 6144)}
 REPLAY_CALLS = ("seamless-m4t-large-v2", "gemma2-9b", "stablelm-12b",
                 "llama-3.2-vision-90b", "command-r-plus-104b")
 
-# The video workflow as the reference plans it on its paper cluster
-# (repro.core's Murakkab.paper_cluster(): the MIN_COST declarative job, and
-# the baseline workflow lowered for the first paper video), written out
-# because this script imports nothing of repro; a CPU test holds it equal to
-# the reference's plans. Per plan, (task, agent, args, impl) in topological
-# order. No impl names a zoo arch, so the executor runs its defaults:
-# seamless-m4t-large-v2 for speech_to_text, deepseek-7b for the others.
-VIDEO_PRODUCES = {"frame_extract": "frames", "speech_to_text": "transcript",
-                  "object_detect": "objects", "summarize": "summary",
-                  "embed": "vectors"}
-VIDEO_IMPL_ARCH = dict.fromkeys(("opencv", "whisper-large", "clip", "nvlm-72b",
-                                 "nvlm-embed"))
-VIDEO_PLANS = {
-    "min_cost": (
-        ("t0_frame_extract", "frame_extract",
-         {"file": "cats.mov", "start_time": 0, "end_time": 240,
-          "num_frames": 10}, "opencv"),
-        ("t1_speech_to_text", "speech_to_text",
-         {"file": "cats.mov", "language": "en"}, "whisper-large"),
-        ("t2_object_detect", "object_detect",
-         {"frames": "$frames", "labels": "auto"}, "clip"),
-        ("t3_summarize", "summarize",
-         {"context": "$frames+$objects+$transcript", "max_tokens": 120},
-         "nvlm-72b"),
-        ("t4_embed", "embed", {"texts": "$summary"}, "nvlm-embed")),
-    "baseline": (
-        ("c0_frame_extract", "frame_extract", {"sampling_rate": 15}, "opencv"),
-        ("c1_speech_to_text", "speech_to_text", {}, "whisper-large"),
-        ("c2_object_detect", "object_detect", {}, "clip"),
-        ("c3_summarize", "summarize", {"context_len": 4096}, "nvlm-72b"),
-        ("c4_embed", "embed", {}, "nvlm-embed")),
-}
 VIDEO_SCENES, VIDEO_FPS = 4, 10   # Media.synthesize's defaults, as the reference's
 VIDEO_QUESTION = "what objects appear?"
 
@@ -1674,17 +1646,33 @@ def generate_launches(cfg, new_tokens: int) -> dict:
     return {k: pre[k] + (new_tokens - 1) * dec[k] for k in pre}
 
 
-def video_workflow(plan_name: str):
-    """(dag, plan, library) of one VIDEO_PLANS entry, with the attributes the
-    executor reads."""
-    from types import SimpleNamespace as NS
-    tasks = VIDEO_PLANS[plan_name]
-    dag = NS(topo_order=[t for t, *_ in tasks],
-             nodes={t: NS(agent=agent, args=args) for t, agent, args, _ in tasks})
-    plan = {t: NS(impl=impl) for t, *_, impl in tasks}
-    library = NS(impls={name: NS(arch=arch) for name, arch in VIDEO_IMPL_ARCH.items()},
-                 interfaces={a: NS(produces=p) for a, p in VIDEO_PRODUCES.items()})
-    return dag, plan, library
+def plan_video_workflow(plan_name: str):
+    """(dag, plan, library) of the video workflow as the port's planner makes
+    it on its paper cluster: ``"min_cost"`` plans the MIN_COST declarative
+    job, ``"baseline"`` lowers the baseline workflow for the first paper
+    video."""
+    from repro_torch.configs.workflow_video import (PAPER_VIDEOS,
+                                                    make_baseline_workflow,
+                                                    make_declarative_job)
+    from repro_torch.core import MIN_COST, Murakkab
+    system = Murakkab.paper_cluster()
+    if plan_name == "min_cost":
+        dag, plan = system.plan(make_declarative_job(MIN_COST))
+    elif plan_name == "baseline":
+        dag, plan = system.lower_imperative(make_baseline_workflow(),
+                                            PAPER_VIDEOS[:1])
+    else:
+        raise ValueError(f"no video plan {plan_name!r}")
+    return dag, plan, system.library
+
+
+def plan_rows(dag, plan) -> list:
+    """One row per task in topological order: task, agent, impl, pool,
+    devices x instances, batch."""
+    return [{"task": tid, "agent": dag.nodes[tid].agent, "impl": plan[tid].impl,
+             "pool": plan[tid].pool,
+             "devices_x_instances": f"{plan[tid].n_devices}x{plan[tid].n_instances}",
+             "batch": plan[tid].batch} for tid in dag.topo_order]
 
 
 def launch_counters():
@@ -1822,10 +1810,15 @@ def phase_serve(arch):
 
 
 def phase_executor():
-    """The port's ``RealExecutor.run`` on the card over the video workflow
-    (VIDEO_PLANS): full-width seamless-m4t-large-v2 and deepseek-7b from a
-    seeded torch init, media of VIDEO_SCENES scenes x VIDEO_FPS frames from
-    a seeded generator. Three runs: MIN_COST, MIN_COST again, baseline; each
+    """The port's planner and its ``RealExecutor.run`` on the card over the
+    video workflow. First ``repro_torch.core`` plans both video plans
+    (``plan_video_workflow``) and simulates the MIN_COST job on the paper
+    cluster; each plan's rows and the simulated makespan and energy (the
+    planner's model of that cluster, not a card measurement) are printed
+    with the host seconds they took, and a failure to plan fails the
+    phase. Then the executor runs on full-width seamless-m4t-large-v2 and
+    deepseek-7b from a seeded torch init, media of VIDEO_SCENES scenes x
+    VIDEO_FPS frames from a seeded generator. Three runs: MIN_COST, MIN_COST again, baseline; each
     with the launch counts reset before it and read after it. Checks the
     outputs' shapes and ranges, bitwise-equal outputs across the two MIN_COST
     runs, equal summaries across the two plans, the flash launches of each
@@ -1835,9 +1828,27 @@ def phase_executor():
     import functools
     import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.core import Media, RealExecutor, seeded_sessions
+    from repro_torch.configs.workflow_video import make_declarative_job
+    from repro_torch.core import (MIN_COST, Media, Murakkab, RealExecutor,
+                                  seeded_sessions)
     from repro_torch.kernels import ops
 
+    plans = {}
+    for plan_name in ("min_cost", "baseline"):
+        t0 = time.perf_counter()
+        plans[plan_name] = plan_video_workflow(plan_name)
+        plan_s = time.perf_counter() - t0
+        dag, plan, _ = plans[plan_name]
+        emit({"phase": "executor_plan", "plan": plan_name, "planner": "repro_torch.core",
+              "plan_s": plan_s, "rows": plan_rows(dag, plan)})
+    t0 = time.perf_counter()
+    result = Murakkab.paper_cluster().execute(make_declarative_job(MIN_COST))
+    simulate_s = time.perf_counter() - t0
+    emit({"phase": "executor_plan_model", "plan": "min_cost",
+          "what": "the planner's simulated run on its model of the paper "
+                  "cluster, not a card measurement",
+          "makespan_s": result.makespan_s, "energy_wh": result.energy_wh,
+          "usd": result.usd, "quality": result.quality, "plan_and_simulate_s": simulate_s})
     archs = ("seamless-m4t-large-v2", "deepseek-7b")
     sessions = functools.cache(seeded_sessions(0, reduced=False, device="cuda"))
     init_s = {arch: _sync_s(lambda: sessions(arch))[1] for arch in archs}
@@ -1850,7 +1861,7 @@ def phase_executor():
     for label, plan_name in (("min_cost", "min_cost"),
                              ("min_cost_again", "min_cost"),
                              ("baseline", "baseline")):
-        dag, plan, library = video_workflow(plan_name)
+        dag, plan, library = plans[plan_name]
         ex = RealExecutor(library, sessions, seed=0, device="cuda")
         reset_launches()
         out, wall_s = _sync_s(lambda: ex.run(dag, plan, media))
@@ -1882,7 +1893,7 @@ def phase_executor():
     torch.cuda.synchronize()
     # the kernel at this path's shapes: every call of a plain run, replayed
     calls = []
-    dag, plan, library = video_workflow("min_cost")
+    dag, plan, library = plans["min_cost"]
     ex = RealExecutor(library, sessions, seed=0, device="cuda")
     reset_launches()
     with mock.patch.object(ops, "flash_attention", recording_attention(calls)):

@@ -11,11 +11,11 @@ each interface produces, so a mis-wired dependency fails loudly:
   embed           mean-pooled embedding-table vectors into an in-memory DB
   qa              nearest-vector retrieval + LM generate
 
-``run`` reads only ``dag.topo_order``, ``dag.nodes[tid].agent`` / ``.args``,
-``plan[tid].impl``, ``library.impls[name].arch`` and
-``library.interfaces[agent].produces``, so it takes the objects the caller
-planned with ``repro.core`` (or any with those attributes) and imports none
-of them.
+``run`` takes the port's own plans: the ``AgentLibrary`` of a ``Murakkab``
+system, and the ``DAG`` and ``ExecutionPlan`` that its ``plan`` (or
+``lower_imperative``) made. It reads only ``dag.topo_order``,
+``dag.nodes[tid].agent`` / ``.args``, ``plan[tid].impl``,
+``library.impls[name].arch`` and ``library.interfaces[agent].produces``.
 
 The reference draws three things from ``jax.random``, which torch cannot
 reproduce; here each comes from the caller, or from a seeded
@@ -36,6 +36,9 @@ from .._bridge import resolve_device
 from ..configs.registry import get_config
 from ..models.model_zoo import build_model
 from ..runtime.serve import ServeSession
+from .agents import AgentLibrary
+from .dag import DAG
+from .scheduler import ExecutionPlan
 
 LABELS = ["cat", "car", "tree", "person", "dog", "road", "sky", "wheel",
           "helmet", "grass", "sign", "flag", "track", "ball", "house",
@@ -103,7 +106,7 @@ class RealExecutor:
     defaults to ``cuda``.
     """
 
-    def __init__(self, library, sessions=None, *, seed: int = 0,
+    def __init__(self, library: AgentLibrary, sessions=None, *, seed: int = 0,
                  default_arch: str = "deepseek-7b", projections=None,
                  device=None):
         self.library = library
@@ -192,7 +195,8 @@ class RealExecutor:
         return sess.generate(q, max_new_tokens=8)
 
     # -- DAG walk ------------------------------------------------------------
-    def run(self, dag, plan, media: list[Media], question: str = "") -> dict:
+    def run(self, dag: DAG, plan: ExecutionPlan | None, media: list[Media],
+            question: str = "") -> dict:
         """Execute in topological order; returns {task_id: output} and
         ``"_timings"``: {task_id: seconds}, each ending in a device sync."""
         outputs: dict[str, object] = {}

@@ -2,10 +2,11 @@
 
 The four checks of tests/test_executor_real.py, run on the port's
 ``RealExecutor`` with the same fixtures: the reference's media (carried
-across as numpy), the reference's MIN_COST and baseline plans (the port
-duck-types them), the reference's reduced models (weights bridged) and its
-detector projections. Then the port's outputs are held to the JAX
-executor's on those fixtures.
+across as numpy), the reference's MIN_COST and baseline plans (``run``
+reads only their attributes), the reference's reduced models (weights
+bridged) and its detector projections. Then the port's outputs are held to
+the JAX executor's on those fixtures, and the plans that the port's own
+planner makes are held to run to the same outputs.
 
 The reduced models are bf16, so a greedy step whose reference top-2 margin
 is within bf16's tolerance may flip (tests/test_torch_serve.py's rule);
@@ -15,6 +16,7 @@ held: on these fixtures the transcripts are equal token for token, and the
 summaries are equal except one scene from the step where the reference's
 top two logits tie exactly in bf16.
 """
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -32,7 +34,9 @@ from repro.configs.workflow_video import (PAPER_VIDEOS,  # noqa: E402
 from repro.core import MIN_COST, Murakkab  # noqa: E402
 from repro.core import executor as jexecutor  # noqa: E402
 from repro.models.model_zoo import build_model as jax_build_model  # noqa: E402
+from repro_torch import core as tcore  # noqa: E402
 from repro_torch._bridge import params_from_numpy  # noqa: E402
+from repro_torch.configs import workflow_video as tworkflow_video  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import Media, RealExecutor, seeded_sessions  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
@@ -129,9 +133,7 @@ def test_same_outputs_across_plans(media, executor):
     underlying impls match (the paper's quality-preservation claim)."""
     system_a, dag_a, plan_a = _min_cost()
     out_a = executor(system_a.library).run(dag_a, plan_a, media)
-    sys_b = Murakkab.paper_cluster()
-    dag_b, plan_b = sys_b.lower_imperative(make_baseline_workflow(),
-                                           PAPER_VIDEOS[:1])
+    sys_b, dag_b, plan_b = _baseline()
     out_b = executor(sys_b.library).run(dag_b, plan_b, media)
     assert torch.equal(_by(out_a, "summar"), _by(out_b, "summar"))
 
@@ -244,30 +246,62 @@ def chip_smoke(monkeypatch):
 
 
 def _plan_rows(dag, plan, library):
-    return [(tid, dag.nodes[tid].agent, dag.nodes[tid].args, plan[tid].impl,
-             library.impls[plan[tid].impl].arch,
+    return [(tid, dag.nodes[tid].agent, dag.nodes[tid].args,
+             dataclasses.asdict(plan[tid]), library.impls[plan[tid].impl].arch,
              library.interfaces[dag.nodes[tid].agent].produces)
             for tid in dag.topo_order]
 
 
-def test_chip_smoke_video_workflow_is_the_reference_plan(chip_smoke, media,
-                                                         executor, outputs):
-    """The video workflow that chip_smoke.py writes out (it may not import
-    repro) equals the reference's MIN_COST and baseline plans, and the port
-    runs it to the same outputs."""
+def _baseline():
+    system = Murakkab.paper_cluster()
+    return (system, *system.lower_imperative(make_baseline_workflow(),
+                                             PAPER_VIDEOS[:1]))
+
+
+def _port_plans():
+    """The port's own planner on its paper cluster: (library, dag, plan) of
+    the MIN_COST job and of the baseline lowered for the first video."""
+    system = tcore.Murakkab.paper_cluster()
+    dag, plan = system.plan(tworkflow_video.make_declarative_job(tcore.MIN_COST))
+    sys_b = tcore.Murakkab.paper_cluster()
+    dag_b, plan_b = sys_b.lower_imperative(
+        tworkflow_video.make_baseline_workflow(), tworkflow_video.PAPER_VIDEOS[:1])
+    return {"min_cost": (system.library, dag, plan),
+            "baseline": (sys_b.library, dag_b, plan_b)}
+
+
+def test_port_plans_run_to_the_outputs_of_the_reference_plans(media, executor,
+                                                              outputs):
+    """The port plans the video workflow itself (``repro_torch.core``'s
+    ``Murakkab``), and its executor runs those plans to the outputs it
+    gives on the reference's plans, tensor for tensor."""
+    sys_b, dag_b, plan_b = _baseline()
+    ref_runs = {"min_cost": outputs[0],
+                "baseline": executor(sys_b.library).run(dag_b, plan_b, media)}
+    for name, (library, dag, plan) in _port_plans().items():
+        assert isinstance(plan, tcore.ExecutionPlan)
+        got = executor(library).run(dag, plan, media)
+        want = ref_runs[name]
+        assert set(got) == set(want), name
+        for k in want:
+            if k != "_timings":
+                assert torch.equal(got[k], want[k]), (name, k)
+
+
+def test_chip_smoke_video_workflow_is_the_reference_plan(chip_smoke):
+    """chip_smoke.py's video plans, which it has the port's planner make,
+    equal the reference's MIN_COST and baseline plans row for row (task,
+    agent, args, every TaskConfig field, arch, produced type), and the rows
+    it prints follow the plan's topological order."""
     system, dag, plan = _min_cost()
-    sys_b = Murakkab.paper_cluster()
-    dag_b, plan_b = sys_b.lower_imperative(make_baseline_workflow(),
-                                           PAPER_VIDEOS[:1])
+    sys_b, dag_b, plan_b = _baseline()
     for name, want in (("min_cost", (dag, plan, system.library)),
                        ("baseline", (dag_b, plan_b, sys_b.library))):
-        assert _plan_rows(*chip_smoke.video_workflow(name)) == _plan_rows(*want)
-    hand_dag, hand_plan, hand_library = chip_smoke.video_workflow("min_cost")
-    got = executor(hand_library).run(hand_dag, hand_plan, media)
-    want, _ = outputs
-    for k in want:
-        if k != "_timings":
-            assert torch.equal(got[k], want[k]), k
+        assert _plan_rows(*chip_smoke.plan_video_workflow(name)) \
+            == _plan_rows(*want)
+    port_dag, port_plan, _ = chip_smoke.plan_video_workflow("min_cost")
+    assert [r["task"] for r in chip_smoke.plan_rows(port_dag, port_plan)] \
+        == list(dag.topo_order)
 
 
 def test_seeded_sessions_are_reduced_on_the_cpu():

@@ -79,6 +79,47 @@ MESH_MODULES = {
     "repro_torch.launch.perf_probe": ("probe", "main"),
 }
 
+# the Murakkab runtime's modules and what each must hold, each imported alone
+CORE_MODULES = {
+    "repro_torch.core": ("Murakkab", "Job", "MIN_COST", "RealExecutor", "Media"),
+    "repro_torch.core.dag": ("DAG", "TaskNode"),
+    "repro_torch.core.constraints": ("Budget", "Deadline", "Lexicographic",
+                                     "Weighted", "as_spec"),
+    "repro_torch.core.spec": ("SCENARIOS", "Scenario", "build_node",
+                              "input_units"),
+    "repro_torch.core.energy": ("CATALOG", "DeviceSpec", "EnergyLedger",
+                                "batch_roofline_latency"),
+    "repro_torch.core.agents": ("AgentLibrary", "Work", "default_library"),
+    "repro_torch.core.profiles": ("CostQuery", "Profile", "ProfileStore"),
+    "repro_torch.core.cluster": ("ClusterManager", "Instance", "Pool"),
+    "repro_torch.core.admission": ("Admission", "FCFS", "StrictPriority",
+                                   "WeightedFair", "get_policy"),
+    "repro_torch.core.arrivals": ("PoissonArrivals", "MMPPArrivals",
+                                  "SessionArrivals", "TraceArrivals",
+                                  "default_mix", "register_preset"),
+    "repro_torch.core.faults": ("FaultProfile", "RetryPolicy"),
+    "repro_torch.core.scheduler": ("ExecutionPlan", "Scheduler", "TaskConfig"),
+    "repro_torch.core.workflow": ("ImperativeWorkflow", "Job", "Workflow",
+                                  "VideoInput"),
+    "repro_torch.core.orchestrator": ("LLMPlanner", "RulePlanner",
+                                      "dag_creation_overhead"),
+    "repro_torch.core.engine": ("Engine", "OpenLoopReport", "SimReport",
+                                "Submission", "TraceEntry"),
+    "repro_torch.core.simulator": ("Simulator", "render_trace"),
+    "repro_torch.core.system": ("JobResult", "Murakkab"),
+    "repro_torch.core.telemetry": ("TelemetryStore", "TaskRecord", "featurize"),
+    "repro_torch.core.router": ("OfflineEvaluator", "Router"),
+    "repro_torch.core.autoscale": ("Autoscaler", "PoolPolicy", "ScaleAction"),
+    "repro_torch.configs.workflow_video": ("PAPER_VIDEOS",
+                                           "calibrate_paper_profiles",
+                                           "make_declarative_job",
+                                           "make_baseline_workflow"),
+    "repro_torch.configs.workflow_rag": ("make_rag_job", "ROUTED_QUERIES"),
+    "repro_torch.configs.workflow_docingest": ("make_docingest_job",
+                                               "PAPER_DOCS"),
+    "repro_torch.configs.workflow_chat": ("make_chat_job", "CHAT_SCENARIO"),
+}
+
 _IMPORT_ONE = """
 import importlib, json, sys
 sys.path[:0] = [{src!r}]
@@ -99,6 +140,48 @@ def test_mesh_modules_import_neither_jax_nor_repro():
         assert proc.returncode == 0, proc.stderr
         got = json.loads(proc.stdout.strip().splitlines()[-1])
         assert got == {"bad": [], "missing": []}, (name, got)
+
+
+@pytest.mark.parametrize("name", sorted(CORE_MODULES))
+def test_core_module_imports_neither_jax_nor_repro(name):
+    """Each module of the Murakkab runtime, imported alone in a fresh
+    process, holds its public names and loads neither ``jax`` nor
+    ``repro``."""
+    code = _IMPORT_ONE.format(src=str(ROOT / "src"), name=name,
+                              attrs=CORE_MODULES[name])
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {"bad": [], "missing": []}, (name, got)
+
+
+_PLAN_ALONE = """
+import json, sys
+sys.path[:0] = [{src!r}]
+from repro_torch.configs.workflow_video import make_declarative_job
+from repro_torch.core import MIN_COST, Murakkab
+r = Murakkab.paper_cluster().execute(make_declarative_job(MIN_COST))
+print(json.dumps({{"makespan_s": r.makespan_s.hex(), "energy_wh": r.energy_wh.hex(),
+                  "bad": sorted(n for n in sys.modules
+                                if n.split(".")[0] in ("jax", "jaxlib", "repro"))}}))
+"""
+
+
+def test_port_plans_the_video_job_alone():
+    """In a fresh process that loads neither ``jax`` nor ``repro``, the
+    port's ``Murakkab.paper_cluster()`` runs the MIN_COST video job to the
+    reference's makespan and energy, bitwise."""
+    from repro.configs.workflow_video import make_declarative_job
+    from repro.core import MIN_COST, Murakkab
+    proc = subprocess.run([sys.executable, "-c",
+                           _PLAN_ALONE.format(src=str(ROOT / "src"))],
+                          capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = Murakkab.paper_cluster().execute(make_declarative_job(MIN_COST))
+    assert got == {"makespan_s": want.makespan_s.hex(),
+                   "energy_wh": want.energy_wh.hex(), "bad": []}
 
 
 @pytest.mark.parametrize("path", sorted(
