@@ -61,7 +61,10 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
    ssd:     the SSD-scan kernels against their plain version: the
             kernel-test grid in fp32 (the ``fma`` variant) within 1e-4 on y
             and on the state, and the prefill shapes of zamba2-7b and
-            mamba2-370m (B=4, L=2048, chunk 256) in bf16, which must take the
+            mamba2-370m (B=4, L=2048, chunk 256) in bf16, and a rank's share
+            of them where the Mamba2 blocks split their heads over model
+            (zamba2-7b's 28 heads of one group on (1, 4), 56 over B=2 on
+            (2, 2); mamba2-370m's 8 on (1, 4)), which must take the
             ``wgmma`` variant, within an elementwise limit on y and
             relative-norm limits on y and the fp32 state that three injected
             faults (the carried state dropped in the last chunk; one 64-step
@@ -91,7 +94,8 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             version in fp32: all six gradients on the fp32 grid (the ``fma``
             variant) with a non-zero state cotangent, and at the training
             shapes of zamba2-7b (H=112, P=64, N=64, G=2) and mamba2-370m
-            (H=32, P=64, N=128, G=1), B=2, L=2048, chunk 256, in bf16, which
+            (H=32, P=64, N=128, G=1), B=2, L=2048, chunk 256, in bf16, and a
+            rank's share of them as in phase ssd (B=1 on (2, 2)), which
             must take the ``wgmma`` variant (chunk_state, state_pass, rows,
             cols, reduce), there with the ``fma`` variant (states, chunks,
             reduce) held too, each within an elementwise and a relative-norm
@@ -325,6 +329,15 @@ SSD_MODEL_SHAPES = [
     ("zamba2-7b", 4, 2048, 112, 64, 64, 2, 256, "bfloat16"),
     ("mamba2-370m", 4, 2048, 32, 64, 128, 1, 256, "bfloat16"),
 ]
+# a rank's share of those where the Mamba2 blocks split their heads over
+# model (models/ssm.py): zamba2-7b on (data 1, model 4) and (2, 2), a
+# rank's heads inside one of its 2 groups, and mamba2-370m on (1, 4); the
+# serve batch of 4 cut over data
+SSD_RANK_SHAPES = [
+    ("zamba2-7b_tp4", 4, 2048, 28, 64, 64, 1, 256, "bfloat16"),
+    ("zamba2-7b_tp2x2", 2, 2048, 56, 64, 64, 1, 256, "bfloat16"),
+    ("mamba2-370m_tp4", 4, 2048, 8, 64, 128, 1, 256, "bfloat16"),
+]
 SSD_TILE = 64              # the SSD kernel's (t, s) tile, the unit of a fault
 # the SSD backward (phase ssd_bwd): the fp32 grid above with a state
 # cotangent, and the training paths' shapes (B=2 x 2048) in bf16 with none.
@@ -338,6 +351,12 @@ SSD_TILE = 64              # the SSD kernel's (t, s) tile, the unit of a fault
 SSD_TRAIN_SHAPES = [
     ("zamba2-7b", 2, 2048, 112, 64, 64, 2, 256, "bfloat16"),
     ("mamba2-370m", 2, 2048, 32, 64, 128, 1, 256, "bfloat16"),
+]
+# the training batch of 2's share of SSD_RANK_SHAPES
+SSD_RANK_TRAIN_SHAPES = [
+    ("zamba2-7b_tp4", 2, 2048, 28, 64, 64, 1, 256, "bfloat16"),
+    ("zamba2-7b_tp2x2", 1, 2048, 56, 64, 64, 1, 256, "bfloat16"),
+    ("mamba2-370m_tp4", 2, 2048, 8, 64, 128, 1, 256, "bfloat16"),
 ]
 SSD_BWD_ELEM = {"float32": 1e-4, "bfloat16": 1e-2}
 SSD_BWD_RTOL = {"float32": 1e-4, "bfloat16": 2 ** -8}
@@ -925,8 +944,9 @@ def phase_ssd():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     worst, failures, timings = 0.0, [], {}
-    model_shapes = {s[0] for s in SSD_MODEL_SHAPES}
-    for name, B, L, H, P, N, G, chunk, dtype in SSD_GRID + SSD_MODEL_SHAPES:
+    model_shapes = {s[0] for s in SSD_MODEL_SHAPES + SSD_RANK_SHAPES}
+    for name, B, L, H, P, N, G, chunk, dtype in \
+            SSD_GRID + SSD_MODEL_SHAPES + SSD_RANK_SHAPES:
         args = ssd_inputs(gen, B, L, H, P, N, G, dtype)
         variant = ss.ssd_variant(args[0], args[3], chunk)
         if name in model_shapes and variant != "wgmma":
@@ -1489,6 +1509,17 @@ def ssd_bwd_errors(got, want) -> dict:
     return out
 
 
+def ssd_rank_entries(timings, shapes, what) -> dict:
+    """The kernels line's ``at_<shape>`` entries of the per-rank SSD
+    shapes: each one's timings and its shape."""
+    return {f"at_{name.replace('-', '_')}": {
+        **timings[name],
+        "shape": f"B={B} L={L} H={H} P={P} N={N} G={G} chunk={chunk} bf16 "
+                 f"({name.split('_')[0]} {what}, one rank of "
+                 f"{'(1, 4)' if name.endswith('tp4') else '(2, 2)'})"}
+        for name, B, L, H, P, N, G, chunk, _ in shapes}
+
+
 def phase_ssd_bwd():
     """The SSD backward kernels against autograd through the plain version
     in fp32 (see the module docstring): the variant ``ssd_bwd_variant``
@@ -1501,8 +1532,9 @@ def phase_ssd_bwd():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
     worst, failures, timings = 0.0, [], {}
-    train_shapes = {s[0] for s in SSD_TRAIN_SHAPES}
-    for name, B, L, H, P, N, G, chunk, dtype in SSD_GRID + SSD_TRAIN_SHAPES:
+    train_shapes = {s[0] for s in SSD_TRAIN_SHAPES + SSD_RANK_TRAIN_SHAPES}
+    for name, B, L, H, P, N, G, chunk, dtype in \
+            SSD_GRID + SSD_TRAIN_SHAPES + SSD_RANK_TRAIN_SHAPES:
         args = ssd_inputs(gen, B, L, H, P, N, G, dtype)
         dy = torch.randn(B, L, H, P, generator=gen, device="cuda").to(args[0].dtype)
         dstate = None if name in train_shapes else \
@@ -3554,7 +3586,8 @@ def run_phases() -> int:
               launches_by_variant=by_variant("ssd_by_variant"),
               at_mamba2={**ssd_t["mamba2-370m"],
                          "shape": "B=4 L=2048 H=32 P=64 N=128 G=1 chunk=256 "
-                                  "bf16 (mamba2-370m)"}),
+                                  "bf16 (mamba2-370m)"},
+              **ssd_rank_entries(ssd_t, SSD_RANK_SHAPES, "serve")),
         entry("gmm", "src/repro_torch/csrc/moe_gmm.cu",
               "src/repro/kernels/moe_gmm.py:47", gmm_err,
               gmm_t["prefill_gate_up"],
@@ -3626,7 +3659,8 @@ def run_phases() -> int:
               launches_by_variant=by_variant("ssd_bwd_by_variant"),
               at_mamba2={**ssd_bwd_t["mamba2-370m"],
                          "shape": "B=2 L=2048 H=32 P=64 N=128 G=1 chunk=256 "
-                                  "bf16 (mamba2-370m training)"}),
+                                  "bf16 (mamba2-370m training)"},
+              **ssd_rank_entries(ssd_bwd_t, SSD_RANK_TRAIN_SHAPES, "training")),
     ]})
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -249,6 +249,50 @@ def _relayout(x, dim: int, stored: tuple, use: tuple, mesh):
     return x
 
 
+def _steps(stored: tuple, use: tuple, mesh) -> list:
+    """What ``to_use`` does, in order: ``("relayout", dim)``, or
+    ``(kind, axis, dim)`` with kind ``replicated`` (dim None), ``gather``
+    or ``slice``."""
+    steps, moved = [], set()
+    for dim in range(max(len(stored), len(use))):
+        s_ax, u_ax = _entry(stored, dim), _entry(use, dim)
+        if s_ax != u_ax and max(len(s_ax), len(u_ax)) > 1:
+            steps.append(("relayout", dim))
+            moved |= set(s_ax) | set(u_ax)
+    for a in reversed(mesh.mesh_dim_names):
+        if axis_size(mesh, a) == 1 or a in moved:
+            continue
+        s, u = _dim_on(stored, a), _dim_on(use, a)
+        if s == u and s is not None:
+            continue
+        if u is None and s is None:
+            steps.append(("replicated", a, None))
+        elif u is None:
+            steps.append(("gather", a, s))
+        elif s is None:
+            steps.append(("slice", a, u))
+        else:
+            raise NotImplementedError(
+                f"axis {a} splits dim {s} in store and dim {u} in use")
+    return steps
+
+
+def _run(x, steps, stored: tuple, use: tuple, mesh):
+    for step in steps:
+        if step[0] == "relayout":
+            x = _relayout(x, step[1], stored, use, mesh)
+            continue
+        kind, a, dim = step
+        pg = group(mesh, a)
+        if kind == "replicated":
+            x = _Replicated.apply(x, pg)
+        elif kind == "gather":
+            x = _AllGather.apply(x, dim, pg)
+        else:
+            x = _Slice.apply(x, dim, pg)
+    return x
+
+
 def to_use(x, stored: tuple, use: tuple, mesh):
     """A weight's local shard, stored by the assignment ``stored``, moved to
     the block this rank computes with under ``use`` (differentiably): on
@@ -259,26 +303,28 @@ def to_use(x, stored: tuple, use: tuple, mesh):
     several axes (as (pod, data)) in the store or the use, not alike in
     both, is gathered whole and cut again (``_relayout``). An axis of size
     1 moves nothing and needs no collective."""
-    moved = set()
-    for dim in range(max(len(stored), len(use))):
-        s_ax, u_ax = _entry(stored, dim), _entry(use, dim)
-        if s_ax != u_ax and max(len(s_ax), len(u_ax)) > 1:
-            x = _relayout(x, dim, stored, use, mesh)
-            moved |= set(s_ax) | set(u_ax)
-    for a in reversed(mesh.mesh_dim_names):
-        if axis_size(mesh, a) == 1 or a in moved:
-            continue
-        s, u = _dim_on(stored, a), _dim_on(use, a)
-        if s == u and s is not None:
-            continue
-        pg = group(mesh, a)
-        if u is None and s is None:
-            x = _Replicated.apply(x, pg)
-        elif u is None:
-            x = _AllGather.apply(x, s, pg)
-        elif s is None:
-            x = _Slice.apply(x, u, pg)
-        else:
-            raise NotImplementedError(
-                f"axis {a} splits dim {s} in store and dim {u} in use")
-    return x
+    return _run(x, _steps(stored, use, mesh), stored, use, mesh)
+
+
+def to_use_by_layer(x, stored: tuple, use: tuple, mesh):
+    """A stacked weight's local shard (leading ``layers`` dim, which
+    neither assignment splits) as its layers' slices, by one ``unbind`` (so
+    their gradients are stacked once), and the function that moves a
+    layer's slice to its use block as ``to_use`` moves it, or None where
+    that moves nothing. The leading steps that move nothing forward (a
+    weight the store and the use both replicate on an axis) run once on the
+    whole stack, so that its gradient is summed over the axis' ranks in one
+    collective, as the whole leaf's is; the gathers and cuts run per layer,
+    when the layer does."""
+    if (stored[:1] + use[:1]) not in ((), (None,), (None, None)):
+        raise ValueError(f"a stacked leaf's layers are split: {stored}, {use}")
+    stored, use = tuple(stored[1:]), tuple(use[1:])
+    steps = _steps(stored, use, mesh)
+    k = 0
+    while k < len(steps) and steps[k][0] == "replicated":
+        k += 1
+    layers = torch.unbind(_run(x, steps[:k], stored, use, mesh), 0)
+    rest = steps[k:]
+    if not rest:
+        return layers, None
+    return layers, lambda t: _run(t, rest, stored, use, mesh)

@@ -20,7 +20,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..tree import leaves_with_path
+from ..tree import leaves_with_path, with_empty
 
 
 class ParamSpec(NamedTuple):
@@ -57,7 +57,9 @@ def _fan_in(shape: tuple[int, ...], axes: tuple[str | None, ...]) -> int:
 
 def init_params(spec_tree, generator: torch.Generator,
                 default_dtype=torch.bfloat16):
-    """Concrete tensors for a spec tree, on ``generator.device``.
+    """Concrete tensors for a spec tree, on ``generator.device``, keyed in
+    sorted order; a block without weights keeps its empty dict, as the
+    reference's tree does.
 
     Normal draws are made in fp32 and cast, as the reference does.
     """
@@ -79,7 +81,7 @@ def init_params(spec_tree, generator: torch.Generator,
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = t
-    return out
+    return with_empty(spec_tree, out)
 
 
 def abstract_params(spec_tree, default_dtype=torch.bfloat16):
@@ -106,10 +108,17 @@ def param_count(spec_tree) -> int:
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x, scale, eps: float = 1e-6, zero_centered: bool = False):
+def rms_norm(x, scale, eps: float = 1e-6, zero_centered: bool = False,
+             psum=None, width: int = 0):
+    """RMS norm over the last dim; with ``psum``, over a dim of ``width``
+    split across ranks, ``x`` and ``scale`` the rank's part of it: the sum
+    of squares is summed over the ranks by ``psum``."""
     dt = x.dtype
     x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
+    if psum is None:
+        var = x.square().mean(dim=-1, keepdim=True)
+    else:
+        var = psum(x.square().sum(dim=-1, keepdim=True)) / width
     y = x * torch.rsqrt(var + eps)
     s = scale.float()
     if zero_centered:  # gemma-style (1 + scale)

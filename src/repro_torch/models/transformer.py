@@ -208,9 +208,13 @@ def _layers(tree, n: int) -> list:
     """The ``n`` layers of a tree of stacked tensors (views, no copies), by
     one ``unbind`` per leaf: its backward stacks the layers' gradients once,
     where indexing each layer would make a zero-filled full-size gradient
-    per layer."""
+    per layer. A mesh step's group (``runtime/sharding.py::GroupOnUse``)
+    gives one function per layer, which moves the layer's weights to their
+    use blocks when called."""
     if tree is None:
         return [None] * n
+    if hasattr(tree, "layers"):
+        return tree.layers(n)
     if isinstance(tree, dict):
         per_key = {k: _layers(v, n) for k, v in tree.items()}
         return [{k: layers[i] for k, layers in per_key.items()}
@@ -260,8 +264,8 @@ def _apply_block(bp, x, b: BlockDesc, *, cfg, dist, mode, cache, cache_index,
     MoE router's load-balance loss; other blocks return None where the
     reference adds 0.0 (exact, and one launch fewer per block). ``tp`` is
     the block's tensor-parallel view (``shared_tp`` the shared block's
-    weights'): attention, MLP and shared experts compute the rank's block;
-    SSM blocks compute whole."""
+    weights'): attention, MLP, shared experts and Mamba2 blocks compute the
+    rank's block."""
     new_cache, aux = None, None
 
     def maybe_post(out, p):
@@ -299,9 +303,11 @@ def _apply_block(bp, x, b: BlockDesc, *, cfg, dist, mode, cache, cache_index,
     elif b.kind == "ssm":
         h = apply_norm(bp["norm"], x, cfg)
         if mode == "decode":
-            out, new_cache = apply_ssm_decode(bp["ssm"], h, cache, cfg=cfg)
+            out, new_cache = apply_ssm_decode(bp["ssm"], h, cache, cfg=cfg,
+                                              tp=tp.sub("ssm"))
         else:
-            out, new_cache = apply_ssm(bp["ssm"], h, cfg=cfg, state=cache)
+            out, new_cache = apply_ssm(bp["ssm"], h, cfg=cfg, state=cache,
+                                       tp=tp.sub("ssm"))
         x = x + maybe_post(out, bp)
     elif b.kind == "cross_attn":
         h = apply_norm(bp["norm"], x, cfg)
@@ -339,12 +345,17 @@ def _apply_group(gp, x, gd: GroupDesc, *, cfg, dist, mode, cache, cache_index,
     Every block writes its slice of the cache in place (the KV cache and the
     SSM conv buffer and state alike), so the blocks' returned caches are
     discarded and the group's new cache is ``cache``. ``tp`` is the group's
-    per-layer tensor-parallel view.
+    per-layer tensor-parallel view. On a mesh each layer's weights move to
+    their use blocks when the layer runs, within its checkpointed unit:
+    under remat one layer's gathered weights are live at a time, and none
+    is kept for the backward.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp_all, bc_all in zip(_layers(gp, gd.repeat),
                               _layers(cache, gd.repeat)):
         def body(x, aux, bp_all=bp_all, bc_all=bc_all):
+            if callable(bp_all):      # moved here: inside the remat unit
+                bp_all = bp_all()
             for j, b in enumerate(gd.blocks):
                 key = f"b{j}"
                 bc = None if bc_all is None else bc_all.get(key)

@@ -7,14 +7,15 @@ prefill, then a decode loop).
 The mesh path (``jit_prefill_step`` / ``jit_decode_step``), one process per
 device: the weights are DTensors placed by ``SERVING_RULES`` (dense weights
 split on the model axis only; experts EP over model, with ``expert_tp`` f
-over data too), moved on use one layer group at a time to the blocks a rank
-computes with (``train.use_specs``: heads, MLP columns and vocabulary
-tensor parallel over model, ``models/tp.py``; experts their
-expert-parallel blocks; SSM weights whole). Each rank computes on its
-batch shard with its own cache (``mesh_cache``): the attention leaves
-placed by ``cache_shardings`` (head-parallel over model where model
-divides ``kv_heads``, else sequence-parallel over the positions where it
-divides them), the SSM leaves split over the batch only. The step gathers
+over data too), moved on use one layer at a time, when it runs, to the
+blocks a rank computes with (``train.use_specs``: heads, MLP columns,
+vocabulary and Mamba2 heads tensor parallel over model, ``models/tp.py``,
+``models/ssm.py``; experts their expert-parallel blocks). Each rank
+computes on its batch shard with its own cache (``mesh_cache``): the
+attention leaves placed by ``cache_shardings`` (head-parallel over model
+where model divides ``kv_heads``, else sequence-parallel over the positions
+where it divides them), the SSM state by its heads and the conv window by
+the rank's channels (``mesh_cache_specs``). The step gathers
 the last position's logits over model where the vocabulary is split, and
 returns the whole batch's tokens and logits on every rank.
 """
@@ -27,6 +28,7 @@ import torch
 
 from .. import census, collectives
 from .._bridge import resolve_device
+from ..models import ssm
 from ..models import tp as tp_mod
 from ..models.common import dtype_of
 from ..models.model_zoo import Model
@@ -76,20 +78,58 @@ def shard_params(params, model: Model, mesh, rules=shd.SERVING_RULES):
 ATTENTION_CACHE = ("k", "v", "ck", "cv")
 
 
+def _ssm_split(model: Model, mesh) -> bool:
+    """Whether the Mamba2 blocks compute their rank's heads on ``mesh``."""
+    return ssm.split_heads(model.cfg, shd.mesh_axis_size(mesh, "model"))
+
+
 def mesh_cache_specs(model: Model, cache_abstract, mesh, rules=None):
     """The mesh steps' cache placements: the attention leaves'
-    ``cache_shardings``; the SSM leaves' batch dim (dim 1) split over the
-    data axes, nothing else (their model-axis split is ROADMAP.md A14)."""
+    ``cache_shardings``. Where the Mamba2 blocks split their heads over
+    model (``models/ssm.py::split_heads``), the ``ssm`` leaves' too (heads
+    over model), and the ``conv`` leaves hold each rank's channels, x of its
+    heads and B and C of its groups (``ssm.conv_channels``): split over
+    model by that layout, not by the reference's contiguous cut of
+    ``conv_dim``, so a rank's block is ``mesh_cache``'s and the DTensor's
+    whole is the ranks' channel sets side by side (``conv_full`` reassembles
+    the reference's leaf). Elsewhere the SSM leaves' batch dim (dim 1)
+    alone, over the data axes."""
     want = cache_shardings(model, cache_abstract, mesh, rules)
+    split = _ssm_split(model, mesh)
 
     def walk(meta, spec, name=""):
         if isinstance(meta, dict):
             return {k: walk(v, spec[k], k) for k, v in meta.items()}
-        if name in ATTENTION_CACHE:
+        if name in ATTENTION_CACHE or (split and name == "ssm"):
             return spec
-        return shd.spec_for_axes((None, "batch"), meta.shape, mesh)
+        rows = shd.spec_for_axes((None, "batch"), meta.shape, mesh)
+        if split and name == "conv":
+            return (rows + (None,) * 3)[:3] + ("model",)
+        return rows
 
     return walk(cache_abstract, want)
+
+
+def _conv_width(model: Model, mesh) -> int:
+    """The conv channels a rank holds where the blocks split their heads."""
+    part = ssm.rank_part(model.cfg, shd.mesh_axis_size(mesh, "model"), 0)
+    return sum(hi - lo for lo, hi in ssm.conv_channels(model.cfg, part))
+
+
+def conv_full(model: Model, shards):
+    """The reference's conv cache leaf (..., conv_dim) from the model axis'
+    ranks' ``mesh_cache`` blocks of it, in rank order (each holds its
+    ``ssm.conv_channels``; ranks sharing a group hold its B and C alike)."""
+    size = len(shards)
+    full = shards[0].new_empty((*shards[0].shape[:-1],
+                                ssm.ssm_dims(model.cfg)[3]))
+    for rank, shard in enumerate(shards):
+        at = 0
+        for lo, hi in ssm.conv_channels(model.cfg,
+                                        ssm.rank_part(model.cfg, size, rank)):
+            full[..., lo:hi] = shard[..., at:at + hi - lo]
+            at += hi - lo
+    return full
 
 
 def mesh_cache(model: Model, opts: ServeOptions, mesh, batch: int,
@@ -100,12 +140,17 @@ def mesh_cache(model: Model, opts: ServeOptions, mesh, batch: int,
     device = resolve_device(device)
     meta = abstract_cache(model, batch, max_len, enc_len,
                           dtype_of(opts.kv_dtype))
+    split = _ssm_split(model, mesh)
 
-    def make(meta, spec):
+    def make(meta, spec, name=""):
         if isinstance(meta, dict):
-            return {k: make(v, spec[k]) for k, v in meta.items()}
-        t = torch.zeros(shd.local_part(meta, spec, mesh).shape,
-                        dtype=meta.dtype, device=device)
+            return {k: make(v, spec[k], k) for k, v in meta.items()}
+        if split and name == "conv":
+            shape = (*shd.local_part(meta, spec[:3], mesh).shape[:-1],
+                     _conv_width(model, mesh))
+        else:
+            shape = shd.local_part(meta, spec, mesh).shape
+        t = torch.zeros(shape, dtype=meta.dtype, device=device)
         return DTensor.from_local(t, mesh, shd.placements(spec, mesh),
                                   run_check=False)
 

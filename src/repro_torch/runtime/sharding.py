@@ -21,12 +21,14 @@ weights from their stored shards to the blocks a rank computes with.
 from __future__ import annotations
 
 import collections.abc
+import functools
 import math
 from typing import Mapping, NamedTuple, Sequence
 
 import torch
 
 from .. import census, collectives
+from ..tree import with_empty
 
 # Candidate mesh-axis assignments per logical axis, in priority order.
 # Each candidate is a tuple of mesh axes the dim is sharded over (jointly).
@@ -295,15 +297,15 @@ def local_batch(batch, mesh):
             for k, t in batch.items()}
 
 
-class _GatherOnUse(collections.abc.Mapping):
-    """A ``groups`` dict whose groups are gathered when the forward reads
-    them, one layer group at a time."""
+class _GroupsOnUse(collections.abc.Mapping):
+    """A ``groups`` dict of stacked layer groups, each read as a
+    ``GroupOnUse``."""
 
-    def __init__(self, tree, fn, path):
-        self._tree, self._fn, self._path = tree, fn, path
+    def __init__(self, tree, specs, path):
+        self._tree, self._specs, self._path = tree, specs, path
 
     def __getitem__(self, key):
-        return _gathered(self._tree[key], self._fn, self._path + (key,))
+        return GroupOnUse(self._tree[key], self._specs, self._path + (key,))
 
     def __iter__(self):
         return iter(self._tree)
@@ -312,12 +314,55 @@ class _GatherOnUse(collections.abc.Mapping):
         return len(self._tree)
 
 
-def _gathered(tree, fn, path=()):
+class GroupOnUse:
+    """A stacked layer group's local shards, whose layers move to their use
+    blocks one at a time (``collectives.to_use_by_layer``): ``layers(n)``
+    gives one function per layer, which the group's loop calls when the
+    layer runs (inside its checkpointed unit, under remat), returning that
+    layer's weights as the blocks compute with them."""
+
+    def __init__(self, tree, specs, path):
+        self._tree, self._specs, self._path = tree, specs, path
+
+    def layers(self, n: int) -> list:
+        moves = {}
+        for path, t in _leaf_paths(self._tree):
+            full = self._path + path
+            with census.at(full):
+                moves[path] = collectives.to_use_by_layer(
+                    t, *self._specs(full))
+        return [functools.partial(self._layer, moves, i) for i in range(n)]
+
+    def _layer(self, moves, i):
+        out: dict = {}
+        for path, (layers, move) in moves.items():
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            if move is None:
+                node[path[-1]] = layers[i]
+                continue
+            with census.at(self._path + path):
+                node[path[-1]] = move(layers[i])
+        return with_empty(self._tree, out)
+
+
+def _leaf_paths(tree, prefix=()):
+    """(path, tensor) of a tree's leaves, in its dicts' order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_paths(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _gathered(tree, specs, path=()):
     if isinstance(tree, dict):
         if path[-1:] == ("groups",):
-            return _GatherOnUse(tree, fn, path)
-        return {k: _gathered(v, fn, path + (k,)) for k, v in tree.items()}
-    return fn(path, tree)
+            return _GroupsOnUse(tree, specs, path)
+        return {k: _gathered(v, specs, path + (k,)) for k, v in tree.items()}
+    with census.at(path):
+        return collectives.to_use(tree, *specs(path))
 
 
 def tree_at(tree, path):
@@ -331,11 +376,8 @@ def gather_on_use(local, stored, use, mesh):
     """The params tree a forward reads: each local shard (assignment from
     ``stored``) moved to its block under ``use`` by
     ``collectives.to_use``, differentiably; eagerly outside the ``groups``
-    dicts, one layer group at a time inside them, when the forward reads
-    it."""
-    def move(path, t):
-        with census.at(path):
-            return collectives.to_use(t, tree_at(stored, path),
-                                      tree_at(use, path), mesh)
-
-    return _gathered(local, move)
+    dicts, and inside them one layer at a time, when the layer runs
+    (``GroupOnUse``), as the reference's scan reads one layer's slice of a
+    stacked group."""
+    return _gathered(local, lambda path: (tree_at(stored, path),
+                                          tree_at(use, path), mesh))

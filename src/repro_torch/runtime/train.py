@@ -12,9 +12,10 @@ The mesh path, one process per device (``jit_train_step``): the state is a
 tree of DTensors placed by ``state_shardings`` (the rule table's
 assignments; moments as their params, int8 scales, ``count`` and ``step``
 replicated), so a rank holds the reference's share of it. A step takes the
-rank's batch shard, moves each layer group's weights on use to the blocks
-it computes with (``use_specs``: the dense layers' blocks of heads, MLP
-columns and vocabulary over the model axis, ``models/tp.py``; the expert
+rank's batch shard, moves each layer's weights on use, when the layer
+runs, to the blocks it computes with (``use_specs``: the dense layers'
+blocks of heads, MLP columns and vocabulary over the model axis,
+``models/tp.py``; the Mamba2 blocks' heads, ``models/ssm.py``; the expert
 weights their expert-parallel blocks, ``models/moe.py``; every other dim
 gathered whole), and back-propagates the rank's loss over the number of
 ranks; each weight's move is differentiable, so its gradient arrives summed
@@ -22,7 +23,6 @@ over every rank that used it and reduced to the rank's own shard (a
 reduce-scatter over the split dims, a sum over the axes that hold copies:
 the mean over the batch shards). With the vocabulary split, the loss is
 the vocab-parallel cross-entropy. AdamW then updates the shards in place.
-The SSM blocks compute whole on each rank (ROADMAP.md A14).
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from typing import Callable
 import torch
 
 from .. import census, collectives
+from ..models import ssm
 from ..models import tp as tp_mod
 from ..models.common import tree_map_specs
 from ..models.moe import LOCAL, DistContext, expert_specs
@@ -126,7 +127,7 @@ def distribute_train_state(state, model, mesh, opts: TrainOptions, rules=None):
 
 
 # the logical axes whose model-axis assignment a rank computes with
-TP_AXES = ("heads", "kv_heads", "mlp", "vocab")
+TP_AXES = ("heads", "kv_heads", "mlp", "vocab", "ssm_heads", "ssm_inner")
 
 
 def use_specs(model, dist: DistContext, rules=None):
@@ -136,13 +137,19 @@ def use_specs(model, dist: DistContext, rules=None):
     stacked ``layers`` dim); every other weight with the model-axis
     assignment of its TP_AXES dims as ``rules`` store it (tensor parallel,
     ``models/tp.py``), whole on every other dim (an FSDP dim is gathered
-    on use)."""
+    on use). A Mamba2 block computes its rank's heads where they split
+    (``models/ssm.py::split_heads``): its leaves split by heads
+    (``ssm_heads``, ``ssm_inner``) as stored, and ``in_proj``, ``conv_w``
+    and ``conv_b`` whole over model, of which the block takes the rank's
+    columns; elsewhere the whole block on every rank."""
     if dist.mesh is None:
         return unflatten(model.specs, (() for _ in leaves(model.specs)))
     ep = expert_specs(dist) if dist.ep else None
     stored = shd.tree_shardings(model.axes(), model.abstract(), dist.mesh,
                                 rules)
     ax = dist.model_axis
+    heads_split = ssm.split_heads(model.cfg,
+                                  collectives.axis_size(dist.mesh, ax))
 
     def one(path, axes):
         if ep is not None and len(path) > 1 and path[-2] == "moe" and \
@@ -150,7 +157,9 @@ def use_specs(model, dist: DistContext, rules=None):
             return (None, *ep["wd" if path[-1] == "w_down" else "w"])
         spec = shd.tree_at(stored, path)
         spec = spec + (None,) * (len(axes) - len(spec))
-        out = [ax if name in TP_AXES and ax in shd.spec_axes(entry) else None
+        split = () if path[-2:-1] == ("ssm",) and not heads_split \
+            else TP_AXES
+        out = [ax if name in split and ax in shd.spec_axes(entry) else None
                for name, entry in zip(axes, spec)]
         while out and out[-1] is None:
             out.pop()

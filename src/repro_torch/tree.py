@@ -23,3 +23,11 @@ def unflatten(like, leaves):
     if isinstance(like, dict):
         return {k: unflatten(like[k], leaves) for k in sorted(like)}
     return next(leaves)
+
+
+def with_empty(like, tree):
+    """``tree`` (nested dicts) with the empty dicts of ``like`` (a tree of
+    the same keys that has them: a block without weights) put back, keyed
+    in sorted order."""
+    return {k: with_empty(like[k], tree.get(k, {}))
+            if isinstance(like[k], dict) else tree[k] for k in sorted(like)}

@@ -1,7 +1,9 @@
 """Four gloo ranks that run the port's mesh steps for real on the CPU under
 the dry-run's census (``tests/test_torch_dryrun_mesh.py`` holds rank 0's
-census against the dry-run's trace on a fake group of the same mesh), and
-move a weight between a (data) store and a (pod, data) use.
+census against the dry-run's trace on a fake group of the same mesh), move
+a weight between a (data) store and a (pod, data) use, and take a train
+step's gradients with each layer's weights gathered when it runs and with
+each group's gathered whole first.
 
     python tests/_torch_dryrun_ranks.py OUT_DIR
 
@@ -100,6 +102,75 @@ def joint_case(rank) -> dict:
                                         cot.reshape(8, 3)[4 * d:4 * d + 4]))}
 
 
+# the per-layer gather's gradients against the whole group's, REDUCED in
+# fp32: arch -> remat policy
+LAYER_GATHER_CASES = {"deepseek-7b": "full", "deepseek-moe-16b": None,
+                      "zamba2-7b": "full", "seamless-m4t-large-v2": None}
+
+
+def _whole_group_layers(self, n):
+    """``GroupOnUse.layers`` as the port moved a group before it gathered
+    one layer at a time: every leaf moved whole by ``collectives.to_use``,
+    then cut into its layers."""
+    import torch
+    from repro_torch import collectives
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.tree import with_empty
+    moved = {}
+    for path, t in shd._leaf_paths(self._tree):
+        with shd.census.at(self._path + path):
+            moved[path] = torch.unbind(collectives.to_use(
+                t, *self._specs(self._path + path)), 0)
+
+    def layer(i):
+        out: dict = {}
+        for path, layers in moved.items():
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = layers[i]
+        return with_empty(self._tree, out)
+
+    return [lambda i=i: layer(i) for i in range(n)]
+
+
+def layer_gather_case(mesh, arch) -> dict:
+    """One mesh step's gradients with each layer gathered when it runs,
+    and with each group gathered whole first: the worst leaf's relative
+    gap, and whether every leaf is bitwise equal."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import train as train_rt
+    from repro_torch.tree import leaves
+    cfg = get_config(arch, reduced=True).replace(param_dtype="float32",
+                                                 activ_dtype="float32")
+    model = build_model(cfg)
+    opts = train_rt.TrainOptions(remat_policy=LAYER_GATHER_CASES[arch])
+    state = train_rt.distribute_train_state(
+        train_rt.init_train_state(model, torch.Generator().manual_seed(0),
+                                  opts), model, mesh, opts)
+    stored = shd.spec_tree_of(state["params"])
+    params = shd.local_tree(state["params"])
+    batch = pipeline.batch_for_step(pipeline.DataConfig(cfg.vocab_size, 16, 4),
+                                    0, cfg, device="cpu")
+    grad_fn = train_rt.build_grad_fn(model, opts, mesh)
+    per_layer, _ = grad_fn(params, batch, stored)
+    saved = shd.GroupOnUse.layers
+    shd.GroupOnUse.layers = _whole_group_layers
+    try:
+        whole, _ = grad_fn(params, batch, stored)
+    finally:
+        shd.GroupOnUse.layers = saved
+    gaps = [float((a - b).norm() / max(float(b.norm()), 1e-30))
+            for a, b in zip(leaves(per_layer), leaves(whole))]
+    return {"worst": max(gaps),
+            "bitwise": all(torch.equal(a, b) for a, b in
+                           zip(leaves(per_layer), leaves(whole)))}
+
+
 def rank_main(rank, out_dir):
     import torch
     import torch.distributed as dist
@@ -113,6 +184,8 @@ def rank_main(rank, out_dir):
         mesh = make_mesh(MESH, ("data", "model"), device_type="cpu")
         out = {name: run_case(mesh, name) for name in CASES}
         out["joint"] = joint_case(rank)
+        out["layer_gather"] = {arch: layer_gather_case(mesh, arch)
+                               for arch in LAYER_GATHER_CASES}
         dist.barrier()
         dist.destroy_process_group()
     except BaseException:

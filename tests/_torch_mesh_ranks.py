@@ -55,7 +55,10 @@ MOE_VARIANTS = {"default": {}, "fsdp_experts": {"fsdp_experts": True},
 TP_MESHES = ((1, 4), (2, 2))
 TP_CASES = ("deepseek-7b", "command-r-plus-104b", "gemma2-9b",
             "seamless-m4t-large-v2", "deepseek-moe-16b", "zamba2-7b",
-            "deepseek-7b:v258")
+            "deepseek-7b:v258", "mamba2-370m")
+# the cases with Mamba2 blocks: zamba2-7b's 8 heads read 2 groups (two
+# ranks a group at model 4, one group a rank at 2), mamba2-370m's 1
+SSM_CASES = ("zamba2-7b", "mamba2-370m")
 # a prompt past gemma2 REDUCED's 16-token window, a cache of 32 positions
 # (split 4 ways by position where model does not divide kv_heads)
 TP_BATCH, TP_PROMPT, TP_NEW = 4, 20, 12
@@ -66,7 +69,7 @@ TP_REMAT = ("deepseek-moe-16b",)
 TP_REF_TRAIN_MESH = {"deepseek-7b": (1, 4), "command-r-plus-104b": (2, 2),
                      "gemma2-9b": (1, 4), "seamless-m4t-large-v2": (2, 2),
                      "deepseek-moe-16b": (1, 4), "zamba2-7b": (2, 2),
-                     "deepseek-7b:v258": (1, 4)}
+                     "deepseek-7b:v258": (1, 4), "mamba2-370m": (1, 4)}
 # an fp32 cache: a bf16 one rounds K/V that the rank's narrower products
 # sum in another order, which moves logits by more than the sums do
 TP_KV_DTYPE = "float32"
@@ -313,18 +316,31 @@ def serve_case(rank, mesh, arch, out):
 class _Record:
     """What the forward computes with, by patching the port's modules: the
     weights ``attention._heads`` projects with, the ``w_gate`` of each
-    ``apply_ffn``, the tables of ``embed_lookup``; and the all-gathers
-    over the model axis (``collectives._AllGather``)."""
+    ``apply_ffn``, the tables of ``embed_lookup``, the (heads, groups) of
+    x and b that ``ops.ssd_scan`` and ``ops.ssd_decode_step`` receive; and
+    the all-gathers over the model axis (``collectives._AllGather``), by
+    the shape each gathers."""
 
     def __init__(self, mesh):
         from repro_torch import collectives
+        from repro_torch.kernels import ops
         from repro_torch.models import attention, moe, transformer
         self.model_pg = mesh.get_group("model")
         self.heads, self.gate, self.embed, self.model_gathers = (
             set(), set(), set(), [])
+        self.ssd, self.ssd_decode = set(), set()
         heads, gather = attention._heads, collectives._AllGather.apply
         ffn_t, ffn_m, lookup = transformer.apply_ffn, moe.apply_ffn, \
             transformer.embed_lookup
+        scan, step = ops.ssd_scan, ops.ssd_decode_step
+
+        def rec_scan(x, dt, a_log, b, *args, **kw):
+            self.ssd.add((x.shape[2], b.shape[2]))
+            return scan(x, dt, a_log, b, *args, **kw)
+
+        def rec_step(state, x_t, dt_t, a_log, b_t, *args):
+            self.ssd_decode.add((x_t.shape[1], b_t.shape[1]))
+            return step(state, x_t, dt_t, a_log, b_t, *args)
 
         def rec_heads(x, w):
             self.heads.add(tuple(w.shape))
@@ -348,8 +364,10 @@ class _Record:
         self._undo = [(attention, "_heads", heads),
                       (transformer, "apply_ffn", ffn_t),
                       (moe, "apply_ffn", ffn_m),
-                      (transformer, "embed_lookup", lookup)]
+                      (transformer, "embed_lookup", lookup),
+                      (ops, "ssd_scan", scan), (ops, "ssd_decode_step", step)]
         attention._heads = rec_heads
+        ops.ssd_scan, ops.ssd_decode_step = rec_scan, rec_step
         collectives._AllGather.apply = rec_gather
         transformer.apply_ffn, moe.apply_ffn = rec_ffn(ffn_t), rec_ffn(ffn_m)
         transformer.embed_lookup = rec_lookup
@@ -364,6 +382,11 @@ class _Record:
     def shapes(s):
         return np.asarray(sorted(s), np.int64)
 
+    @staticmethod
+    def names(shapes):
+        """Shapes of any rank as sorted strings ("8x82"; "" for none)."""
+        return np.asarray(sorted("x".join(map(str, s)) for s in shapes) or [""])
+
 
 def _cache_layout(spec) -> str:
     """Where an attention cache leaf (layers, batch, kv_seq, kv_heads, hd)
@@ -376,10 +399,21 @@ def _cache_layout(spec) -> str:
     return "whole"
 
 
+def _conv_shards(cache, out, key):
+    """Each conv cache leaf's local block (a rank's channels), under
+    ``key``/<leaf path>."""
+    from repro_torch.runtime import sharding as shd
+    for path, leaf in _spec_leaves(shd.local_tree(cache)):
+        if path[-1] == "conv":
+            out["/".join((key, *path))] = _np(leaf)
+
+
 def tp_serve_case(rank, meshes, inputs, case, out):
     """Prefill and TP_NEW - 1 greedy decode steps on each mesh (and locally
     on rank 0): tokens and each step's logits; on each mesh what the
-    prefill computes with and the cache's placements."""
+    prefill and the decode steps compute with, the cache's placements and,
+    with Mamba2 blocks, the rank's conv cache blocks after the prefill and
+    after each decode step."""
     import torch
     from repro_torch.models.model_zoo import build_model
     from repro_torch.runtime import serve
@@ -421,8 +455,9 @@ def tp_serve_case(rank, meshes, inputs, case, out):
             finally:
                 if rec is not None:
                     rec.close()
+            ssm_case = case in SSM_CASES and mesh is not None
             if mesh is not None:
-                for what in ("heads", "gate", "embed"):
+                for what in ("heads", "gate", "embed", "ssd"):
                     out[f"{key}/computes_with/{what}"] = rec.shapes(
                         getattr(rec, what))
                 want = serve.cache_shardings(model, cache_abs, mesh)
@@ -434,12 +469,28 @@ def tp_serve_case(rank, meshes, inputs, case, out):
                 out[f"{key}/cache_layouts"] = np.asarray(
                     sorted({f"{path[-1]}:{_cache_layout(spec)}"
                             for path, spec in attn}))
+                states = [(path, spec) for path, spec in _spec_leaves(got)
+                          if path[-1] == "ssm"]
+                out[f"{key}/ssm_cache_as_cache_shardings"] = np.asarray(
+                    bool(states) and all(spec == shd.tree_at(want, path)
+                                         for path, spec in states))
+            if ssm_case:
+                _conv_shards(cache, out, f"{key}/conv/0")
             tok = torch.argmax(last, -1)[:, None]
             toks, logits = [tok], [last]
-            for idx in range(P, P + TP_NEW - 1):
-                tok, last, cache = dec(p, cache, tok, idx)
-                toks.append(tok)
-                logits.append(last)
+            rec = _Record(mesh) if mesh is not None else None
+            try:
+                for i, idx in enumerate(range(P, P + TP_NEW - 1)):
+                    tok, last, cache = dec(p, cache, tok, idx)
+                    toks.append(tok)
+                    logits.append(last)
+                    if ssm_case:
+                        _conv_shards(cache, out, f"{key}/conv/{i + 1}")
+            finally:
+                if rec is not None:
+                    rec.close()
+            if rec is not None:
+                out[f"{key}/computes_with/ssd_decode"] = rec.shapes(rec.ssd_decode)
             out[f"{key}/tokens"] = torch.cat(toks, 1).numpy()
             out[f"{key}/logits"] = _np(torch.stack(logits))
 
@@ -495,14 +546,20 @@ def tp_train_case(rank, meshes, inputs, case, out):
                 out["/".join((key, "grads", *path))] = _np(full)
         del grads
         # the leaves a rank gathers over model on use: stored split there,
-        # used whole
+        # used whole; each gathered one layer at a time, a layer's local
+        # shard (the model axis' gather comes first)
         use = train.use_specs(model, train.make_dist(mesh, opts))
         gathered = [
-            "/".join(path) for path, spec in _spec_leaves(stored)
+            path for path, spec in _spec_leaves(stored)
             if "model" in {a for e in spec for a in shd.spec_axes(e)} and
             "model" not in {a for e in shd.tree_at(use, path)
                             for a in shd.spec_axes(e)}]
-        out[f"{key}/gathered_over_model"] = np.asarray(sorted(gathered) or [""])
+        out[f"{key}/gathered_over_model"] = np.asarray(
+            sorted("/".join(path) for path in gathered) or [""])
+        local = shd.local_tree(mstate["params"])
+        out[f"{key}/layer_shards_gathered"] = _Record.names(
+            shd.tree_at(local, path).shape[1:] for path in gathered
+            for _ in range(shd.tree_at(local, path).shape[0]))
         step = train.jit_train_step(model, opts, mesh, b_abs)
         for i, b in enumerate(batches):
             rec = _Record(mesh) if i == 0 else None
@@ -512,7 +569,8 @@ def tp_train_case(rank, meshes, inputs, case, out):
                 if rec is not None:
                     rec.close()
             if rec is not None:
-                out[f"{key}/model_gathers"] = np.asarray(len(rec.model_gathers))
+                out[f"{key}/model_gathers"] = _Record.names(rec.model_gathers)
+                out[f"{key}/computes_with/ssd"] = rec.shapes(rec.ssd)
                 full = shd.gather_full(mstate["params"])
                 if rank == 0:
                     _flat(full, f"{key}/params_step1", out)

@@ -18,7 +18,7 @@ from the same INPUTS (``make_inputs``).
 - tensor parallelism (``tests/test_torch_tp.py``): for each of
   ``_torch_mesh_ranks.TP_CASES`` on the (1, 4) and (2, 2) meshes, the
   reference's ``jit_prefill_step`` and greedy ``jit_decode_step`` steps
-  (tokens and logits), and two ``jit_train_step`` steps (loss, grad norm,
+  (tokens and logits; the cache's conv leaves after each), and two ``jit_train_step`` steps (loss, grad norm,
   the params after step 1) on the case's ``TP_REF_TRAIN_MESH``, from the
   weights, prompts and frames INPUTS holds.
 
@@ -214,16 +214,26 @@ def tp_serve(mesh, name, inputs, case, out):
                                    kv_dtype=jnp.dtype(ranks.TP_KV_DTYPE))
     cache = jax.device_put(cache, serve.cache_shardings(
         model, jax.eval_shape(lambda: cache), mesh))
+    key = f"tp/{case}/serve/{name}"
     last, cache = prefill(params, {"tokens": prompts, **extras}, cache)
+    conv_leaves(cache, out, f"{key}/conv/0")
     tok = jnp.argmax(last, -1).astype(jnp.int32)[:, None]
     toks, logits = [tok], [last]
-    for idx in range(P, P + ranks.TP_NEW - 1):
+    for i, idx in enumerate(range(P, P + ranks.TP_NEW - 1)):
         tok, last, cache = decode(params, cache, tok, jnp.int32(idx))
         toks.append(tok)
         logits.append(last)
-    key = f"tp/{case}/serve/{name}"
+        conv_leaves(cache, out, f"{key}/conv/{i + 1}")
     out[f"{key}/tokens"] = np.asarray(jnp.concatenate(toks, 1))
     out[f"{key}/logits"] = np.asarray(jnp.stack(logits), np.float32)
+
+
+def conv_leaves(cache, out, prefix):
+    """The cache's conv leaves (the Mamba2 blocks' windows), whole."""
+    for path, leaf in jax.tree_util.tree_flatten_with_path(cache)[0]:
+        if path[-1].key == "conv":
+            key = "/".join([prefix, *(p.key for p in path)])
+            out[key] = np.asarray(jnp.asarray(leaf, jnp.float32))
 
 
 def tp_train(mesh, name, inputs, case, out):

@@ -7,8 +7,10 @@
 (``torchrun --nproc-per-node 4 ...`` is the same launcher.) Imports torch,
 the port and ``chip_smoke.py``'s checking helpers; no JAX.
 
-(a) ``equality``: command-r-plus-104b at 4 of 64 layers and deepseek-moe-16b
-at 8 of 28, full width, bf16, on the (data 1, model 4) and (2, 2) meshes,
+(a) ``equality``: command-r-plus-104b at 4 of 64 layers, deepseek-moe-16b
+at 8 of 28 and zamba2-7b at 12 of 81 (two shared attention blocks; its
+Mamba2 blocks split by heads over model), full width, bf16, on the (data 1,
+model 4) and (2, 2) meshes,
 against the one-card local path on the same weights (every rank draws them
 from one seed and runs the local path on its own card). Serving: a
 4 x 2048 prefill and 8 decode steps fed the local run's greedy tokens; the
@@ -16,16 +18,18 @@ mesh run's tokens must equal the local ones and its logits stay within
 ``chip_smoke.FLOOR_MULT`` x the noise floor of the same run (the largest
 difference from the local logits of runs that differ from it only in
 rounding: the attention by the naive fp32 oracle with the grouped matmul
-summed in two halves of d, and the attention with P rounded to bf16). The
+summed in two halves of d, and the attention with P rounded to bf16; the
+products tensor parallelism splits by rows as four partial sums). The
 step-1 loss and every leaf's gradient (B = 2 x 1024, remat full) the same
 way. The MoE's routing is the local run's, replayed (each rank its rows),
 as chip_smoke's phases hold it: tensor parallelism sums in another order,
 and a router near-tie may flip an expert.
 
 (b) ``full``, for the record, on (1, 4): serving command-r-plus-104b at 64 of
-64 layers and llama-3.2-vision-90b at 100 of 100 (4 x 2048-token prompts,
-48 new tokens; prefill ms, decode ms a token); training gemma2-9b (42
-layers), stablelm-12b (40) and deepseek-moe-16b (28) at B = 2 x 2048, remat
+64 layers, llama-3.2-vision-90b at 100 of 100 and zamba2-7b at 81 + 13
+(4 x 2048-token prompts, 48 new tokens; prefill ms, decode ms a token);
+training gemma2-9b (42 layers), stablelm-12b (40), deepseek-moe-16b (28)
+and zamba2-7b (81 + 13) at B = 2 x 2048, remat
 full, bf16 moments (step s). Each with every rank's peak memory and the
 share of the device time in NCCL kernels (torch.profiler over one prefill
 or one step). No card holds these models whole to shard them, so each rank
@@ -59,17 +63,19 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-EQ_PATHS = (("command-r-plus-104b", 4), ("deepseek-moe-16b", 8))
+EQ_PATHS = (("command-r-plus-104b", 4), ("deepseek-moe-16b", 8),
+            ("zamba2-7b", 12))
 EQ_MESHES = ((1, 4), (2, 2))
 EQ_BATCH, EQ_PROMPT, EQ_DECODE = 4, 2048, 8
 EQ_TRAIN_BATCH, EQ_TRAIN_SEQ = 2, 1024
-FULL_SERVE = ("command-r-plus-104b", "llama-3.2-vision-90b")
-FULL_TRAIN = ("gemma2-9b", "stablelm-12b", "deepseek-moe-16b")
+FULL_SERVE = ("command-r-plus-104b", "llama-3.2-vision-90b", "zamba2-7b")
+FULL_TRAIN = ("gemma2-9b", "stablelm-12b", "deepseek-moe-16b", "zamba2-7b")
 FULL_MESH = (1, 4)
 FULL_BATCH, FULL_PROMPT, FULL_NEW = 4, 2048, 48
 FULL_TRAIN_BATCH, FULL_TRAIN_SEQ, FULL_TRAIN_STEPS = 2, 2048, 3
 PEAK_LIMIT = 80e9
-KERNELS = ("flash_attention", "flash_attention_bwd", "moe_gmm")
+KERNELS = ("flash_attention", "flash_attention_bwd", "moe_gmm", "ssd_scan",
+           "ssd_scan_bwd")
 
 
 class Dev:
@@ -232,7 +238,8 @@ def _variants():
     grouped matmul summed in two halves of d; the attention with P rounded
     to bf16), and the products that tensor parallelism splits by rows
     summed as four partial products, each rounded to the activation dtype
-    (the rounding a psum of bf16 partial sums adds, on one card)."""
+    (the rounding a psum of bf16 partial sums adds, on one card), the
+    Mamba2 blocks' ``out_proj`` too."""
     import chip_smoke as cs
     return [("naive_split_d", lambda: _ops(cs.naive_attention, cs.split_d_gmm)),
             ("p_bf16", lambda: _ops(cs.p_bf16_attention, cs.plain_gmm)),
@@ -249,10 +256,13 @@ def _ops(attention=None, gmm=None):
 
 @contextlib.contextmanager
 def _row_partials(m: int):
-    """Attention's ``wo`` and the MLP's ``w_down`` products (the shared
-    experts' too) as ``m`` partial products over blocks of the contracted
-    dim, each in the activation dtype, summed in order."""
-    from repro_torch.models import attention, ffn, moe, transformer
+    """Attention's ``wo``, the MLP's ``w_down`` (the shared experts' too)
+    and the Mamba2 blocks' ``out_proj`` products as ``m`` partial products
+    over blocks of the contracted dim, each in the activation dtype, summed
+    in order."""
+    import torch.nn.functional as F
+    from repro_torch.models import attention, ffn, moe, ssm, transformer
+    from repro_torch.models.common import rms_norm
 
     def mm(x, w):
         k = w.shape[0] // m
@@ -273,9 +283,14 @@ def _row_partials(m: int):
         out = mm(ffn._act(cfg.mlp_act)(g) * u, p["w_down"])
         return out + p["b_down"] if cfg.use_bias else out
 
+    def gated_out(p, y, z, tp, d_inner):
+        g = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"])
+        return mm(g, p["out_proj"])
+
     with mock.patch.object(attention, "_out", out_proj), \
             mock.patch.object(transformer, "apply_ffn", mlp), \
-            mock.patch.object(moe, "apply_ffn", mlp):
+            mock.patch.object(moe, "apply_ffn", mlp), \
+            mock.patch.object(ssm, "_gated_out", gated_out):
         yield
 
 
@@ -381,7 +396,8 @@ def eq_serve(out, arch, layers, meshes):
                   "floor_abs": floor_abs, "floor_rel": floor_rel,
                   "floor_runs": floors, "floor_mult": cs.FLOOR_MULT,
                   "mesh_run_s": s,
-                  "launches": {k: launches[k] for k in ("flash_attention", "gmm")},
+                  "launches": {k: launches[k] for k in
+                               ("flash_attention", "gmm", "ssd_scan")},
                   "ok": ok})
         if not ok:
             raise AssertionError(f"{arch} serve on {shape}: not within the floor")
@@ -503,7 +519,7 @@ def eq_train(out, arch, layers, meshes):
                   "floor_mult": cs.FLOOR_MULT, "grad_s": s,
                   "launches": {k: launches[k] for k in
                                ("flash_attention", "flash_attention_bwd", "gmm",
-                                "gmm_bwd")},
+                                "gmm_bwd", "ssd_scan", "ssd_scan_bwd")},
                   "ok": ok})
         if not ok:
             raise AssertionError(f"{arch} train on {shape}: not within the floor")
@@ -525,7 +541,7 @@ def draw_block_params(model, mesh, rules, seed: int = 0):
     from torch.distributed.tensor import DTensor
     from repro_torch.models.common import _fan_in, dtype_of
     from repro_torch.runtime import sharding as shd
-    from repro_torch.tree import leaves_with_path
+    from repro_torch.tree import leaves_with_path, with_empty
 
     specs = shd.tree_shardings(model.axes(), model.abstract(), mesh, rules)
     sizes = shd.mesh_sizes(mesh)
@@ -562,7 +578,7 @@ def draw_block_params(model, mesh, rules, seed: int = 0):
             node = node.setdefault(k, {})
         node[path[-1]] = DTensor.from_local(t, mesh, shd.placements(spec, mesh),
                                             run_check=False)
-    return out
+    return with_empty(model.specs, out)
 
 
 def _scale_experts(model, params):

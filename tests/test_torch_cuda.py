@@ -646,10 +646,10 @@ def test_gmm_kernel_rejects_fp16(cuda):
 @pytest.mark.cuda
 def test_tensor_parallel_on_four_cards(tmp_path):
     """``tests/_torch_tp_card.py``'s equality part under the torch launcher
-    on four cards (NCCL): command-r-plus-104b (4 layers) and
-    deepseek-moe-16b (8 layers) at full width on the (1, 4) and (2, 2)
-    meshes, serving tokens equal to one card's and logits, step-1 loss and
-    gradients within the run's noise floor times FLOOR_MULT."""
+    on four cards (NCCL): command-r-plus-104b (4 layers), deepseek-moe-16b
+    (8 layers) and zamba2-7b (12 layers) at full width on the (1, 4) and
+    (2, 2) meshes, serving tokens equal to one card's and logits, step-1
+    loss and gradients within the run's noise floor times FLOOR_MULT."""
     if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
         pytest.skip("needs four CUDA cards")
     out = tmp_path / "tp_card.json"
@@ -661,4 +661,4 @@ def test_tensor_parallel_on_four_cards(tmp_path):
     assert proc.returncode == 0, (proc.stdout[-4000:], proc.stderr[-4000:])
     lines = [line for line in json.loads(out.read_text())
              if line.get("part") == "equality"]
-    assert len(lines) == 8 and all(line["ok"] for line in lines), lines
+    assert len(lines) == 12 and all(line["ok"] for line in lines), lines

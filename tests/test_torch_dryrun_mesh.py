@@ -2,9 +2,12 @@
 subprocess, so that no pytest worker keeps their fake group; the dry-run's
 census on a fake (2, 2) group against a real run of the same steps on four
 gloo ranks (``tests/_torch_dryrun_ranks.py``); a weight moved from a (data)
-store to a (pod, data) use on those ranks; and the serving rules' decode,
-which moves no weight."""
+store to a (pod, data) use on those ranks; a train step's gradients with
+each layer gathered when it runs against each group gathered whole, on
+those ranks; no weight move at a stacked group's site carrying more than
+one layer; and the serving rules' decode, which moves no weight."""
 import json
+import math
 import os
 import subprocess
 import sys
@@ -122,6 +125,66 @@ def test_a_pod_data_use_block_moves_on_gloo(gloo_ranks):
     its stored shard's gradient, as numpy has them."""
     assert [r["joint"] for r in gloo_ranks] == [
         {"block_ok": True, "grad_ok": True}] * 4
+
+
+@pytest.mark.parametrize("arch", list(rank_side.LAYER_GATHER_CASES))
+def test_per_layer_gather_gives_the_whole_group_gathers_gradients(
+        gloo_ranks, arch):
+    """On four gloo ranks of a (2, 2) mesh, a train step's gradients with
+    each layer's weights moved to their use blocks when it runs equal
+    those with each stacked group moved whole first (the port's move
+    before it went per layer), on every rank, bitwise: the same sums in
+    the same order."""
+    for rank in gloo_ranks:
+        got = rank["layer_gather"][arch]
+        assert got == {"worst": 0.0, "bitwise": True}, got
+
+
+_LAYER_CELLS = [("zamba2-7b", "decode_32k"), ("mamba2-370m", "train_4k")]
+_LAYERS = """
+import json
+from repro_torch.configs.base import SHAPE_CELLS
+from repro_torch.configs.registry import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import production_mesh_shape
+out = {{}}
+for arch, shape in {cells!r}:
+    trace = dryrun.lower_cell(get_config(arch), SHAPE_CELLS[shape],
+                              production_mesh_shape(multi_pod=False))
+    out[arch + "/" + shape] = trace.census.collectives
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def layer_cells():
+    proc = subprocess.run(
+        [sys.executable, "-c", _LAYERS.format(cells=_LAYER_CELLS)],
+        capture_output=True, text=True, timeout=RUN_TIMEOUT_S, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("arch,shape", _LAYER_CELLS)
+def test_no_weight_move_at_a_group_site_carries_more_than_a_layer(
+        layer_cells, arch, shape):
+    """On the fake 16 x 16 group, every all-gather, reduce-scatter or
+    all-to-all issued at a stacked weight's site (``groups/...``) moves
+    one layer's block: its shape drops the ``layers`` dim, and it holds
+    no more than one layer's elements. zamba2-7b's decode gathers each
+    Mamba2 block's in_proj and conv weights a layer at a time (13 and 81
+    layers before, [3584, 13, 14704] at once)."""
+    specs = dict((("/".join(p), s) for p, s in
+                  leaves_with_path(build_model(get_config(arch)).specs)))
+    moves = [c for c in layer_cells[f"{arch}/{shape}"]
+             if c["site"].startswith("groups/") and c["site"] in specs
+             and c["op"] in ("all-gather", "reduce-scatter", "all-to-all")]
+    assert moves
+    for c in moves:
+        layer = specs[c["site"]].shape[1:]
+        assert len(c["shape"]) == len(layer), c
+        assert math.prod(c["shape"]) <= math.prod(layer), c
 
 
 def _weight_gathers(trace, cfg) -> list:

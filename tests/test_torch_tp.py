@@ -7,20 +7,25 @@ as the reference's run on four host devices: deepseek-7b, command-r-plus-104b
 (kv_heads 2: its cache sequence-parallel at model 4, head-parallel at 2),
 gemma2-9b (softcaps, sliding window, tied vocabulary; sequence-parallel at
 4), seamless-m4t-large-v2 (encoder, cross cache), deepseek-moe-16b (shared
-experts beside the expert-parallel ones, remat) and zamba2-7b (shared
-attention, its SSM blocks gathered whole), and deepseek-7b with a 258-word
-vocabulary (replicated at model 4). Held: the serve steps' tokens equal the
-local path's and the reference's ``jit_prefill_step`` / ``jit_decode_step``
-on the same mesh, their logits within a relative 1e-5 of the local path's
-and within TOL of the reference's; the train step's gradients, loss, grad
-norm and step-1 params within 1e-5 of the local step's (and within
-GRAD_TOL of the reference's ``jit_train_step``); the blocks a rank computes
-with; no dense weight gathered over model; the attention cache on
-``cache_shardings``.
+experts beside the expert-parallel ones, remat), zamba2-7b (shared
+attention; Mamba2 blocks of 8 heads over 2 groups, split by heads) and
+mamba2-370m (Mamba2 blocks alone, 8 heads over 1 group), and deepseek-7b
+with a 258-word vocabulary (replicated at model 4). Held: the serve steps'
+tokens equal the local path's and the reference's ``jit_prefill_step`` /
+``jit_decode_step`` on the same mesh, their logits within a relative 1e-5
+of the local path's and within TOL of the reference's; the train step's
+gradients, loss, grad norm and step-1 params within 1e-5 of the local
+step's (and within GRAD_TOL of the reference's ``jit_train_step``); the
+blocks a rank computes with (the SSD calls on the rank's heads and
+groups); no dense weight gathered over model, and the Mamba2 blocks'
+in_proj and conv weights one layer at a time; the attention and SSM state
+caches on ``cache_shardings``, the conv windows reassembling to the
+reference's after the prefill and every decode step.
 
 On one process: the sequence-split decode attention over four simulated
 ranks (threads) against ``decode_attention``; the vocab-parallel
 cross-entropy and embedding lookup against the whole-vocabulary ones; a
+Mamba2 block split over four simulated ranks against the whole block; a
 one-rank group's steps bitwise the local ones.
 """
 import datetime
@@ -35,7 +40,9 @@ torch = pytest.importorskip("torch")
 import _torch_mesh_ranks as rank_side  # noqa: E402
 from _torch_mesh_runs import RANKS, mesh_runs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import tp as tp_mod  # noqa: E402
+from repro_torch.runtime import serve as serve_rt  # noqa: E402
 from repro_torch.runtime import train as train_rt  # noqa: E402
 
 # serving, fp32 with an fp32 cache: logits against the local path's
@@ -54,6 +61,8 @@ TRAIN_RTOL = 1e-5
 GRAD_TOL = 1e-4
 CASES = [(case, rank_side.tp_mesh_name(m)) for case in rank_side.TP_CASES
          for m in rank_side.TP_MESHES]
+SSM_CASES = [(case, mesh) for case, mesh in CASES
+             if case in rank_side.SSM_CASES]
 
 
 @pytest.fixture(scope="module")
@@ -147,15 +156,19 @@ def test_tp_ranks_compute_with_their_blocks(runs, case, mesh):
     model 4: whole)."""
     cfg = rank_side.tp_config(case)
     m = _model_size(mesh)
-    d, H, hd, V = cfg.d_model, cfg.n_heads, cfg.head_dim_, cfg.vocab_size
+    d, H, V = cfg.d_model, cfg.n_heads, cfg.vocab_size
     for r in RANKS:
         out = runs["ranks"][r]
         key = f"tp/{case}/serve/{mesh}/computes_with"
         heads = {tuple(s) for s in out[f"{key}/heads"]}
-        assert (d, H // m, hd) in heads and (d, H, hd) not in heads, heads
         gate = {tuple(s) for s in out[f"{key}/gate"]}
-        assert gate and all(s[0] == d and s[1] * m in _mlp_widths(cfg)
-                            for s in gate), gate
+        if H:      # mamba2-370m has no attention and no MLP
+            hd = cfg.head_dim_
+            assert (d, H // m, hd) in heads and (d, H, hd) not in heads, heads
+            assert gate and all(s[0] == d and s[1] * m in _mlp_widths(cfg)
+                                for s in gate), gate
+        else:
+            assert not heads and not gate, (heads, gate)
         embed = {tuple(s) for s in out[f"{key}/embed"]}
         assert embed == {(V // m, d) if V % m == 0 else (V, d)}, embed
 
@@ -163,15 +176,28 @@ def test_tp_ranks_compute_with_their_blocks(runs, case, mesh):
 @pytest.mark.parametrize("case,mesh", CASES)
 def test_tp_no_dense_weight_is_gathered_over_model(runs, case, mesh):
     """A mesh train step gathers over model only the weights the use specs
-    take whole there: the SSM blocks' (zamba2-7b), none of the attention,
-    MLP or vocabulary weights; and it makes exactly that many model-axis
-    all-gathers."""
+    take whole there: each Mamba2 block's ``in_proj``, ``conv_w`` and
+    ``conv_b`` (whose rank's columns the block cuts), none of the
+    attention, MLP or vocabulary weights, nor the Mamba2 leaves split
+    along heads; and its model-axis all-gathers are exactly those leaves'
+    layers, one layer's local shard each."""
     out = runs["ranks"][0]
     key = f"tp/{case}/train/{mesh}"
     gathered = [g for g in out[f"{key}/gathered_over_model"] if g]
-    assert all("/ssm/" in g for g in gathered), gathered
-    assert bool(gathered) == case.startswith("zamba2")
-    assert int(out[f"{key}/model_gathers"]) == len(gathered)
+    cfg = rank_side.tp_config(case)
+    blocks = [path for path, spec in _leaf_specs(cfg)
+              if path[-2:] == ("ssm", "dt_bias")]
+    assert gathered == sorted("/".join((*b[:-1], leaf)) for b in blocks
+                              for leaf in ("conv_b", "conv_w", "in_proj"))
+    assert bool(gathered) == (case in rank_side.SSM_CASES)
+    assert list(out[f"{key}/model_gathers"]) == \
+        list(out[f"{key}/layer_shards_gathered"])
+
+
+def _leaf_specs(cfg):
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.tree import leaves_with_path
+    return list(leaves_with_path(build_model(cfg).specs))
 
 
 @pytest.mark.parametrize("case,mesh", CASES)
@@ -187,7 +213,56 @@ def test_tp_attention_cache_is_on_cache_shardings(runs, case, mesh):
         out = runs["ranks"][r]
         assert bool(out[f"{key}/attention_cache_as_cache_shardings"])
         layouts = {str(x).split(":")[1] for x in out[f"{key}/cache_layouts"]}
-        assert layouts == {want}, layouts
+        assert layouts == ({want} if cfg.n_kv_heads else set()), layouts
+
+
+@pytest.mark.parametrize("case,mesh", SSM_CASES)
+def test_tp_ssd_calls_receive_the_ranks_heads_and_groups(runs, case, mesh):
+    """Every ``ops.ssd_scan`` of the prefill and the train step, and every
+    ``ops.ssd_decode_step``, receives H/m heads and the groups they read:
+    no rank computes a Mamba2 block over the whole d_inner."""
+    cfg = rank_side.tp_config(case)
+    m = _model_size(mesh)
+    nh = ssm.ssm_dims(cfg)[2]
+    hg = nh // cfg.ssm.n_groups
+    want = [[nh // m, max(nh // m // hg, 1)]]
+    for r in RANKS:
+        out = runs["ranks"][r]
+        for key in (f"tp/{case}/serve/{mesh}/computes_with/ssd",
+                    f"tp/{case}/serve/{mesh}/computes_with/ssd_decode",
+                    f"tp/{case}/train/{mesh}/computes_with/ssd"):
+            assert out[key].tolist() == want, (key, out[key])
+
+
+@pytest.mark.parametrize("case,mesh", SSM_CASES)
+def test_tp_ssm_state_cache_is_on_cache_shardings(runs, case, mesh):
+    """The ``ssm`` leaves (the Mamba2 states) are placed as the reference's
+    ``cache_shardings`` says: heads over model, contiguous."""
+    for r in RANKS:
+        out = runs["ranks"][r]
+        assert bool(out[f"tp/{case}/serve/{mesh}/ssm_cache_as_cache_shardings"])
+
+
+@pytest.mark.parametrize("case,mesh", SSM_CASES)
+def test_tp_conv_cache_reassembles_to_the_references(runs, case, mesh):
+    """The conv windows, each rank holding its channels (x of its heads, B
+    and C of its groups): reassembled over model (``serve.conv_full``) and
+    over the batch rows, equal to the reference's leaf within TOL after the
+    prefill and after each decode step."""
+    from repro_torch.models.model_zoo import build_model
+    model = build_model(rank_side.tp_config(case))
+    data, m = (int(x) for x in mesh.split("x"))
+    ref = runs["ref"]
+    prefix = f"tp/{case}/serve/{mesh}/conv/"
+    keys = [k for k in ref.files if k.startswith(prefix)]
+    assert len(keys) == rank_side.TP_NEW * len({k.split("/", 6)[6] for k in keys})
+    for k in keys:
+        rows = [serve_rt.conv_full(model, [
+            torch.from_numpy(runs["ranks"][d * m + j][k]) for j in range(m)])
+            for d in range(data)]
+        got = torch.cat(rows, dim=1).numpy()
+        assert got.shape == ref[k].shape, (k, got.shape)
+        np.testing.assert_allclose(got, ref[k], atol=TOL, rtol=TOL, err_msg=k)
 
 
 def test_tp_cases_cover_both_cache_layouts_and_the_vocab_fallback(runs):
@@ -243,6 +318,10 @@ class _SimTP:
 
     def pmax(self, x):
         return self.ranks.reduce(self.rank, x, lambda s: s.amax(0))
+
+    def at(self, leaf=""):
+        import contextlib
+        return contextlib.nullcontext()
 
 
 DECODE_CASES = [(dt, window, cap) for dt in ("float32", "bfloat16")
@@ -309,6 +388,71 @@ def test_vocab_parallel_cross_entropy_and_lookup_match_the_whole():
     for rows, ce in ranks.run(one):
         assert torch.equal(rows, want_rows)
         torch.testing.assert_close(ce, want_ce, rtol=1e-6, atol=0)
+
+
+SSM_SPLITS = [("zamba2-7b", 4), ("zamba2-7b", 2), ("mamba2-370m", 4)]
+
+
+@pytest.mark.parametrize("arch,n", SSM_SPLITS)
+def test_mamba2_block_split_over_ranks_matches_the_whole(arch, n):
+    """One REDUCED fp32 Mamba2 block split over ``n`` simulated ranks
+    (threads; zamba2-7b: two ranks a group at 4, a group a rank at 2): each
+    rank with the whole ``in_proj``, ``conv_w`` and ``conv_b`` and its
+    heads' share of the rest, the prefill's state handed to two decode
+    steps. Every rank's output equals the whole block's within fp32
+    rounding, its SSM state the whole state's heads and its conv window the
+    whole window's ``conv_channels`` (its narrower products round apart); the ranks' z, x and dt columns
+    partition the heads' and their B and C columns cover every group."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.common import init_params
+    cfg = get_config(arch, reduced=True).replace(param_dtype="float32",
+                                                 activ_dtype="float32")
+    g = torch.Generator().manual_seed(7)
+    p = init_params(ssm.ssm_specs(cfg), g, torch.float32)
+    p = {k: v + 0.1 * torch.randn(v.shape, generator=g) for k, v in p.items()}
+    B, L, d = 2, 20, cfg.d_model
+    x = torch.randn(B, L + 2, d, generator=g)
+    _, di, nh, conv_dim = ssm.ssm_dims(cfg)
+
+    def run(params, state, tp):
+        outs = [ssm.apply_ssm(params, x[:, :L], cfg=cfg, state=state, tp=tp)[0]]
+        for i in range(2):
+            outs.append(ssm.apply_ssm_decode(params, x[:, L + i:L + i + 1],
+                                             state, cfg=cfg, tp=tp)[0])
+        return outs, state
+
+    whole_state = {k: v[0] for k, v in ssm.init_ssm_state(cfg, B, 1,
+                                                          device="cpu").items()}
+    want, whole_state = run(p, whole_state, tp_mod.TP())
+    ranks = _Ranks(n)
+    parts = [ssm.rank_part(cfg, n, r) for r in range(n)]
+
+    def one(r):
+        heads = slice(parts[r].h0, parts[r].h0 + parts[r].nh)
+        rows = slice(heads.start * cfg.ssm.head_dim, heads.stop * cfg.ssm.head_dim)
+        mine = dict(p, dt_bias=p["dt_bias"][heads], a_log=p["a_log"][heads],
+                    d_skip=p["d_skip"][heads], norm=p["norm"][rows],
+                    out_proj=p["out_proj"][rows])
+        width = sum(hi - lo for lo, hi in ssm.conv_channels(cfg, parts[r]))
+        state = {"conv": torch.zeros(B, cfg.ssm.conv_width - 1, width),
+                 "ssm": torch.zeros(B, parts[r].nh, cfg.ssm.head_dim,
+                                    cfg.ssm.d_state)}
+        return run(mine, state, _SimTP(ranks, r))
+
+    covered = set()
+    for r, (got, state) in enumerate(ranks.run(one)):
+        for o, w in zip(got, want):
+            torch.testing.assert_close(o, w, rtol=1e-5, atol=1e-5)
+        part = parts[r]
+        torch.testing.assert_close(
+            state["ssm"], whole_state["ssm"][:, part.h0:part.h0 + part.nh],
+            rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(state["conv"], ssm.take(
+            whole_state["conv"], ssm.conv_channels(cfg, part)),
+            rtol=1e-5, atol=1e-6)
+        for lo, hi in ssm.in_proj_columns(cfg, part):
+            covered |= set(range(lo, hi))
+    assert covered == set(range(2 * di + conv_dim - di + nh))
 
 
 def test_one_rank_group_steps_are_the_local_steps_bitwise(tmp_path):
