@@ -172,15 +172,16 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
 5. trace:   torch.profiler over one prefill and a few decode steps of each
             of those paths: device busy time, idle share and the kernels that
             take the most time.
-   mesh:    the mesh path on a one-rank NCCL group (an in-memory store) and
-            a (1, 1) DeviceMesh named (data, model): ``compressed_psum``
-            bitwise against compress then decompress; deepseek-moe-16b's
-            train path (8 of 28 layers, as phase train) through
-            ``jit_train_step`` for 3 steps, its state DTensors placed as
-            ``state_shardings`` says, each step's loss and grad norm and the
-            updated params bitwise equal to the local ``build_train_step``
-            from the same init and batches (the local path first shown to
-            repeat itself bitwise); the gmm kernel at the per-rank shapes
+   mesh:    the mesh path on a one-rank NCCL group (an in-memory store), a
+            (1, 1) DeviceMesh named (data, model) and a (1, 1, 1) one named
+            (pod, data, model), whose batch axes are (pod, data):
+            ``compressed_psum`` bitwise against compress then decompress;
+            deepseek-moe-16b's train path (8 of 28 layers, as phase train)
+            through ``jit_train_step`` for 3 steps on each mesh, its state
+            DTensors placed as ``state_shardings`` says, each step's loss
+            and grad norm and the updated params bitwise equal to the local
+            ``build_train_step`` from the same init and batches (the local
+            path first shown to repeat itself bitwise); the gmm kernel at the per-rank shapes
             of expert parallelism (deepseek-moe-16b's prefill on (data 2,
             model 2) and (data 1, model 8) meshes), ``wgmma`` required,
             within phase gmm's model-shape limits, timed beside
@@ -211,6 +212,14 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             MIN_COST and baseline plans, the flash launches of each run, and
             per-task times; every attention call of a run through the plain
             attention replayed through the kernel, as in phase 4.
+   examples: the model examples of ``examples/torch/`` run in this process
+            with their users' argv and defaults, on the card
+            (``video_understanding.py --real``, full width;
+            ``serve_workflow.py``, ``train_lm.py`` and
+            ``fault_tolerance_demo.py`` on reduced configs with heads of 64,
+            ``repro_torch.launch.card``): each one's asserts pass, its
+            seconds on a line of its own, the flash kernel launched (its
+            backward too where it trains), and the four within EXAMPLES_S.
 
    dryrun:  the dry-run (``repro_torch.launch.dryrun``) of deepseek-7b's
             train step (B=2 x 2048, remat full, bf16 moments, the local
@@ -487,6 +496,13 @@ REPLAY_CALLS = ("seamless-m4t-large-v2", "gemma2-9b", "stablelm-12b",
 
 VIDEO_SCENES, VIDEO_FPS = 4, 10   # Media.synthesize's defaults, as the reference's
 VIDEO_QUESTION = "what objects appear?"
+# the model examples of examples/torch/, run on the card at their defaults:
+# script -> (argv, whether it trains)
+EXAMPLES = {"video_understanding.py": (["--real"], False),
+            "serve_workflow.py": ([], False),
+            "train_lm.py": ([], True),
+            "fault_tolerance_demo.py": ([], True)}
+EXAMPLES_S = 45.0          # the phase's limit, all four together
 
 
 def emit(obj) -> None:
@@ -3067,19 +3083,21 @@ def _flat(tree):
 def phase_train_restart():
     """The restart loop on the card at a REDUCED size (a checkpoint's
     bytes measure the disk, not the port): deepseek-7b REDUCED with one
-    head of 64 (the kernels' smallest head dim), 15 steps with failures
-    injected at steps 6 and 11 against 15 clean steps, checkpoints every 5:
-    the two end states bitwise equal, through the kernels' backward."""
+    head of 64 (``launch/card.py::card_config``, the launchers' reduced
+    config on the card), 15 steps with failures injected at steps 6 and 11
+    against 15 clean steps, checkpoints every 5: the two end states bitwise
+    equal, through the kernels' backward."""
     import tempfile
     import torch
     from repro_torch.checkpointing.manager import CheckpointManager
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, DataIterator
+    from repro_torch.launch.card import card_config
     from repro_torch.models.model_zoo import build_model
     from repro_torch.runtime import train as train_rt
     from repro_torch.runtime.fault_tolerance import RestartPolicy, run_with_restarts
 
-    cfg = get_config("deepseek-7b", reduced=True).replace(n_heads=1, n_kv_heads=1)
+    cfg = card_config(get_config("deepseek-7b", reduced=True))
     model = build_model(cfg)
     opts = train_rt.TrainOptions(remat_policy="full", warmup_steps=1,
                                  total_steps=30)
@@ -3156,15 +3174,17 @@ def ep_gmm_shapes() -> list:
 
 
 def one_rank_mesh():
-    """A one-rank NCCL group (an in-memory store: no network) and a (1, 1)
-    DeviceMesh named (data, model) on it; any failure raises."""
+    """A one-rank NCCL group (an in-memory store: no network) and on it a
+    (1, 1) DeviceMesh named (data, model) and a (1, 1, 1) one named (pod,
+    data, model); any failure raises."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1, device_id=torch.device("cuda", 0))
-    return make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    return (make_mesh((1, 1), ("data", "model"), device_type="cuda"),
+            make_mesh((1, 1, 1), ("pod", "data", "model"), device_type="cuda"))
 
 
 def phase_mesh_psum():
@@ -3248,13 +3268,15 @@ def phase_mesh_serve(mesh, model, params, prompts):
     return launches
 
 
-def phase_mesh_train(mesh):
+def phase_mesh_train(meshes):
     """deepseek-moe-16b's train path (TRAIN_DEPTH_CUTS' 8 layers, as phase
-    train) through ``jit_train_step`` on the (1, 1) mesh, MESH_TRAIN_STEPS
-    steps from the same seeded init and batches as the local
-    ``build_train_step``: each step's loss and grad norm and the updated
-    params, bitwise; the local path first run twice, to show it repeats
-    itself bitwise. Returns the mesh run's launches."""
+    train) through ``jit_train_step`` on each one-rank mesh (the (1, 1)
+    one, and the (1, 1, 1) one whose batch axes are (pod, data)),
+    MESH_TRAIN_STEPS steps from the same seeded init and batches as the
+    local ``build_train_step``: each step's loss and grad norm and the
+    updated params, bitwise; the local path first run twice, to show it
+    repeats itself bitwise. Returns each mesh run's launches, by the mesh's
+    axis names."""
     import torch
     from repro_torch.data.pipeline import DataConfig, batch_for_step
     from repro_torch.models.model_zoo import build_model
@@ -3298,6 +3320,23 @@ def phase_mesh_train(mesh):
     gc.collect()
     torch.cuda.empty_cache()
     b_abs = {k: torch.empty(v.shape, device="meta") for k, v in batches[0].items()}
+    out = {}
+    for mesh in meshes:
+        out[",".join(mesh.mesh_dim_names)] = _mesh_train_run(
+            mesh, model, opts, b_abs, fresh, run, (want_p, want_m), repeats)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del want_p
+    return out
+
+
+def _mesh_train_run(mesh, model, opts, b_abs, fresh, run, want, repeats):
+    """One mesh's run of ``phase_mesh_train``, held bitwise against the
+    local run ``want`` (params, metrics); returns its launches."""
+    import torch
+    from repro_torch.runtime import train as train_rt
+    want_p, want_m = want
+    cfg = model.cfg
     mesh_step = train_rt.jit_train_step(model, opts, mesh, b_abs)
     state = train_rt.distribute_train_state(fresh(), model, mesh, opts)
     placed = train_rt.shd.spec_tree_of(state) == \
@@ -3315,7 +3354,9 @@ def phase_mesh_train(mesh):
         launches["gmm_bwd_by_variant"]["wgmma_bwd"] == 2 * launches["gmm_bwd"]
     ok = repeats and placed and same_p and same_m and launches_ok
     emit({"phase": "mesh_train", "arch": cfg.name, "n_layers": cfg.n_layers,
-          "mesh": {"data": 1, "model": 1}, "steps": MESH_TRAIN_STEPS,
+          "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+          "batch_axes": list(train_rt.shd.batch_axes(mesh)),
+          "steps": MESH_TRAIN_STEPS,
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
           "local_repeats_bitwise": repeats, "placed_as_state_shardings": placed,
           "losses": [m[0].item() for m in got_m],
@@ -3327,10 +3368,11 @@ def phase_mesh_train(mesh):
           "gmm_bwd_launches_by_variant": launches["gmm_bwd_by_variant"],
           "ok": ok})
     if not ok:
-        raise AssertionError(f"mesh train path: local repeats {repeats}, placed "
-                             f"{placed}, params {same_p}, metrics {same_m}, "
-                             f"launches {launches_ok} ({launches})")
-    del got_p, want_p
+        raise AssertionError(f"mesh train path on {mesh.mesh_dim_names}: local "
+                             f"repeats {repeats}, placed {placed}, params "
+                             f"{same_p}, metrics {same_m}, launches "
+                             f"{launches_ok} ({launches})")
+    del got_p
     return launches
 
 
@@ -3475,6 +3517,48 @@ def phase_mesh_flash():
     return timings
 
 
+def phase_examples() -> dict:
+    """The model examples of ``examples/torch/`` (EXAMPLES) in this
+    process, as their users run them (``runpy`` with their argv, the card
+    by default, their own asserts), each timed on a line of its own: every
+    one launches the flash kernel, a training one its backward too, and
+    the four together take at most EXAMPLES_S. Returns each one's
+    launches."""
+    import runpy
+    import torch
+    out, total = {}, 0.0
+    argv = sys.argv
+    for name, (args, trains) in EXAMPLES.items():
+        path = ROOT / "examples" / "torch" / name
+        sys.argv = [str(path), *args]
+        reset_launches()
+        try:
+            _, s = _sync_s(lambda: runpy.run_path(str(path), run_name="__main__"))
+        finally:
+            sys.argv = argv
+        launches = read_launches()
+        total += s
+        ok = launches["flash_attention"] > 0 and (
+            not trains or launches["flash_attention_bwd"] > 0)
+        emit({"phase": "examples", "script": f"examples/torch/{name}",
+              "argv": args, "s": s,
+              "launches": {k: launches[k] for k in launch_counters()},
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"{name} did not run through the kernels: "
+                                 f"{launches}")
+        out[f"examples:{name}"] = launches
+        gc.collect()
+        torch.cuda.empty_cache()
+    ok = total <= EXAMPLES_S
+    emit({"phase": "examples", "total_s": total, "limit_s": EXAMPLES_S,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"the examples took {total:.1f} s, over "
+                             f"{EXAMPLES_S} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3507,9 +3591,10 @@ def run_phases() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     phase_train_restart()
-    mesh = one_rank_mesh()
+    mesh, pod_mesh = one_rank_mesh()
     phase_mesh_psum()
-    launches["mesh:train"] = phase_mesh_train(mesh)
+    for axes, n in phase_mesh_train((mesh, pod_mesh)).items():
+        launches[f"mesh:train:{axes}"] = n
     gc.collect()
     torch.cuda.empty_cache()
     ep_gmm_err, ep_gmm_t = phase_mesh_gmm()
@@ -3531,6 +3616,7 @@ def run_phases() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dist.destroy_process_group()
+    launches.update(phase_examples())
 
     def entry(name, source, replaces, err, timing, shape, variant, **more):
         by_path = {arch: n[name] for arch, n in launches.items() if n[name]}

@@ -3,7 +3,8 @@
 Batched serving of queued generation requests against a zoo model with random
 weights from ``--seed``, through the same ``ServeSession`` path the JAX
 launcher drives. Full width on the card by default; ``--reduced`` takes the
-small test config and ``--device cpu`` runs on the CPU. Reports throughput
+small test config (on the card with attention heads that the flash
+kernels take, ``launch/card.py``) and ``--device cpu`` runs on the CPU. Reports throughput
 and the median batch latency.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
@@ -29,6 +30,7 @@ from .._bridge import resolve_device
 from ..configs.registry import ARCH_IDS, get_config
 from ..models.model_zoo import build_model
 from ..runtime.serve import ServeOptions, ServeSession
+from .card import launch_config
 
 
 def main(argv=None) -> dict:
@@ -47,7 +49,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch, reduced=args.reduced)
+    cfg = launch_config(get_config(args.arch, reduced=args.reduced),
+                        reduced=args.reduced, device=device, tag="serve")
     model = build_model(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)

@@ -5,8 +5,10 @@ The port of ``repro.launch.train``: the fault-tolerant training loop
 any architecture of the registry, with the reference's flags. ``--reduced``
 (the default, as in the reference) takes the small test config; ``--full``
 the published one. It runs on the card unless ``--device cpu`` asks for the
-CPU. On the card every family's step takes its gradients through the
-hand-written backward kernels (flash attention, grouped GEMM, SSD scan).
+CPU. On the card a reduced config takes attention heads that the flash
+kernels take (``launch/card.py``), and says so on its first line; every
+family's step takes its gradients through the hand-written backward kernels
+(flash attention, grouped GEMM, SSD scan).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
         --device cpu --steps 20 --batch 4 --seq 64 --ckpt-dir ckpt/deepseek
@@ -40,6 +42,7 @@ from ..data.pipeline import DataConfig, DataIterator
 from ..models.model_zoo import build_model
 from ..optim.adamw import AdamWConfig
 from ..runtime import train as train_rt
+from .card import launch_config
 from .mesh import make_mesh
 
 GROUP_TIMEOUT = datetime.timedelta(seconds=120)
@@ -93,7 +96,9 @@ def main(argv=None) -> dict:
 def _run(args, device, mesh) -> dict:
     lead = mesh is None or dist.get_rank() == 0
     say = print if lead else (lambda *a, **k: None)
-    cfg = get_config(args.arch, reduced=args.reduced)
+    cfg = launch_config(get_config(args.arch, reduced=args.reduced),
+                        reduced=args.reduced, device=device, tag="train",
+                        say=say)
     model = build_model(cfg)
     opts = train_rt.TrainOptions(
         remat_policy=args.remat, microbatches=args.microbatches,

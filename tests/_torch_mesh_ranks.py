@@ -118,7 +118,7 @@ def psum_case(rank, inputs, out):
     out["psum/total"], out["psum/new_err"] = _np(total), _np(new_err)
 
 
-def moe_case(mesh, inputs, dtype, variant, out):
+def moe_case(mesh, inputs, dtype, variant, out, data_axes=("data",)):
     import torch
     from repro_torch import collectives
     from repro_torch.configs.registry import get_config
@@ -134,7 +134,7 @@ def moe_case(mesh, inputs, dtype, variant, out):
     full = {k: v if k == "router" else
             ({n: w.to(dt) for n, w in v.items()} if isinstance(v, dict) else v.to(dt))
             for k, v in full.items()}
-    dist = moe.DistContext(mesh=mesh, data_axes=("data",), model_axis="model",
+    dist = moe.DistContext(mesh=mesh, data_axes=data_axes, model_axis="model",
                            **MOE_VARIANTS[variant])
     ep = moe.expert_specs(dist)
     use = {"w_gate": ep["w"], "w_up": ep["w"], "w_down": ep["wd"]}

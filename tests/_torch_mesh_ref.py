@@ -136,7 +136,7 @@ def params_from(model, inputs, prefix):
     return fill(model.abstract(), ())
 
 
-def moe_case(mesh, inputs, dtype, variant, out):
+def moe_case(mesh, inputs, dtype, variant, out, data_axes=("data",)):
     cfg = moe_config()
     dt = jnp.dtype(dtype)
     p = tree_from(inputs, f"moe/{dtype}/params", dt)
@@ -151,7 +151,7 @@ def moe_case(mesh, inputs, dtype, variant, out):
             loss, argnums=(0, 1), has_aux=True))(p, xs)
         return y, aux, gp, gx
 
-    dist = moe.DistContext(mesh=mesh, data_axes=("data",), model_axis="model",
+    dist = moe.DistContext(mesh=mesh, data_axes=data_axes, model_axis="model",
                            **MOE_VARIANTS[variant])
     for name, d in (("ep", dist), ("local", moe.LOCAL)):
         if name == "local" and variant != "default":

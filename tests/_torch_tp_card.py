@@ -1,7 +1,7 @@
 """Tensor parallelism on four H100s: one process per card, NCCL.
 
     python -m torch.distributed.run --nproc-per-node 4 tests/_torch_tp_card.py \\
-        [--part equality|full|all] [--out tp_card.json]
+        [--part equality|pod|full|all] [--out tp_card.json]
     PYTHONPATH=src python tests/_torch_tp_card.py --part predict [--out ...]
 
 (``torchrun --nproc-per-node 4 ...`` is the same launcher.) Imports torch,
@@ -25,6 +25,16 @@ way. The MoE's routing is the local run's, replayed (each rank its rows),
 as chip_smoke's phases hold it: tensor parallelism sums in another order,
 and a router near-tie may flip an expert.
 
+On the (pod 2, data 2, model 1) mesh, deepseek-moe-16b at 8 layers: step
+1's loss and gradients (B = 4 x 1024, one row a (pod, data) shard) against
+the local path run on each shard's rows, the same way; the experts move
+from their store (``expert_mlp`` over data) to the EP body's blocks split
+jointly over (pod, data) and back.
+
+(a') ``pod``: that equality case alone, then for the record the pod mesh's
+train step (POD_STEPS steps of ``jit_train_step``, remat full, bf16
+moments): step s, every rank's peak and the NCCL share of one step.
+
 (b) ``full``, for the record, on (1, 4): serving command-r-plus-104b at 64 of
 64 layers, llama-3.2-vision-90b at 100 of 100 and zamba2-7b at 81 + 13
 (4 x 2048-token prompts, 48 new tokens; prefill ms, decode ms a token);
@@ -39,9 +49,10 @@ is the same on every rank); no equality is claimed at full depth.
 
 (c) ``predict``, one process on the CPU, no card and no group: the dry-run
 (``repro_torch.launch.dryrun``, meta tensors, rank 0 of a fake group of 4)
-of (b)'s paths on (1, 4): one prefill (its cache of the prompt's 2048
-positions; (b)'s holds 2096) and one train step, each with its peak live
-bytes a rank, its collectives' on-link bytes a rank by op, and its FLOPs.
+of (b)'s paths on (1, 4) and of (a')'s step on the pod mesh: one prefill
+(its cache of the prompt's 2048 positions; (b)'s holds 2096) and one train
+step, each with its peak live bytes a rank, its collectives' on-link bytes
+a rank by op, and its FLOPs.
 
 Rank 0 prints one JSON object a line and writes them all to ``--out``.
 """
@@ -73,6 +84,11 @@ FULL_TRAIN = ("gemma2-9b", "stablelm-12b", "deepseek-moe-16b", "zamba2-7b")
 FULL_MESH = (1, 4)
 FULL_BATCH, FULL_PROMPT, FULL_NEW = 4, 2048, 48
 FULL_TRAIN_BATCH, FULL_TRAIN_SEQ, FULL_TRAIN_STEPS = 2, 2048, 3
+# the multi-pod mesh: deepseek-moe-16b at 8 of 28 layers on (pod 2, data 2,
+# model 1), the batch over (pod, data), one row a shard
+POD_PATH = ("deepseek-moe-16b", 8)
+POD_MESH, POD_AXES = (2, 2, 1), ("pod", "data", "model")
+POD_TRAIN_BATCH, POD_STEPS = 4, 3
 PEAK_LIMIT = 80e9
 KERNELS = ("flash_attention", "flash_attention_bwd", "moe_gmm", "ssd_scan",
            "ssd_scan_bwd")
@@ -189,14 +205,36 @@ def _nccl_share(fn) -> dict:
 
 
 def _shards(model, meshes) -> list:
-    """The data-axis sizes whose local baseline differs: the MoE's capacity
-    is a data shard's (the EP body routes each shard's tokens with its own
-    capacity, as the reference's does), so on a mesh with data d its
-    baseline is the local path run on each of the d shards' rows; a dense
-    model's one baseline serves every mesh."""
+    """The batch-shard counts whose local baseline differs: the MoE's
+    capacity is a batch shard's (the EP body routes each shard's tokens
+    with its own capacity, as the reference's does), so on a mesh whose
+    batch axes cut the batch in d its baseline is the local path run on
+    each of the d shards' rows; a dense model's one baseline serves every
+    mesh."""
     if model.cfg.family != "moe":
         return [1]
-    return sorted({shape[0] for shape in meshes})
+    return sorted({_batch_shards(mesh) for mesh in meshes.values()})
+
+
+def _batch_shards(mesh) -> int:
+    """How many row shards the batch axes ((pod, data)) cut a batch in."""
+    from repro_torch.runtime import sharding as shd
+    return math.prod(shd.mesh_axis_size(mesh, a) for a in shd.batch_axes(mesh))
+
+
+def _batch_index(mesh) -> int:
+    """The rank's row shard: its coordinate on the batch axes, pod-major."""
+    from repro_torch.runtime import sharding as shd
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    idx = 0
+    for a in shd.batch_axes(mesh):
+        idx = idx * shd.mesh_axis_size(mesh, a) + coord[a]
+    return idx
+
+
+def _mesh_json(mesh) -> dict:
+    """The mesh's axis sizes by name, as the lines print them."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 def _norm(g, w=None) -> float:
@@ -352,7 +390,7 @@ def eq_serve(out, arch, layers, meshes):
         base[d] = (want, want_tok, replays, floors)
     for shape in meshes:
         mesh = meshes[shape]
-        want, want_tok, replays, floors = base[shape[0] if moe else 1]
+        want, want_tok, replays, floors = base[_batch_shards(mesh) if moe else 1]
         floor_abs = max(f[0] for f in floors.values())
         floor_rel = max(f[1] for f in floors.values())
         prefill, _ = serve.jit_prefill_step(model, opts, mesh, EQ_BATCH, EQ_PROMPT)
@@ -360,7 +398,7 @@ def eq_serve(out, arch, layers, meshes):
         sharded = serve.shard_params(params, model, mesh)
         cache = serve.mesh_cache(model, opts, mesh, EQ_BATCH, max_len, device=DEV.device)
         # a rank routes its data shard's tokens: that shard's recording
-        replay = replays[mesh.get_coordinate()[0]] if moe else None
+        replay = replays[_batch_index(mesh)] if moe else None
         cs.reset_launches()
         with (replay.patch() if moe else contextlib.nullcontext()):
             (got, tok), s = _sync_s(lambda: run(prefill, decode, sharded, cache,
@@ -380,10 +418,10 @@ def eq_serve(out, arch, layers, meshes):
         ok = _all_ranks(ok)
         out.emit({"part": "equality", "what": "serve", "arch": arch,
                   "n_layers": model.cfg.n_layers,
-                  "mesh": {"data": shape[0], "model": shape[1]},
+                  "mesh": _mesh_json(mesh),
                   "batch": EQ_BATCH, "prompt_len": EQ_PROMPT,
                   "decode_steps": EQ_DECODE,
-                  "local_run_on_row_shards": shape[0] if moe else 1,
+                  "local_run_on_row_shards": _batch_shards(mesh) if moe else 1,
                   "tokens_equal": tokens_equal,
                   "argmax_decided": int(decided.sum()),
                   "argmax_equal_where_decided": int(same[decided].sum()),
@@ -413,9 +451,10 @@ def _all_ranks(ok: bool) -> bool:
     return t.item() == 0.0
 
 
-def eq_train(out, arch, layers, meshes):
+def eq_train(out, arch, layers, meshes, batch_size=None):
     """Step 1's loss and every leaf's gradient of the mesh grad step against
-    the local one, each within FLOOR_MULT x its floor."""
+    the local one, each within FLOOR_MULT x its floor (a batch of
+    ``batch_size`` rows, EQ_TRAIN_BATCH by default)."""
     import torch
     from torch.distributed.tensor import DTensor
     import chip_smoke as cs
@@ -429,15 +468,16 @@ def eq_train(out, arch, layers, meshes):
     moe = model.cfg.family == "moe"
     opts = train_rt.TrainOptions(remat_policy="full",
                                  opt=adamw.AdamWConfig(moment_dtype="bfloat16"))
+    batch_size = batch_size or EQ_TRAIN_BATCH
     batch = batch_for_step(DataConfig(model.cfg.vocab_size, EQ_TRAIN_SEQ,
-                                      EQ_TRAIN_BATCH), 0, model.cfg, device=DEV.device)
+                                      batch_size), 0, model.cfg, device=DEV.device)
     local_fn = train_rt.build_grad_fn(model, opts)
 
     def local_grads(d, replays, context=contextlib.nullcontext):
         """The mean over d row shards of the local step-1 gradients (by
         leaf path) and losses; every shard's gradients but the last wait in
         host memory."""
-        n = EQ_TRAIN_BATCH // d
+        n = batch_size // d
         acc, loss = {}, 0.0
         for i in range(d):
             rows = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
@@ -479,12 +519,12 @@ def eq_train(out, arch, layers, meshes):
     for shape in meshes:
         mesh = meshes[shape]
         want, want_loss, norms, replays, loss_floor, leaf_floor, cs_floors = \
-            base[shape[0] if moe else 1]
+            base[_batch_shards(mesh) if moe else 1]
         sharded = shd.distribute(params, train_rt.state_shardings(
             model, mesh, opts)["params"], mesh)
         stored = shd.spec_tree_of(sharded)
         fn = train_rt.build_grad_fn(model, opts, mesh)
-        replay = replays[mesh.get_coordinate()[0]] if moe else None
+        replay = replays[_batch_index(mesh)] if moe else None
         cs.reset_launches()
         with (replay.patch() if moe else contextlib.nullcontext()):
             (grads, m), s = _sync_s(lambda: fn(shd.local_tree(sharded), batch, stored))
@@ -508,9 +548,9 @@ def eq_train(out, arch, layers, meshes):
         ok = _all_ranks(ok)
         out.emit({"part": "equality", "what": "train_step1", "arch": arch,
                   "n_layers": model.cfg.n_layers,
-                  "mesh": {"data": shape[0], "model": shape[1]},
-                  "batch": EQ_TRAIN_BATCH, "seq": EQ_TRAIN_SEQ,
-                  "local_run_on_row_shards": shape[0] if moe else 1,
+                  "mesh": _mesh_json(mesh),
+                  "batch": batch_size, "seq": EQ_TRAIN_SEQ,
+                  "local_run_on_row_shards": _batch_shards(mesh) if moe else 1,
                   "loss": float(m["loss"]), "local_loss": want_loss,
                   "loss_diff": loss_diff, "loss_floor": loss_floor,
                   "within_chip_smoke_floors": within_cs,
@@ -525,6 +565,71 @@ def eq_train(out, arch, layers, meshes):
             raise AssertionError(f"{arch} train on {shape}: not within the floor")
         del sharded, grads
         DEV.free()
+
+
+def pod_step(out, arch, layers, mesh):
+    """(a')'s record: POD_STEPS train steps on the pod mesh from
+    ``_eq_model``'s weights, then one more under the profiler."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train as train_rt
+
+    model, params = _eq_model(arch, layers)
+    opts = train_rt.TrainOptions(**train_opts(POD_STEPS))
+    state = train_rt.distribute_train_state(
+        {"params": params, "opt": adamw.init_opt_state(params, opts.opt),
+         "step": torch.zeros((), dtype=torch.int32, device=DEV.device)},
+        model, mesh, opts)
+    del params
+    DEV.free()
+    DEV.reset_peak()
+    dc = DataConfig(model.cfg.vocab_size, EQ_TRAIN_SEQ, POD_TRAIN_BATCH)
+    batches = [batch_for_step(dc, i, model.cfg, device=DEV.device)
+               for i in range(POD_STEPS + 1)]
+    b_abs = {k: torch.empty(v.shape, device="meta") for k, v in batches[0].items()}
+    step = train_rt.jit_train_step(model, opts, mesh, b_abs)
+    losses, step_s = [], []
+    cs.reset_launches()
+    for b in batches[:POD_STEPS]:
+        (state, met), s = _sync_s(lambda: step(state, b))
+        losses.append(float(met["loss"]))
+        step_s.append(s)
+    launches = cs.read_launches()
+    holder = {}
+
+    def one_step():
+        holder["state"], holder["met"] = step(state, batches[-1])
+
+    share = _nccl_share(one_step)
+    peaks = _peaks()
+    ok = all(math.isfinite(v) for v in losses) and max(peaks) < PEAK_LIMIT and (
+        DEV.rehearse or launches["gmm"] > 0)
+    ok = _all_ranks(ok)
+    out.emit({"part": "pod", "what": "train", "arch": arch,
+              "n_layers": model.cfg.n_layers, "mesh": _mesh_json(mesh),
+              "batch": POD_TRAIN_BATCH, "seq": EQ_TRAIN_SEQ, "remat": "full",
+              "moments": "bfloat16", "losses": losses, "step_s": step_s,
+              "step_s_median_after_first": statistics.median(step_s[1:]),
+              "peak_bytes_by_rank": peaks, "step_profile": share,
+              "launches": {k: launches[k] for k in
+                           ("flash_attention", "flash_attention_bwd", "gmm",
+                            "gmm_bwd", "gmm_by_variant", "gmm_bwd_by_variant")},
+              "ok": ok})
+    if not ok:
+        raise AssertionError(f"{arch} train step on the pod mesh failed")
+    del state, holder
+    DEV.free()
+
+
+def train_opts(total_steps: int) -> dict:
+    """The ``TrainOptions`` fields of the full-depth and the pod steps."""
+    import chip_smoke as cs
+    from repro_torch.optim import adamw
+    return dict(remat_policy="full", warmup_steps=cs.TRAIN_WARMUP,
+                total_steps=total_steps,
+                opt=adamw.AdamWConfig(lr=cs.TRAIN_LR, moment_dtype="bfloat16"))
 
 
 # ---------------------------------------------------------------------------
@@ -664,7 +769,6 @@ def full_serve(out, arch, mesh):
 def full_train(out, arch, mesh):
     import torch
     from torch.distributed.tensor import DTensor
-    import chip_smoke as cs
     from repro_torch.data.pipeline import DataConfig, batch_for_step
     from repro_torch.models.model_zoo import build_model
     from repro_torch.optim import adamw
@@ -674,10 +778,7 @@ def full_train(out, arch, mesh):
 
     cfg = DEV.config(arch)
     model = build_model(cfg)
-    opts = train_rt.TrainOptions(
-        remat_policy="full", warmup_steps=cs.TRAIN_WARMUP,
-        total_steps=FULL_TRAIN_STEPS,
-        opt=adamw.AdamWConfig(lr=cs.TRAIN_LR, moment_dtype="bfloat16"))
+    opts = train_rt.TrainOptions(**train_opts(FULL_TRAIN_STEPS))
     DEV.reset_peak()
     params = draw_block_params(model, mesh, None)
     _scale_experts(model, params)
@@ -732,29 +833,32 @@ def full_train(out, arch, mesh):
 
 
 def predict(out_path: str) -> None:
-    """Part (c): the dry-run of the full-depth paths on (1, 4)."""
-    import chip_smoke as cs
+    """Part (c): the dry-run of the full-depth paths on (1, 4) and of the
+    pod mesh's step."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import dryrun
-    from repro_torch.optim import adamw
     from repro_torch.runtime import sharding as shd
     mesh = shd.MeshShape(("data", "model"), FULL_MESH)
     out = Out(0, out_path)
-    train_opts = dict(remat_policy="full", warmup_steps=cs.TRAIN_WARMUP,
-                      total_steps=FULL_TRAIN_STEPS,
-                      opt=adamw.AdamWConfig(lr=cs.TRAIN_LR, moment_dtype="bfloat16"))
-    paths = [(a, ShapeCell("prefill", FULL_PROMPT, FULL_BATCH, "prefill"),
-              shd.SERVING_RULES, None) for a in FULL_SERVE] + \
-        [(a, ShapeCell("train", FULL_TRAIN_SEQ, FULL_TRAIN_BATCH, "train"),
-          None, train_opts) for a in FULL_TRAIN]
+    paths = [(get_config(a), ShapeCell("prefill", FULL_PROMPT, FULL_BATCH,
+                                        "prefill"), mesh, shd.SERVING_RULES, None)
+             for a in FULL_SERVE] + \
+        [(get_config(a), ShapeCell("train", FULL_TRAIN_SEQ, FULL_TRAIN_BATCH,
+                                   "train"), mesh, None,
+          train_opts(FULL_TRAIN_STEPS)) for a in FULL_TRAIN]
+    arch, layers = POD_PATH
+    paths.append((get_config(arch).replace(n_layers=layers),
+                  ShapeCell("train", EQ_TRAIN_SEQ, POD_TRAIN_BATCH, "train"),
+                  shd.MeshShape(POD_AXES, POD_MESH), None, train_opts(POD_STEPS)))
     try:
-        for arch, cell, rules, opts_over in paths:
-            trace = dryrun.lower_cell(get_config(arch), cell, mesh, rules=rules,
+        for cfg, cell, on, rules, opts_over in paths:
+            trace = dryrun.lower_cell(cfg, cell, on, rules=rules,
                                       opts_over=opts_over)
             rec = dryrun.record(trace)
-            out.emit({"part": "predict", "what": cell.kind, "arch": arch,
-                      "mesh": {"data": 1, "model": 4},
+            out.emit({"part": "predict", "what": cell.kind,
+                      "arch": cfg.name, "n_layers": cfg.n_layers,
+                      "mesh": dict(zip(on.axis_names, on.shape)),
                       "batch": cell.global_batch, "seq": cell.seq_len,
                       "peak_bytes": rec["peak_bytes_per_device"],
                       "collective_bytes": rec["collective_bytes_per_device"],
@@ -769,7 +873,8 @@ def predict(out_path: str) -> None:
 
 def main():
     parser = argparse.ArgumentParser()
-    parser.add_argument("--part", choices=("equality", "full", "all", "predict"),
+    parser.add_argument("--part", choices=("equality", "pod", "full", "all",
+                                           "predict"),
                         default="all")
     parser.add_argument("--out", default="")
     parser.add_argument("--rehearse", action="store_true",
@@ -810,10 +915,15 @@ def main():
                       "kind": torch.cuda.get_device_name(0)})
         meshes = {s: make_mesh(s, ("data", "model"), device_type=DEV.device)
                   for s in EQ_MESHES}
+        pod = {POD_MESH: make_mesh(POD_MESH, POD_AXES, device_type=DEV.device)}
         if args.part in ("equality", "all"):
             for arch, layers in EQ_PATHS:
                 eq_serve(out, arch, layers, meshes)
                 eq_train(out, arch, layers, meshes)
+        if args.part in ("equality", "pod", "all"):
+            eq_train(out, *POD_PATH, pod, batch_size=POD_TRAIN_BATCH)
+        if args.part in ("pod", "all"):
+            pod_step(out, *POD_PATH, pod[POD_MESH])
         if args.part in ("full", "all"):
             mesh = meshes[FULL_MESH]
             for arch in FULL_SERVE:
