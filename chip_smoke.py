@@ -12,7 +12,12 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             loads, ``HMMA`` mma.sync; the flash, flash backward, gmm, SSD
             and SSD backward libraries must hold both of the first two, and
             the flash backward no ``HMMA``; the SSD backward's wgmma kernels
-            no spills and no serialized wgmma),
+            and both flash libraries no spills and no serialized wgmma, and
+            the setmaxnreg flash kernels' SASS (forward and dK/dV at every
+            head dim, dQ at 160) no register past the 240 setmaxnreg gives
+            their consumer warpgroups, printed per kernel beside what ptxas
+            does with both flash sources built with trapping consumer
+            waits),
             ptxas's registers and spills per
             kernel and any line where ptxas says it serialized wgmma; the
             host cost of encoding the gmm's tensor maps; whether ``triton``
@@ -25,22 +30,27 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             224^-0.5, softcap 50: the global layers at 4 x 2048, the local
             layers at 1 x 6144 past their 4096 window), on stablelm-12b's
             (H=32, KVH=8, D=160), on llama-3.2-vision-90b's cross-attention
-            (4 x 2048 queries over 4096 patches, H=64, KVH=8, D=128), on
-            seamless-m4t-large-v2's over 1500
+            (4 x 2048 queries over 4096 patches, H=64, KVH=8, D=128, and one
+            query row of a decode step), on seamless-m4t-large-v2's over 1500
             frames (H=KVH=16, D=64: the encoder's non-causal self-attention,
             the cross-attention of one query row, the decoder's 1-token
             self-attention), and on the video executor's (the same heads
             over 64 audio steps; deepseek-7b's prefills of 4 x 17 and 1 x 24
             tokens): elementwise within 2e-2, and the worst row
             and the whole output within relative-norm limits that two
-            injected faults (the last K/V tile dropped or stale) are shown to
-            exceed. At the serving shapes, kernel and plain version against
+            injected faults (the last K/V tile dropped or stale; at the
+            one-row shapes split over the keys, one split's keys dropped)
+            are shown to exceed; each call's splits and the split launches
+            it counted, and a split call run twice bitwise equal. At the
+            serving shapes, kernel and plain version against
             an fp32-output reference (what rounding P to bf16 adds), and
             medians of CUDA-event timings of the kernel, the plain version
             and ``F.scaled_dot_product_attention`` (a yardstick the port
             never calls; it takes no softcap or window, and is timed
-            without them, as the line says); the faults and timings also
-            at the gemma2, stablelm, VLM-cross and seamless shapes; at
+            without them, as the line says), and at one query row both
+            ones' device time (torch.profiler): the clock is the host's
+            there; the faults and timings also at the gemma2, stablelm,
+            VLM-cross and seamless shapes; at
             gemma2's two shapes also the kernel's errors with the softcap
             off, against the plain version and an fp32-output reference.
    flash_bwd: the flash backward kernel against autograd through the
@@ -250,6 +260,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -304,6 +315,10 @@ GEMMA2_LOCAL = ("gemma2_local_past_window", 1, 6144, 6144, 16, 8, 256,
 STABLELM_SHAPE = ("stablelm_prefill", 4, 2048, 2048, 32, 8, 160, {})
 VLM_CROSS = ("vlm_cross", 4, 2048, 4096, 64, 8, 128, {"causal": False})
 FAMILY_SHAPES = [GEMMA2_GLOBAL, GEMMA2_LOCAL, STABLELM_SHAPE, VLM_CROSS]
+# the VLM's cross-attention in a decode step: one query row a sequence over
+# the 4096 patches (the forward's split path: 8 query heads a block, the
+# keys cut into split_count blocks)
+VLM_DECODE_CROSS = ("vlm_decode_cross", 4, 1, 4096, 64, 8, 128, {"causal": False})
 # seamless-m4t-large-v2 (16 heads of 64) over ENC_LEN frames: the encoder's
 # self-attention, the cross-attention of the prefill and of every decode
 # step (one query row over the encoder's keys), and the decoder's
@@ -323,7 +338,7 @@ EXECUTOR_SHAPES = [
     ("executor_summarize", 4, 17, 17, 32, 32, 128, {}),
     ("executor_qa", 1, 24, 24, 32, 32, 128, {}),
 ]
-KV_TILE = 64               # keys of an injected fault: no more than the flash kernel's K/V tile (96 rows; 64 at D=256)
+KV_TILE = 64               # keys of an injected fault: no more than the flash kernel's K/V tile (64 rows at D=256)
 LOCAL_FAULT_ROWS = 0.02    # a fault moving fewer rows than this share need not move the whole output's norm
 NUM_PATCHES = 4096         # the VLM's patches (llama-3.2-vision-90b's vision.num_patches)
 SERVE_BATCHES, SERVE_BATCH, PROMPT_LEN, MAX_NEW = 2, 4, 2048, 48
@@ -570,6 +585,84 @@ def ptxas_kernels(report: str) -> list[dict]:
     return out
 
 
+def flash_kernel_key(mangled: str) -> str | None:
+    """``flash_<...>_kernel<D>`` for a flash kernel's mangled name."""
+    found = re.search(r"\d(flash_[a-z_]+?_kernel)ILi(\d+)", mangled)
+    return f"{found.group(1)}<{found.group(2)}>" if found else None
+
+
+def sass_registers(lib) -> dict:
+    """Per kernel of a built library, the registers its SASS addresses (the
+    highest R index + 1): above ptxas's count for the launch where
+    setmaxnreg raises a warpgroup's budget."""
+    from repro_torch.kernels import _build
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for fn in sass.split("Function : ")[1:]:
+        key = flash_kernel_key(fn.split("\n", 1)[0])
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", fn)]
+        if key and regs:
+            out[key] = max(regs) + 1
+    return out
+
+
+def flash_registers(report: str, lib) -> dict:
+    """Per flash kernel: ptxas's registers for the launch, its spill bytes
+    and serialized-wgmma lines, and what the SASS addresses."""
+    addressed = sass_registers(lib)
+    out = {}
+    for k in ptxas_kernels(report):
+        key = flash_kernel_key(k["kernel"])
+        if key:
+            out[key] = {"launch": k["registers"], "spill": k["spill_store_bytes"],
+                        "sass": addressed.get(key),
+                        "serialized": sum("serialized" in line and
+                                          flash_kernel_key(line) == key
+                                          for line in report.splitlines())}
+    return out
+
+
+def trapping_wait_registers(name: str) -> dict:
+    """``flash_registers`` of ``csrc/<name>.cu`` built with its setmaxnreg
+    consumers' waits put back to the trapping ``hopper::mbar_wait``: the
+    source notes' evidence for ``hopper::mbar_wait_spin`` (a ``trap``
+    reachable from the region that setmaxnreg raises makes ptxas allocate
+    it as if capped at the launch's count)."""
+    from repro_torch.kernels import _build
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        for header in _build.CSRC.glob("*.cuh"):
+            (work / header.name).write_bytes(header.read_bytes())
+        src = work / f"{name}.cu"
+        src.write_text((_build.CSRC / f"{name}.cu").read_text()
+                       .replace("hopper::mbar_wait_spin(", "hopper::mbar_wait("))
+        lib = work / f"lib{name}.so"
+        proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+                               str(src)], capture_output=True, text=True, check=True)
+        return flash_registers(proc.stderr, lib)
+
+
+# the flash libraries' setmaxnreg split (csrc/flash_attention.cu,
+# csrc/flash_attention_bwd.cu): in the kernels that split so, a producer
+# warpgroup's 24 registers a thread go to two consumer warpgroups, which may
+# address 240. The forward and dkdv kernels split so at every head dim, the
+# dq kernel where it has two consumer warpgroups (``bwd_dq_rows``: 128 q
+# rows, at head dim 160); elsewhere it, as the delta kernel, launches with
+# its own 168 or 255.
+FLASH_LIBRARIES = ("flash_attention", "flash_attention_bwd")
+FLASH_CONSUMER_REGS, FLASH_PRODUCER_REGS = 240, 24
+
+
+def flash_setmaxnreg_kernels() -> set[str]:
+    from repro_torch.kernels import flash_attention as fa
+    return ({f"flash_fwd_kernel<{d}>" for d in fa.HEAD_DIMS} |
+            {f"flash_bwd_dkdv_kernel<{d}>" for d in fa.BWD_HEAD_DIMS} |
+            {f"flash_bwd_dq_kernel<{d}>" for d in fa.BWD_HEAD_DIMS
+             if fa.bwd_dq_rows(d) == 2 * 64})
+
+
 # the libraries whose kernels must be built from wgmma fed by TMA
 HOPPER_LIBRARIES = ("flash_attention", "flash_attention_bwd", "moe_gmm", "ssd_scan",
                     "ssd_scan_bwd")
@@ -585,8 +678,12 @@ def phase_card():
     from repro_torch.kernels import ssd_scan as ss
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(
+            len(KERNEL_SOURCES) + len(FLASH_LIBRARIES)) as pool:
+        trapping = {name: pool.submit(trapping_wait_registers, name)
+                    for name in FLASH_LIBRARIES}
         libs = dict(zip(KERNEL_SOURCES, pool.map(_build.build, KERNEL_SOURCES)))
+        trapping = {name: f.result() for name, f in trapping.items()}
     build_s = time.perf_counter() - t0
     # what each library was compiled to: wgmma (HGMMA), TMA loads (UTMALDG),
     # mma.sync (HMMA); registers and spills from ptxas
@@ -610,6 +707,29 @@ def phase_card():
     if spills or serialized:
         raise AssertionError(f"ssd_scan_bwd's wgmma kernels: spills {spills}, "
                              f"serialized wgmma {serialized}")
+    # the flash kernels: no spill, no serialized wgmma, and what the
+    # consumer warpgroups address within their setmaxnreg budget; beside it
+    # the same sources built with trapping consumer waits (reported only)
+    setmaxnreg, read = flash_setmaxnreg_kernels(), set()
+    for name in FLASH_LIBRARIES:
+        report = _build.ptxas_report(libs[name]).read_text()
+        kernels = flash_registers(report, libs[name])
+        emit({"phase": "flash_registers", "library": name, "kernels": kernels,
+              "setmaxnreg_kernels": sorted(setmaxnreg & kernels.keys()),
+              "consumer_budget": FLASH_CONSUMER_REGS,
+              "producer_budget": FLASH_PRODUCER_REGS,
+              "with_trapping_consumer_waits": trapping[name]})
+        spills = {k: r["spill"] for k, r in kernels.items() if r["spill"]}
+        serialized = [line for line in report.splitlines() if "serialized" in line]
+        over = {k: r["sass"] for k, r in kernels.items()
+                if k in setmaxnreg and (r["sass"] or 0) > FLASH_CONSUMER_REGS}
+        read |= {k for k, r in kernels.items() if r["sass"]}
+        if spills or serialized or over:
+            raise AssertionError(f"{name}: spills {spills}, serialized wgmma "
+                                 f"{serialized}, over the budget {over}")
+    if setmaxnreg - read:
+        raise AssertionError(f"setmaxnreg kernels whose SASS was not read: "
+                             f"{sorted(setmaxnreg - read)}")
     if census["flash_attention_bwd"]["HMMA"]:        # no mma.sync backward is left
         raise AssertionError(f"flash_attention_bwd: HMMA in its SASS "
                              f"({census['flash_attention_bwd']})")
@@ -678,7 +798,7 @@ def phase_card():
           "bwd_tiles": fa.BWD_TILES,
           "bwd_blocks_per_sm": {d: {k: fa.bwd_blocks_per_sm(d, k) for k in BWD_KERNELS}
                                 for d in fa.BWD_HEAD_DIMS},
-          "block_threads": {d: fa.block_threads(d) for d in fa.HEAD_DIMS},
+          "block_threads": fa.BLOCK_THREADS, "flash_tiles": fa.TILES,
           "ssd_smem_bytes_n64": ss.smem_bytes(64),
           "ssd_smem_bytes_n128": ss.smem_bytes(128),
           "ssd_wgmma_smem_bytes": {k: {n: ss.wgmma_smem_bytes(k, n) for n in (64, 128)}
@@ -720,8 +840,13 @@ def injected_faults(q, k, v, kw):
     that move only the longest rows: the last K/V tile dropped, and the last
     tile computed with the previous tile's K/V (a stale pipeline stage);
     with a window, also the window's first tile dropped (a kernel that
-    starts each window a tile late), which moves every row past it."""
+    starts each window a tile late), which moves every row past it; where
+    the call is split over the keys (``split_count`` > 1), also the split
+    path's plain twin with one split's partial result left out of the merge
+    (its keys dropped)."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import flash_attention_plain
+    B, Sq, H, D = q.shape
     Sk = k.shape[1]
     dropped = flash_attention_plain(q, k, v, **{**kw, "kv_valid": Sk - KV_TILE})
     ks, vs = k.clone(), v.clone()
@@ -732,6 +857,12 @@ def injected_faults(q, k, v, kw):
     if kw.get("window"):
         faults["window_first_tile_dropped"] = flash_attention_plain(
             q, k, v, **{**kw, "window": kw["window"] - KV_TILE})
+    splits = fa.split_count(B, Sq, Sk, H, k.shape[2], D, kv_valid=kw["kv_valid"]) \
+        if D in fa.HEAD_DIMS else 1
+    if splits > 1:
+        part_o, part_lse = fa.split_partials_plain(q, k, v, splits, **kw)
+        part_lse[splits // 2] = float("-inf")
+        faults["one_split_dropped"] = fa.merge_splits_plain(part_o, part_lse)[0].to(q.dtype)
     return faults
 
 
@@ -741,14 +872,17 @@ def phase_kernel():
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
 
+    from repro_torch.kernels import flash_attention as fa
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     worst, failures, timings = 0.0, [], {}
     serving = (SERVE_SHAPE[0], ZAMBA_SHAPE[0], SEAMLESS_ENCODER[0],
-               SEAMLESS_CROSS[0], *(shape[0] for shape in FAMILY_SHAPES))
+               SEAMLESS_CROSS[0], VLM_DECODE_CROSS[0],
+               *(shape[0] for shape in FAMILY_SHAPES))
     for name, B, Sq, Sk, H, KVH, D, opts in \
             GRID + GRID_WIDE + [SERVE_SHAPE, ZAMBA_SHAPE] + FAMILY_SHAPES + \
-            SEAMLESS_SHAPES + EXECUTOR_SHAPES:
+            [VLM_DECODE_CROSS] + SEAMLESS_SHAPES + EXECUTOR_SHAPES:
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device="cuda",
                                dtype=torch.float32).to(torch.bfloat16)
@@ -757,20 +891,29 @@ def phase_kernel():
                   softcap=opts.get("softcap", 0.0), scale=opts.get("scale"),
                   q_offset=opts.get("q_offset", 0),
                   kv_valid=opts.get("kv_valid"))
+        split_before = flash_attention_cuda.split_launches
         got = flash_attention_cuda(q, k, v, **kw)
         torch.cuda.synchronize()
+        split_calls = flash_attention_cuda.split_launches - split_before
+        splits = fa.split_count(B, Sq, Sk, H, KVH, D, kv_valid=kw["kv_valid"])
         want = flash_attention_plain(q, k, v, **kw)
         err = (got.float() - want.float()).abs().max().item()
         row_rel, norm_rel = rel_errors(got, want)
         ok = bool(torch.isfinite(got).all()) and torch.allclose(
             got.float(), want.float(), atol=KERNEL_TOL, rtol=KERNEL_TOL) \
-            and row_rel <= ROW_RTOL and norm_rel <= NORM_RTOL
+            and row_rel <= ROW_RTOL and norm_rel <= NORM_RTOL \
+            and split_calls == (splits > 1)
+        if splits > 1:
+            # the split path run twice is bitwise equal (a fixed merge order)
+            ok = ok and torch.equal(got, flash_attention_cuda(q, k, v, **kw))
         worst = max(worst, err)
         line = {"phase": "kernel", "shape": name,
                 "B_Sq_Sk_H_KVH_D": [B, Sq, Sk, H, KVH, D], "options": opts,
                 "max_abs_err": err, "tol": KERNEL_TOL,
                 "row_rel_err": row_rel, "row_rtol": ROW_RTOL,
-                "norm_rel_err": norm_rel, "norm_rtol": NORM_RTOL}
+                "norm_rel_err": norm_rel, "norm_rtol": NORM_RTOL,
+                "splits": splits, "split_launches": split_calls,
+                "packed_group": fa.packed_group(Sq, H, KVH)}
         if name in serving:
             # the checks must have the power to see a one-tile fault
             line["faults"] = {}
@@ -827,6 +970,15 @@ def phase_kernel():
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
             }
+            if Sq == 1:
+                # one-row calls are host-bound on the clock above: the
+                # device's own time (torch.profiler) of the kernel and of sdpa
+                timing["device_ms"] = device_ms(
+                    lambda: flash_attention_cuda(q, k, v, **kw))
+                timing["library_device_ms"] = device_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=kw["causal"], scale=kw["scale"],
+                        enable_gqa=H != KVH))
             if kw["softcap"] or kw["window"]:
                 # sdpa takes neither: it computes the causal attention over
                 # every key, without the softcap; the kernel is timed so too
@@ -923,6 +1075,13 @@ def device_split(fn, iters: int = 5):
            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     return sorted(out, key=lambda k: -k["ms"]) if any(k["ms"] for k in out) \
         else "not measured"
+
+
+def device_ms(fn, iters: int = 20):
+    """Device time of one call of ``fn``: its kernels' self time under
+    torch.profiler, summed ("not measured" where it shows none)."""
+    split = device_split(fn, iters)
+    return sum(k["ms"] for k in split) if isinstance(split, list) else split
 
 
 def device_ms_by_kernel(fn, names, iters: int = 5):
@@ -1741,6 +1900,8 @@ def reset_launches():
     """Every kernel's launch counts, by variant too, set to 0."""
     for fn in launch_counters().values():
         fn.launches = 0
+        if hasattr(fn, "split_launches"):
+            fn.split_launches = 0
         if hasattr(fn, "variant_launches"):
             fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
 
@@ -1748,6 +1909,7 @@ def reset_launches():
 def read_launches() -> dict:
     counters = launch_counters()
     return {**{name: fn.launches for name, fn in counters.items()},
+            "flash_split": counters["flash_attention"].split_launches,
             "gmm_by_variant": dict(counters["gmm"].variant_launches),
             "gmm_bwd_by_variant": dict(counters["gmm_bwd"].variant_launches),
             "ssd_by_variant": dict(counters["ssd_scan"].variant_launches),
@@ -1851,6 +2013,7 @@ def phase_serve(arch):
           "tok_per_s": SERVE_BATCHES * SERVE_BATCH * MAX_NEW / sum(gen_s),
           "max_memory_allocated": peak,
           **{f"{name}_launches": launches[name] for name in launch_counters()},
+          "flash_split_launches": launches["flash_split"],
           "expected_launches_per_batch": generate_launches(cfg, MAX_NEW),
           "gmm_launches_by_variant": gmm_variants,
           "ssd_scan_launches_by_variant": ssd_variants})
@@ -3634,9 +3797,15 @@ def run_phases() -> int:
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:82", flash_err,
               flash_t[SERVE_SHAPE[0]], "B=4 S=2048 H=KVH=32 D=128 causal bf16",
-              "TMA + wgmma: 128-row q tiles over 96-row K/V tiles, a producer "
-              "warpgroup and two consumer warpgroups; at head_dim 160 and 256 "
-              "64-row q tiles, one consumer warpgroup and a producer warp",
+              "TMA + wgmma: 128-row q tiles over 128-row K/V tiles (96 at "
+              "head_dim 160, 64 at 256), a producer warpgroup and two "
+              "240-register consumer warpgroups (setmaxnreg), ping-pong up to "
+              "head_dim 160; split over the keys where the grid is under one "
+              "wave (one-row decode and cross-attention; a kv head's query "
+              "heads packed into one block at one row), the last split of a "
+              "group merging in split order; O stored by TMA through shared "
+              "memory; launches count calls",
+              split_launches=sum(n.get("flash_split", 0) for n in launches.values()),
               at_d112={**flash_t[ZAMBA_SHAPE[0]],
                        "shape": "B=4 S=2048 H=KVH=32 D=112 causal bf16"},
               at_d256={**flash_t[GEMMA2_GLOBAL[0]],
@@ -3660,6 +3829,10 @@ def run_phases() -> int:
                   **flash_t[SEAMLESS_CROSS[0]],
                   "shape": f"B=4 Sq=1 Sk={ENC_LEN} H=KVH=16 D=64 non-causal "
                            "bf16 (prefill and every decode step)"},
+              at_vlm_decode_cross={
+                  **flash_t[VLM_DECODE_CROSS[0]],
+                  "shape": f"B=4 Sq=1 Sk={NUM_PATCHES} H=64 KVH=8 D=128 "
+                           "non-causal bf16 (llama-3.2-vision-90b decode cross)"},
               at_tp4_command_r=tp_flash_t[TP_FLASH_FWD[0]]),
         entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
               "src/repro/kernels/ssd_scan.py:70", ssd_err,
@@ -3693,12 +3866,13 @@ def run_phases() -> int:
               "src/repro/kernels/flash_attention.py:82", flash_bwd_err,
               flash_bwd_t[FLASH_TRAIN_SHAPES[0][0]],
               "B=2 S=2048 H=KVH=32 D=128 causal bf16 (deepseek-7b training)",
-              "TMA + wgmma, three kernels: Delta; dK and dV per 64-key tile "
-              "(and column part of at most 128 at head_dim 160 and 256) over "
-              "the group's heads, two consumer warpgroups (P^T and dV; dS^T "
-              "and dK, P^T dy crossing through shared memory) and a producer "
-              "warp; dQ per 64-row q tile, one consumer warpgroup and a "
-              "producer warp, two blocks an SM up to head_dim 128; no atomics "
+              "TMA + wgmma, three kernels: Delta; dK and dV per 64-key tile, "
+              "whole head dim, over the group's heads, two 240-register "
+              "consumer warpgroups (P^T and dV; dS^T and dK, P^T dy crossing "
+              "through shared memory) and a producer warpgroup "
+              "(setmaxnreg); dQ per 64-row q tile, one consumer warpgroup and a "
+              "producer warp, two blocks an SM up to head_dim 128 (at 160 per "
+              "128-row tile, two consumer warpgroups); no atomics "
               "(bitwise repeatable); launches count calls",
               at_moe16b={**flash_bwd_t[FLASH_TRAIN_SHAPES[1][0]],
                          "shape": "B=2 S=2048 H=KVH=16 D=128 causal bf16 "

@@ -45,15 +45,14 @@ def set_active(census):
     return prev
 
 
-@contextlib.contextmanager
+_NO_CENSUS = contextlib.nullcontext()
+
+
 def kernel(name: str, cost):
-    """One call of kernel ``name``; ``cost`` is a function giving its
-    (FLOPs, HBM bytes), called only when a census is active."""
-    if _active is None:
-        yield
-        return
-    with _active.kernel(name, cost):
-        yield
+    """A context for one call of kernel ``name``; ``cost`` is a function
+    giving its (FLOPs, HBM bytes), called only when a census is active.
+    (With none it is a shared no-op: a one-row kernel call is host-bound.)"""
+    return _NO_CENSUS if _active is None else _active.kernel(name, cost)
 
 
 def collective(op: str, tensors, group_size: int) -> None:

@@ -32,30 +32,35 @@
 // twice is bitwise equal (the restart contract, "resumes bit-identically",
 // is checked on the card through it):
 //   1. delta: Delta = rowsum(dO o O) in fp32, one warp per (b, q, h) row;
-//   2. dkdv:  one block per (64-key tile, kv head, batch, column part) of
-//             nine warps. A producer warp loads the K and V tiles once by
-//             TMA, then, for each query head of the group and each step of
-//             QSTEP q rows that can see a key of the tile, Q and dO by TMA
-//             and LSE and Delta by its 32 lanes into a ring of stages
-//             completed on mbarriers. Consumer warpgroup 0 computes
-//             S^T = K Q^T (wgmma, both operands K-major), forms
-//             P^T = 2^(y2 - LSE2) in registers and accumulates
-//             dV += P^T dO with P^T in bf16 as the register A operand and dO
-//             read MN-major through the transpose bit; it hands P^T dy (the
-//             softcap's factor folded in) to warpgroup 1 through shared
-//             memory (two fp32 buffers, a full and an empty mbarrier each).
-//             Warpgroup 1 computes dP^T = V dO^T, forms
-//             dS^T = P^T dy (dP^T - Delta) and accumulates dK += dS^T Q. So
-//             P^T and dS^T are each computed once, and one warpgroup's
-//             elementwise work overlaps the other's products. The GQA sum
-//             over the group is the step loop;
+//   2. dkdv:  one block per (64-key tile, kv head, batch) of twelve warps:
+//             two consumer warpgroups and a producer warpgroup, whose first
+//             warp loads the K and V tiles once by TMA, then, for each
+//             query head of the group and each step of QSTEP q rows that
+//             can see a key of the tile, Q and dO by TMA and LSE and Delta
+//             by its 32 lanes into a ring of stages completed on
+//             mbarriers; setmaxnreg gives the consumers 240 registers a
+//             thread. Consumer warpgroup 0 computes S^T = K Q^T (wgmma,
+//             both operands K-major), forms P^T = 2^(y2 - LSE2) in
+//             registers and accumulates dV += P^T dO with P^T in bf16 as
+//             the register A operand and dO read MN-major through the
+//             transpose bit; it hands P^T dy (the softcap's factor folded
+//             in) to warpgroup 1 through shared memory (two fp32 buffers, a
+//             full and an empty mbarrier each). Warpgroup 1 computes dP^T =
+//             V dO^T, forms dS^T = P^T dy (dP^T - Delta) and accumulates dK
+//             += dS^T Q. So P^T and dS^T are each computed once, at every
+//             head dim, and one warpgroup's elementwise work overlaps the
+//             other's products. The GQA sum over the group is the step loop;
 //   3. dq:    one block per (64-row q tile, head, batch), longest causal
 //             rows first: one consumer warpgroup and a producer warp. Q and
 //             dO stay in shared memory; the producer streams 32-row K/V
 //             tiles by TMA through the ring; the consumer recomputes
 //             S = Q K^T and dP = dO V^T, forms dS and accumulates dQ += dS K
 //             (dS from registers, K MN-major). Two blocks share an SM up to
-//             head_dim 128.
+//             head_dim 128. At 160 a block is 128 q rows: two consumer
+//             warpgroups, each K/V step read for both, and a producer
+//             warpgroup, by setmaxnreg (the consumers' waits trap-free, as
+//             in dkdv); at 256 two consumer warpgroups spilled (dQ alone is
+//             128 registers a thread) and gained little, so one.
 // In both loops a step issues its first products and the previous step's
 // accumulating product as one straight-line batch, then forms its P or dS
 // while that product runs; the first step is peeled so that every batch in
@@ -69,29 +74,47 @@
 // the next one is issued. dK and dQ are scaled by `scale` once, at the store.
 // P and dS are rounded to bf16 for their products, as the forward rounds P.
 //
-// Registers set the plan. ptxas caps a thread by the launch's warps per SM
-// sub-partition (16 384 registers, every fourth warp): 5 or 8 warps a block
-// give 255, 9 to 12 warps (or two 5-warp blocks) 168. dK and dV of a 64-key
-// tile take D/2 fp32 registers each a thread: at D=128 one warpgroup holding
-// both and S^T, dP^T and their bf16 copies needs some 208 live registers,
-// which only one 5-warp block an SM holds (the first design: 1.19 ms at
-// deepseek-7b's training shape, the tensor cores idle during every
-// elementwise pass). Split between two warpgroups, each holds one
-// accumulator, its S^T or dP^T and one bf16 operand: 112 at D=128, under
-// the 168 of nine warps. At 160 and 256 even one accumulator of D columns
-// does not fit beside them, so the dkdv kernel cuts dK's and dV's columns
-// into parts of at most 128 (two boxes: 128 + 64 at D=160, 128 + 128 at
-// 256), one block each, and each part recomputes S^T and dP^T over the whole
-// head dim (6 products' work where 4 would do); at 256 a step is 32 q rows so
-// that the stages fit beside the resident K and V. The dq kernel steps over
-// 32 keys so that two blocks (168 registers) hold its live set at D <= 128.
+// Registers set the plan. A dkdv warpgroup holds its accumulator (dV or dK
+// of the 64-key tile: DP/2 fp32 a thread, 128 at D=256), its S^T or dP^T
+// and their bf16 copy. ptxas caps a launch of twelve warps (or nine) at 168
+// registers a thread, so the earlier plan cut dK's and dV's columns at
+// D=160 and 256 into parts of at most 128, one block each, and each part
+// recomputed S^T and dP^T over the whole head dim (six products' work where
+// four do). With a producer warpgroup at 24 registers, setmaxnreg raises
+// the two consumer warpgroups to 240, and ptxas allocates the consumer
+// region within that as long as no `trap` is reachable from it (hopper.cuh,
+// mbar_wait_spin; csrc/flash_attention.cu's note has the evidence; with
+// trapping waits in its consumers this kernel spills 824 B at D=256 and 56
+// at 160, chip_smoke.py phase 1): the consumers wait without a
+// time limit and the producer's warp waits at the end, with the trap, for
+// a `done` barrier every consumer warp arrives on.
+// So dK and dV are whole in one block at every head dim: the SASS
+// addresses up to about 150, 182, 223 and 203 registers at D=64, 128, 160
+// and 256 (chip_smoke.py phase 1 prints them), with no spill and no
+// serialized wgmma; at 256 a step is 32 q rows so that the stages fit
+// beside the resident K and V.
 //
-// dQ in a second pass (seven products in all) rather than accumulated by the
-// dkdv blocks: accumulating it there deterministically needs dS (not dS^T)
-// as an operand, so dS through shared memory and a dQ sum ordered across
-// blocks (a semaphore per q tile), and dQ's fp32 partial tile in registers
-// beside dK or dV, which the 168 cap does not hold at D >= 128. Not
-// measured.
+// dQ in a second pass (seven products in dkdv and dq together, S and dP
+// recomputed: seven where five would do) rather than summed by the dkdv
+// blocks. Summing it there bitwise repeatably needs each (head, q step)'s
+// dQ added in one order across the key tiles' blocks. That was built and
+// measured at D <= 128 (dS^T to shared memory, dQ = dS K by wgmma with dS
+// read MN-major, the additions in turn under a counter per (head, q step),
+// from the highest key tile down, the order in which the tiles reach a
+// step): correct and bitwise repeatable, but slower than the three-kernel
+// form at deepseek-7b's and zamba2-7b's training shapes in each way tried
+// (float2 atomics in turn; the tile staged in shared memory and added by a
+// TMA reduce-add, from the dS warpgroup or from a writer warp of the
+// producer warpgroup). The dQ product itself cost little: a build that left
+// out the additions ran the dkdv kernel about as fast as without dQ; the
+// ordered additions into the fp32 sum (32 KB a step and block) cost the
+// difference. So the three-kernel form stays at every head dim.
+//
+// Measured (tests/_torch_flash_compare.py, H100 80GB HBM3 at 700 W, per
+// call in back-to-back runs, against the previous design in the same run):
+// 0.728 ms at deepseek-7b's training shape (was 0.750; bound 0.174), 1.076
+// at gemma2-9b's D=256 (1.745), 1.260 at stablelm-12b's D=160 (2.133).
+// PERF.md section 6 has every shape and sdpa's backward beside.
 //
 // Plain C interface for ctypes: every pointer and the stream are void*; the
 // launch returns cudaGetLastError() so the caller can raise.
@@ -110,14 +133,15 @@ typedef __nv_bfloat16 bf16;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int ROWS = 64;            // keys of a dkdv block, q rows of a dq block
 constexpr int KSTEP = 32;           // keys of a dq step
-constexpr int DKDV_THREADS = 288;   // the P and the dS warpgroups and a producer warp
-constexpr int DQ_THREADS = 160;     // one consumer warpgroup and a producer warp
+constexpr int DKDV_THREADS = 384;   // the P and the dS warpgroups and a producer warpgroup
+constexpr int PRODUCER_REGS = 24;   // the dkdv kernel's setmaxnreg split: 128 x 24 + 256 x 240
+constexpr int CONSUMER_REGS = 240;
 constexpr int DELTA_WARPS = 8;
 constexpr int TILE_BOX = ROWS * hopper::BOX_ROW_BYTES;    // one 64-row box: 8 KB
 constexpr int SM_SMEM = 233472;     // shared memory of one SM; a block reserves 1 KB more
 
 // The tile plan at head_dim D (kernels/flash_attention.py BWD_TILES): D in
-// 64-column boxes, dK/dV's column parts of at most two boxes, the dkdv
+// 64-column boxes (dK and dV whole in one dkdv block), the dkdv
 // kernel's q rows a step and stages, the dq kernel's stages, and the dq
 // blocks an SM holds: two wherever two blocks' shared memory fits, so that
 // one block's elementwise work overlaps the other's products.
@@ -130,6 +154,16 @@ struct Tiles {
   static constexpr int QTILE = NB * QBOX;
   static constexpr int KTILE = NB * KSTEP * hopper::BOX_ROW_BYTES;   // one 32-row K or V tile
   static constexpr int DKDV_STAGES = NB <= 2 ? 3 : 2;
+  // dq: one consumer warpgroup and a producer warp (two blocks an SM up to
+  // two boxes); at D=160 two consumer warpgroups (128 q rows, each K/V step
+  // read for both) and a producer warpgroup, by setmaxnreg. At 256 two
+  // spilled (dQ alone is 128 registers a thread) and gained under 10%.
+  static constexpr int DQ_CONSUMERS = NB == 3 ? 2 : 1;
+  static constexpr bool DQ_SETMAXNREG = DQ_CONSUMERS == 2;
+  static constexpr int DQ_ROWS = 64 * DQ_CONSUMERS;         // q rows of a dq block
+  static constexpr int DQ_THREADS = 128 * DQ_CONSUMERS + (DQ_SETMAXNREG ? 128 : 32);
+  static constexpr int DQ_BOX = DQ_ROWS * hopper::BOX_ROW_BYTES;
+  static constexpr int DQ_TILE = NB * DQ_BOX;               // the block's Q (or dO)
   static constexpr int DQ_STAGES = 4;
   // dkdv: K, V, (Q, dO) per stage, two buffers of P dy (64 keys x QSTEP,
   // fp32), then LSE and Delta per stage
@@ -137,7 +171,7 @@ struct Tiles {
   static constexpr int DKDV_VEC = DKDV_PBUF + 2 * ROWS * QSTEP * 4;
   static constexpr int DKDV_BAR = DKDV_VEC + DKDV_STAGES * 2 * QSTEP * 4;
   // dq: Q, dO, then (K, V) per stage
-  static constexpr int DQ_BAR = 2 * TILE + 2 * DQ_STAGES * KTILE;
+  static constexpr int DQ_BAR = 2 * DQ_TILE + 2 * DQ_STAGES * KTILE;
   static constexpr int DKDV_BYTES = DKDV_BAR + 128 + 1024;   // + barriers, alignment slack
   static constexpr int DQ_BYTES = DQ_BAR + 128 + 1024;
   static constexpr int DQ_BLOCKS = 2 * (DQ_BYTES + 1024) <= SM_SMEM ? 2 : 1;
@@ -206,14 +240,14 @@ struct Score {
 // acc (64 x N) = A B^T over DP: A a 64-row tile and B an N-row tile of NB
 // boxes, both K-major in shared memory (S^T = K Q^T and dP^T = V dO^T over
 // 32 q rows, S = Q K^T and dP = dO V^T over 64 keys). One commit group.
-template <int NB, int N>
+template <int NB, int N, int A_BOX = TILE_BOX>
 __device__ __forceinline__ void issue_nt(float (&acc)[N / 2], const unsigned char* a,
                                          const unsigned char* b) {
   constexpr int B_BOX = N * hopper::BOX_ROW_BYTES;
 #pragma unroll
   for (int kk = 0; kk < NB * 4; ++kk) {
     const int off = (kk % 4) * 32;
-    hopper::wgmma_ss<0, 0>(acc, hopper::desc_kmajor(a + (kk / 4) * TILE_BOX + off),
+    hopper::wgmma_ss<0, 0>(acc, hopper::desc_kmajor(a + (kk / 4) * A_BOX + off),
                            hopper::desc_kmajor(b + (kk / 4) * B_BOX + off), kk > 0);
   }
   hopper::wgmma_commit();
@@ -284,13 +318,13 @@ flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout
   }
 }
 
-// dK and dV of columns [128 part, 128 part + 64 PB) of one 64-key tile.
-// Warpgroup 0 computes S^T and P^T and owns dV; warpgroup 1 computes dP^T
-// and dS^T and owns dK; P^T dy crosses from the first to the second through
-// shared memory (two buffers, a full and an empty mbarrier each), so each
-// is computed once and the two warpgroups' products and elementwise work
-// overlap. Warp 8 is the producer.
-template <int D, int PB>
+// dK and dV of one 64-key tile. Warpgroup 0 computes S^T and P^T and owns
+// dV; warpgroup 1 computes dP^T and dS^T and owns dK; P^T dy crosses from
+// the first to the second through shared memory (two buffers, a full and an
+// empty mbarrier each), so each is computed once and the two warpgroups'
+// products and elementwise work overlap. Warpgroup 2 is the producer (its
+// first warp loads; setmaxnreg gives the consumers 240 registers a thread).
+template <int D>
 __global__ void __launch_bounds__(DKDV_THREADS, 1)
 flash_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap qmap,   // QSTEP-row boxes
                       __grid_constant__ const CUtensorMap kmap,
@@ -298,7 +332,7 @@ flash_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap qmap,   // QSTEP-row b
                       __grid_constant__ const CUtensorMap omap,   // dO, QSTEP-row boxes
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       bf16* __restrict__ dk, bf16* __restrict__ dv, int Sk, int H, int KVH,
-                      int part, Score sc) {
+                      Score sc) {
   using T = Tiles<D>;
   constexpr int NB = T::NB, STAGES = T::DKDV_STAGES, QS = T::QSTEP, NE = QS / 2;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -315,6 +349,7 @@ flash_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap qmap,   // QSTEP-row b
   uint64_t* empty = full + STAGES;
   uint64_t* p_full = empty + STAGES;
   uint64_t* p_empty = p_full + 2;
+  uint64_t* done = p_empty + 2;               // every consumer warp has stored
 
   const int Sq = sc.Sq;
   const int k0 = blockIdx.x * ROWS, kvh = blockIdx.y, b = blockIdx.z;
@@ -340,13 +375,15 @@ flash_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap qmap,   // QSTEP-row b
       hopper::mbar_init(&p_full[i], 128);      // each thread of warpgroup 0 has written
       hopper::mbar_init(&p_empty[i], 128);     // each thread of warpgroup 1 has read
     }
+    hopper::mbar_init(done, 8);
     hopper::mbar_fence_init();
   }
   __syncthreads();
 
   const int lane = threadIdx.x % 32, wg = hopper::warpgroup_index();
-  if (wg == 2) {                              // the producer warp
-    if (items == 0) return;
+  if (wg == 2) {                              // the producer warpgroup: its first warp loads
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= 256 + 32 || items == 0) return;
     if (lane == 0) {
       hopper::tma_prefetch_map(&qmap);
       hopper::tma_prefetch_map(&kmap);
@@ -381,17 +418,19 @@ flash_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap qmap,   // QSTEP-row b
       }
       hopper::mbar_arrive(&full[s]);
     }
+    // the consumers wait without a time limit (hopper::mbar_wait_spin): a
+    // lost load traps here instead
+    if (lane == 0) hopper::mbar_wait(done, 0);
     return;
   }
 
   // the consumer warpgroups: keys kr0 and kr0 + 8 of this thread
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
   const int tid = threadIdx.x % 128, warp = tid / 32, g = lane / 4, t4 = lane % 4;
   const int kr0 = k0 + warp * 16 + g;
-  const int part_off = part * 2 * T::QBOX;    // the part's first box in a q tile
-  const unsigned char* a_tile = wg == 0 ? sK : sV;   // S^T = K Q^T, dP^T = V dO^T
-  float acc[32 * PB];                         // dV (warpgroup 0) or dK (1): 64 keys x 64 PB
+  float acc[32 * NB];                         // dV (warpgroup 0) or dK (1): 64 keys x DP
 #pragma unroll
-  for (int i = 0; i < 32 * PB; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 32 * NB; ++i) acc[i] = 0.f;
 
   if (items > 0) {
     float sacc[NE];                           // S^T or dP^T: 64 keys x QS q
@@ -404,7 +443,7 @@ flash_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap qmap,   // QSTEP-row b
     // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1) of step i
     auto issue_second = [&](int i) {
       const int s = i % STAGES;
-      issue_rn<PB, QS>(acc, frag, (wg == 0 ? sO(s) : sQ(s)) + part_off);
+      issue_rn<NB, QS>(acc, frag, wg == 0 ? sO(s) : sQ(s));
     };
     // step i's S^T (dP^T) is in: P^T (dS^T) in fp32, in place
     auto form = [&](int i) {
@@ -413,7 +452,7 @@ flash_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap qmap,   // QSTEP-row b
       float* pb = pbuf + buf * NE * 128 + tid;
       if (wg == 0) {                          // P^T = 2^(y2 - LSE2); P^T dy to warpgroup 1
         const bool masked = sc.tile_masked<QS, ROWS>(q0, k0);
-        hopper::mbar_wait(&p_empty[buf], (use & 1) ^ 1);
+        hopper::mbar_wait_spin(&p_empty[buf], (use & 1) ^ 1);
 #pragma unroll
         for (int j = 0; j < QS / 8; ++j) {    // q columns 8j + 2t, + 1 (rows kr0, kr0 + 8)
           const int ql = 8 * j + 2 * t4;
@@ -428,7 +467,7 @@ flash_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap qmap,   // QSTEP-row b
         }
         hopper::mbar_arrive(&p_full[buf]);
       } else {                                // dS^T = P^T dy (dP^T - Delta)
-        hopper::mbar_wait(&p_full[buf], use & 1);
+        hopper::mbar_wait_spin(&p_full[buf], use & 1);
 #pragma unroll
         for (int j = 0; j < QS / 8; ++j) {
           const float2 dl = *reinterpret_cast<const float2*>(v_s + QS + 8 * j + 2 * t4);
@@ -453,8 +492,8 @@ flash_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap qmap,   // QSTEP-row b
       hopper::wgmma_fence();
     };
 
-    hopper::mbar_wait(kv_full, 0);
-    hopper::mbar_wait(&full[0], 0);
+    hopper::mbar_wait_spin(kv_full, 0);
+    hopper::mbar_wait_spin(&full[0], 0);
     fence_all();
     issue_first(0);
     hopper::wgmma_wait<0>();
@@ -464,7 +503,7 @@ flash_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap qmap,   // QSTEP-row b
     // step i issues S^T_i (dP^T_i) and step i - 1's dV (dK) as one batch,
     // then forms step i's P^T (dS^T) while dV (dK) runs
     for (int i = 1; i < items; ++i) {
-      hopper::mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+      hopper::mbar_wait_spin(&full[i % STAGES], (i / STAGES) & 1);
       fence_all();
       issue_first(i);
       issue_second(i - 1);
@@ -486,37 +525,39 @@ flash_bwd_dkdv_kernel(__grid_constant__ const CUtensorMap qmap,   // QSTEP-row b
   }
   const size_t kv_stride = (size_t)KVH * D;
   const size_t out = ((size_t)b * Sk * KVH + kvh) * D;
-  store_rows<D, PB>((wg == 0 ? dv : dk) + out, acc, wg == 0 ? 1.f : sc.scale, kr0, part * 128,
-                    Sk, kv_stride, t4);
+  store_rows<D, NB>((wg == 0 ? dv : dk) + out, acc, wg == 0 ? 1.f : sc.scale, kr0, 0, Sk,
+                    kv_stride, t4);
+  release(done, lane);
 }
 
 template <int D>
-__global__ void __launch_bounds__(DQ_THREADS, Tiles<D>::DQ_BLOCKS)
-flash_bwd_dq_kernel(__grid_constant__ const CUtensorMap qmap,
+__global__ void __launch_bounds__(Tiles<D>::DQ_THREADS, Tiles<D>::DQ_BLOCKS)
+flash_bwd_dq_kernel(__grid_constant__ const CUtensorMap qmap,   // DQ_ROWS-row boxes
                     __grid_constant__ const CUtensorMap kmap,
                     __grid_constant__ const CUtensorMap vmap,
-                    __grid_constant__ const CUtensorMap omap,   // dO
+                    __grid_constant__ const CUtensorMap omap,   // dO, DQ_ROWS-row boxes
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dq, int H, int KVH, Score sc) {
   using T = Tiles<D>;
-  constexpr int NB = T::NB, STAGES = T::DQ_STAGES;
+  constexpr int NB = T::NB, STAGES = T::DQ_STAGES, C = T::DQ_CONSUMERS, QR = T::DQ_ROWS;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   unsigned char* sQ = base;
-  unsigned char* sO = base + T::TILE;
-  auto sK = [&](int s) { return base + 2 * T::TILE + 2 * s * T::KTILE; };
-  auto sV = [&](int s) { return base + 2 * T::TILE + (2 * s + 1) * T::KTILE; };
+  unsigned char* sO = base + T::DQ_TILE;
+  auto sK = [&](int s) { return base + 2 * T::DQ_TILE + 2 * s * T::KTILE; };
+  auto sV = [&](int s) { return base + 2 * T::DQ_TILE + (2 * s + 1) * T::KTILE; };
   uint64_t* q_full = reinterpret_cast<uint64_t*>(base + T::DQ_BAR);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + STAGES;
+  uint64_t* done = empty + STAGES;            // every consumer warp has stored
 
   const int Sq = sc.Sq;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;   // longest causal rows first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * QR;   // longest causal rows first
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KVH);
   // the 32-key steps [t_lo, t_hi) that hold a key some row of this block sees
   int kv_end = sc.kv_valid;
-  if (sc.causal) kv_end = min(kv_end, q0 + ROWS);
+  if (sc.causal) kv_end = min(kv_end, q0 + QR);
   const int kv_begin = sc.window ? max(0, q0 - sc.window + 1) : 0;
   const int t_lo = kv_begin / KSTEP;
   const int t_hi = kv_end > kv_begin ? (kv_end + KSTEP - 1) / KSTEP : t_lo;
@@ -525,24 +566,26 @@ flash_bwd_dq_kernel(__grid_constant__ const CUtensorMap qmap,
     hopper::mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
       hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], 4);
+      hopper::mbar_init(&empty[s], 4 * C);     // one arrival per consumer warp
     }
+    hopper::mbar_init(done, 4 * C);
     hopper::mbar_fence_init();
   }
   __syncthreads();
 
-  const int lane = threadIdx.x % 32;
-  if (hopper::warpgroup_index() == 1) {       // the producer warp
-    if (lane != 0 || t_hi == t_lo) return;
+  const int lane = threadIdx.x % 32, wg = hopper::warpgroup_index();
+  if (wg == C) {                              // the producer: its first thread loads
+    if constexpr (T::DQ_SETMAXNREG) hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x != 128 * C || t_hi == t_lo) return;
     hopper::tma_prefetch_map(&qmap);
     hopper::tma_prefetch_map(&kmap);
     hopper::tma_prefetch_map(&vmap);
     hopper::tma_prefetch_map(&omap);
-    hopper::mbar_expect_tx(q_full, 2 * T::TILE);
+    hopper::mbar_expect_tx(q_full, 2 * T::DQ_TILE);
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
-      hopper::tma_load_4d(sQ + nb * TILE_BOX, &qmap, q_full, nb * hopper::BOX, h, q0, b);
-      hopper::tma_load_4d(sO + nb * TILE_BOX, &omap, q_full, nb * hopper::BOX, h, q0, b);
+      hopper::tma_load_4d(sQ + nb * T::DQ_BOX, &qmap, q_full, nb * hopper::BOX, h, q0, b);
+      hopper::tma_load_4d(sO + nb * T::DQ_BOX, &omap, q_full, nb * hopper::BOX, h, q0, b);
     }
     for (int t = t_lo; t < t_hi; ++t) {
       const int i = t - t_lo, s = i % STAGES;
@@ -557,12 +600,25 @@ flash_bwd_dq_kernel(__grid_constant__ const CUtensorMap qmap,
                             t * KSTEP, b);
       }
     }
+    // with setmaxnreg the consumers wait without a time limit
+    // (hopper::mbar_wait_spin): a lost load traps here instead
+    if constexpr (T::DQ_SETMAXNREG) hopper::mbar_wait(done, 0);
     return;
   }
 
-  // the consumer warpgroup: q rows r0 and r0 + 8 of this thread
-  const int warp = threadIdx.x / 32, g = lane / 4, t4 = lane % 4;
-  const int r0 = q0 + warp * 16 + g;
+  // consumer warpgroup wg: q rows r0 and r0 + 8 of this thread
+  if constexpr (T::DQ_SETMAXNREG) hopper::setmaxnreg_inc<CONSUMER_REGS>();
+  auto wait = [&](uint64_t* bar, uint32_t parity) {
+    if constexpr (T::DQ_SETMAXNREG)
+      hopper::mbar_wait_spin(bar, parity);
+    else
+      hopper::mbar_wait(bar, parity);
+  };
+  const int warp = (threadIdx.x / 32) % 4, g = lane / 4, t4 = lane % 4;
+  const int qw = q0 + wg * 64;                // this warpgroup's first q row
+  const int r0 = qw + warp * 16 + g;
+  const unsigned char* sQw = sQ + wg * 64 * hopper::BOX_ROW_BYTES;
+  const unsigned char* sOw = sO + wg * 64 * hopper::BOX_ROW_BYTES;
   const size_t vec = ((size_t)b * H + h) * Sq;
   const float lr[2] = {r0 < Sq ? lse[vec + r0] : 0.f, r0 + 8 < Sq ? lse[vec + r0 + 8] : 0.f};
   const float dl[2] = {r0 < Sq ? delta[vec + r0] : 0.f,
@@ -576,13 +632,13 @@ flash_bwd_dq_kernel(__grid_constant__ const CUtensorMap qmap,
     uint32_t ds[KSTEP / 16][4];               // dS in bf16: A fragments
     const int n = t_hi - t_lo;
     auto issue_sdp = [&](int i) {             // S = Q K^T and dP = dO V^T of key step t_lo + i
-      issue_nt<NB, KSTEP>(s_acc, sQ, sK(i % STAGES));
-      issue_nt<NB, KSTEP>(dp, sO, sV(i % STAGES));
+      issue_nt<NB, KSTEP, T::DQ_BOX>(s_acc, sQw, sK(i % STAGES));
+      issue_nt<NB, KSTEP, T::DQ_BOX>(dp, sOw, sV(i % STAGES));
     };
     auto issue_dq = [&](int i) { issue_rn<NB, KSTEP>(dq_acc, ds, sK(i % STAGES)); };
     auto form_p = [&](int i) {                // S is in: P dy in place
       const int kt0 = (t_lo + i) * KSTEP;
-      const bool masked = sc.tile_masked<ROWS, KSTEP>(q0, kt0);
+      const bool masked = sc.tile_masked<64, KSTEP>(qw, kt0);
 #pragma unroll
       for (int j = 0; j < KSTEP / 8; ++j)     // keys 8j + 2t, + 1 (rows r0, r0 + 8)
 #pragma unroll
@@ -611,8 +667,8 @@ flash_bwd_dq_kernel(__grid_constant__ const CUtensorMap qmap,
       hopper::wgmma_fence();
     };
 
-    hopper::mbar_wait(q_full, 0);
-    hopper::mbar_wait(&full[0], 0);
+    wait(q_full, 0);
+    wait(&full[0], 0);
     fence_all();
     issue_sdp(0);
     hopper::wgmma_wait<1>();
@@ -625,7 +681,7 @@ flash_bwd_dq_kernel(__grid_constant__ const CUtensorMap qmap,
     // step i issues S_i, dP_i and step i - 1's dQ as one batch, then forms
     // dS_i while dQ runs
     for (int i = 1; i < n; ++i) {
-      hopper::mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+      wait(&full[i % STAGES], (i / STAGES) & 1);
       fence_all();
       issue_sdp(i);
       issue_dq(i - 1);
@@ -650,6 +706,7 @@ flash_bwd_dq_kernel(__grid_constant__ const CUtensorMap qmap,
   }
   store_rows<D, NB>(dq + (((size_t)b * Sq) * H + h) * D, dq_acc, sc.scale, r0, 0, Sq,
                     (size_t)H * D, t4);
+  release(done, lane);
 }
 
 // q, dO (B, Sq, H, D) and k, v (B, Sk, KVH, D) as 4-D maps, dims innermost
@@ -669,22 +726,21 @@ struct Maps {
   CUtensorMap q, o, q_step, o_step, k, v, k_step, v_step;
 };
 
-template <int D, int PB>
+template <int D>
 int launch_dkdv(const Maps& m, const float* lse, const float* delta, void* dk, void* dv,
-                int B, int Sk, int H, int KVH, int part, const Score& sc,
-                cudaStream_t stream) {
+                int B, int Sk, int H, int KVH, const Score& sc, cudaStream_t stream) {
   constexpr int bytes = Tiles<D>::DKDV_BYTES;
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D, PB>,
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
-  flash_bwd_dkdv_kernel<D, PB><<<dim3((Sk + ROWS - 1) / ROWS, KVH, B), DKDV_THREADS, bytes,
-                                 stream>>>(m.q_step, m.k, m.v, m.o_step, lse, delta,
-                                           static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                                           Sk, H, KVH, part, sc);
+  flash_bwd_dkdv_kernel<D><<<dim3((Sk + ROWS - 1) / ROWS, KVH, B), DKDV_THREADS, bytes,
+                             stream>>>(m.q_step, m.k, m.v, m.o_step, lse, delta,
+                                       static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sk,
+                                       H, KVH, sc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -694,7 +750,8 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
            int H, int KVH, const Score& sc, cudaStream_t stream) {
   using T = Tiles<D>;
   Maps m;
-  if (!encode_map(&m.q, q, B, Sq, H, D, ROWS) || !encode_map(&m.o, dout, B, Sq, H, D, ROWS) ||
+  if (!encode_map(&m.q, q, B, Sq, H, D, T::DQ_ROWS) ||
+      !encode_map(&m.o, dout, B, Sq, H, D, T::DQ_ROWS) ||
       !encode_map(&m.q_step, q, B, Sq, H, D, T::QSTEP) ||
       !encode_map(&m.o_step, dout, B, Sq, H, D, T::QSTEP) ||
       !encode_map(&m.k, k, B, Sk, KVH, D, ROWS) || !encode_map(&m.v, v, B, Sk, KVH, D, ROWS) ||
@@ -716,16 +773,11 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
                               stream>>>(static_cast<const bf16*>(o),
                                         static_cast<const bf16*>(dout), dl, rows, Sq, H);
   int err = static_cast<int>(cudaGetLastError());
-  // dK and dV in column parts of two boxes, the last of one where NB is odd
-  if constexpr (T::NB >= 2)
-    for (int part = 0; !err && part < T::NB / 2; ++part)
-      err = launch_dkdv<D, 2>(m, l, dl, dk, dv, B, Sk, H, KVH, part, sc, stream);
-  if constexpr (T::NB % 2 == 1)
-    if (!err) err = launch_dkdv<D, 1>(m, l, dl, dk, dv, B, Sk, H, KVH, T::NB / 2, sc, stream);
+  if (!err) err = launch_dkdv<D>(m, l, dl, dk, dv, B, Sk, H, KVH, sc, stream);
   if (err) return err;
-  flash_bwd_dq_kernel<D><<<dim3((Sq + ROWS - 1) / ROWS, H, B), DQ_THREADS, T::DQ_BYTES,
-                           stream>>>(m.q, m.k_step, m.v_step, m.o, l, dl,
-                                     static_cast<bf16*>(dq), H, KVH, sc);
+  flash_bwd_dq_kernel<D><<<dim3((Sq + T::DQ_ROWS - 1) / T::DQ_ROWS, H, B), T::DQ_THREADS,
+                           T::DQ_BYTES, stream>>>(m.q, m.k_step, m.v_step, m.o, l, dl,
+                                                  static_cast<bf16*>(dq), H, KVH, sc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -746,8 +798,8 @@ int flash_attention_bwd_smem_bytes(int D, int pass) {
 
 // q, o, dout, dq (B,Sq,H,D); k, v, dk, dv (B,Sk,KVH,D): contiguous bf16,
 // 16-byte aligned; lse (B,H,Sq) fp32 from the forward, delta (B,H,Sq) fp32
-// scratch. kv_valid <= Sk. Launches the delta, dkdv (one launch per column
-// part) and dq kernels on the stream. Returns a cudaError_t value: 0 when
+// scratch. kv_valid <= Sk. Launches the delta, dkdv and dq kernels on the
+// stream. Returns a cudaError_t value: 0 when
 // every launch was accepted.
 int flash_attention_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
                              const void* dout, const void* lse, void* delta, void* dq,

@@ -109,6 +109,21 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// The same wait without the time limit, for the warpgroups that setmaxnreg
+// raises above the launch's cap. ptxas allocates such a region within the
+// raised count only if no `trap` is reachable from it: with mbar_wait's trap
+// there, the flash forward's consumers spill 200-460 bytes at head dims
+// 112-256 and ptxas serializes their wgmma (C7512), their SASS addressing
+// 175-215 of the 240 registers they were given; with the trap in the
+// producer alone, none spill and they address 237-238 (ptxas 12.9;
+// chip_smoke.py phase 1). A kernel that waits so keeps a trapping
+// wait in its producer, which the consumers' last arrivals release (a lost
+// load then still traps within 2 s, from the producer).
+__device__ __forceinline__ void mbar_wait_spin(uint64_t* bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
 // ---- TMA -------------------------------------------------------------------
 
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
@@ -156,6 +171,15 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
       : "memory");
 }
 
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -182,6 +206,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Named barrier `id` over `threads` threads (a multiple of 32).
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// Arrives on named barrier `id` (of `threads` threads) without waiting.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
@@ -281,10 +310,11 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // backward's S^T and dP^T over 32-row q steps), 64 and 256 (the gmm's decode
 // and prefill tiles; the SSD's C S_in^T and C B^T at 64, and its backward's
 // C B^T, dY X^T, their transposes and the state terms; flash's S over
-// 64-row K tiles and the backward's S and dP) and 96 (flash's S over 96-row
-// tiles); A from registers at N = 64, 128, 192 and 256 (flash's O and dQ at
-// head_dim 64, 112/128, 160 and 256, its dK and dV parts at 64 and 128; the
-// SSD's chunk states and W x at 64, its backward's V B, W^T dY and V^T C).
+// 64-row K tiles and the backward's S and dP), 96 and 128 (flash's S over
+// 96-row tiles at head_dim 160 and 128-row tiles up to 128); A from
+// registers at N = 64, 128, 192 and 256 (flash's O, dQ, dK and dV at
+// head_dim 64, 112/128, 160 and 256; the SSD's chunk states and W x at 64,
+// its backward's V B, W^T dY and V^T C).
 
 // d (m64 x n64, fp32) += A (smem, desc a) * B (smem, desc b); TA / TB: 1 where
 // that operand is MN-major. scale_d 0 overwrites d.
@@ -370,6 +400,37 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[48], uint64_t a, uint64_t b,
         "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
         "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
         "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (m64 x n128, fp32) += A (smem, desc a) * B (smem, desc b); TA / TB: 1 where
+// that operand is MN-major. scale_d 0 overwrites d.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 

@@ -194,6 +194,8 @@ PERF_BOUNDS = [
      "operations"),
     ("attention_bound_ms", (4, 1, 1500, 16, 16, 64, {"causal": False}), "0.0073",
      "bytes"),
+    ("attention_bound_ms", (4, 1, 4096, 64, 8, 128, {"causal": False}), "0.0201",
+     "bytes"),
     ("attention_bwd_bound_ms", (2, 2048, 2048, 32, 32, 128, {}), "0.174", "operations"),
     ("attention_bwd_bound_ms", (2, 2048, 2048, 16, 16, 128, {}), "0.0869", "operations"),
     ("attention_bwd_bound_ms", (2, 2048, 2048, 32, 32, 112, {}), "0.152", "operations"),

@@ -7,6 +7,8 @@ does) and its pure-jnp oracle; the port's CUDA kernel runs only on a card
 (tests/test_torch_cuda.py), and on the CPU its wrapper takes the plain
 version.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -235,50 +237,158 @@ def test_check_inputs_takes_the_built_head_dims(D, takes):
 
 
 def test_smem_budget_at_new_head_dims():
-    """At 160 and 256 a block is one consumer warpgroup (a 64-row Q tile) and
-    a producer warp over two stages of K and V tiles: 96-row tiles at 160 in
-    three boxes (run at 192), 64-row tiles at 256 in four."""
-    assert fa.smem_bytes(d=160) == (64 + 4 * 96) * 3 * 128 + 1152 == 173184
-    assert fa.smem_bytes(d=256) == (64 + 4 * 64) * 4 * 128 + 1152 == 164992
-    assert fa.block_q(160) == fa.block_q(256) == 64
-    assert fa.block_threads(160) == fa.block_threads(256) == 160
-    assert fa.block_q(128) == 128 and fa.block_threads(128) == 384
-    # five warps: two a sub-partition at most, so a thread may hold 255
-    # registers, where twelve (or nine) warps cap it at 168
-    assert all(-(-fa.block_threads(d) // 32) <= 8 for d in (160, 256))
+    """At 160 and 256 a block is two consumer warpgroups (a 128-row Q tile)
+    and a producer warpgroup over two stages of K and V tiles: 96-row tiles
+    at 160 in three boxes (run at 192), 64-row tiles at 256 in four."""
+    assert fa.smem_bytes(d=160) == (128 + 4 * 96) * 3 * 128 + 1152 == 197760
+    assert fa.smem_bytes(d=256) == (128 + 4 * 64) * 4 * 128 + 1152 == 197760
+    assert fa.TILES[160] == (96, 2) and fa.TILES[256] == (64, 2)
+    assert fa.BLOCK_Q == 128 and fa.BLOCK_THREADS == 384
+    # twelve warps cap a thread at 168 registers at launch; setmaxnreg moves
+    # the producer's (24 a thread) to the consumers (240): 128 x 24 + 256 x
+    # 240 of the SM's 65 536
+    assert 128 * 24 + 256 * 240 <= 65536
     assert all(fa.smem_bytes(d=d) <= 232448 for d in fa.HEAD_DIMS)
 
 
 def test_smem_budget():
     """The kernel's shared memory fits a Hopper block at every head dim: a
-    128-row Q tile and two stages of 96-row K and V tiles, rows in 64-column
+    128-row Q tile and two stages of 128-row K and V tiles, rows in 64-column
     boxes of 128 bytes, 128 bytes of mbarriers and 1 KB of alignment slack."""
-    assert fa.smem_bytes(d=128) == (128 + 4 * 96) * 2 * 128 + 128 + 1024 == 132224
+    assert fa.smem_bytes(d=128) == (128 + 4 * 128) * 2 * 128 + 128 + 1024 == 164992
     assert fa.smem_bytes(d=112) == fa.smem_bytes(d=128)   # two boxes, as 128
-    assert fa.smem_bytes(d=64) == (128 + 4 * 96) * 128 + 1152 == 66688
+    assert fa.smem_bytes(d=64) == (128 + 4 * 128) * 128 + 1152 == 83072
     assert all(fa.smem_bytes(d=d) <= 232448 for d in fa.HEAD_DIMS)
 
 
 @pytest.mark.parametrize("D", sorted(fa.BWD_TILES))
 def test_backward_tile_plan_fits_a_hopper_block(D):
-    """Each row of the backward's tile plan: dK and dV's column parts cover
-    the padded head dim in parts of at most two 64-column boxes (64 fp32
-    registers a thread for each of dK and dV), and both kernels' shared
+    """Each row of the backward's tile plan: dK and dV are whole in one dkdv
+    block (up to four 64-column boxes: 128 fp32 registers a thread for each
+    of dK and dV, within the 240 setmaxnreg gives the consumer warpgroups),
+    and both kernels' shared
     memory fits the 232 448 bytes of a Hopper block: dkdv's 64-row K and V,
     its stages of Q and dO tiles of a step's rows with their LSE and Delta,
-    two buffers of P dy; dq's 64-row Q and dO and its stages of 32-row K
-    and V. Two dq blocks share an SM up to head_dim 128."""
-    parts, q_step, dkdv_stages, dq_stages = fa.BWD_TILES[D]
-    assert sum(parts) == fa.head_dim_boxes(D) and max(parts) <= 2
+    two buffers of P dy; dq's Q and dO (64 rows, 128 at head dim 160: two
+    consumer warpgroups) and its stages of 32-row K and V. Two dq blocks
+    share an SM up to head_dim 128."""
+    q_step, dkdv_stages, dq_stages = fa.BWD_TILES[D]
+    assert fa.head_dim_boxes(D) <= 4
     assert q_step in (32, 64) and min(dkdv_stages, dq_stages) >= 2
     row = fa.padded_head_dim(D) * 2
-    assert fa.bwd_smem_bytes(D, "dq") == (2 * 64 + 2 * dq_stages * 32) * row + 1152
+    assert fa.bwd_dq_rows(D) == (128 if D == 160 else 64)
+    assert fa.bwd_smem_bytes(D, "dq") == \
+        (2 * fa.bwd_dq_rows(D) + 2 * dq_stages * 32) * row + 1152
     assert fa.bwd_smem_bytes(D, "dkdv") == \
         (2 * 64 + 2 * dkdv_stages * q_step) * row + \
         (2 * 64 + 2 * dkdv_stages) * q_step * 4 + 1152
     assert max(fa.bwd_smem_bytes(D, k) for k in ("dkdv", "dq")) <= 232448
     assert fa.bwd_blocks_per_sm(D, "dkdv") == 1
     assert fa.bwd_blocks_per_sm(D, "dq") == (2 if D <= 128 else 1)
+
+
+# The forward's split path (one-row decode and cross-attention): (B, Sq, Sk,
+# H, KVH, D, options). Sk is no multiple of the kernel's K/V tile; GQA
+# groups are packed into one block's rows at Sq = 1.
+SPLIT_CASES = [
+    (2, 1, 300, 8, 2, 64, {"causal": False}),
+    (1, 1, 700, 4, 2, 128, {"q_offset": 650, "kv_valid": 690, "softcap": 30.0}),
+    (2, 4, 333, 4, 4, 64, {"causal": False, "kv_valid": 300}),
+    (1, 4, 517, 8, 2, 160, {"q_offset": 513, "kv_valid": 517}),
+    (1, 1, 260, 4, 2, 256, {"q_offset": 259, "window": 100, "softcap": 50.0,
+                            "scale": 224 ** -0.5}),
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _split_reference(case, dtype):
+    """The reference's Pallas kernel (interpret mode) and naive oracle on
+    SPLIT_CASES[case]."""
+    B, Sq, Sk, H, KVH, D, kw = SPLIT_CASES[case]
+    (jq, jk, jv), _ = _both(_qkv(11 + case, B, Sq, Sk, H, KVH, D), dtype)
+    causal, kv = kw.get("causal", True), kw.get("kv_valid")
+    pallas = flash_attention_pallas(
+        jq, jk, jv, causal=causal, window=kw.get("window", 0),
+        softcap=kw.get("softcap", 0.0), scale=kw.get("scale"),
+        q_offset=kw.get("q_offset", 0), kv_valid=kv, interpret=True)
+    oracle = jref.mha_naive(
+        jq, jk, jv, causal=causal, window=kw.get("window", 0),
+        logit_softcap=kw.get("softcap", 0.0), scale=kw.get("scale"),
+        q_offset=kw.get("q_offset", 0),
+        kv_len=None if kv is None else jnp.full((B,), kv, jnp.int32))
+    return np.asarray(pallas, np.float32), np.asarray(oracle, np.float32)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7])
+@pytest.mark.parametrize("case", range(len(SPLIT_CASES)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_forward_plain_twin_vs_pallas_and_oracle(case, splits, dtype):
+    """The split path's arithmetic in plain torch: each split's partial
+    output and base-2 log-sum-exp over the kernel's cut of the K/V tiles,
+    merged in split order (empty splits included: 7 splits of 3-6 tiles),
+    against the reference's Pallas kernel in interpret mode and its naive
+    oracle; in fp32 the merged log-sum-exp is the forward's."""
+    B, Sq, Sk, H, KVH, D, kw = SPLIT_CASES[case]
+    _, (tq, tk, tv) = _both(_qkv(11 + case, B, Sq, Sk, H, KVH, D), dtype)
+    got = fa.flash_attention_split_plain(tq, tk, tv, splits, **kw)
+    assert got.dtype == TDT[dtype] and got.shape == (B, Sq, H, D)
+    pallas, oracle = _split_reference(case, dtype)
+    _close(got, pallas, TOL[dtype])
+    _close(got, oracle, TOL[dtype])
+    if dtype == "float32":
+        part_o, part_lse = fa.split_partials_plain(tq, tk, tv, splits, **kw)
+        assert part_o.shape == (splits, B, Sq, H, D)
+        assert part_lse.shape == (splits, B, H, Sq)
+        _, lse = fa.merge_splits_plain(part_o, part_lse)
+        _close(lse, fa.attention_lse_plain(tq, tk, **kw), 1e-4)
+
+
+@pytest.mark.parametrize("case", range(len(SPLIT_CASES)))
+def test_split_forward_dropped_split_is_seen(case):
+    """A merge that leaves one split out (its keys dropped: the fault
+    chip_smoke.py plants at the one-row shapes) moves the output past the
+    bf16 tolerance."""
+    B, Sq, Sk, H, KVH, D, kw = SPLIT_CASES[case]
+    _, (tq, tk, tv) = _both(_qkv(11 + case, B, Sq, Sk, H, KVH, D), "float32")
+    part_o, part_lse = fa.split_partials_plain(tq, tk, tv, 2, **kw)
+    want, _ = fa.merge_splits_plain(part_o, part_lse)
+    part_lse[1] = float("-inf")
+    dropped, _ = fa.merge_splits_plain(part_o, part_lse)
+    assert (dropped - want).abs().max().item() > TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("shape,group,splits", [
+    ((4, 1, 1500, 16, 16, 64), 0, 2),      # seamless cross-attention
+    ((4, 1, 4096, 64, 8, 128), 8, 4),      # the VLM's decode cross-attention
+    ((4, 1, 64, 16, 16, 64), 0, 1),        # the executor's: one K/V tile
+    ((4, 1, 1, 16, 16, 64), 0, 1),         # seamless decoder self, 1 key
+    ((4, 1, 2100, 32, 32, 128), 0, 1),     # deepseek-7b decode: 128 blocks
+    ((4, 1, 2100, 16, 8, 256), 2, 4),      # gemma2-9b decode
+    ((4, 1, 2100, 32, 8, 160), 4, 4),      # stablelm-12b decode
+    ((4, 2048, 2048, 32, 32, 128), 0, 1),  # a prefill: many waves
+    ((1, 4, 1200, 8, 8, 64), 0, 10),       # few rows, 10 tiles
+    ((1, 64, 700, 4, 2, 128), 0, 6),       # one warpgroup's rows
+    ((1, 200, 700, 4, 2, 160), 0, 1),      # more rows: short blocks, no merge
+])
+def test_split_count_at_the_main_shapes(shape, group, splits):
+    """The split path is taken for at most 64 q rows where the grid is
+    under one wave of 132 blocks and the keys span several tiles; as many
+    splits as keep one wave, no more than one a tile; a kv head's query
+    heads share a block at one q row."""
+    B, Sq, Sk, H, KVH, D = shape
+    assert fa.packed_group(Sq, H, KVH) == group
+    assert fa.split_count(B, Sq, Sk, H, KVH, D) == splits
+    blocks = B * (KVH if group else H * -(-Sq // fa.BLOCK_Q))
+    assert splits == 1 or blocks * splits <= fa.SMS
+    assert fa.split_count(B, Sq, Sk, H, KVH, D, kv_valid=64) == 1
+
+
+def test_split_tiles_cut_in_order():
+    """The kernel's cut: ceil(n / splits) tiles each, in order, the last
+    ones short or empty."""
+    assert fa.split_tiles(2, 12, 3) == [(2, 6), (6, 10), (10, 12)]
+    assert fa.split_tiles(0, 3, 7) == [(0, 1), (1, 2), (2, 3)] + [(3, 3)] * 4
+    assert fa.split_tiles(5, 5, 2) == [(5, 5), (5, 5)]
 
 
 @pytest.mark.parametrize("D", fa.HEAD_DIMS)
