@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import census
 from . import ref
 from .flash_attention import flash_attention_cuda
 from .moe_gmm import gmm_cuda
@@ -41,11 +42,12 @@ def decode_attention(q, k, v, *, window=0, logit_softcap=0.0, scale=None,
     copies gives those fp32 sums; an einsum on the bf16 tensors themselves
     would round the scores to bf16.
     """
-    s = _decode_scores(q, k, window=window, logit_softcap=logit_softcap,
-                       scale=scale, q_offset=q_offset, kv_len=kv_len,
-                       bf16_kv=bf16_kv)
-    p = torch.softmax(s, dim=-1)
-    return _decode_pv(p, v, q, bf16_kv)
+    with census.span("decode_attention", B=q.shape[0], Sk=k.shape[1]):
+        s = _decode_scores(q, k, window=window, logit_softcap=logit_softcap,
+                           scale=scale, q_offset=q_offset, kv_len=kv_len,
+                           bf16_kv=bf16_kv)
+        p = torch.softmax(s, dim=-1)
+        return _decode_pv(p, v, q, bf16_kv)
 
 
 def decode_attention_split(q, k, v, *, k_start: int, pmax, psum, window=0,
@@ -62,13 +64,15 @@ def decode_attention_split(q, k, v, *, k_start: int, pmax, psum, window=0,
     summed. Each rank's partial softmax is not rescaled on its own: P is
     rounded once, from the global max and sum. ``causal=False`` drops the
     causal mask (cross-attention's cache)."""
-    s = _decode_scores(q, k, window=window, logit_softcap=logit_softcap,
-                       scale=scale, q_offset=q_offset, kv_len=kv_len,
-                       bf16_kv=bf16_kv, k_start=k_start, causal=causal)
-    m = pmax(s.amax(dim=-1, keepdim=True))
-    e = torch.exp(s - m)
-    p = e / psum(e.sum(dim=-1, keepdim=True))
-    return psum(_decode_pv(p, v, q, bf16_kv, out_dtype=torch.float32)).to(q.dtype)
+    with census.span("decode_attention", B=q.shape[0], Sk=k.shape[1]):
+        s = _decode_scores(q, k, window=window, logit_softcap=logit_softcap,
+                           scale=scale, q_offset=q_offset, kv_len=kv_len,
+                           bf16_kv=bf16_kv, k_start=k_start, causal=causal)
+        m = pmax(s.amax(dim=-1, keepdim=True))
+        e = torch.exp(s - m)
+        p = e / psum(e.sum(dim=-1, keepdim=True))
+        return psum(_decode_pv(p, v, q, bf16_kv,
+                               out_dtype=torch.float32)).to(q.dtype)
 
 
 def decode_attention_cost(B, Sq, Sk, H, KVH, D) -> tuple[int, int]:

@@ -339,16 +339,20 @@ class ServeSession:
         leaves)."""
         prompts = torch.as_tensor(prompts, device=self.device)
         B, S = prompts.shape
-        extras = extras or {}
-        enc_len = cross_len(extras)
-        cache = self.model.init_cache(B, S + max_new_tokens, enc_len=enc_len,
-                                      device=self.device,
-                                      kv_dtype=dtype_of(self.opts.kv_dtype))
-        inputs = {"tokens": prompts, **extras}
-        last_logits, cache = self._prefill(self.params, inputs, cache)
-        tok = torch.argmax(last_logits, dim=-1)[:, None]
-        out = [tok]
-        for idx in range(S, S + max_new_tokens - 1):
-            tok, _, cache = self._decode(self.params, cache, tok, idx)
-            out.append(tok)
-        return torch.cat(out, dim=1)
+        with census.span("serve.generate", rows=B, prompt_len=S,
+                         new_tokens=max_new_tokens):
+            extras = extras or {}
+            enc_len = cross_len(extras)
+            cache = self.model.init_cache(B, S + max_new_tokens, enc_len=enc_len,
+                                          device=self.device,
+                                          kv_dtype=dtype_of(self.opts.kv_dtype))
+            inputs = {"tokens": prompts, **extras}
+            with census.span("serve.prefill"):
+                last_logits, cache = self._prefill(self.params, inputs, cache)
+            tok = torch.argmax(last_logits, dim=-1)[:, None]
+            out = [tok]
+            for idx in range(S, S + max_new_tokens - 1):
+                with census.span("serve.decode_step", index=idx - S):
+                    tok, _, cache = self._decode(self.params, cache, tok, idx)
+                out.append(tok)
+            return torch.cat(out, dim=1)

@@ -286,16 +286,18 @@ def build_train_step(model, opts: TrainOptions, mesh=None, rules=None) -> Callab
         return _mesh_step(grad_fn, opts, mesh)
 
     def train_step(state, batch):
-        grads, metrics = grad_fn(state["params"], batch)
-        lr = warmup_cosine(state["step"], peak_lr=opts.opt.lr,
-                           warmup_steps=opts.warmup_steps,
-                           total_steps=opts.total_steps)
-        new_p, new_opt, opt_metrics = adamw.apply_updates(
-            state["params"], grads, state["opt"], opts.opt, lr=lr)
-        del grads
-        new_state = {"params": new_p, "opt": new_opt,
-                     "step": state["step"] + 1}
-        return new_state, {**metrics, **opt_metrics}
+        with census.span("train.step"):
+            grads, metrics = grad_fn(state["params"], batch)
+            lr = warmup_cosine(state["step"], peak_lr=opts.opt.lr,
+                               warmup_steps=opts.warmup_steps,
+                               total_steps=opts.total_steps)
+            with census.span("train.optimizer"):
+                new_p, new_opt, opt_metrics = adamw.apply_updates(
+                    state["params"], grads, state["opt"], opts.opt, lr=lr)
+            del grads
+            new_state = {"params": new_p, "opt": new_opt,
+                         "step": state["step"] + 1}
+            return new_state, {**metrics, **opt_metrics}
 
     return train_step
 
