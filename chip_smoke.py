@@ -53,6 +53,23 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             VLM-cross and seamless shapes; at
             gemma2's two shapes also the kernel's errors with the softcap
             off, against the plain version and an fp32-output reference.
+   decode:  the decode-attention kernel against its plain version, one
+            self-attention call of a decode step of each path that serves
+            on one card (``DECODE_SHAPES``): deepseek-7b at the benchmark's
+            two serve cells (B=4 over 8640 positions; B=32 over 1300),
+            zamba2-7b (D=112), seamless's decoder (D=64), gemma2-9b's global
+            and local layers (D=256, softcap 50, the window binding),
+            stablelm-12b (D=160, 4 query heads a kv head), the VLM's
+            self-attention (8) and a rank's share of command-r-plus-104b
+            over 4 (12): the worst row within DECODE_ROW_RTOL of the
+            output's scale, elementwise within 2e-2, one call two kernel
+            launches, a second call bitwise equal, and a fault (one split's
+            keys dropped; the last position where the call is one split)
+            shown to exceed the row limit; timings of the kernel, the plain
+            version and ``F.scaled_dot_product_attention`` over the visible
+            slice (a yardstick the port never calls; no softcap or window)
+            beside the byte bound, and at deepseek-7b's two shapes the
+            kernel's device time (torch.profiler).
    flash_bwd: the flash backward kernel against autograd through the
             plain version in fp32: first the forward's row log-sum-exp at
             every head dim within LSE_TOL; a call where no row has a key
@@ -160,8 +177,9 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             block, the encoder's and cross-attention's included, one SSD
             launch per SSM layer, three grouped-GEMM launches per MoE layer)
             plus 47 decode steps' (one flash launch per cross-attention
-            block, the grouped GEMMs again), and every grouped-GEMM and SSD
-            launch must take its wgmma variant.
+            block, one decode-attention call per self-attention block, the
+            grouped GEMMs again), and every grouped-GEMM and SSD launch must
+            take its wgmma variant.
 4. agree:   every path but mamba2-370m's: one full-width prefill through
             the kernels and the same prefill
             through their plain versions: logits at every prompt position
@@ -169,7 +187,9 @@ outside a checkout of the repository. Phases, each printed as JSON lines:
             argmax equal wherever the top-2 margin exceeds that limit, and a
             prefill with an injected fault shown to exceed it. For zamba2-7b,
             seamless, gemma2-9b, stablelm-12b and the VLM also 8 decode steps
-            from each prefill's cache, held the same way, with a dropped
+            from each prefill's cache (the kernel run's self-attention by
+            the decode kernel, the plain runs' by its plain version), held
+            the same way, with a dropped
             prefill-to-decode handoff (SSM states; the encoder's K/V; the
             whole cache elsewhere) shown to exceed the limit;
             for seamless also the encoder's final states at all 4 x 1500
@@ -510,6 +530,33 @@ REPLAY_CALLS = ("seamless-m4t-large-v2", "gemma2-9b", "stablelm-12b",
                 "llama-3.2-vision-90b", "command-r-plus-104b")
 
 VIDEO_SCENES, VIDEO_FPS = 4, 10   # Media.synthesize's defaults, as the reference's
+
+# (name, B, H, KVH, D, cache positions, kv_len, options): one decode step's
+# self-attention call of each path that serves on one card. deepseek-7b at
+# the benchmark's two serve cells (portbench/: the agent turn's longest
+# prompt, 8632, at its 9th new token; RAG's 1200 at its 101st); the others
+# at the serve phase's 2048-token prompts at their 25th new token
+# (seamless's 1-token prompts), gemma2-9b's local layers past their window
+# (a 6144-token prompt), command-r-plus-104b at one rank's share of tensor
+# parallelism over 4 (24 of 96 heads, 2 of 8 kv heads)
+DECODE_SHAPES = [
+    ("ds7b_agent_turn", 4, 32, 32, 128, 8656, 8640, {}),
+    ("ds7b_rag_synth", 32, 32, 32, 128, 1400, 1300, {}),
+    ("zamba2_decode", 4, 32, 32, 112, 2096, 2072, {}),
+    ("seamless_decoder_decode", 4, 16, 16, 64, 49, 25, {}),
+    ("gemma2_global_decode", 4, 16, 8, 256, 2096, 2072,
+     {"logit_softcap": 50.0, "scale": 224 ** -0.5}),
+    ("gemma2_local_decode", 1, 16, 8, 256, 6192, 6168,
+     {"window": 4096, "logit_softcap": 50.0, "scale": 224 ** -0.5}),
+    ("stablelm_decode", 4, 32, 8, 160, 2096, 2072, {}),
+    ("vlm_self_decode", 4, 64, 8, 128, 2096, 2072, {}),
+    ("command_r_rank_decode", 4, 24, 2, 128, 2096, 2072, {}),
+]
+# the decode kernel's worst (b, h) row against its plain version, relative
+# to the row's norm: an output element over n positions is about sqrt(e / n)
+# (0.018 at 8640), under KERNEL_TOL, so only a limit on the output's scale
+# sees a split's keys dropped (about sqrt(1 / splits) of a row)
+DECODE_ROW_RTOL = 1e-2
 VIDEO_QUESTION = "what objects appear?"
 # the model examples of examples/torch/, run on the card at their defaults:
 # script -> (argv, whether it trains)
@@ -570,7 +617,7 @@ def attention_bound_ms(B, Sq, Sk, H, KVH, D, opts) -> tuple[float, str]:
 
 
 KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "moe_gmm", "ssd_scan",
-                  "ssd_scan_bwd")
+                  "ssd_scan_bwd", "decode_attention")
 
 
 def ptxas_kernels(report: str) -> list[dict]:
@@ -991,6 +1038,118 @@ def phase_kernel():
         del q, k, v, got, want
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
+    return worst, timings
+
+
+def decode_faults(q, k, v, kw, splits: int, step: int) -> dict:
+    """The decode kernel's plain version under a fault the kernel can have:
+    with more than one split, the middle split's keys dropped (its run of
+    ``split_ranges`` cut out of the cache); with one, the last visible
+    position dropped."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    lo, hi = da.visible_range(k.shape[1], kw["q_offset"], kw["kv_len"],
+                              kw.get("window", 0))
+    if splits == 1:
+        return {"last_position_dropped": decode_attention_plain(
+            q, k, v, **{**kw, "kv_len": hi - 1, "q_offset": hi - 2})}
+    runs = [r for r in da.split_ranges(lo, hi, splits, step) if r[1] > r[0]]
+    a, b = runs[len(runs) // 2]
+    kd, vd = (torch.cat([t[:, :a], t[:, b:]], 1) for t in (k, v))
+    n = hi - (b - a)
+    return {"one_split_dropped": decode_attention_plain(
+        q, kd, vd, **{**kw, "q_offset": n - 1, "kv_len": n})}
+
+
+def decode_bound_ms(B, H, KVH, D, visible) -> tuple[float, str]:
+    """The decode kernel's bound: ``decode_attention_cost`` over the visible
+    positions (each bf16 K and V element read once) at the HBM rate."""
+    from repro_torch.kernels import decode_attention as da
+    return bound_ms(da.decode_attention_cost(B, 1, visible, H, KVH, D))
+
+
+def decode_shape_lines() -> dict:
+    """Each of ``DECODE_SHAPES`` as one line of text, by name."""
+    return {name: f"B={B} H={H} KVH={KVH} D={D} over {kv_len} of {Sk} cached "
+                  f"positions bf16 {opts or ''}".strip()
+            for name, B, H, KVH, D, Sk, kv_len, opts in DECODE_SHAPES}
+
+
+def phase_decode():
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst, failures, timings = 0.0, [], {}
+    for name, B, H, KVH, D, Sk, kv_len, opts in DECODE_SHAPES:
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        q, k, v = rnd(B, 1, H, D), rnd(B, Sk, KVH, D), rnd(B, Sk, KVH, D)
+        kw = {"q_offset": kv_len - 1, "kv_len": kv_len, **opts}
+        lo, hi = da.visible_range(Sk, kv_len - 1, kv_len, opts.get("window", 0))
+        splits = da.split_count(B * KVH, hi - lo, sms)
+        before = da.decode_attention_cuda.launches
+        got = da.decode_attention_cuda(q, k, v, **kw)
+        again = da.decode_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        calls = da.decode_attention_cuda.launches - before
+        want = da.decode_attention_plain(q, k, v, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        row_rel, norm_rel = rel_errors(got, want)
+        ok = bool(torch.isfinite(got).all()) and row_rel <= DECODE_ROW_RTOL \
+            and torch.allclose(got.float(), want.float(), atol=KERNEL_TOL,
+                               rtol=KERNEL_TOL) \
+            and calls == 2 and torch.equal(got, again)
+        worst = max(worst, err)
+        line = {"phase": "decode", "shape": name,
+                "B_H_KVH_D_cache_kvlen": [B, H, KVH, D, Sk, kv_len],
+                "options": opts, "visible": [lo, hi], "splits": splits,
+                "max_abs_err": err, "tol": KERNEL_TOL, "row_rel_err": row_rel,
+                "row_rtol": DECODE_ROW_RTOL, "norm_rel_err": norm_rel,
+                "calls": calls, "bitwise_repeat": torch.equal(got, again),
+                "faults": {}}
+        for fault, out in decode_faults(q, k, v, kw, splits,
+                                        da.split_step(D, H // KVH)).items():
+            f_row = rel_errors(out, want)[0]
+            line["faults"][fault] = {"row_rel_err": f_row}
+            if f_row <= DECODE_ROW_RTOL:
+                failures.append(f"{name}: the row limit misses {fault}")
+            del out
+        emit({**line, "ok": ok})
+        if not ok:
+            failures.append(name)
+            continue
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, lo:hi], v[:, lo:hi]))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, scale=opts.get("scale"),
+                                                  enable_gqa=H != KVH)
+        try:
+            library_ms = cuda_ms(sdpa)
+        except (TypeError, RuntimeError) as e:      # no enable_gqa in this torch
+            library_ms = f"not measured ({type(e).__name__})"
+        bound, bound_by = decode_bound_ms(B, H, KVH, D, hi - lo)
+        timing = timings[name] = {
+            "kernel_ms": cuda_ms(lambda: da.decode_attention_cuda(q, k, v, **kw)),
+            "plain_ms": cuda_ms(lambda: da.decode_attention_plain(q, k, v, **kw),
+                                warmup=1, iters=3),
+            "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by}
+        timing["ms"] = timing["kernel_ms"]
+        if opts:
+            timing["library_note"] = "sdpa without " + " or ".join(
+                o for o in ("logit_softcap", "window") if o in opts)
+        if name.startswith("ds7b"):
+            timing["device_ms"] = device_ms(
+                lambda: da.decode_attention_cuda(q, k, v, **kw))
+        emit({"phase": "decode_timing", "shape": name, **timing})
+        del q, k, v, got, again, want
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"decode kernel checks failed: {failures}")
     return worst, timings
 
 
@@ -1801,20 +1960,22 @@ def expected_launches(cfg, mode: str = "prefill") -> dict:
     ``cfg`` must make. Prefill: one flash launch per attention block, the
     encoder's and the cross-attention blocks' too, one SSD launch per SSM
     layer, three grouped-GEMM launches (gate, up, down) per MoE layer. A
-    decode step: one flash launch per cross-attention block (self-attention
-    decodes by the plain GEMV, the SSM by its recurrence) and the same
-    grouped-GEMM launches."""
+    decode step: one flash launch per cross-attention block, one decode
+    attention launch per self-attention block (the SSM decodes by its
+    recurrence) and the same grouped-GEMM launches."""
     from repro_torch.models.transformer import encoder_plan, layer_plan
     prefill = mode == "prefill"
     plan = layer_plan(cfg)
     if prefill and cfg.family == "encdec":
         plan += encoder_plan(cfg)
-    count = {"flash_attention": 0, "gmm": 0, "ssd_scan": 0}
+    count = {"flash_attention": 0, "gmm": 0, "ssd_scan": 0, "decode_attention": 0}
     for gd in plan:
         for b in gd.blocks:
             if b.kind == "cross_attn" or (
                     prefill and b.kind in ("attn", "parallel", "shared_attn")):
                 count["flash_attention"] += gd.repeat
+            elif b.kind in ("attn", "parallel", "shared_attn"):
+                count["decode_attention"] += gd.repeat
             elif b.kind == "ssm" and prefill:
                 count["ssd_scan"] += gd.repeat
             elif b.kind == "moe":
@@ -1884,8 +2045,10 @@ def plan_rows(dag, plan) -> list:
 
 def launch_counters():
     """Each kernel wrapper by name: the forward kernels count launches, the
-    backward wrappers count calls (three kernels each for the flash and SSD
-    backwards, two launches of the gmm kernel for its backward)."""
+    backward wrappers and decode attention count calls (three kernels each
+    for the flash and SSD backwards, two launches of the gmm kernel for its
+    backward and of the decode-attention kernels for a call)."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
     from repro_torch.kernels.moe_gmm import gmm_bwd_cuda, gmm_cuda
@@ -1893,7 +2056,8 @@ def launch_counters():
     return {"flash_attention": flash_attention_cuda, "gmm": gmm_cuda,
             "ssd_scan": ssd_scan_cuda,
             "flash_attention_bwd": flash_attention_bwd_cuda,
-            "gmm_bwd": gmm_bwd_cuda, "ssd_scan_bwd": ssd_scan_bwd_cuda}
+            "gmm_bwd": gmm_bwd_cuda, "ssd_scan_bwd": ssd_scan_bwd_cuda,
+            "decode_attention": decode_attention_cuda}
 
 
 def reset_launches():
@@ -2491,6 +2655,7 @@ def phase_agree(model, params, prompts, extras, *, decode_steps=0,
     """
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_plain
     from repro_torch.models import transformer
     from repro_torch.runtime.serve import cross_len
 
@@ -2518,7 +2683,9 @@ def phase_agree(model, params, prompts, extras, *, decode_steps=0,
         after it (B, decode_steps, vocab), through the session's path; with
         ``routing``, the MoE layers route through it. The encoder's states
         of the prefill are left in ``enc_states["last"]``; with ``states``,
-        the decoder attends to those instead."""
+        the decoder attends to those instead. A run given ``attention``
+        (the plain run, the floors, the faults) decodes by the plain decode
+        attention, the kernel run by its kernel."""
         def encode(*args, **kw):
             enc_states["last"] = out = encode_fn(*args, **kw)
             return out if states is None else states
@@ -2528,6 +2695,9 @@ def phase_agree(model, params, prompts, extras, *, decode_steps=0,
         with torch.inference_mode(), \
                 mock.patch.object(ops, "flash_attention",
                                   attention or ops.flash_attention), \
+                mock.patch.object(ops, "decode_attention",
+                                  decode_attention_plain if attention
+                                  else ops.decode_attention), \
                 mock.patch.object(ops, "ssd_scan", ssd or ops.ssd_scan), \
                 mock.patch.object(ops, "gmm", gmm or ops.gmm), \
                 mock.patch.object(transformer, "encode", encode), \
@@ -3743,6 +3913,7 @@ def run_phases() -> int:
 
     census = phase_card()
     flash_err, flash_t = phase_kernel()
+    decode_err, decode_t = phase_decode()
     flash_bwd_err, flash_bwd_t = phase_flash_bwd()
     ssd_err, ssd_t = phase_ssd()
     gmm_err, gmm_t = phase_gmm()
@@ -3834,6 +4005,21 @@ def run_phases() -> int:
                   "shape": f"B=4 Sq=1 Sk={NUM_PATCHES} H=64 KVH=8 D=128 "
                            "non-causal bf16 (llama-3.2-vision-90b decode cross)"},
               at_tp4_command_r=tp_flash_t[TP_FLASH_FWD[0]]),
+        entry("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+              "none: the reference's decode attention is plain jnp "
+              "(src/repro/kernels/ops.py::decode_attention)", decode_err,
+              decode_t["ds7b_agent_turn"],
+              "B=4 H=KVH=32 D=128 over 8640 of 8656 cached positions bf16 "
+              "(deepseek-7b, the benchmark's agent turn)",
+              "CUDA-core FMAs, 16-byte loads: the visible positions cut into "
+              "splits computed in the kernel; two launches a call (fp32 "
+              "scores with each split's row max and sum of exp; P = "
+              "bf16(exp(s - M) / L) times V, the last block of a kv head "
+              "summing the splits' partials in split order); launches count "
+              "calls",
+              **{f"at_{name}": {**decode_t[name], "shape": shape_line}
+                 for name, shape_line in decode_shape_lines().items()
+                 if name != "ds7b_agent_turn"}),
         entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
               "src/repro/kernels/ssd_scan.py:70", ssd_err,
               ssd_t["zamba2-7b"],

@@ -335,15 +335,21 @@ def test_the_ops_inside_a_kernel_call_are_not_counted():
 
 
 def test_decode_attention_is_counted_op_by_op():
-    """``decode_attention`` is plain torch: the census counts its products,
-    which are ``decode_attention_cost``'s FLOPs."""
+    """``decode_attention`` is one call of its kernel: the census counts no
+    op of it, and one ``decode_attention_kernel`` call at
+    ``decode_attention_cost`` over the visible positions (a window's
+    start and ``kv_len`` cut them)."""
     B, H, KVH, D, Sk = 2, 8, 2, 64, 96
     q, k = _meta(B, 1, H, D), _meta(B, Sk, KVH, D)
     c = op_cost.OpCensus()
     with c, torch.inference_mode():
         ops.decode_attention(q, k, k, q_offset=Sk - 1, kv_len=Sk)
-    assert c.flops == ops.decode_attention_cost(B, 1, Sk, H, KVH, D)[0]
-    assert not c.kernel_calls
+        ops.decode_attention(q, k, k, q_offset=70, kv_len=71, window=32)
+    assert c.flops == 0 and c.bytes == 0
+    assert dict(c.kernel_calls) == {"decode_attention_kernel": 2}
+    want = [ops.decode_attention_cost(B, 1, n, H, KVH, D) for n in (Sk, 32)]
+    assert c.kernel_flops == sum(f for f, _ in want)
+    assert c.kernel_io == sum(b for _, b in want)
 
 
 # ---------------------------------------------------------------------------

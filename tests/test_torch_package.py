@@ -392,7 +392,8 @@ def test_chip_smoke_expects_a_launch_per_block(chip_smoke):
     """Per prefill: one flash launch per attention block (the encoder's and
     the cross-attention blocks' too), one SSD launch per SSM layer, three
     grouped-GEMM launches per MoE layer. Per decode step: one flash launch
-    per cross-attention block and the grouped GEMMs again."""
+    per cross-attention block, one decode-attention call per self-attention
+    block and the grouped GEMMs again."""
     want = {"deepseek-7b": {"flash_attention": 30, "gmm": 0, "ssd_scan": 0},
             "zamba2-7b": {"flash_attention": 13, "gmm": 0, "ssd_scan": 81},
             "mamba2-370m": {"flash_attention": 0, "gmm": 0, "ssd_scan": 48},
@@ -406,6 +407,9 @@ def test_chip_smoke_expects_a_launch_per_block(chip_smoke):
                                      "ssd_scan": 0},
             "command-r-plus-104b": {"flash_attention": 4, "gmm": 0,
                                     "ssd_scan": 0}}
+    self_attn = {"deepseek-7b": 30, "zamba2-7b": 13, "deepseek-moe-16b": 28,
+                 "seamless-m4t-large-v2": 24, "gemma2-9b": 42, "stablelm-12b": 40,
+                 "llama-3.2-vision-90b": 8, "command-r-plus-104b": 4}
     decode = {"deepseek-moe-16b": {"flash_attention": 0, "gmm": 81,
                                    "ssd_scan": 0},
               "seamless-m4t-large-v2": {"flash_attention": 24, "gmm": 0,
@@ -413,9 +417,11 @@ def test_chip_smoke_expects_a_launch_per_block(chip_smoke):
               "llama-3.2-vision-90b": {"flash_attention": 2, "gmm": 0,
                                        "ssd_scan": 0}}
     for arch, count in want.items():
+        count = {**count, "decode_attention": 0}
         cfg = chip_smoke.path_config(arch)
         assert chip_smoke.expected_launches(cfg) == count
-        step = decode.get(arch, dict.fromkeys(count, 0))
+        step = {**decode.get(arch, dict.fromkeys(count, 0)),
+                "decode_attention": self_attn.get(arch, 0)}
         assert chip_smoke.expected_launches(cfg, "decode") == step
         assert chip_smoke.generate_launches(cfg, 64) == {
             k: count[k] + 63 * step[k] for k in count}
@@ -431,6 +437,45 @@ def test_chip_smoke_ssd_bound(chip_smoke):
     assert by == "bytes" and abs(ms - 0.0228) < 0.001
     ms, by = chip_smoke.attention_bound_ms(4, 2048, 2048, 32, 32, 112, {})
     assert by == "operations" and abs(ms - 0.122) < 0.001
+
+
+def test_chip_smoke_decode_bound(chip_smoke):
+    """The decode kernel's bound at deepseek-7b's serve cells, by bytes: the
+    agent turn's 4 x 8640 positions of 32 kv heads of 128, K and V in bf16,
+    566 MB, 0.169 ms at 3.35 TB/s; RAG's 32 x 1300, 682 MB, 0.204 ms."""
+    ms, by = chip_smoke.decode_bound_ms(4, 32, 32, 128, 8640)
+    assert by == "bytes" and abs(ms - 0.1690) < 0.0005
+    ms, by = chip_smoke.decode_bound_ms(32, 32, 32, 128, 1300)
+    assert by == "bytes" and abs(ms - 0.2036) < 0.0005
+    names = [shape[0] for shape in chip_smoke.DECODE_SHAPES]
+    assert names[:2] == ["ds7b_agent_turn", "ds7b_rag_synth"]
+    assert set(chip_smoke.decode_shape_lines()) == set(names)
+
+
+@pytest.mark.parametrize("case", ["splits", "one_split", "window"])
+def test_chip_smoke_decode_faults_exceed_the_row_limit(chip_smoke, case):
+    """Each fault of the decode phase moves the worst row past
+    DECODE_ROW_RTOL on ordinary random inputs: one split's keys dropped,
+    the last position dropped where the call is one split."""
+    from repro_torch.kernels import decode_attention as da
+    B, H, KVH, D, Sk, kv_len = 2, 4, 2, 64, 1500, 1480
+    kw = {"q_offset": kv_len - 1, "kv_len": kv_len}
+    if case == "one_split":
+        Sk, kv_len = 49, 25
+        kw = {"q_offset": kv_len - 1, "kv_len": kv_len}
+    elif case == "window":
+        kw["window"] = 700
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=gen).bfloat16()
+               for shape in ((B, 1, H, D), (B, Sk, KVH, D), (B, Sk, KVH, D)))
+    lo, hi = da.visible_range(Sk, kw["q_offset"], kw["kv_len"], kw.get("window", 0))
+    splits = da.split_count(B * KVH, hi - lo)
+    assert (splits == 1) == (case == "one_split")
+    want = da.decode_attention_plain(q, k, v, **kw)
+    faults = chip_smoke.decode_faults(q, k, v, kw, splits, da.split_step(D, H // KVH))
+    assert len(faults) == 1
+    for out in faults.values():
+        assert chip_smoke.rel_errors(out, want)[0] > chip_smoke.DECODE_ROW_RTOL
 
 
 def test_chip_smoke_gmm_bound(chip_smoke):

@@ -16,8 +16,10 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch import census  # noqa: E402
 from repro_torch.configs.base import ShapeCell  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_gmm as mg  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
@@ -194,6 +196,21 @@ def test_kernel_calls_are_spans_on_meta_tensors(name, call, grad):
     want = [("step", None), (name, fwd_cost)] + ([(name + "_bwd", bwd_cost)] if grad else [])
     assert [(s.name, s.cost) for s in spans] == want
     assert all(s.parent == step.id for s in spans[1:])
+
+
+def test_decode_attention_holds_one_kernel_span_on_meta_tensors():
+    """``ops.decode_attention`` records its stage span and inside it one
+    ``decode_attention_kernel`` span at the visible prefix's cost: a name
+    of its own, so that ``decode_attn_share``, which reads the stage span,
+    counts the call once."""
+    q, k = _meta(2, 1, 8, 64), _meta(2, 40, 2, 64)
+    with _cpu_profile():
+        ops.decode_attention(q, k, k, q_offset=30, kv_len=31, window=16)
+    spans = census.spans()
+    assert [(s.name, s.cost) for s in spans] == [
+        ("decode_attention", None),
+        ("decode_attention_kernel", da.decode_attention_cost(2, 1, 16, 8, 2, 64))]
+    assert spans[1].parent == spans[0].id
 
 
 def test_host_spans_enclose_the_profilers_events():
