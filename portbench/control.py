@@ -24,15 +24,17 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 
-def readings(name: str, seed: int, seconds: float, device="cuda", fault=None) -> dict:
+def readings(name: str, seed: int, seconds: float, device="cuda", fault=None,
+             conf=None, mix=None) -> dict:
     """The program's and the control's numbers for one seed; with ``fault``
     (a name in ``faults.py``) the numbers of the program with that fault
-    planted, and no control."""
+    planted, and no control. ``conf`` and ``mix`` stand in for the cell's
+    own (the tests' tiny sizes)."""
     from portbench import faults, harness, serve, train
     from portbench.reference.lowp import FP8
     planted = {**faults.SERVE, **faults.TRAIN}[fault] if fault else None
     ctx, got = harness.drive(name, seed, seconds, False, started=time.perf_counter(),
-                             device=device, fault=planted)
+                             device=device, fault=planted, conf=conf, mix=mix)
     if fault:
         return {"workload": name, "seed": seed, "fault": fault, "program": got["checks"]}
     if ctx.mix["kind"] == "serve":

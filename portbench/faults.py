@@ -3,9 +3,9 @@ reading a fault's numbers on the card (``control.py --fault``): each takes
 the session or the step and returns it broken."""
 from __future__ import annotations
 
-import copy
-
 import torch
+
+from .reference.common import leaves
 
 
 def alter_first_token(session):
@@ -35,9 +35,15 @@ def alter_a_decoded_token(session):
 
 
 def unchanged_state(step):
-    """The step computes, and returns the state it was given."""
+    """The step computes, and returns the state it was given. The step
+    updates its state in place, so the state waits in host memory (a 7B
+    model's weights and moments leave no room for a copy on the card) and
+    is written back after it."""
     def wrong(state, batch):
-        _, metrics = step(copy.deepcopy(state), batch)
+        kept = {p: t.to("cpu", copy=True) for p, t in leaves(state).items()}
+        _, metrics = step(state, batch)
+        for p, t in leaves(state).items():
+            t.copy_(kept[p])
         return state, metrics
     return wrong
 

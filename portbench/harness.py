@@ -2,9 +2,10 @@
 
 Everything a cell needs is found by name: its configuration in
 ``configs/<config>.json``, its mix in ``traffic/<mix>.json``, the limits of
-its check in ``limits/<cell>.json`` and each per-layer metric's reader in
-``metrics/<metric>.py``. The mix's ``kind`` picks the runner (``serve.py``
-or ``train.py``).
+its check in ``limits/<cell>.json``, each per-layer metric's reader in
+``metrics/<metric>.py``, and the configuration's family (its plain
+reference and its work formulas) in ``reference/<family>.py``. The mix's
+``kind`` picks the runner (``serve.py`` or ``train.py``).
 """
 from __future__ import annotations
 
@@ -39,6 +40,14 @@ def cell_of(name: str, bench: dict | None = None) -> dict:
 
 def config(name: str) -> dict:
     return json.loads((HERE / "configs" / f"{name}.json").read_text())
+
+
+def family(conf: dict):
+    """The module ``reference/<family>.py`` that a configuration names by
+    its ``reference`` key; ``decoder`` (the dense and MoE decoders) where
+    it names none."""
+    return importlib.import_module(f".reference.{conf.get('reference', 'decoder')}",
+                                   __package__)
 
 
 def limits(cell: str) -> dict:
@@ -76,6 +85,10 @@ class Context:
     @property
     def model(self) -> dict:
         return self.conf["model"]
+
+    @property
+    def family(self):
+        return family(self.conf)
 
     @property
     def param_dtype(self) -> torch.dtype:

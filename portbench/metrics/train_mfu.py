@@ -1,9 +1,8 @@
 """The train steps' model FLOPs over their time, as a share of the bf16
-peak: (6 x the parameters a token multiplies through x tokens + 3 x the
-forward's causal attention products) a step, from the configuration's
-widths; remat's recompute is not counted. Time: the host's clock around
+peak: 3 x the configuration's family's ``forward_flops`` over the step's
+rows a step (remat's recompute not counted). Time: the host's clock around
 each untraced step of the window, each ending in a sync."""
-from portbench.yardstick import PEAK_BF16_FLOPS, train_flops
+from portbench.yardstick import PEAK_BF16_FLOPS
 
 LAYER = "train step"
 UNIT = "%"
@@ -14,5 +13,5 @@ def read(ctx, got, trace):
     steps = got["run"].steps[ctx.mix.get("trace", {}).get("steps", 1):]
     if not steps:
         return None
-    flops = train_flops(ctx.model, ctx.mix["batch"], ctx.mix["seq_len"])
+    flops = 3 * ctx.family.forward_flops(ctx.model, ctx.mix["batch"], ctx.mix["seq_len"], 0)
     return 100.0 * flops * len(steps) / (sum(s for s, _ in steps) * PEAK_BF16_FLOPS)

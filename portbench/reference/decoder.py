@@ -1,4 +1,5 @@
-"""The plain reference: the dense and MoE decoders in fp32 torch.
+"""The plain reference of the default family: the dense and MoE decoders
+in fp32 torch.
 
 It imports nothing of the program. It reads the weights the benchmark drew
 (a nested dict of tensors, each layer's weights stacked on a leading axis,
@@ -14,42 +15,23 @@ keeping the first ``capacity`` of its assignments in token order (the
 configuration's ``capacity_factor``), two shared experts always on, and the
 Switch load-balance loss. ``Precision`` puts the operands of every product
 through a lower precision for the control (``lowp.py``).
+
+As a family (a configuration without a ``reference`` key names this one;
+``portbench/README.md``) it gives the layer plan, a layer's fp32 weights
+and where each of its leaves lives (``leaf_of``), one layer's forward from
+its input, the weights outside the layers as fp32 copies, the embedding,
+the logits, and for the metric readers ``forward_flops``, the model FLOPs
+from the configuration's widths. ``common.forward_logits`` (the serve
+check) and ``train.py`` (the train reference) run the layers from these.
 """
 from __future__ import annotations
 
-from contextlib import contextmanager
-
 import torch
 
+from ..yardstick import attended_pairs
+from .common import FP32, Precision, fp32_exact
+
 EPS = 1e-6
-
-
-@contextmanager
-def fp32_exact():
-    """TF32 off for every product made inside (restored after)."""
-    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
-           torch.get_float32_matmul_precision())
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old[:2]
-        torch.set_float32_matmul_precision(old[2])
-
-
-class Precision:
-    """fp32 products; the control's subclass rounds their operands."""
-
-    def mm(self, a, b):
-        return a @ b
-
-    def einsum(self, eq, a, b):
-        return torch.einsum(eq, a, b)
-
-
-FP32 = Precision()
 
 
 def layer_plan(model: dict) -> list[tuple[str, int, str, int]]:
@@ -67,12 +49,18 @@ def layer_plan(model: dict) -> list[tuple[str, int, str, int]]:
 
 
 def layer_weights(params, group: str, i: int) -> dict:
-    """Layer ``i`` of a group, every leaf cast to fp32."""
+    """Layer ``i`` of a group, every leaf an fp32 copy."""
     def walk(t):
         if isinstance(t, dict):
             return {k: walk(v) for k, v in t.items()}
-        return t[i].float()
+        return t[i].to(torch.float32, copy=True)
     return walk(params["groups"][group])
+
+
+def leaf_of(group: str, i: int, path: str) -> tuple[str, int]:
+    """Where leaf ``path`` of layer ``i``'s weights lives: (the params'
+    leaf path, its index on the leading axis)."""
+    return f"groups/{group}/{path}", i
 
 
 def rms_norm(x, w):
@@ -153,8 +141,8 @@ def moe_block(p, x2d, moe: dict, prec: Precision = FP32):
     return out, aux
 
 
-def block(lp, x, model: dict, kind: str, positions, cache=None, at: int = 0,
-          prec: Precision = FP32):
+def layer_forward(lp, x, model: dict, kind: str, positions, cache=None, at: int = 0,
+                  prec: Precision = FP32):
     """One layer (attention, then the FFN or MoE block) over x (B, S, d)
     fp32 at ``positions``. With ``cache`` (a dict of fp32 k and v of
     (B, max_len, KVH, D)), the new keys are written at ``at`` and the
@@ -186,39 +174,27 @@ def block(lp, x, model: dict, kind: str, positions, cache=None, at: int = 0,
     return x + ffn(f["ffn"], h, prec), None
 
 
-def hidden_states(params, model: dict, tokens, prec: Precision = FP32, *,
-                  keep_inputs: bool = False):
-    """The final norm's input over tokens (B, S), and with
-    ``keep_inputs`` every layer's input (fp32) with the layers' kinds."""
-    x = params["embed"][tokens].float()
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    kept = []
-    for group, n, kind, _ in layer_plan(model):
-        for i in range(n):
-            if keep_inputs:
-                kept.append((group, i, kind, x))
-            x, _ = block(layer_weights(params, group, i), x, model, kind,
-                         positions, prec=prec)
-    return x, kept
+def outer_weights(params) -> dict:
+    """The weights outside the layers (the embedding, the final norm, the
+    head) as fp32 copies, nested as in ``params``."""
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return t.to(torch.float32, copy=True)
+    return {k: walk(v) for k, v in params.items() if k != "groups"}
 
 
-def logits_at(params, x):
-    """Logits (…, V) in fp32 of final-norm inputs x."""
-    h = rms_norm(x, params["final_norm"]["scale"].float())
-    return h @ params["lm_head"].float()
+def embed(weights, tokens):
+    """The first layer's input (B, S, d) in fp32, from ``params`` or
+    ``outer_weights``."""
+    return weights["embed"][tokens].float()
 
 
-@torch.no_grad()
-def forward_logits(params, model: dict, tokens, positions=None,
-                   prec: Precision = FP32):
-    """fp32 logits of tokens (B, S) at the given positions (all of them
-    where None): (B, len(positions), V)."""
-    with fp32_exact():
-        x, _ = hidden_states(params, model, tokens, prec)
-        if positions is not None:
-            x = x[:, positions]
-        h = rms_norm(x, params["final_norm"]["scale"].float())
-        return prec.mm(h, params["lm_head"].float())
+def logits(weights, x, prec: Precision = FP32):
+    """fp32 logits (…, V) of the last layer's outputs x, from ``params`` or
+    ``outer_weights``."""
+    h = rms_norm(x, weights["final_norm"]["scale"].float())
+    return prec.mm(h, weights["lm_head"].float())
 
 
 @torch.no_grad()
@@ -234,47 +210,59 @@ def generate(params, model: dict, prompts, new_tokens: int):
                                           device=prompts.device)
                            for n in ("k", "v")}
                   for g, L, _, _ in layer_plan(model) for i in range(L)}
-        toks, outs, logits, at = prompts, [], [], 0
+        toks, outs, scores, at = prompts, [], [], 0
         for _ in range(new_tokens):
-            x = params["embed"][toks].float()
+            x = embed(params, toks)
             positions = torch.arange(at, at + toks.shape[1], device=prompts.device)
             for group, n, kind, _ in layer_plan(model):
                 for i in range(n):
-                    x, _ = block(layer_weights(params, group, i), x, model, kind,
-                                 positions, caches[group, i], at)
+                    x, _ = layer_forward(layer_weights(params, group, i), x, model, kind,
+                                         positions, caches[group, i], at)
             at += toks.shape[1]
-            last = logits_at(params, x[:, -1])
+            last = logits(params, x[:, -1])
             toks = torch.argmax(last, -1)[:, None]
             outs.append(toks)
-            logits.append(last)
-        return torch.cat(outs, 1), torch.stack(logits, 1)
+            scores.append(last)
+        return torch.cat(outs, 1), torch.stack(scores, 1)
 
 
-def leaves(tree, prefix: str = "") -> dict:
-    """Leaf path ('/'-joined, after ``prefix``) -> tensor, in sorted order."""
-    out = {}
+# --- the model's work, for the metric readers ---
 
-    def walk(t, path):
-        if isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k], path + (k,))
-        else:
-            out[prefix + "/".join(path)] = t
-    walk(tree, ())
+def matmul_params(model: dict) -> dict:
+    """Parameters a token multiplies through, by kind, from a
+    configuration's widths: ``attn`` and ``dense`` (every layer's
+    attention and dense FFN), ``routed`` (the experts a token is sent to:
+    top_k of them), ``shared`` and ``router`` (MoE layers), ``lm_head``.
+    The embedding lookup multiplies nothing."""
+    d, L = model["d_model"], model["n_layers"]
+    hd = model.get("head_dim") or d // model["n_heads"]
+    attn = d * hd * (2 * model["n_heads"] + 2 * model["n_kv_heads"])
+    out = {"attn": L * attn, "lm_head": d * model["vocab_size"],
+           "dense": 0, "routed": 0, "shared": 0, "router": 0}
+    moe = model.get("moe")
+    if not moe:
+        out["dense"] = L * 3 * d * model["d_ff"]
+        return out
+    dense_layers = moe.get("first_k_dense", 0)
+    out["dense"] = dense_layers * 3 * d * moe["d_ff_dense"]
+    moe_layers = L - dense_layers
+    f = moe["d_ff_expert"]
+    out["routed"] = moe_layers * moe["top_k"] * 3 * d * f
+    out["shared"] = moe_layers * moe["num_shared"] * 3 * d * f
+    out["router"] = moe_layers * d * moe["num_experts"]
     return out
 
 
-def cross_entropy_sum(h_final, labels, params, prec: Precision = FP32,
-                      rows: int = 2048):
-    """Σ over rows of (log-sum-exp - gold logit), fp32, in blocks of
-    ``rows`` so that the (rows, V) logits stay small."""
-    h_final = h_final.reshape(-1, h_final.shape[-1])
-    labels = labels.reshape(-1).long()
-    total = h_final.new_zeros(())
-    scale, head = params["final_norm"]["scale"], params["lm_head"]
-    for lo in range(0, h_final.shape[0], rows):
-        lg = prec.mm(rms_norm(h_final[lo:lo + rows], scale), head)
-        gold = lg.gather(-1, labels[lo:lo + rows, None])[:, 0]
-        total = total + (torch.logsumexp(lg, -1) - gold).sum()
-    return total
-
+def forward_flops(model: dict, rows: int, Sq: int, q_offset: int = 0) -> float:
+    """Model FLOPs of a forward over ``rows`` rows of ``Sq`` new positions
+    after ``q_offset`` earlier ones: 2 x the parameters each new position
+    multiplies through (the lm_head included), plus the causal attention
+    products, 4 rows H D a pair a layer. A prefill has ``q_offset`` 0, a
+    decode step ``Sq`` 1; a train step is 3 x the forward (remat's
+    recompute not counted). Every term is a whole number, exact in a
+    float below 2**53, so sums of them do not depend on their order."""
+    per_token = sum(matmul_params(model).values())
+    hd = model.get("head_dim") or model["d_model"] // model["n_heads"]
+    pairs = attended_pairs(Sq, q_offset + Sq, q_offset=q_offset)
+    attn = 4 * rows * model["n_heads"] * hd * pairs * model["n_layers"]
+    return 2.0 * per_token * rows * Sq + attn

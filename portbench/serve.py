@@ -19,7 +19,7 @@ from dataclasses import dataclass, field
 import torch
 
 from . import traffic, weights
-from .reference import decoder
+from .reference.common import FP32, forward_logits
 
 
 @dataclass
@@ -181,20 +181,21 @@ def sample(ctx, run: ServeRun) -> list[tuple[int, list[int]]]:
     return sorted((i, sorted(rows)) for i, rows in by.items())
 
 
-def served_gaps(ctx, params, run: ServeRun, prec=decoder.FP32, pick=None) -> list:
-    """Per sampled request, the gap (fp32 reference logits) by which each
-    served token lies below the reference's best. With a lower ``prec``
-    (the control), the gap of the token that ``prec`` puts first instead."""
-    gaps = []
+def served_gaps(ctx, params, run: ServeRun, prec=FP32, pick=None) -> list:
+    """Per sampled request, the gap (fp32 logits of the configuration's
+    family's reference) by which each served token lies below the
+    reference's best. With a lower ``prec`` (the control), the gap of the
+    token that ``prec`` puts first instead."""
+    fam, gaps = ctx.family, []
     for i, rows in pick or sample(ctx, run):
         b = run.batches[i]
         S, n = b.prompt_len, b.new_tokens
         toks = torch.cat([b.prompts[rows], b.served[rows, :-1]], 1)
         at = torch.arange(S - 1, S - 1 + n, device=toks.device)
-        ref = decoder.forward_logits(params, ctx.model, toks, at)
+        ref = forward_logits(fam, params, ctx.model, toks, at, FP32)
         chosen = b.served[rows]
-        if prec is not decoder.FP32:
-            chosen = decoder.forward_logits(params, ctx.model, toks, at, prec).argmax(-1)
+        if prec is not FP32:
+            chosen = forward_logits(fam, params, ctx.model, toks, at, prec).argmax(-1)
         gap = ref.max(-1).values - ref.gather(-1, chosen[..., None])[..., 0]
         gaps.extend(gap.flatten().tolist())
         del ref

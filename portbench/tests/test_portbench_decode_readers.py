@@ -8,6 +8,7 @@ import pytest
 
 from portbench import harness, yardstick
 from portbench import spans as spanlog
+from portbench.reference import decoder
 from portbench.trace import Trace
 
 DENSE = harness.config("deepseek-7b")["model"]
@@ -22,7 +23,7 @@ def span(id, name, parent, device_ms, attrs=None):
 
 
 def serve_ctx():
-    return NS(model=DENSE, mix={"trace": {"batch": 0}})
+    return NS(model=DENSE, mix={"trace": {"batch": 0}}, family=decoder)
 
 
 @pytest.fixture
@@ -103,7 +104,7 @@ def test_decode_mfu():
     Batch 1: untraced, 3 steps over 11, 12, 13 positions in 2 ms; batch 0,
     traced: its last 2 of 5 steps (over 1 004 and 1 005) in 1 ms."""
     per_token = 30 * 4 * 4096 ** 2 + 30 * 3 * 4096 * 11008 + 4096 * 102400
-    assert per_token == 6490685440 == sum(yardstick.matmul_params(DENSE).values())
+    assert per_token == 6490685440 == sum(decoder.matmul_params(DENSE).values())
     b = [decode_batch(4, 1000, 5, (1.0, 2)), decode_batch(32, 10, 3, (2.0, 3))]
     flops = 2 * per_token * (4 * 2 + 32 * 3) + \
         4 * 32 * 128 * 30 * (4 * (1004 + 1005) + 32 * (11 + 12 + 13))

@@ -49,7 +49,8 @@ def test_serve_faults(cell, fault):
     assert got["correct"] is (fault is None), got["checks"]
 
 
-TRAIN_CELLS = [("moe16b.finetune", MOE, "finetune.4x4096")]
+TRAIN_CELLS = [("moe16b.finetune", MOE, "finetune.4x4096"),
+               ("ds7b.finetune", DENSE, "finetune.2x4096")]
 
 
 @pytest.mark.parametrize("cell,conf,mix", TRAIN_CELLS, ids=[c[0] for c in TRAIN_CELLS])

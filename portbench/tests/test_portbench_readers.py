@@ -5,6 +5,7 @@ from types import SimpleNamespace as NS
 import pytest
 
 from portbench import harness, yardstick
+from portbench.reference import decoder
 from portbench.trace import Trace
 
 DENSE = harness.config("deepseek-7b")["model"]
@@ -30,13 +31,13 @@ def batch(rows, S, new, t0, prefill_ms, decode_ms, traced=False, after=None):
 
 
 def serve_ctx(model=DENSE):
-    return NS(model=model, mix={"trace": {"batch": 0}})
+    return NS(model=model, mix={"trace": {"batch": 0}}, family=decoder)
 
 
 def test_prefill_mfu():
     b = [batch(4, 6640, 24, 0, 1000.0, 1200.0), batch(4, 8632, 24, 0, 1300.0, 1300.0)]
     got = {"run": NS(batches=b)}
-    flops = yardstick.forward_flops(DENSE, 4, 6640) + yardstick.forward_flops(DENSE, 4, 8632)
+    flops = decoder.forward_flops(DENSE, 4, 6640, 0) + decoder.forward_flops(DENSE, 4, 8632, 0)
     want = 100 * flops / (2.3 * 989e12)
     assert harness.reader("prefill_mfu").read(serve_ctx(), got, None) == pytest.approx(want)
 
@@ -76,9 +77,9 @@ def test_device_idle_is_the_union(name):
 
 
 def test_train_mfu_skips_the_traced_steps():
-    ctx = NS(model=DENSE, mix=TRAIN_MIX)
+    ctx = NS(model=DENSE, mix=TRAIN_MIX, family=decoder)
     got = {"run": NS(steps=[(9.0, 8192), (9.0, 8192), (2.0, 8192), (2.0, 8192)])}
-    want = 100 * 2 * yardstick.train_flops(DENSE, 2, 4096) / (4.0 * 989e12)
+    want = 100 * 2 * 3 * decoder.forward_flops(DENSE, 2, 4096, 0) / (4.0 * 989e12)
     assert harness.reader("train_mfu").read(ctx, got, None) == pytest.approx(want)
 
 

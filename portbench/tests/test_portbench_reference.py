@@ -11,6 +11,7 @@ from portbench import weights
 from portbench.harness import Context
 from portbench.reference import decoder
 from portbench.reference import train as ref_train
+from portbench.reference.common import forward_logits, leaves
 
 DENSE = {"name": "tiny", "family": "dense", "n_layers": 2, "d_model": 64, "n_heads": 4,
          "n_kv_heads": 2, "d_ff": 96, "vocab_size": 128, "rope_theta": 10000.0,
@@ -36,7 +37,7 @@ def test_full_forward(model):
     m, params = program(model)
     tokens = torch.randint(0, 128, (2, 24), generator=torch.Generator().manual_seed(1))
     theirs, _, _ = m.apply(params, {"tokens": tokens}, mode="train")
-    ours = decoder.forward_logits(params, model, tokens)
+    ours = forward_logits(decoder, params, model, tokens)
     torch.testing.assert_close(ours, theirs, rtol=1e-4, atol=1e-4)
 
 
@@ -49,8 +50,8 @@ def test_prefill_then_decode_through_the_cache(model):
     ours, logits = decoder.generate(params, model, prompts, 6)
     assert torch.equal(ours, theirs)
     # the cache path gives the full forward's logits at each produced position
-    full = decoder.forward_logits(params, model, torch.cat([prompts, ours[:, :-1]], 1),
-                                  torch.arange(9, 15))
+    full = forward_logits(decoder, params, model, torch.cat([prompts, ours[:, :-1]], 1),
+                          torch.arange(9, 15))
     torch.testing.assert_close(logits, full, rtol=1e-4, atol=1e-4)
 
 
@@ -100,8 +101,8 @@ def test_train_step(model):
     for _ in range(2):
         state, metrics = step(state, {"tokens": tokens, "labels": labels})
         losses.append(float(metrics["loss"]))
-    got = ref_train.train_steps(ours_p, model, [(tokens, labels)] * 2, OPT)
+    got = ref_train.train_steps(decoder, ours_p, model, [(tokens, labels)] * 2, OPT)
     assert got["loss"] == pytest.approx(losses, rel=1e-5)
-    theirs = decoder.leaves(state["params"])
-    for path, t in decoder.leaves(ours_p).items():
+    theirs = leaves(state["params"])
+    for path, t in leaves(ours_p).items():
         torch.testing.assert_close(t, theirs[path], rtol=1e-4, atol=1e-6)

@@ -38,7 +38,7 @@ def test_the_same_seed_gives_the_same_requests():
     assert not torch.equal(a.warmup()[0].prompts, x.prompts[:, :mix["prompt_lengths"][0]])
 
 
-@pytest.mark.parametrize("name", ["finetune.4x4096"])
+@pytest.mark.parametrize("name", ["finetune.4x4096", "finetune.2x4096"])
 def test_train_stream_is_the_programs(name):
     """The frozen copy of the synthetic stream gives the program's batches."""
     from repro_torch.data.pipeline import DataConfig, batch_for_step

@@ -6,6 +6,7 @@ from pathlib import Path
 import pytest
 
 from portbench import harness, yardstick
+from portbench.reference import decoder
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -62,7 +63,7 @@ def test_model_flops_count_the_programs_active_parameters(name):
     model = build_model(ctx.program_config())
     m = conf["model"]
     norms = (2 * m["n_layers"] + 1) * m["d_model"]
-    got = sum(yardstick.matmul_params(m).values())
+    got = sum(decoder.matmul_params(m).values())
     assert got == model.active_param_count() - m["vocab_size"] * m["d_model"] - norms
 
 

@@ -20,8 +20,8 @@ from dataclasses import dataclass, field
 import torch
 
 from . import traffic, weights
-from .reference import decoder
 from .reference import train as ref_train
+from .reference.common import FP32, leaves
 
 
 @dataclass
@@ -44,7 +44,7 @@ def _norm(t, minus=None) -> float:
 
 def changes(ctx, specs, params) -> dict:
     """{leaf: ‖p - p0‖}, p0 drawn again from the seed one leaf at a time."""
-    now = decoder.leaves(params)
+    now = leaves(params)
     return {"/".join(path): _norm(now["/".join(path)], p0)
             for path, p0 in weights.leaves(specs, ctx.seed, ctx.device, ctx.param_dtype)}
 
@@ -87,7 +87,7 @@ def run(ctx) -> dict:
         if n == 0:
             b1 = opts.opt.b1
             seen["first_grad"] = {p: _norm(m) / (1 - b1)
-                                  for p, m in decoder.leaves(state["opt"]["m"]).items()}
+                                  for p, m in leaves(state["opt"]["m"]).items()}
     seen["change"] = changes(ctx, model.specs, state["params"])
     ctx.sync()
     ctx.mark_setup()
@@ -113,7 +113,7 @@ def run(ctx) -> dict:
     out.peak_bytes = ctx.peak()
     # the program's state is freed before the reference runs, whatever
     # else in the process may still point at it
-    for tensor in decoder.leaves(state).values():
+    for tensor in leaves(state).values():
         tensor.untyped_storage().resize_(0)
     del state, params, metrics, batch
     ctx.free()
@@ -129,13 +129,14 @@ def end_to_end(run: TrainRun) -> dict:
             "peak_mem_gb": run.peak_bytes / 1e9}
 
 
-def reference_readings(ctx, specs, prec=decoder.FP32) -> dict:
+def reference_readings(ctx, specs, prec=FP32) -> dict:
     """The reference's (or the control's) loss of each check step, first
-    gradients and changes, from the seed's weights and batches."""
+    gradients and changes, from the seed's weights and batches, by the
+    configuration's family's pieces."""
     params = weights.draw(specs, ctx.seed, ctx.device, ctx.param_dtype)
     batches = [(b["tokens"], b["labels"]) for b in
                (feed(ctx, n) for n in range(ctx.mix["check_steps"]))]
-    got = ref_train.train_steps(params, ctx.model, batches,
+    got = ref_train.train_steps(ctx.family, params, ctx.model, batches,
                                 {**ctx.mix["opt"]}, prec)
     got["change"] = changes(ctx, specs, params)
     return got

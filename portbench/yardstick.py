@@ -5,8 +5,10 @@ cannot move them. The kernels' work formulas are those of
 ``repro_torch/kernels/flash_attention.py::attention_cost`` and
 ``attention_bwd_cost`` and ``repro_torch/kernels/moe_gmm.py::gmm_cost`` and
 ``gmm_bwd_cost`` as they stood when the benchmark was written (a test holds
-them equal at the cells' shapes). The model FLOPs come from a
-configuration's widths, never from the program's own parameter counts.
+them equal at the cells' shapes). None of this depends on a model's
+family: the model FLOPs of a step are the family's (``forward_flops`` in
+the module ``reference/<family>.py``), from the configuration's widths,
+never from the program's own parameter counts.
 """
 from __future__ import annotations
 
@@ -63,49 +65,3 @@ def gmm_bwd_cost(E, C, d, f, esize: int = 2) -> tuple[int, int]:
 def bound_s(flops: float, nbytes: float) -> float:
     """The least time the card could take: the larger of the two bounds."""
     return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES)
-
-
-def matmul_params(model: dict) -> dict:
-    """Parameters a token multiplies through, by kind, from a
-    configuration's widths: ``attn`` and ``dense`` (every layer's
-    attention and dense FFN), ``routed`` (the experts a token is sent to:
-    top_k of them), ``shared`` and ``router`` (MoE layers), ``lm_head``.
-    The embedding lookup multiplies nothing."""
-    d, L = model["d_model"], model["n_layers"]
-    hd = model.get("head_dim") or d // model["n_heads"]
-    attn = d * hd * (2 * model["n_heads"] + 2 * model["n_kv_heads"])
-    out = {"attn": L * attn, "lm_head": d * model["vocab_size"],
-           "dense": 0, "routed": 0, "shared": 0, "router": 0}
-    moe = model.get("moe")
-    if not moe:
-        out["dense"] = L * 3 * d * model["d_ff"]
-        return out
-    dense_layers = moe.get("first_k_dense", 0)
-    out["dense"] = dense_layers * 3 * d * moe["d_ff_dense"]
-    moe_layers = L - dense_layers
-    f = moe["d_ff_expert"]
-    out["routed"] = moe_layers * moe["top_k"] * 3 * d * f
-    out["shared"] = moe_layers * moe["num_shared"] * 3 * d * f
-    out["router"] = moe_layers * d * moe["num_experts"]
-    return out
-
-
-def forward_flops(model: dict, B: int, S: int) -> float:
-    """Model FLOPs of a prefill over B rows of S tokens: 2 x the parameters
-    each token multiplies through, plus the causal attention products (4 B
-    H D a pair)."""
-    per_token = sum(matmul_params(model).values())
-    hd = model.get("head_dim") or model["d_model"] // model["n_heads"]
-    pairs = attended_pairs(S, S)
-    attn = 4 * B * model["n_heads"] * hd * pairs * model["n_layers"]
-    return 2.0 * per_token * B * S + attn
-
-
-def train_flops(model: dict, B: int, S: int) -> float:
-    """Model FLOPs of a train step: 6 x the parameters each token
-    multiplies through x tokens, plus 3 x the forward's causal attention
-    products. Remat's recompute is not counted."""
-    per_token = sum(matmul_params(model).values())
-    hd = model.get("head_dim") or model["d_model"] // model["n_heads"]
-    attn = 4 * B * model["n_heads"] * hd * attended_pairs(S, S) * model["n_layers"]
-    return 6.0 * per_token * B * S + 3.0 * attn
